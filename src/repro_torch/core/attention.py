@@ -1,0 +1,161 @@
+"""Attention for the paged decode path (port of the main-path part of
+``repro/core/attention.py``).
+
+``blockwise_causal_attention`` is the solo-prefill attention, a two-level
+online softmax in plain torch ops (the JAX package leaves it to XLA).
+``sparse_decode_attention_paged`` is paper Eq. (2)-(3): one joint softmax
+over Sink ∪ Retrieved-top-k ∪ Local/Buffer window, three disjoint index
+ranges; the sink and window rows come from the block pool through the
+paged gather kernel, the retrieved rows arrive pre-gathered.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap and cap > 0:
+        return cap * torch.tanh(x / cap)
+    return x
+
+
+def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, sm_scale: float,
+                               softcap: float = 0.0, q_chunk: int = 1024,
+                               kv_chunk: int = 2048) -> torch.Tensor:
+    """Flash-style causal attention that never materializes the (S, S)
+    score matrix: the working set is one (q_chunk, kv_chunk) tile per head.
+    q: (b, S, H, hd), k/v: (b, S, G, hd) → (b, S, H, hd) float32.
+
+    The reference scans every kv chunk for every q chunk; chunks that lie
+    wholly after a q chunk are skipped here. That is exact, not an
+    approximation: once a real chunk has set the running max, a fully
+    masked chunk adds exp(-1e30 - m) = 0 to the sums and rescales by 1."""
+    b, S, H, hd = q.shape
+    G = k.shape[2]
+    Hg = H // G
+    vd = v.shape[3]
+    if S % q_chunk or S % kv_chunk:
+        raise ValueError(f"S={S} must be a multiple of the chunks "
+                         f"({q_chunk}, {kv_chunk})")
+    qg = q.reshape(b, S, G, Hg, hd).float()
+    kf, vf = k.float(), v.float()
+    pos = torch.arange(S, device=q.device)
+    outs = []
+    for q0 in range(0, S, q_chunk):
+        q_blk = qg[:, q0:q0 + q_chunk]                 # (b, qc, G, Hg, hd)
+        qp = pos[q0:q0 + q_chunk]
+        acc = torch.zeros((b, G, q_chunk, Hg, vd), device=q.device)
+        m_run = torch.full((b, G, q_chunk, Hg), NEG_INF, device=q.device)
+        l_run = torch.zeros((b, G, q_chunk, Hg), device=q.device)
+        for k0 in range(0, q0 + q_chunk, kv_chunk):    # causal: skip future
+            k_blk = kf[:, k0:k0 + kv_chunk]
+            v_blk = vf[:, k0:k0 + kv_chunk]
+            kp = pos[k0:k0 + kv_chunk]
+            s = torch.einsum("bqghd,bkgd->bgqhk", q_blk, k_blk) * sm_scale
+            s = _softcap(s, softcap)
+            causal = qp[:, None, None] >= kp[None, None, :]   # (qc, 1, kc)
+            s = torch.where(causal, s, NEG_INF)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            scale = torch.exp(m_run - m_new)
+            l_run = l_run * scale + p.sum(-1)
+            acc = acc * scale[..., None] + torch.einsum(
+                "bgqhk,bkgd->bgqhd", p, v_blk)
+            m_run = m_new
+        out = acc / l_run.clamp_min(1e-20)[..., None]
+        outs.append(out.transpose(1, 2).reshape(b, q_chunk, H, vd))
+    return torch.cat(outs, dim=1)
+
+
+def dense_segment_scores(qg: torch.Tensor, k_sink: torch.Tensor,
+                         k_loc: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw (unmasked, unscaled) sink and window scores.
+    qg (b, G, Hg, hd) float32 → (b, G, Hg, sink), (b, G, Hg, W)."""
+    s_sink = torch.einsum("bghd,bsgd->bghs", qg, k_sink.float())
+    s_loc = torch.einsum("bghd,bwgd->bghw", qg, k_loc.float())
+    return s_sink, s_loc
+
+
+def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
+                       v_sink: torch.Tensor, k_ret: torch.Tensor,
+                       v_ret: torch.Tensor, k_loc: torch.Tensor,
+                       v_loc: torch.Tensor, top_idx: torch.Tensor,
+                       window_start: torch.Tensor, pos: torch.Tensor,
+                       enc_end: torch.Tensor, *, sink_size: int,
+                       window_size: int, sm_scale: float,
+                       softcap: float) -> torch.Tensor:
+    """Joint softmax over the three gathered segments (Eq. 2-3 core).
+
+    qg (b, G, Hg, hd) float32; k/v_sink (b, sink, G, hd); k/v_ret
+    (b, G, Hg, k, hd); k/v_loc (b, W, G, hd); top_idx (b, G, Hg, k)
+    logical positions → (b, G, Hg, hd) float32. Masked slots get exactly
+    zero probability (pools hold zeros or real activations, never NaN)."""
+    dev = qg.device
+    s_ret = torch.einsum("bghd,bghkd->bghk", qg, k_ret.float())
+    # only positions inside the retrieval region count: with an empty
+    # region (early decode) Stage II returns arbitrary indices
+    ret_valid = ((top_idx >= sink_size)
+                 & (top_idx < enc_end[:, None, None, None]))
+    s_ret = torch.where(ret_valid, s_ret, NEG_INF)
+
+    s_sink, s_loc = dense_segment_scores(qg, k_sink, k_loc)
+    sink_valid = torch.arange(sink_size, device=dev)[None] <= pos[:, None]
+    s_sink = torch.where(sink_valid[:, None, None, :], s_sink, NEG_INF)
+
+    w_pos = window_start[:, None] + torch.arange(window_size, device=dev)
+    loc_valid = ((w_pos >= enc_end[:, None]) & (w_pos >= sink_size)
+                 & (w_pos <= pos[:, None]))
+    s_loc = torch.where(loc_valid[:, None, None, :], s_loc, NEG_INF)
+
+    scores = torch.cat([s_sink, s_ret, s_loc], dim=-1) * sm_scale
+    p = torch.softmax(_softcap(scores, softcap), dim=-1)
+    k_sz = top_idx.shape[-1]
+    p_sink, p_ret, p_loc = torch.split(p, [sink_size, k_sz, window_size],
+                                       dim=-1)
+    out = torch.einsum("bghs,bsgd->bghd", p_sink, v_sink.float())
+    out = out + torch.einsum("bghk,bghkd->bghd", p_ret, v_ret.float())
+    out = out + torch.einsum("bghw,bwgd->bghd", p_loc, v_loc.float())
+    return out
+
+
+def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
+                                  pool_v: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  top_idx: torch.Tensor,
+                                  window_start: torch.Tensor,
+                                  pos: torch.Tensor, enc_end: torch.Tensor,
+                                  k_ret: torch.Tensor, v_ret: torch.Tensor,
+                                  *, sink_size: int, window_size: int,
+                                  sm_scale: float, softcap: float = 0.0
+                                  ) -> torch.Tensor:
+    """Decode attention over the paged pool. q (b, H, hd); pool_k/v
+    (num_blocks, block_size, G, hd); block_tables (b, nblk) int32;
+    top_idx (b, G, Hg, k) logical positions; window_start / pos / enc_end
+    (b,) int32; k_ret/v_ret (b, G, Hg, k, hd) the retrieved rows, already
+    gathered by Stage II's physical rows → (b, H, hd) float32.
+
+    Sink and window rows share one paged-gather launch (K and V
+    together): the index row is [0, sink) ++ [ws, ws + W)."""
+    from repro_torch.core import cache as CC
+
+    b, H, hd = q.shape
+    G = pool_k.shape[2]
+    qg = q.reshape(b, G, H // G, hd).float()
+    dev = q.device
+    sink_idx = torch.arange(sink_size, device=dev).expand(b, sink_size)
+    w_idx = window_start[:, None] + torch.arange(window_size, device=dev)
+    k_dense, v_dense = CC.paged_gather_rows(
+        pool_k, pool_v, block_tables, torch.cat([sink_idx, w_idx], dim=1))
+    k_sink, k_loc = k_dense[:, :sink_size], k_dense[:, sink_size:]
+    v_sink, v_loc = v_dense[:, :sink_size], v_dense[:, sink_size:]
+    return _segment_attention(
+        qg, k_sink, v_sink, k_ret, v_ret, k_loc, v_loc, top_idx,
+        window_start, pos, enc_end, sink_size=sink_size,
+        window_size=window_size, sm_scale=sm_scale, softcap=softcap
+    ).reshape(b, H, hd)

@@ -1,0 +1,307 @@
+"""ParisKV cache state (port of the main-path part of
+``repro/core/cache.py``): Sink / Retrieval / Local / Update regions, the
+contiguous solo-prefill cache, and the paged block pool.
+
+      0 ........ sink | sink ........ enc_end | enc_end ....... pos | ...
+      [   Sink     ]   [   Retrieval region ]  [ Local + Update buf ]
+
+Region state is per row: ``CacheRegions.pos`` / ``enc_end`` are (b,) int32.
+A row promotes its oldest ``update_interval`` window tokens into the
+retrieval region when its window (``local_size + update_interval``) fills.
+
+Paged layout (one pool per layer, shared by every slot):
+
+  k, v:    (num_blocks, block_size, G, hd)
+  meta_*:  (num_blocks, G, block_size, B)
+
+A block table ``bt`` (b, n_max // block_size) int32 maps logical position
+``p`` of row ``i`` to ``(bt[i, p // bs], p % bs)``; entries < 0 are
+unallocated (reads clip to block 0 and are masked, writes are dropped).
+
+Where the reference returns an updated copy (``.at[].set``), the port
+updates the pool and histogram tensors **in place** (``index_put_``) and
+returns them, so a step never copies a pool.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import encode
+from repro_torch.core.config import ParisKVConfig
+from repro_torch.core.retrieval import bucket_histogram
+from repro_torch.kernels.gather_kv import (gather_heads_physical,
+                                          gather_rows_paged)
+
+PAGED_DEFAULT_BLOCK = 128
+
+
+class LayerKVCache(NamedTuple):
+    """Contiguous per-layer store of a (solo) prefill.
+
+    k, v: (b, n_max, G, hd); meta_*: (b, G, n_max, B)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    meta_ids: torch.Tensor
+    meta_codes: torch.Tensor
+    meta_w: torch.Tensor
+
+
+class PagedLayerKVCache(NamedTuple):
+    """Block pool of one layer (no batch dim; rows go through tables)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    meta_ids: torch.Tensor
+    meta_codes: torch.Tensor
+    meta_w: torch.Tensor
+
+
+class CacheRegions(NamedTuple):
+    pos: torch.Tensor      # (b,) int32: index of each row's latest token
+    enc_end: torch.Tensor  # (b,) int32: retrieval-region end (exclusive)
+
+
+def window_size(cfg: ParisKVConfig) -> int:
+    return cfg.local_size + cfg.update_interval
+
+
+def initial_regions(lengths: torch.Tensor, cfg: ParisKVConfig) -> CacheRegions:
+    """Regions right after prefilling prompts of ``lengths`` (b,): pos at
+    the last prompt token, enc_end clamped so the trailing local window
+    stays dense (and never below the sink)."""
+    lengths = lengths.to(torch.int32)
+    enc_end = torch.maximum(lengths.clamp_max(cfg.sink_size),
+                            lengths - cfg.local_size)
+    return CacheRegions(pos=lengths - 1, enc_end=enc_end.to(torch.int32))
+
+
+def init_layer_cache(batch: int, n_max: int, num_kv_heads: int,
+                     head_dim: int, cfg: ParisKVConfig, dtype, device
+                     ) -> LayerKVCache:
+    B = cfg.num_subspaces(head_dim)
+    g = num_kv_heads
+    return LayerKVCache(
+        k=torch.zeros((batch, n_max, g, head_dim), dtype=dtype, device=device),
+        v=torch.zeros((batch, n_max, g, head_dim), dtype=dtype, device=device),
+        meta_ids=torch.zeros((batch, g, n_max, B), dtype=torch.uint8,
+                             device=device),
+        meta_codes=torch.zeros((batch, g, n_max, B), dtype=torch.int32,
+                               device=device),
+        meta_w=torch.zeros((batch, g, n_max, B), dtype=torch.float32,
+                           device=device))
+
+
+def _encode_block(keys_block: torch.Tensor, cfg: ParisKVConfig,
+                  signs: torch.Tensor) -> encode.KeyMetadata:
+    """keys_block (b, L, G, hd) → metadata with layout (b, G, L, B)."""
+    return encode.encode_keys(keys_block.transpose(1, 2), cfg, signs)
+
+
+def prefill_write(cache: LayerKVCache, k_new: torch.Tensor,
+                  v_new: torch.Tensor, cfg: ParisKVConfig,
+                  signs: torch.Tensor,
+                  lengths: Optional[torch.Tensor] = None
+                  ) -> Tuple[LayerKVCache, CacheRegions]:
+    """Write a LEFT-aligned prompt's K/V (b, S, G, hd) at positions [0, S)
+    and encode metadata for every position (in place). ``lengths`` (b,)
+    gives each row's true prompt length (default: all S)."""
+    b, S = k_new.shape[:2]
+    cache.k[:, :S] = k_new.to(cache.k.dtype)
+    cache.v[:, :S] = v_new.to(cache.v.dtype)
+    meta = _encode_block(k_new, cfg, signs)
+    cache.meta_ids[:, :, :S] = meta.centroid_ids
+    cache.meta_codes[:, :, :S] = meta.codes
+    cache.meta_w[:, :, :S] = meta.weights
+    if lengths is None:
+        lengths = torch.full((b,), S, dtype=torch.int32, device=k_new.device)
+    return cache, initial_regions(lengths, cfg)
+
+
+def retrieval_valid_mask(n_max: int, regions: CacheRegions,
+                         cfg: ParisKVConfig) -> torch.Tensor:
+    """(b, n_max) bool mask over each row's retrieval region."""
+    idx = torch.arange(n_max, device=regions.enc_end.device)
+    return (idx >= cfg.sink_size) & (idx < regions.enc_end[..., None])
+
+
+# ----------------------------------------------------------- paged pool ----
+def init_paged_cache(num_blocks: int, block_size: int, num_kv_heads: int,
+                     head_dim: int, cfg: ParisKVConfig, dtype, device
+                     ) -> PagedLayerKVCache:
+    B = cfg.num_subspaces(head_dim)
+    g = num_kv_heads
+
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return PagedLayerKVCache(
+        k=z((num_blocks, block_size, g, head_dim), dtype),
+        v=z((num_blocks, block_size, g, head_dim), dtype),
+        meta_ids=z((num_blocks, g, block_size, B), torch.uint8),
+        meta_codes=z((num_blocks, g, block_size, B), torch.int32),
+        meta_w=z((num_blocks, g, block_size, B), torch.float32))
+
+
+def paged_lookup_blocks(block_tables: torch.Tensor, lidx: torch.Tensor,
+                        block_size: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row table lookup: logical positions (b, ...) → (physical block,
+    offset); entries < 0 pass through for callers to clip or drop, and
+    positions past the table read as unallocated (-1)."""
+    b, nblk = block_tables.shape
+    blk = torch.div(lidx, block_size, rounding_mode="floor")
+    off = lidx - blk * block_size
+    pb = block_tables.gather(1, blk.clamp(0, nblk - 1).reshape(b, -1).long()
+                             ).reshape(blk.shape)
+    return torch.where(blk < nblk, pb, -1), off
+
+
+def paged_append_index(block_tables: torch.Tensor, pos: torch.Tensor,
+                       block_size: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(rows, physical block, offset) of the decode appends at per-row
+    logical position ``pos`` (clamped to the last position, as the
+    reference does for a row frozen at capacity), keeping only rows whose
+    block is allocated. Selecting them synchronizes with the device once,
+    so a decode step computes this once and shares it across layers."""
+    n_log = block_tables.shape[1] * block_size
+    lidx = pos.clamp_max(n_log - 1)
+    pb, off = paged_lookup_blocks(block_tables, lidx, block_size)
+    rows = torch.nonzero(pb >= 0).flatten()
+    return rows, pb[rows].long(), off[rows].long()
+
+
+def paged_decode_append(pool: PagedLayerKVCache, block_tables: torch.Tensor,
+                        k_t: torch.Tensor, v_t: torch.Tensor,
+                        pos: torch.Tensor, index=None) -> PagedLayerKVCache:
+    """Append one token's K/V (b, G, hd) at per-row logical position ``pos``
+    through the block table, in place; writes through unallocated blocks
+    are dropped. ``index`` is a precomputed ``paged_append_index``."""
+    if index is None:
+        index = paged_append_index(block_tables, pos, pool.k.shape[1])
+    rows, pb, off = index
+    pool.k.index_put_((pb, off), k_t[rows].to(pool.k.dtype))
+    pool.v.index_put_((pb, off), v_t[rows].to(pool.v.dtype))
+    return pool
+
+
+def paged_gather_rows(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
+                      block_tables: torch.Tensor, lidx: torch.Tensor):
+    """K (and V) rows at per-row logical positions: pool (nb, bs, G, hd),
+    lidx (b, L) → (b, L, G, hd) each (kernels/gather_kv, mode logical)."""
+    return gather_rows_paged(pool_k, pool_v, block_tables,
+                             lidx.to(torch.int32).contiguous())
+
+
+def gather_heads_physical_kv(pool_k: torch.Tensor,
+                             pool_v: Optional[torch.Tensor],
+                             phys_rows: torch.Tensor):
+    """Per-kv-head gather by flat physical pool row: phys_rows (b, G, Q, k)
+    → (b, G, Q, k, hd) for K (and V) (kernels/gather_kv, mode physical)."""
+    return gather_heads_physical(pool_k, pool_v,
+                                 phys_rows.to(torch.int32).contiguous())
+
+
+def paged_ids_view(pool: PagedLayerKVCache,
+                   block_tables: torch.Tensor) -> torch.Tensor:
+    """Each row's logical centroid-id view (b, G, n, B) through its table
+    (unallocated entries clip to block 0). Audits only: the decode path
+    never materializes it."""
+    nb = pool.meta_ids.shape[0]
+    b, nblk = block_tables.shape
+    ids = pool.meta_ids[block_tables.clamp(0, nb - 1).long()]
+    G, bs, B = ids.shape[2:]
+    return ids.transpose(1, 2).reshape(b, G, nblk * bs, B)
+
+
+def bucket_hist_from_meta(meta_ids: torch.Tensor, regions: CacheRegions,
+                          cfg: ParisKVConfig) -> torch.Tensor:
+    """Histogram a contiguous metadata store (b, G, n, B) over each row's
+    [sink, enc_end) → (b, G, B, 2^m) int32."""
+    valid = retrieval_valid_mask(meta_ids.shape[-2], regions, cfg)
+    return bucket_histogram(meta_ids, valid[:, None, :], cfg.num_centroids())
+
+
+def paged_promote_rows_hist(pool: PagedLayerKVCache, hist: torch.Tensor,
+                            block_tables: torch.Tensor, starts: torch.Tensor,
+                            mask: torch.Tensor, cfg: ParisKVConfig,
+                            signs: torch.Tensor
+                            ) -> Tuple[PagedLayerKVCache, torch.Tensor]:
+    """Encode metadata for the keys at logical positions
+    [starts[i], starts[i] + update_interval) of every row with ``mask[i]``,
+    write it to their physical blocks and add their buckets to ``hist``
+    (positions >= sink under allocated blocks only), all in place.
+
+    No decrement is needed: the span starts at the pre-promotion enc_end,
+    so the stale ids it overwrites were never counted."""
+    U = cfg.update_interval
+    bs = pool.k.shape[1]
+    lidx = starts[:, None] + torch.arange(U, device=starts.device)[None]
+    rows = paged_gather_rows(pool.k, None, block_tables, lidx)  # (b,U,G,hd)
+    meta = _encode_block(rows, cfg, signs)                       # (b,G,U,B)
+    pb, off = paged_lookup_blocks(block_tables, lidx, bs)
+    write = mask[:, None] & (pb >= 0)                            # (b, U)
+    tgt, toff = pb[write].long(), off[write].long()
+    for dst, new in zip(pool[2:], meta):
+        dst[tgt, :, toff] = new.transpose(1, 2)[write]
+    inc = write & (lidx >= cfg.sink_size)
+    hist += bucket_histogram(meta.centroid_ids, inc[:, None, :],
+                             cfg.num_centroids())
+    return pool, hist
+
+
+def promote_trigger(regions: CacheRegions, cfg: ParisKVConfig) -> torch.Tensor:
+    """Per-row bool: True where the Local+Buffer window is full."""
+    return (regions.pos + 1 - regions.enc_end) >= window_size(cfg)
+
+
+def paged_maybe_promote_hist(pool: PagedLayerKVCache, hist: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             regions: CacheRegions, cfg: ParisKVConfig,
+                             signs: torch.Tensor
+                             ) -> Tuple[PagedLayerKVCache, torch.Tensor,
+                                        CacheRegions]:
+    """Sliding-window promotion of every row whose window is full, with the
+    histogram maintained. The reference guards the encode with a traced
+    ``lax.cond``; here a host ``if`` decides, which costs one device
+    synchronization per call."""
+    trigger = promote_trigger(regions, cfg)
+    if bool(trigger.any()):
+        pool, hist = paged_promote_rows_hist(pool, hist, block_tables,
+                                             regions.enc_end, trigger, cfg,
+                                             signs)
+    new_enc = torch.where(trigger, regions.enc_end + cfg.update_interval,
+                          regions.enc_end)
+    return pool, hist, CacheRegions(pos=regions.pos, enc_end=new_enc)
+
+
+def paged_scatter_prefill(pool: PagedLayerKVCache, cache1: LayerKVCache,
+                          phys_blocks: torch.Tensor) -> PagedLayerKVCache:
+    """Install a solo (batch=1) contiguous prefill of one layer into the
+    pool, in place. ``phys_blocks`` (n_logical // bs,) maps each logical
+    block to its physical block; entries outside [0, num_blocks) are
+    sentinels for blocks the allocator did not hand out and are skipped."""
+    nb, bs = pool.k.shape[:2]
+    nblk = phys_blocks.shape[0]
+    keep = torch.nonzero((phys_blocks >= 0) & (phys_blocks < nb)).flatten()
+    dst = phys_blocks[keep].long()
+    for pool_t, src in ((pool.k, cache1.k), (pool.v, cache1.v)):
+        view = src[0].reshape((nblk, bs) + src.shape[2:])
+        pool_t[dst] = view[keep].to(pool_t.dtype)
+    for pool_t, src in zip(pool[2:], cache1[2:]):
+        g, B = src.shape[1], src.shape[-1]
+        view = src[0].reshape(g, nblk, bs, B).transpose(0, 1)
+        pool_t[dst] = view[keep]
+    return pool
+
+
+def paged_clear_blocks(pool: PagedLayerKVCache,
+                       phys_blocks: torch.Tensor) -> PagedLayerKVCache:
+    """Zero the given physical blocks in place (eviction hygiene); entries
+    outside [0, num_blocks) are sentinels and skipped."""
+    nb = pool.k.shape[0]
+    blocks = phys_blocks[(phys_blocks >= 0) & (phys_blocks < nb)].long()
+    for t in pool:
+        t[blocks] = 0
+    return pool

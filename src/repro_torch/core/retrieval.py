@@ -1,0 +1,171 @@
+"""Fused two-stage paged retrieval (port of the main-path part of
+``repro/core/retrieval.py``).
+
+Stage I   scores the pool's uint8 centroid ids through the block table
+          against per-(subspace, centroid) tier weights built from the
+          incrementally maintained bucket histogram (kernels/collision);
+Top-C     cuts to the candidates with the sort-free bucket top-C
+          (kernels/bucket_topk);
+Stage II  reranks the candidates with RSQ-IP, reading their codes and
+          weights by physical pool row (kernels/rerank);
+Top-k     keeps the ``top_k`` best estimates (a stable sort, so ties go to
+          the lowest candidate slot as ``lax.top_k`` does).
+
+Every kernel wrapper dispatches on the device of its tensors, so
+``retrieve_paged_fused`` has no kernel switch: CPU tensors run the plain
+versions, CUDA tensors the Hopper kernels.
+"""
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
+
+import torch
+
+from repro_torch.core import centroids
+from repro_torch.core.config import ParisKVConfig
+from repro_torch.core.encode import QueryTransform
+from repro_torch.kernels.bucket_topk import bucket_topk
+from repro_torch.kernels.collision import collision_scores_paged_kernel
+from repro_torch.kernels.rerank import rerank_paged_kernel
+
+NEG_INF = -1e30
+
+
+class PagedRetrievalResult(NamedTuple):
+    """Retrieval result addressed block-relatively for a paged KV pool."""
+    indices: torch.Tensor      # (b, G, Hg, k) int32 logical positions
+    block_ids: torch.Tensor    # (b, G, Hg, k) int32 physical block per hit
+    offsets: torch.Tensor      # (b, G, Hg, k) int32 offset within the block
+    phys_rows: torch.Tensor    # (b, G, Hg, k) int32 flat pool row ids
+    scores: torch.Tensor       # (b, G, Hg, k) float32 RSQ-IP estimates
+    cand_indices: torch.Tensor  # (b, G, Hg, C) int32 Stage-I candidates
+    coarse_scores: torch.Tensor  # (b, G, Hg, n) int32 Stage-I scores
+
+
+def bucket_histogram(ids: torch.Tensor, valid: torch.Tensor,
+                     num_buckets: int) -> torch.Tensor:
+    """Count keys per centroid bucket. ids (..., n, B), valid broadcastable
+    to (..., n) → (..., B, 2^m) int32."""
+    lead = ids.shape[:-2]
+    n, B = ids.shape[-2], ids.shape[-1]
+    ids_t = ids.transpose(-1, -2).reshape(-1, n).long()
+    upd = torch.broadcast_to(valid[..., None, :], lead + (B, n))
+    counts = torch.zeros((ids_t.shape[0], num_buckets), dtype=torch.int32,
+                         device=ids.device)
+    counts.scatter_add_(1, ids_t, upd.reshape(-1, n).to(torch.int32))
+    return counts.reshape(lead + (B, num_buckets))
+
+
+@functools.lru_cache(maxsize=16)
+def _tier_tensors(pcts: Tuple[float, ...], weights: Tuple[int, ...],
+                  device: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tier percentiles and weights (plus the 0 weight past the last tier)
+    on ``device``, copied once: a host-to-device copy per call would
+    synchronize the stream on every decode layer."""
+    return (torch.tensor(pcts, dtype=torch.float32, device=device),
+            torch.tensor(weights + (0,), dtype=torch.int32, device=device))
+
+
+def tier_weight_table(cent_scores: torch.Tensor, counts: torch.Tensor,
+                      n_valid: torch.Tensor,
+                      cfg: ParisKVConfig) -> torch.Tensor:
+    """Per-(subspace, centroid) integer tier weight (App. B.2.1).
+
+    cent_scores (..., B, 2^m) proxy scores; counts (..., B, 2^m) bucket
+    histogram (broadcast against extra query-head dims); n_valid (...,)
+    indexable keys → (..., B, 2^m) int32 weights in {0, .., 6}. The bucket
+    ranking is a stable argsort and the tier lookup a right-side
+    searchsorted, as in the reference."""
+    counts = torch.broadcast_to(counts, cent_scores.shape)
+    order = torch.argsort(-cent_scores, dim=-1, stable=True)
+    counts_sorted = counts.gather(-1, order)
+    csum_exclusive = counts_sorted.cumsum(-1) - counts_sorted
+    denom = (n_valid.float() * cfg.rho).clamp_min(1.0)
+    pos_frac = csum_exclusive.float() / denom[..., None, None]
+    pcts, wts = _tier_tensors(cfg.tier_pcts, cfg.tier_weights,
+                              str(cent_scores.device))
+    tier = torch.searchsorted(pcts, pos_frac.contiguous(), right=True)
+    w_sorted = wts[tier.clamp_max(len(cfg.tier_weights))]
+    # back to bucket-id order through the inverse permutation
+    return torch.empty_like(w_sorted).scatter_(-1, order, w_sorted)
+
+
+def collision_scores_paged(pool_ids: torch.Tensor, block_tables: torch.Tensor,
+                           q_sub: torch.Tensor, counts: torch.Tensor,
+                           enc_end: torch.Tensor,
+                           cfg: ParisKVConfig) -> torch.Tensor:
+    """Stage-I coarse scores over the paged pool.
+
+    pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32, q_sub
+    (b, G, Hg, B, m), counts (b, G, B, 2^m) int32 incremental histogram,
+    enc_end (b,) int32 → (b, G, Hg, nblk·bs) int32, -1 outside
+    [sink, enc_end)."""
+    cs = centroids.centroid_scores(q_sub, cfg.m)
+    n_valid = (enc_end - cfg.sink_size).clamp_min(0)
+    table = tier_weight_table(cs, counts[:, :, None], n_valid[:, None, None],
+                              cfg)
+    return collision_scores_paged_kernel(pool_ids, block_tables,
+                                         table.to(torch.int32).contiguous(),
+                                         enc_end, cfg.sink_size)
+
+
+def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
+                             score_range: int) -> torch.Tensor:
+    """Sort-free top-C over small-range integer scores; ``lax.top_k``'s
+    index set, ascending, ties lowest-index first."""
+    return bucket_topk(scores.contiguous(), num_candidates, score_range)
+
+
+def rerank_paged(pool_codes: torch.Tensor, pool_w: torch.Tensor,
+                 phys_rows: torch.Tensor, cand_idx: torch.Tensor,
+                 qt: QueryTransform, enc_end: torch.Tensor,
+                 cfg: ParisKVConfig) -> torch.Tensor:
+    """Stage-II RSQ-IP estimates (b, G, Hg, C) float32 of the candidates,
+    read by physical pool row; invalid candidates get NEG_INF."""
+    return rerank_paged_kernel(pool_codes, pool_w, phys_rows.contiguous(),
+                               cand_idx.contiguous(),
+                               qt.q_sub.float().contiguous(),
+                               qt.q_norm.float().contiguous(), enc_end,
+                               cfg.sink_size, cfg.m, cfg.magnitude_bits)
+
+
+def _block_relative(idx: torch.Tensor, block_tables: torch.Tensor,
+                    block_size: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Logical positions → (physical block, offset, flat physical row),
+    unallocated (< 0) table entries clipped to block 0."""
+    b = block_tables.shape[0]
+    blk = torch.div(idx, block_size, rounding_mode="floor")
+    off = idx - blk * block_size
+    phys_blk = block_tables.gather(1, blk.reshape(b, -1).long()).reshape(
+        blk.shape).clamp_min(0)
+    return phys_blk, off, phys_blk * block_size + off
+
+
+def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
+                         counts: torch.Tensor, enc_end: torch.Tensor,
+                         cfg: ParisKVConfig, num_candidates: int,
+                         top_k: int) -> PagedRetrievalResult:
+    """Fused two-stage retrieval directly over a paged pool.
+
+    ``pool`` is a cache.PagedLayerKVCache (only its metadata is read);
+    ``counts`` the (b, G, B, 2^m) incremental bucket histogram; ``enc_end``
+    (b,) int32 the per-row retrieval-region end."""
+    bs = pool.meta_ids.shape[2]
+    B = pool.meta_ids.shape[-1]
+    coarse = collision_scores_paged(pool.meta_ids, block_tables, qt.q_sub,
+                                    counts, enc_end, cfg)
+    cand = select_candidates_bucket(coarse, num_candidates,
+                                    max(cfg.tier_weights) * B)
+    _, _, cand_phys = _block_relative(cand, block_tables, bs)
+    est = rerank_paged(pool.meta_codes, pool.meta_w, cand_phys, cand, qt,
+                       enc_end, cfg)
+    top_est, top_pos = torch.sort(est, dim=-1, descending=True, stable=True)
+    top_est, top_pos = top_est[..., :top_k], top_pos[..., :top_k]
+    top_idx = cand.gather(-1, top_pos)
+    safe_blk, off, phys_rows = _block_relative(top_idx, block_tables, bs)
+    return PagedRetrievalResult(
+        indices=top_idx, block_ids=safe_blk, offsets=off,
+        phys_rows=phys_rows, scores=top_est, cand_indices=cand,
+        coarse_scores=coarse)

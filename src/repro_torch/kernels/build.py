@@ -1,0 +1,135 @@
+"""Build and load the CUDA C++ kernels (plain C interface, ``ctypes``).
+
+Each source in ``repro_torch/csrc/*.cu`` compiles with its own ``nvcc``
+into its own shared library, all processes started together:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
+
+Libraries go to ``build/repro_torch_kernels/<hash>/`` at the repository
+root, keyed by a hash of every source and header, so an edited kernel
+rebuilds and an unchanged one loads in milliseconds. ``nvcc``'s register
+and spill report (``-Xptxas -v``) is kept beside each library as
+``<name>.log``. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+# C signature of each kernel's launcher: every pointer and the stream are
+# c_void_p (a plain int would be cut to 32 bits), sizes are c_int / c_int64.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+SIGNATURES = {
+    "collision_paged": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _P],
+    "bucket_topk": [_P, _P, _I, _I, _I, _I, _P],
+    "rerank_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                     _I, _I, _I, _I, _I, _P],
+    "gather_rows_paged": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
+                          _I, _I, _I, _I, _P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build_all() -> Path:
+    """Compile every kernel whose library is missing (in parallel) and
+    return the build directory. Raises with nvcc's output on failure."""
+    out_dir = BUILD_ROOT / _source_hash()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SIGNATURES:
+        lib = out_dir / f"lib{name}.so"
+        if lib.exists():
+            continue
+        tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
+        log = open(out_dir / f"{name}.log", "w")
+        cmd = [_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC),
+               "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       log, tmp, lib)
+    failed = []
+    for name, (proc, log, tmp, lib) in procs.items():
+        rc = proc.wait()
+        log.close()
+        if rc == 0:
+            os.replace(tmp, lib)
+        else:
+            failed.append(name)
+    if failed:
+        logs = "\n".join((out_dir / f"{n}.log").read_text() for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return out_dir
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (building all on first use)."""
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def launch(name: str, *args) -> None:
+    """Call ``<name>_launch(*args, stream)`` on the current CUDA stream and
+    raise if the launch was refused (``cudaGetLastError`` != 0)."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(library(name), f"{name}_launch")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Wrapper-side validation: every tensor on one CUDA device and
+    contiguous (the kernels compute their own offsets)."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expects contiguous tensors")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")

@@ -1,0 +1,30 @@
+"""Plain PyTorch versions of the paged K/V row gather (ports of
+``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``)."""
+from __future__ import annotations
+
+import torch
+
+
+def gather_rows_paged_ref(pool: torch.Tensor, block_tables: torch.Tensor,
+                          lidx: torch.Tensor) -> torch.Tensor:
+    """pool (nb, bs, G, hd), block_tables (b, nblk), lidx (b, L) logical
+    positions → (b, L, G, hd). Unallocated (< 0) entries clip to block 0."""
+    nb, bs = pool.shape[:2]
+    nblk = block_tables.shape[1]
+    lidx = lidx.long()
+    blk = (lidx // bs).clamp(0, nblk - 1)
+    pb = block_tables.long().gather(1, blk).clamp(0, nb - 1)
+    flat = pool.reshape((nb * bs,) + pool.shape[2:])
+    return flat[pb * bs + lidx % bs]
+
+
+def gather_heads_physical_ref(pool: torch.Tensor,
+                              phys_rows: torch.Tensor) -> torch.Tensor:
+    """pool (nb, bs, G, hd), phys_rows (b, G, Q, k) flat pool rows →
+    (b, G, Q, k, hd); entry (i, g, q, j) is head g of pool row
+    phys_rows[i, g, q, j]."""
+    nb, bs, G, hd = pool.shape
+    flat = pool.reshape(nb * bs, G, hd)
+    rows = phys_rows.long().clamp(0, nb * bs - 1)
+    heads = torch.arange(G, device=rows.device)[None, :, None, None]
+    return flat[rows, heads]

@@ -1,0 +1,176 @@
+"""Transformer building blocks for the dense family (port of the main-path
+part of ``repro/models/layers.py``).
+
+Parameters are plain dicts of tensors with the JAX package's names and
+layouts: matmul weights are stored (in_dim, out_dim) — wq/wk/wv/wo for
+attention (bq/bk/bv with ``qkv_bias``), wi_gate/wi_up/wo_mlp for the MLP.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import attention as A
+from repro_torch.core import cache as C
+from repro_torch.core import encode as E
+from repro_torch.core import retrieval as R
+from repro_torch.core.config import ParisKVConfig
+
+
+def truncated_normal_(t: torch.Tensor, generator: torch.Generator,
+                      std: float = 0.02) -> torch.Tensor:
+    """In place: std · N(0, 1) truncated to [-2, 2], the reference's
+    ``truncated_normal`` (the values differ: torch draws its own bits)."""
+    return torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2 * std,
+                                       b=2 * std, generator=generator)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding on half-split heads (NeoX style: the first and
+    second halves of each head form the rotated pairs).
+    x (..., seq, heads, hd); positions (..., seq)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs            # (..., seq, half)
+    cos, sin = torch.cos(ang)[..., None, :], torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(x.dtype)
+
+
+def mlp_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo_mlp"]
+
+
+def init_mlp(d_model: int, d_ff: int, dtype, device,
+             gen: torch.Generator) -> dict:
+    def w(shape):
+        return truncated_normal_(torch.empty(shape, device=device),
+                                 gen).to(dtype)
+    return {"wi_gate": w((d_model, d_ff)), "wi_up": w((d_model, d_ff)),
+            "wo_mlp": w((d_ff, d_model))}
+
+
+# ------------------------------------------------------------- attention ----
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    """Static per-layer attention behaviour (the dense family's subset)."""
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10_000.0
+    qkv_bias: bool = False
+    softcap: float = 0.0
+    sm_scale: float = 0.0        # 0 → 1/sqrt(head_dim)
+
+    def scale(self) -> float:
+        return self.sm_scale or (1.0 / float(np.sqrt(self.head_dim)))
+
+
+def init_attn(d_model: int, spec: AttnSpec, dtype, device,
+              gen: torch.Generator) -> dict:
+    H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+
+    def w(shape):
+        return truncated_normal_(torch.empty(shape, device=device),
+                                 gen).to(dtype)
+    p = {"wq": w((d_model, H * hd)), "wk": w((d_model, G * hd)),
+         "wv": w((d_model, G * hd)), "wo": w((H * hd, d_model))}
+    if spec.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", G * hd), ("bv", G * hd)):
+            p[name] = torch.zeros((width,), dtype=dtype, device=device)
+    return p
+
+
+def _project_qkv(p: dict, x: torch.Tensor, spec: AttnSpec,
+                 positions: Optional[torch.Tensor]):
+    """x (b, s, d) → q (b, s, H, hd), k/v (b, s, G, hd), rope applied."""
+    b, s, _ = x.shape
+    H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    if spec.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    q = q.reshape(b, s, H, hd)
+    k = k.reshape(b, s, G, hd)
+    v = v.reshape(b, s, G, hd)
+    if positions is not None:
+        q = rope(q, positions, spec.rope_theta)
+        k = rope(k, positions, spec.rope_theta)
+    return q, k, v
+
+
+def attn_prefill(p: dict, x: torch.Tensor, spec: AttnSpec,
+                 positions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal prefill attention; also returns (k, v) for the cache. The
+    output projection runs in float32, as the reference's float32
+    attention output promotes its product with ``wo``."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, spec, positions)
+    out = A.blockwise_causal_attention(
+        q, k, v, sm_scale=spec.scale(), softcap=spec.softcap,
+        q_chunk=min(1024, s), kv_chunk=min(2048, s))
+    return out.reshape(b, s, -1) @ p["wo"].float(), k, v
+
+
+def _decode_qkv(p: dict, x_t: torch.Tensor, spec: AttnSpec,
+                pos: torch.Tensor):
+    """x_t (b, d) one token per row → q (b, H, hd), k/v (b, G, hd), rope
+    at the per-row position ``pos`` (b,)."""
+    q, k, v = _project_qkv(p, x_t[:, None], spec, pos[:, None])
+    return q[:, 0], k[:, 0], v[:, 0]
+
+
+def attn_decode_pariskv_paged_fused(p: dict, x_t: torch.Tensor,
+                                    pool: C.PagedLayerKVCache,
+                                    hist: torch.Tensor,
+                                    block_tables: torch.Tensor,
+                                    regions: C.CacheRegions, spec: AttnSpec,
+                                    pcfg: ParisKVConfig, signs: torch.Tensor,
+                                    num_candidates: int, append_index=None
+                                    ) -> Tuple[torch.Tensor,
+                                               R.PagedRetrievalResult]:
+    """Fused paged ParisKV decode of one layer (the default paged path).
+
+    Appends the token through the block table (in place), scores the
+    pool's centroid ids against tier weights from the incremental bucket
+    histogram ``hist`` (b, G, B, 2^m) — read only here; promotion updates
+    it — reranks the top-C candidates from their codes read by physical
+    row, and attends over sink ∪ winners ∪ window. Every stage that was a
+    Pallas kernel on the TPU is a Hopper kernel on a CUDA pool (Stage I,
+    top-C, Stage II, the K/V gathers). ``append_index`` is the step's
+    shared ``cache.paged_append_index``.
+    → (y (b, d), the retrieval result)."""
+    b = x_t.shape[0]
+    H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    pos = regions.pos + 1
+    q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
+    C.paged_decode_append(pool, block_tables, k_t, v_t, pos,
+                          index=append_index)
+
+    qt = E.encode_query(q.reshape(b, G, H // G, hd), pcfg, signs)
+    res = R.retrieve_paged_fused(pool, block_tables, qt, hist,
+                                 regions.enc_end, pcfg, num_candidates,
+                                 pcfg.top_k)
+    k_ret, v_ret = C.gather_heads_physical_kv(pool.k, pool.v, res.phys_rows)
+
+    W = C.window_size(pcfg)
+    ws = (pos + 1 - W).clamp_min(0)
+    out = A.sparse_decode_attention_paged(
+        q, pool.k, pool.v, block_tables, res.indices, ws, pos,
+        regions.enc_end, k_ret, v_ret, sink_size=pcfg.sink_size,
+        window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
+    return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res

@@ -1,0 +1,271 @@
+"""The port's four kernel modules against the JAX reference's kernels.
+
+On the CPU every wrapper takes its plain PyTorch version (``ref.py``); the
+JAX side runs its Pallas kernels as its own tests do here (interpret mode)
+or, for the serving-path twins, the jnp functions. Same numpy inputs, small
+shapes with ragged n, ties, -1 scores and -1 block-table entries. Integer
+outputs and gathered rows must be identical; Stage-II estimates agree to
+float32 reassociation (rtol 1e-5, atol 1e-5).
+
+``test_kernels_match_plain_on_card`` compares each CUDA kernel with its
+plain version on the card; it skips without one."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core import cache as JCC  # noqa: E402
+from repro.core import encode as JE  # noqa: E402
+from repro.core import retrieval as JR  # noqa: E402
+from repro.core import srht as JS  # noqa: E402
+from repro.core.config import ParisKVConfig as JP  # noqa: E402
+from repro.kernels.bucket_topk.ops import bucket_topk as j_bucket_topk  # noqa: E402
+from repro.kernels.collision import collision_scores_paged_kernel as j_coll  # noqa: E402
+from repro.kernels.gather_kv.ops import gather_kv_paged_kernel  # noqa: E402
+from repro.kernels.rerank import rerank_paged_kernel as j_rerank  # noqa: E402
+from repro_torch import kernels as TK  # noqa: E402
+from repro_torch.core import retrieval as TR  # noqa: E402
+from repro_torch.core.config import ParisKVConfig as TP  # noqa: E402
+from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
+from repro_torch.kernels.collision import collision_scores_paged_kernel  # noqa: E402
+from repro_torch.kernels.gather_kv import (gather_heads_physical,  # noqa: E402
+                                           gather_rows_paged)
+from repro_torch.kernels.rerank import rerank_paged_kernel  # noqa: E402
+
+CFG_J = JP(sink_size=16, local_size=64, update_interval=32, top_k=32,
+           min_candidates=64)
+CFG_T = TP(sink_size=16, local_size=64, update_interval=32, top_k=32,
+           min_candidates=64)
+D, G, HG = 64, 2, 2
+B = CFG_J.num_subspaces(D)
+
+
+def _pool(seed, nb=12, bs=32):
+    """Random pool metadata encoded from random keys, plus K/V rows."""
+    rng = np.random.RandomState(seed)
+    keys = rng.randn(nb, G, bs, D).astype(np.float32)
+    signs = jnp.asarray(JS.rademacher_signs(D, CFG_J.srht_seed))
+    meta = JE.encode_keys(jnp.asarray(keys), CFG_J, signs)
+    kv = rng.randn(2, nb, bs, G, D).astype(np.float32)
+    return (np.asarray(meta.centroid_ids), np.asarray(meta.codes),
+            np.asarray(meta.weights), kv, rng)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))           # writable copy
+
+
+def test_collision_plain_matches_pallas_kernel():
+    ids, _, _, _, rng = _pool(0)
+    bt = np.array([[7, 2, 9, -1], [0, 11, -1, -1]], np.int32)
+    enc_end = np.array([110, 50], np.int32)          # ragged valid regions
+    tables = rng.randint(0, 7, size=(2, G, HG, B, 256)).astype(np.int32)
+    want = np.asarray(j_coll(jnp.asarray(ids), jnp.asarray(bt),
+                             jnp.asarray(tables), jnp.asarray(enc_end),
+                             CFG_J.sink_size))
+    got = collision_scores_paged_kernel(_t(ids), _t(bt), _t(tables),
+                                        _t(enc_end), CFG_T.sink_size)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want == -1).any() and (want > 0).any()
+
+
+def test_collision_scores_paged_matches_jnp_twin():
+    """Stage I end to end (centroid scores → tier table → kernel) equals
+    the reference's serving twin on the same query and histogram."""
+    ids, _, _, _, rng = _pool(1)
+    bt = np.array([[3, 5, 1, 8], [4, 10, 6, -1]], np.int32)
+    enc_end = np.array([128, 70], np.int32)
+    q_sub = rng.randn(2, G, HG, B, 8).astype(np.float32)
+    view = np.moveaxis(ids[np.maximum(bt, 0)], 2, 1).reshape(2, G, 128, B)
+    valid = ((np.arange(128)[None] >= CFG_J.sink_size)
+             & (np.arange(128)[None] < enc_end[:, None]))
+    hist = np.asarray(JR.bucket_histogram(view, jnp.asarray(valid)[:, None],
+                                          256))
+    want = np.asarray(JR.collision_scores_paged(
+        jnp.asarray(ids), jnp.asarray(bt), jnp.asarray(q_sub),
+        jnp.asarray(hist), jnp.asarray(enc_end), CFG_J))
+    got = TR.collision_scores_paged(_t(ids), _t(bt), _t(q_sub), _t(hist),
+                                    _t(enc_end), CFG_T)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", [100, 1000, 1025])
+def test_bucket_topk_plain_matches_pallas_kernel(n):
+    rng = np.random.RandomState(n)
+    scores = rng.randint(-1, 20, size=(3, n)).astype(np.int32)  # many ties
+    scores[1, : n // 2] = -1
+    k = min(64, n)
+    want = np.asarray(j_bucket_topk(jnp.asarray(scores), k,
+                                    score_range=21, block_n=256))
+    got = bucket_topk(_t(scores), k, 20)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["ragged", "all_ties", "mostly_invalid"])
+def test_select_candidates_bucket_matches_reference(case):
+    rng = np.random.RandomState(5)
+    scores = rng.randint(-1, 97, size=(2, G, HG, 333)).astype(np.int32)
+    if case == "all_ties":
+        scores[:] = 7
+    elif case == "mostly_invalid":
+        scores[..., 40:] = -1
+    C = 100
+    want = np.asarray(JR.select_candidates_bucket(jnp.asarray(scores), C, 96))
+    got = TR.select_candidates_bucket(_t(scores), C, 96)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # lax.top_k's index set, ascending
+    top = np.sort(np.asarray(JR.select_candidates(jnp.asarray(scores), C)),
+                  -1)
+    np.testing.assert_array_equal(got.numpy(), top)
+    with pytest.raises(ValueError):
+        bucket_topk(_t(scores), 334, 96)
+
+
+def test_rerank_plain_matches_pallas_kernel_and_twin():
+    _, codes, w, _, rng = _pool(2)
+    nb, _, bs, _ = codes.shape
+    C = 40
+    phys = rng.choice(nb * bs, size=(1, G, HG, C), replace=False
+                      ).astype(np.int32)
+    cand = rng.randint(0, 200, size=(1, G, HG, C)).astype(np.int32)
+    cand[..., :5] = 3                                 # below the sink
+    enc_end = np.array([150], np.int32)
+    q_sub = rng.randn(1, G, HG, B, 8).astype(np.float32)
+    q_norm = np.abs(rng.randn(1, G, HG)).astype(np.float32) + 0.5
+    got = rerank_paged_kernel(_t(codes.view(np.int32)), _t(w), _t(phys),
+                              _t(cand), _t(q_sub), _t(q_norm), _t(enc_end),
+                              CFG_T.sink_size, 8, 3)
+    # the Pallas kernel per (b, h) row; it applies no validity mask
+    for h in range(HG):
+        want = np.asarray(j_rerank(jnp.asarray(codes), jnp.asarray(w),
+                                   jnp.asarray(phys[0, :, h]),
+                                   jnp.asarray(q_sub[0, :, h]),
+                                   jnp.asarray(q_norm[0, :, h]), m=8,
+                                   block_c=32))
+        valid = (cand[0, :, h] >= 16) & (cand[0, :, h] < 150)
+        np.testing.assert_allclose(got.numpy()[0, :, h][valid], want[valid],
+                                   rtol=1e-5, atol=1e-5)
+    # the serving twin masks invalid candidates to the finite -1e30
+    qt = JE.QueryTransform(jnp.asarray(q_norm), jnp.asarray(q_sub))
+    twin = np.asarray(JR.rerank_paged(jnp.asarray(codes), jnp.asarray(w),
+                                      jnp.asarray(phys), jnp.asarray(cand),
+                                      qt, jnp.asarray(enc_end), CFG_J))
+    np.testing.assert_allclose(got.numpy(), twin, rtol=1e-5, atol=1e-5)
+    assert (got.numpy() == -1e30).sum() >= 5
+
+
+def test_gather_plain_matches_pallas_kernel_and_twins():
+    _, _, _, kv, rng = _pool(3)
+    pool_k, pool_v = kv
+    nb, bs = pool_k.shape[:2]
+    bt = np.array([[5, 1, 10, 3], [2, 8, -1, -1]], np.int32)
+    lidx = np.stack([rng.randint(0, 128, 20), rng.randint(0, 64, 20)]
+                    ).astype(np.int32)
+    lidx[1, :3] = [100, 127, 64]                     # through -1 entries
+    gk, gv = gather_rows_paged(_t(pool_k), _t(pool_v), _t(bt), _t(lidx))
+    twin = np.asarray(JCC.paged_gather_rows(jnp.asarray(pool_k),
+                                            jnp.asarray(bt),
+                                            jnp.asarray(lidx)))
+    np.testing.assert_array_equal(gk.numpy(), twin)
+    # the Pallas kernel takes pre-clipped tables; compare where allocated
+    flat_pool = jnp.asarray(pool_v.reshape(nb, bs, G * D))
+    pallas = np.asarray(gather_kv_paged_kernel(
+        flat_pool, jnp.asarray(np.maximum(bt, 0)), jnp.asarray(lidx)))
+    alloc = bt[np.arange(2)[:, None], lidx // bs] >= 0
+    np.testing.assert_array_equal(gv.numpy().reshape(2, 20, G * D)[alloc],
+                                  pallas[alloc])
+    assert not alloc.all()
+
+    phys = rng.randint(0, nb * bs, size=(2, G, HG, 7)).astype(np.int32)
+    wk, wv = gather_heads_physical(_t(pool_k), _t(pool_v), _t(phys))
+    for got, pool in ((wk, pool_k), (wv, pool_v)):
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(JCC.gather_heads_physical(
+                jnp.asarray(pool), jnp.asarray(phys))))
+    only_k = gather_rows_paged(_t(pool_k), None, _t(bt), _t(lidx))
+    np.testing.assert_array_equal(only_k.numpy(), gk.numpy())
+
+
+def test_wrappers_never_fall_back_off_the_cpu():
+    """A tensor that is not on the CPU gets the kernel or an exception —
+    never the plain version (meta tensors stand in for a card here)."""
+    before = dict(TK.LAUNCHES)
+    m = dict(device="meta")
+    ids = torch.empty((4, G, 8, 16), dtype=torch.uint8, **m)
+    bt = torch.empty((2, 3), dtype=torch.int32, **m)
+    i32 = torch.empty((2,), dtype=torch.int32, **m)
+    calls = [
+        lambda: collision_scores_paged_kernel(
+            ids, bt, torch.empty((2, G, HG, 16, 256), dtype=torch.int32,
+                                 **m), i32, 2),
+        lambda: bucket_topk(torch.empty((2, 50), dtype=torch.int32, **m),
+                            8, 96),
+        lambda: rerank_paged_kernel(
+            torch.empty((4, G, 8, 16), dtype=torch.int32, **m),
+            torch.empty((4, G, 8, 16), **m),
+            torch.empty((2, G, HG, 5), dtype=torch.int32, **m),
+            torch.empty((2, G, HG, 5), dtype=torch.int32, **m),
+            torch.empty((2, G, HG, 16, 8), **m), torch.empty((2, G, HG), **m),
+            i32, 2),
+        lambda: gather_rows_paged(
+            torch.empty((4, 8, G, D), **m), None, bt,
+            torch.empty((2, 5), dtype=torch.int32, **m)),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="no kernel for device meta"):
+            call()
+    assert TK.LAUNCHES == before
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernels run only on one")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsub", [8, 16])
+def test_kernels_match_plain_on_card(card, nsub):
+    """Each CUDA kernel equals its plain version on the card (exact for
+    integer outputs and gathers; rerank to float32 reassociation)."""
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision.ref import collision_paged_ref
+    from repro_torch.kernels.gather_kv.ref import (gather_heads_physical_ref,
+                                                   gather_rows_paged_ref)
+    from repro_torch.kernels.rerank.ref import rerank_paged_ref
+
+    gen = torch.Generator(device=card).manual_seed(nsub)
+    nb, bs, b, nblk = 10, 32, 2, 4
+
+    def ri(lo, hi, shape, dt=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=card,
+                             dtype=dt)
+    ids = ri(0, 256, (nb, G, bs, nsub), torch.uint8)
+    bt = torch.tensor([[7, 2, 9, -1], [0, 5, -1, -1]], dtype=torch.int32,
+                      device=card)
+    tables = ri(0, 7, (b, G, HG, nsub, 256))
+    enc_end = torch.tensor([110, 50], dtype=torch.int32, device=card)
+    got = collision_scores_paged_kernel(ids, bt, tables, enc_end, 16)
+    assert torch.equal(got, collision_paged_ref(ids, bt, tables, enc_end, 16))
+    cand = bucket_topk(got, 40, 6 * nsub)
+    assert torch.equal(cand, bucket_topk_ref(got, 40, 6 * nsub))
+    codes = ri(-2 ** 31, 2 ** 31 - 1, (nb, G, bs, nsub))
+    w = torch.rand((nb, G, bs, nsub), generator=gen, device=card)
+    _, _, phys = TR._block_relative(cand, bt, bs)
+    q_sub = torch.randn((b, G, HG, nsub, 8), generator=gen, device=card)
+    q_norm = torch.rand((b, G, HG), generator=gen, device=card)
+    args = (codes, w, phys, cand, q_sub, q_norm, enc_end, 16, 8, 3)
+    torch.testing.assert_close(rerank_paged_kernel(*args),
+                               rerank_paged_ref(*args), rtol=1e-5, atol=1e-4)
+    pool = torch.randn((2, nb, bs, G, 128), generator=gen, device=card
+                       ).to(torch.bfloat16)
+    lidx = ri(0, 128, (b, 24))
+    gk, gv = gather_rows_paged(pool[0], pool[1], bt, lidx)
+    assert torch.equal(gk, gather_rows_paged_ref(pool[0], bt, lidx))
+    assert torch.equal(gv, gather_rows_paged_ref(pool[1], bt, lidx))
+    wk = gather_heads_physical(pool[0], None, phys)
+    assert torch.equal(wk, gather_heads_physical_ref(pool[0], phys))

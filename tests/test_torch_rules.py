@@ -1,0 +1,66 @@
+"""Rules of the PyTorch port: it imports neither JAX nor the JAX package,
+and ``chip_smoke.py`` refuses to report a result without a CUDA card or
+outside a checkout of the repository."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imports(path: pathlib.Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in ("jax", "jaxlib", "repro"), f"{path}: {mod}"
+
+
+def test_port_kernels_are_cuda_sources_in_the_package():
+    csrc = ROOT / "src" / "repro_torch" / "csrc"
+    from repro_torch.kernels import KERNELS
+    from repro_torch.kernels.build import SIGNATURES
+    assert sorted(SIGNATURES) == sorted(KERNELS)
+    for name in KERNELS:
+        src = (csrc / f"{name}.cu").read_text()
+        assert f"{name}_launch" in src and "Replaces the TPU kernel" in src
+
+
+def _run_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    res = _run_smoke(ROOT)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout and "no CUDA device" in res.stderr
+
+
+def test_chip_smoke_fails_outside_the_repository(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
