@@ -6,34 +6,50 @@ card: the quickest proof that the port builds and serves on the GPU.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build   — compile the four CUDA C++ kernels from ``src/repro_torch/csrc``
-             (one nvcc per source, in parallel) and print the seconds.
-2. device  — the card's name and power limit, as nvidia-smi reports them.
-3. kernels — each kernel against its plain PyTorch version on the same
-             inputs on the card, at the decode path's shapes for
-             qwen2-1.5b (b=4, G=2, Hg=6, hd=128, B=16, 2^m=256, blocks of
-             128, n_max=16384): the largest difference (exact for
-             collision, bucket_topk and the gather; a stated float32
-             tolerance for rerank), the median device time over warm calls
-             with a cold L2 (and, as call_ms, the time including the host's
-             launch gap), the plain version's time, a PyTorch yardstick
-             where one call computes the same function, and the bound.
-4. engine  — the main path: ``PagedServingEngine`` serving qwen2-1.5b at
-             full width (28 layers, bf16, random weights from a seed) to
-             four staggered requests of ~3k/6k/9k/12k prompt tokens and
-             300 new tokens each. Launch counters are zeroed just before
-             and read just after; every kernel must have launched at least
-             28 × decode steps times, every request must promote, and the
-             incremental histograms must equal a recompute at every chunk.
-   profile — then one decode chunk of the same engine (four rows) under
-             torch.profiler: wall and device-busy time per step, kernel
-             launches and host-device copies per step, the top kernels.
-5. parity  — 2 layers at full width in float32: one teacher-forced
-             request (2048-token prompt, 64 given tokens) on the card
-             (kernels) and on the CPU (plain versions); logits must agree
-             at every step, within 1e-3 where every winner set agrees and
-             within 5 % of the largest logit after a near-tie winner flip.
+1. build    — compile the six CUDA C++ kernels from ``src/repro_torch/csrc``
+              (one nvcc per source, in parallel) and print the seconds.
+2. device   — the card's name and power limit, as nvidia-smi reports them.
+3. kernels  — each kernel against its plain PyTorch version on the same
+              inputs on the card, at the decode path's shapes for
+              qwen2-1.5b (b=4, G=2, Hg=6, hd=128, B=16, 2^m=256, blocks of
+              128, n_max=16384): the largest difference (exact for
+              collision, bucket_topk and the gathers; a stated float32
+              tolerance for rerank), the median device time over warm calls
+              with a cold L2 (and, as call_ms, the time including the host's
+              launch gap), the plain version's time, a PyTorch yardstick
+              where one call computes the same function, and the bound.
+4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
+              serving qwen2-1.5b at full width (28 layers, bf16, random
+              weights from a seed) to four staggered requests of
+              ~3k/6k/9k/12k prompt tokens and 300 new tokens each. Launch
+              counters are zeroed just before and read just after; each
+              kernel of the path must have launched at least 28 × decode
+              steps times, every request must promote, and the incremental
+              histograms must equal a recompute at every chunk.
+   profile  — then one decode chunk of the same engine (four rows) under
+              torch.profiler: wall and device-busy time per step, kernel
+              launches and host-device copies per step, the top kernels.
+              The slot phase ends with the same profile of its engine.
+5. slot     — the contiguous ``ServingEngine`` on the same four requests:
+              contiguous Stage I, top-C, Stage II and the contiguous
+              gathers each launched at least 28 (gathers 56) × steps,
+              every request promoted, token agreement with the engine
+              phase printed as a rate (bf16 promises no identity).
+6. metaview — ``PagedServingEngine(fused=False)`` and the fused engine on
+              the first two requests with 64 new tokens: identical tokens
+              asserted, contiguous Stage I launched 28 × steps.
+7. baseline — the slot engine with ParisKV and with full attention
+              (``use_pariskv=False``), and ``WaveServingEngine``, on
+              requests of 3000/6000 prompt tokens with 64 new each: host-
+              bound smoke throughputs, not a benchmark.
+8. parity   — 2 layers at full width in float32: one teacher-forced
+              request (2048-token prompt, 64 given tokens) through the
+              paged and the contiguous decode step, each on the card
+              (kernels) and on the CPU (plain versions); logits must agree
+              at every step, within 1e-3 where every winner set agrees and
+              within 5 % of the largest logit after a near-tie winner flip.
 
+Pass phase names to run a subset (``python3 chip_smoke.py kernels slot``).
 The last two lines are the kernels' JSON summary and the result line.
 """
 import dataclasses
@@ -52,6 +68,15 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 20_000_000       # ~10 ms of device spin: longer than any
 #                                call's host-side enqueue in this script
 RERANK_RTOL, RERANK_ATOL = 1e-4, 1e-3
+PROMPTS = (3000, 6000, 9000, 12000)      # the four requests of the engines
+GEN = 300
+ARRIVALS = (0, 2, 4, 6)                  # chunk before each submission
+LENS_AFTER = [p + GEN for p in PROMPTS]  # their lengths at the end
+PAGED_KERNELS = ("collision_paged", "bucket_topk", "rerank_paged",
+                 "gather_rows_paged")
+SLOT_KERNELS = ("collision", "bucket_topk", "rerank_paged", "gather_rows")
+METAVIEW_KERNELS = ("collision", "bucket_topk", "rerank_paged",
+                    "gather_rows_paged")
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -137,7 +162,7 @@ def kernel_phase(dev, cfg, seed: int = 0):
     pool.meta_codes.copy_(meta.codes)
     pool.meta_w.copy_(meta.weights)
     # four rows of ~3k..12k prompt + 300 tokens; unallocated tails are -1
-    lens = [3000 + 300, 6000 + 300, 9000 + 300, 12000 + 300]
+    lens = LENS_AFTER
     perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
     bt = torch.full((b, nblk), -1, dtype=torch.int32, device=dev)
     used = 0
@@ -278,83 +303,335 @@ def kernel_phase(dev, cfg, seed: int = 0):
         plain_ms=_time_ms(plain, flush),
         library_ms=_time_ms(library, flush),
         bound=_bound(moved + lidx.numel() * 4 + phys.numel() * 4, 0))
+    _contiguous_kernels(dev, cfg, gen, flush, lens, out)
     for name, rec in out.items():
         rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
         print(f"kernel {name} " + json.dumps(rec), flush=True)
     return out
 
 
+def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
+    """Contiguous Stage I and the contiguous K/V gathers at the slot
+    engine's shapes: a (b, n_max) per-slot cache of the same four rows.
+    The slot path's top-C and Stage II reuse bucket_topk and rerank_paged
+    (a contiguous store is a pool of one block per row); both are held
+    against their plain versions at these shapes too."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.core import centroids
+    from repro_torch.core import encode as E
+    from repro_torch.core import retrieval as R
+    from repro_torch.kernels.bucket_topk import bucket_topk
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision import collision_scores_kernel
+    from repro_torch.kernels.collision.ref import collision_ref
+    from repro_torch.kernels.gather_kv import gather_heads, gather_rows
+    from repro_torch.kernels.gather_kv.ref import (gather_heads_ref,
+                                                   gather_rows_ref)
+    from repro_torch.kernels.rerank import rerank_paged_kernel
+    from repro_torch.kernels.rerank.ref import rerank_paged_ref
+    from repro_torch.models.serve import rotation_signs
+
+    pcfg = cfg.pariskv
+    b, G, hd, n = 4, cfg.num_kv_heads, cfg.head_dim, 16384
+    Hg = cfg.num_heads // G
+    B, m, sink = pcfg.num_subspaces(hd), pcfg.m, pcfg.sink_size
+    C, W = pcfg.candidate_count(n), CC.window_size(pcfg)
+    signs = rotation_signs(cfg, dev)
+    cache = CC.init_layer_cache(b, n, G, hd, pcfg, torch.bfloat16, dev)
+    keys = torch.randn((b, n, G, hd), generator=gen, device=dev)
+    cache.k.copy_(keys)
+    cache.v.copy_(torch.randn((b, n, G, hd), generator=gen, device=dev))
+    meta = E.encode_keys(keys.transpose(1, 2), pcfg, signs)
+    for dst, src in zip(cache[2:], meta):
+        dst.copy_(src)
+    del keys, meta
+    enc_end = torch.tensor([ln - 300 - pcfg.local_size for ln in lens],
+                           dtype=torch.int32, device=dev)
+    pos = enc_end + pcfg.local_size + 150
+    q = torch.randn((b, G, Hg, hd), generator=gen, device=dev)
+    qt = E.encode_query(q, pcfg, signs)
+    valid = R.region_mask(n, enc_end, pcfg)[:, None]
+    counts = R.bucket_histogram(cache.meta_ids, valid, pcfg.num_centroids())
+    tables = R.tier_weight_table(
+        centroids.centroid_scores(qt.q_sub, m), counts[:, :, None],
+        valid.sum(-1)[..., None], pcfg).to(torch.int32).contiguous()
+    nval = int((enc_end - sink).clamp_min(0).sum())
+
+    # 5. contiguous Stage I
+    def kern():
+        return collision_scores_kernel(cache.meta_ids, tables, enc_end, sink)
+
+    def plain():
+        return collision_ref(cache.meta_ids[:, :, None], tables, enc_end,
+                             sink)
+    coarse = kern()
+    err = int((coarse - plain()).abs().max())
+    _check(err == 0, f"collision differs from its plain version ({err})")
+    out["collision"] = dict(
+        route="cuda", source="src/repro_torch/csrc/collision.cu",
+        replaces="src/repro/kernels/collision/collision.py:83",
+        max_abs_err=err, tolerance="exact",
+        ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        plain_ms=_time_ms(plain, flush), library_ms=None,
+        bound=_bound(G * nval * B + tables.numel() * 4 + b * 4
+                     + coarse.numel() * 4, G * Hg * nval * B))
+
+    # the slot path's top-C and Stage II at the contiguous shapes
+    rng_s = max(pcfg.tier_weights) * B
+    cand = bucket_topk(coarse, C, rng_s)
+    _check(torch.equal(cand, bucket_topk_ref(coarse, C, rng_s)),
+           "bucket_topk differs from its plain version (contiguous)")
+    phys = (cand + torch.arange(b, device=dev)[:, None, None, None] * n
+            ).to(torch.int32)
+    args = (cache.meta_codes, cache.meta_w, phys, cand, qt.q_sub, qt.q_norm,
+            enc_end, sink, m, pcfg.magnitude_bits)
+    est, want = rerank_paged_kernel(*args), rerank_paged_ref(*args)
+    _check(torch.allclose(est, want, rtol=RERANK_RTOL, atol=RERANK_ATOL),
+           "rerank_paged differs from its plain version (contiguous)")
+    out["rerank_paged"]["max_abs_err_contiguous"] = float(
+        (est - want).abs().max())
+
+    # 6. contiguous gathers: winners per kv head, the window per row
+    top = torch.sort(est, dim=-1, descending=True, stable=True).indices
+    top_idx = cand.gather(-1, top[..., :pcfg.top_k]).contiguous()
+    ws = (pos + 2 - W).clamp(0, n - W)
+    w_idx = (ws[:, None] + torch.arange(W, device=dev)).to(
+        torch.int32).contiguous()
+
+    def kern():
+        return (gather_heads(cache.k, cache.v, top_idx),
+                gather_rows(cache.k, cache.v, w_idx))
+
+    def plain():
+        return ([gather_heads_ref(t, top_idx) for t in (cache.k, cache.v)],
+                [gather_rows_ref(t, w_idx) for t in (cache.k, cache.v)])
+
+    flat_k = cache.k.reshape(b * n, G, hd)
+    flat_v = cache.v.reshape(b * n, G, hd)
+    rows_b = torch.arange(b, device=dev)
+    rows_h = (rows_b[:, None, None, None] * n + top_idx).long()
+    rows_w = (rows_b[:, None] * n + w_idx).long()
+    heads = torch.arange(G, device=dev)[None, :, None, None]
+
+    def library():
+        return (flat_k[rows_h, heads], flat_v[rows_h, heads], flat_k[rows_w],
+                flat_v[rows_w])
+
+    (hk, hv), (lk, lv) = kern()
+    (pk, pv), (qk, qv) = plain()
+    same = all(torch.equal(x, y) for x, y in
+               ((hk, pk), (hv, pv), (lk, qk), (lv, qv)))
+    _check(same, "gather_rows differs from its plain version")
+    moved = 2 * (hk.numel() + hv.numel() + lk.numel() + lv.numel()) * 2
+    out["gather_rows"] = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows.cu",
+        replaces="src/repro/kernels/gather_kv/gather_kv.py:46",
+        max_abs_err=0, tolerance="exact",
+        ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        plain_ms=_time_ms(plain, flush), library_ms=_time_ms(library, flush),
+        bound=_bound(moved + top_idx.numel() * 4 + w_idx.numel() * 4, 0))
+
+
 # ---------------------------------------------------------------- engine ---
-def engine_phase(dev, cfg, seed: int = 0, lens=(3000, 6000, 9000, 12000),
-                 gen: int = 300, n_max: int = 16384, num_blocks: int = 512,
-                 warm: int = 700):
-    """The main path at full width: four staggered long requests."""
+def _prompts(cfg, seed: int = 0, lens=None):
+    """The engines' prompts: random tokens from ``seed``, one per length
+    (default: ``PROMPTS``)."""
     import numpy as np
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, cfg.vocab_size, size=(n,)).astype(np.int32)
+            for n in (PROMPTS if lens is None else lens)]
+
+
+def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False):
+    """Serve ``prompts`` (uid = index) submitted before the chunks in
+    ``arrivals``, with the launch counters zeroed just before and read just
+    after. Fails unless every request got ``gen`` tokens and every kernel
+    in ``kernels`` launched at least 28 × decode steps times (the gathers
+    twice that). → (record, {uid: request})."""
     import torch
     from repro_torch import kernels as K
-    from repro_torch.models.model import init_params, param_count
-    from repro_torch.serving import PagedServingEngine, Request
+    from repro_torch.serving import Request
 
-    params = init_params(cfg, seed=seed, device=dev)
-    eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
-                             max_batch=4, num_blocks=num_blocks, chunk_size=8,
-                             device=dev)
-    rng = np.random.RandomState(seed)
-
-    def req(uid, n, gen):
-        return Request(uid=uid, max_new_tokens=gen, prompt=rng.randint(
-            0, cfg.vocab_size, size=(n,)).astype(np.int32))
-
-    # warm-up (cuBLAS handles, kernel libraries); not measured
-    eng.submit(req(99, warm, 4))
-    eng.run()
-
-    arrivals = {0: 0, 1: 2, 2: 4, 3: 6}     # uid → chunk before submission
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
     eng.decode_steps = 0
     eng.start()
     serve_s, audits, chunk = 0.0, 0, 0
-    while chunk <= max(arrivals.values()) or eng.pending():
-        for uid, at in arrivals.items():
+    while chunk <= max(arrivals) or eng.pending():
+        for uid, at in enumerate(arrivals):
             if at == chunk:
-                eng.submit(req(uid, lens[uid], gen))
+                eng.submit(Request(uid=uid, prompt=prompts[uid],
+                                   max_new_tokens=gen))
         t0 = time.perf_counter()
         eng.step_serve()
         torch.cuda.synchronize()
         serve_s += time.perf_counter() - t0
-        eng.verify_hist()
-        audits += 1
+        if audit:
+            eng.verify_hist()
+            audits += 1
         chunk += 1
     launches = dict(K.LAUNCHES)
     done = {r.uid: r for r in eng._done}
     steps = eng.decode_steps
-    _check(sorted(done) == [0, 1, 2, 3], f"served {sorted(done)}")
+    _check(sorted(done) == list(range(len(arrivals))), f"served {sorted(done)}")
     for uid, r in done.items():
         _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
-        _check(r.promotions >= 1, f"request {uid} never promoted")
-    for name in K.KERNELS:
-        _check(launches[name] >= cfg.num_layers * steps,
-               f"{name}: {launches[name]} launches < 28 x {steps} steps")
+    for name in kernels:
+        per_step = 2 if name.startswith("gather_rows") else 1
+        need = per_step * cfg.num_layers * steps
+        _check(launches[name] >= need,
+               f"{name}: {launches[name]} launches < {need} "
+               f"({per_step} x {cfg.num_layers} layers x {steps} steps)")
     nonfinite = int(eng.nonfinite_logits)
     _check(nonfinite == 0, f"{nonfinite} non-finite logits")
     tokens = sum(len(r.output) for r in done.values())
     rec = dict(
-        layers=cfg.num_layers, dtype=cfg.dtype, params=param_count(params),
-        requests=[dict(uid=u, prompt=lens[u], new_tokens=len(r.output),
-                       ttft_s=r.ttft_s, decode_s=r.decode_s,
-                       promotions=r.promotions)
+        requests=[dict(uid=u, prompt=len(prompts[u]),
+                       new_tokens=len(r.output), ttft_s=r.ttft_s,
+                       decode_s=r.decode_s, promotions=r.promotions)
                   for u, r in sorted(done.items())],
         decode_steps=steps, serve_s=serve_s, tokens=tokens,
         tokens_per_s=tokens / serve_s,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-        hist_checks=audits, nonfinite_logits=nonfinite, launches=launches)
+        nonfinite_logits=nonfinite, launches=launches)
+    if audit:
+        rec["hist_checks"] = audits
+    return rec, done
+
+
+def _warm(eng, cfg, warm: int = 700):
+    """One short request (cuBLAS handles, kernel libraries); not measured."""
+    from repro_torch.serving import Request
+    eng.submit(Request(uid=99, max_new_tokens=4,
+                       prompt=_prompts(cfg, seed=99, lens=(warm,))[0]))
+    eng.run()
+
+
+def engine_phase(dev, cfg, params, n_max: int = 16384,
+                 num_blocks: int = 512):
+    """The main path at full width: four staggered long requests through
+    the fused paged engine."""
+    from repro_torch.models.model import param_count
+    from repro_torch.serving import PagedServingEngine
+
+    eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
+                             max_batch=4, num_blocks=num_blocks, chunk_size=8,
+                             device=dev)
+    _warm(eng, cfg)
+    rec, done = _serve(eng, _prompts(cfg), GEN, ARRIVALS, PAGED_KERNELS, cfg,
+                       audit=True)
+    for uid, r in done.items():
+        _check(r.promotions >= 1, f"request {uid} never promoted")
+    rec = dict(layers=cfg.num_layers, dtype=cfg.dtype,
+               params=param_count(params), **rec)
     print("engine " + json.dumps(rec), flush=True)
+    return rec, eng, {u: r.output for u, r in done.items()}
+
+
+def slot_phase(dev, cfg, params, paged_out, n_max: int = 16384):
+    """The contiguous slot engine on the engine phase's four requests."""
+    import numpy as np
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(cfg, params, n_max=n_max, max_batch=4, chunk_size=8,
+                        device=dev)
+    _warm(eng, cfg)
+    rec, done = _serve(eng, _prompts(cfg), GEN, ARRIVALS, SLOT_KERNELS, cfg)
+    for uid, r in done.items():
+        _check(r.promotions >= 1, f"request {uid} never promoted")
+    if paged_out:
+        agree = [float(np.mean(done[u].output == paged_out[u]))
+                 for u in sorted(done)]
+        rec["token_agreement_with_engine_phase"] = dict(
+            per_request=agree, overall=float(np.mean(agree)))
+    print("slot " + json.dumps(rec), flush=True)
     return rec, eng
 
 
-def profile_phase(eng, cfg, seed: int = 2, prompt: int = 2000,
+def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
+    """The paged meta-view fallback against the fused engine on the first
+    two requests: identical tokens asserted."""
+    import numpy as np
+    from repro_torch.serving import PagedServingEngine
+
+    prompts, arrivals = _prompts(cfg)[:2], ARRIVALS[:2]
+    out, recs = {}, {}
+    for fused, kernels in ((False, METAVIEW_KERNELS), (True, PAGED_KERNELS)):
+        eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
+                                 max_batch=4, num_blocks=512, chunk_size=8,
+                                 fused=fused, device=dev)
+        _warm(eng, cfg)
+        recs[fused], done = _serve(eng, prompts, gen, arrivals, kernels, cfg,
+                                   audit=True)
+        out[fused] = {u: r.output for u, r in done.items()}
+        del eng
+    same = all(np.array_equal(out[False][u], out[True][u]) for u in out[True])
+    rec = dict(metaview=recs[False], fused=recs[True], tokens_identical=same)
+    print("metaview " + json.dumps(rec), flush=True)
+    _check(same, "meta-view tokens differ from the fused engine's")
+    return rec
+
+
+def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
+    """ParisKV slots, full-attention slots and ParisKV waves on two
+    requests of 3000/6000 prompt tokens submitted together."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.serving import (Request, ServingEngine,
+                                     WaveServingEngine)
+
+    prompts = _prompts(cfg, seed=3, lens=PROMPTS[:2])
+    res, outs = {}, {}
+    for name, use_pariskv in (("pariskv_slots", True),
+                              ("full_attention_slots", False)):
+        eng = ServingEngine(cfg, params, n_max=n_max, max_batch=4,
+                            chunk_size=8, use_pariskv=use_pariskv,
+                            device=dev)
+        _warm(eng, cfg)
+        kernels = SLOT_KERNELS if use_pariskv else ()
+        res[name], done = _serve(eng, prompts, gen, (0, 0), kernels, cfg)
+        outs[name] = {u: r.output for u, r in done.items()}
+        if not use_pariskv:
+            _check(sum(res[name]["launches"].values()) == 0,
+                   "the full-attention baseline launched ParisKV kernels")
+        del eng
+    wave = WaveServingEngine(cfg, params, n_max=n_max, max_batch=4,
+                             device=dev)
+    for uid, p in enumerate(prompts):
+        wave.submit(Request(uid=uid, prompt=p, max_new_tokens=gen))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    done = {r.uid: r for r in wave.run()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    for k in SLOT_KERNELS:
+        per_step = 2 if k.startswith("gather_rows") else 1
+        _check(launches[k] >= per_step * cfg.num_layers * wave.decode_steps,
+               f"wave: {k} launched {launches[k]} times")
+    _check(int(wave.nonfinite_logits) == 0, "wave: non-finite logits")
+    _check(all(len(r.output) == gen for r in done.values()),
+           "wave: a request is short")
+    tokens = sum(len(r.output) for r in done.values())
+    res["pariskv_wave"] = dict(
+        ttft_s=done[0].ttft_s, decode_steps=wave.decode_steps,
+        serve_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        launches=launches)
+    agree = {name: float(np.mean([np.mean(outs[name][u] == outs[
+        "pariskv_slots"][u]) for u in outs[name]])) for name in outs}
+    rec = dict(note="host-bound smoke throughputs on a shared host, not a "
+               "benchmark", prompts=list(PROMPTS[:2]), new_tokens=gen,
+               tokens_per_s={k: v["tokens_per_s"] for k, v in res.items()},
+               token_agreement_with_pariskv_slots=agree, runs=res)
+    print("baseline " + json.dumps(rec), flush=True)
+    return rec
+
+
+def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
                   gen: int = 40):
     """Where a decode step's time goes: one chunk of the engine (four
     active rows, same n_max) under torch.profiler, after an unprofiled
@@ -399,7 +676,8 @@ def profile_phase(eng, cfg, seed: int = 2, prompt: int = 2000,
                       == DeviceType.CUDA), key=lambda kv: -kv[1])[:8]
     while eng.pending():
         eng.step_serve()
-    rec = dict(rows=4, steps=eng.chunk_size, wall_ms_per_step=wall_ms,
+    rec = dict(path=path, rows=4, steps=eng.chunk_size,
+               wall_ms_per_step=wall_ms,
                device_busy_ms_per_step=busy / 1e3 / eng.chunk_size,
                device_idle_share=1 - busy / 1e3 / eng.chunk_size / wall_ms,
                launches_per_step=launches / eng.chunk_size,
@@ -411,8 +689,9 @@ def profile_phase(eng, cfg, seed: int = 2, prompt: int = 2000,
 
 
 # ---------------------------------------------------------------- parity ---
-def _teacher_forced(params, cfg, prompt, forced, device):
-    """Prefill + ``len(forced)`` decode steps fed the given tokens. →
+def _teacher_forced(params, cfg, prompt, forced, device, paged: bool):
+    """Prefill + ``len(forced)`` decode steps fed the given tokens, through
+    the paged pool (a reversed block table) or a contiguous slot. →
     (logits (steps, vocab) on the CPU, per step and layer the candidate
     and winner index tensors)."""
     import numpy as np
@@ -422,15 +701,21 @@ def _teacher_forced(params, cfg, prompt, forced, device):
     n_max, bs, nb = 4096, 128, 40
     logits0, st1 = SV.prefill(params, cfg, prompt[None], n_max,
                               lengths=[len(prompt)], device=device)
-    state = SV.init_paged_slot_state(cfg, 1, nb, bs, device=device)
-    nblk = n_max // bs
-    need = -(-(len(prompt) + len(forced)) // bs)
-    row = np.full((nblk,), nb, np.int32)
-    row[:need] = np.arange(need)[::-1]          # reversed: non-trivial table
-    bt = torch.from_numpy(np.where(row < nb, row, -1)[None].astype(np.int32)
-                          ).to(device)
-    SV.admit_paged(state, 0, torch.from_numpy(row), st1.caches, st1.regions,
-                   int(forced[0]), len(forced), cfg.pariskv)
+    bt = None
+    if paged:
+        state = SV.init_paged_slot_state(cfg, 1, nb, bs, device=device)
+        nblk = n_max // bs
+        need = -(-(len(prompt) + len(forced)) // bs)
+        row = np.full((nblk,), nb, np.int32)
+        row[:need] = np.arange(need)[::-1]      # reversed: non-trivial table
+        bt = torch.from_numpy(np.where(row < nb, row, -1)[None].astype(
+            np.int32)).to(device)
+        SV.admit_paged(state, 0, torch.from_numpy(row), st1.caches,
+                       st1.regions, int(forced[0]), len(forced), cfg.pariskv)
+    else:
+        state = SV.init_slot_state(cfg, 1, n_max, device=device)
+        SV.admit_slot(state, 0, st1.caches, st1.regions, int(forced[0]),
+                      len(forced))
     logits, records = [], []
     ss = SV.ServeState(state.caches, state.regions)
     for t in range(len(forced)):
@@ -442,25 +727,8 @@ def _teacher_forced(params, cfg, prompt, forced, device):
     return torch.stack(logits), records
 
 
-def parity_phase(dev, cfg_full, seed: int = 1, prompt_len: int = 2048,
-                 steps: int = 64):
-    import numpy as np
+def _parity(name, lg_dev, rec_dev, lg_cpu, rec_cpu, prompt_len):
     import torch
-    from repro_torch.models.model import init_params
-
-    cfg = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
-    params = init_params(cfg, seed=seed, device="cpu")
-    params_dev = {k: ([{n: ({w: t.to(dev) for w, t in v.items()}
-                            if isinstance(v, dict) else v.to(dev))
-                        for n, v in layer.items()} for layer in val]
-                      if k == "layers" else val.to(dev))
-                  for k, val in params.items()}
-    rng = np.random.RandomState(seed)
-    prompt = rng.randint(0, cfg.vocab_size, size=(prompt_len,)).astype(
-        np.int32)
-    forced = rng.randint(0, cfg.vocab_size, size=(steps,)).astype(np.int32)
-    lg_dev, rec_dev = _teacher_forced(params_dev, cfg, prompt, forced, dev)
-    lg_cpu, rec_cpu = _teacher_forced(params, cfg, prompt, forced, "cpu")
     per_step = (lg_dev - lg_cpu).abs().amax(-1)
     same_c = same_w = total = 0
     agree = []                  # steps where every winner set is identical
@@ -480,8 +748,8 @@ def parity_phase(dev, cfg_full, seed: int = 1, prompt_len: int = 2048,
     flip_tol = PARITY_FLIP_RTOL * absmax
     err_agree = float(per_step[agree].max()) if agree.any() else 0.0
     err_flip = float(per_step[~agree].max()) if (~agree).any() else 0.0
-    rec = dict(layers=2, dtype="float32", prompt=len(prompt),
-               steps=len(forced), logit_absmax=absmax,
+    rec = dict(path=name, layers=2, dtype="float32", prompt=prompt_len,
+               steps=len(rec_dev), logit_absmax=absmax,
                steps_all_winners_identical=int(agree.sum()),
                max_abs_logit_err_identical_winners=err_agree,
                atol_identical_winners=PARITY_ATOL,
@@ -490,14 +758,42 @@ def parity_phase(dev, cfg_full, seed: int = 1, prompt_len: int = 2048,
                candidate_sets_identical=f"{same_c}/{total}",
                winner_sets_identical=f"{same_w}/{total}")
     print("parity " + json.dumps(rec), flush=True)
-    _check(bool(agree[0]), "first decode step already retrieves other "
-           "winners on the card than on the CPU")
+    _check(bool(agree[0]), f"{name}: first decode step already retrieves "
+           f"other winners on the card than on the CPU")
     _check(err_agree <= PARITY_ATOL,
-           f"logits differ by {err_agree} > {PARITY_ATOL} at a step whose "
-           f"winner sets all agree")
+           f"{name}: logits differ by {err_agree} > {PARITY_ATOL} at a step "
+           f"whose winner sets all agree")
     _check(err_flip <= flip_tol,
-           f"logits differ by {err_flip} > {flip_tol} after a winner flip")
+           f"{name}: logits differ by {err_flip} > {flip_tol} after a "
+           f"winner flip")
     return rec
+
+
+def parity_phase(dev, cfg_full, seed: int = 1, prompt_len: int = 2048,
+                 steps: int = 64):
+    import numpy as np
+    from repro_torch.models.model import init_params
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
+    params = init_params(cfg, seed=seed, device="cpu")
+    params_dev = {k: ([{n: ({w: t.to(dev) for w, t in v.items()}
+                            if isinstance(v, dict) else v.to(dev))
+                        for n, v in layer.items()} for layer in val]
+                      if k == "layers" else val.to(dev))
+                  for k, val in params.items()}
+    rng = np.random.RandomState(seed)
+    prompt = rng.randint(0, cfg.vocab_size, size=(prompt_len,)).astype(
+        np.int32)
+    forced = rng.randint(0, cfg.vocab_size, size=(steps,)).astype(np.int32)
+    out = []
+    for name, paged in (("paged", True), ("contiguous", False)):
+        lg_dev, rec_dev = _teacher_forced(params_dev, cfg, prompt, forced,
+                                          dev, paged)
+        lg_cpu, rec_cpu = _teacher_forced(params, cfg, prompt, forced, "cpu",
+                                          paged)
+        out.append(_parity(name, lg_dev, rec_dev, lg_cpu, rec_cpu,
+                           prompt_len))
+    return out
 
 
 def main() -> int:
@@ -520,7 +816,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    only = sys.argv[1:] or ["kernels", "engine", "parity"]
+    phases = ("kernels", "engine", "slot", "metaview", "baseline", "parity")
+    only = sys.argv[1:] or list(phases)
+    unknown = sorted(set(only) - set(phases))
+    if unknown:
+        print(f"chip_smoke: unknown phases {unknown}; known: {phases}",
+              file=sys.stderr)
+        return 2
 
     t0 = time.perf_counter()
     build.build_all()
@@ -535,15 +837,32 @@ def main() -> int:
 
     cfg = configs.get("qwen2-1.5b")
     kern = kernel_phase(dev, cfg) if "kernels" in only else {}
-    eng = {"launches": {}}
+    params = None
+    if {"engine", "slot", "metaview", "baseline"} & set(only):
+        from repro_torch.models.model import init_params
+        params = init_params(cfg, seed=0, device=dev)
+    launches = {}             # kernel → launches on the first path using it
+    paged_out = None
     if "engine" in only:
-        eng, engine = engine_phase(dev, cfg)
-        profile_phase(engine, cfg)
+        eng, engine, paged_out = engine_phase(dev, cfg, params)
+        profile_phase(engine, cfg, "paged")
+        del engine
+        launches.update({k: eng["launches"][k] for k in PAGED_KERNELS})
+    if "slot" in only:
+        slot, engine = slot_phase(dev, cfg, params, paged_out)
+        profile_phase(engine, cfg, "slot")
+        del engine
+        for k in SLOT_KERNELS:
+            launches.setdefault(k, slot["launches"][k])
+    if "metaview" in only:
+        metaview_phase(dev, cfg, params)
+    if "baseline" in only:
+        baseline_phase(dev, cfg, params)
     if "parity" in only:
         parity_phase(dev, cfg)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
-    summary = [dict(name=name, **{k: ({**rec, "launches": eng["launches"].get(
+    summary = [dict(name=name, **{k: ({**rec, "launches": launches.get(
         name)})[k] for k in keys}) for name, rec in kern.items()]
     print(json.dumps({"kernels": summary}), flush=True)
     print(json.dumps({"ok": True, "device": {

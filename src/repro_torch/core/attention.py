@@ -1,18 +1,23 @@
-"""Attention for the paged decode path (port of the main-path part of
-``repro/core/attention.py``).
+"""Attention for prefill and decode (port of ``repro/core/attention.py``
+without the chunked-fill and tiered parts).
 
-``blockwise_causal_attention`` is the solo-prefill attention, a two-level
+``blockwise_causal_attention`` is the prefill attention, a two-level
 online softmax in plain torch ops (the JAX package leaves it to XLA).
-``sparse_decode_attention_paged`` is paper Eq. (2)-(3): one joint softmax
-over Sink ∪ Retrieved-top-k ∪ Local/Buffer window, three disjoint index
-ranges; the sink and window rows come from the block pool through the
-paged gather kernel, the retrieved rows arrive pre-gathered.
+``sparse_decode_attention`` (contiguous cache) and
+``sparse_decode_attention_paged`` (block pool) are paper Eq. (2)-(3): one
+joint softmax over Sink ∪ Retrieved-top-k ∪ Local/Buffer window, three
+disjoint index ranges. Window and winner rows come through the gather
+kernels; the contiguous sink is a view. ``dense_decode_attention`` is the
+full-attention baseline, written as the reference writes it (float32
+scores, a mask, a softmax).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels.gather_kv import gather_heads, gather_rows
 
 NEG_INF = -1e30
 
@@ -34,14 +39,25 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
     The reference scans every kv chunk for every q chunk; chunks that lie
     wholly after a q chunk are skipped here. That is exact, not an
     approximation: once a real chunk has set the running max, a fully
-    masked chunk adds exp(-1e30 - m) = 0 to the sums and rescales by 1."""
+    masked chunk adds exp(-1e30 - m) = 0 to the sums and rescales by 1.
+
+    The reference requires S to be a multiple of both chunks. Here a
+    ragged S is padded up to a multiple of both (the kv chunk rounded up
+    to a multiple of the q chunk) and the pad rows dropped: pad keys lie
+    after every real query, so causality masks them exactly."""
     b, S, H, hd = q.shape
     G = k.shape[2]
     Hg = H // G
     vd = v.shape[3]
     if S % q_chunk or S % kv_chunk:
-        raise ValueError(f"S={S} must be a multiple of the chunks "
-                         f"({q_chunk}, {kv_chunk})")
+        kv_chunk = -(-kv_chunk // q_chunk) * q_chunk     # a multiple of q's
+        pad = (-S) % kv_chunk
+        out = blockwise_causal_attention(
+            *(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+              for t in (q, k, v)),
+            sm_scale=sm_scale, softcap=softcap, q_chunk=q_chunk,
+            kv_chunk=kv_chunk)
+        return out[:, :S]
     qg = q.reshape(b, S, G, Hg, hd).float()
     kf, vf = k.float(), v.float()
     pos = torch.arange(S, device=q.device)
@@ -70,6 +86,48 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
         out = acc / l_run.clamp_min(1e-20)[..., None]
         outs.append(out.transpose(1, 2).reshape(b, q_chunk, H, vd))
     return torch.cat(outs, dim=1)
+
+
+def gather_kv_heads(cache: torch.Tensor, idx: torch.Tensor,
+                    cache_v: Optional[torch.Tensor] = None):
+    """Per-(kv-head, query-head) selected rows of a contiguous store:
+    cache (b, n, G, hd), idx (b, G, Q, k) positions → (b, G, Q, k, hd)
+    (with ``cache_v``: K and V from one launch of the row-gather kernel)."""
+    return gather_heads(cache, cache_v, idx.to(torch.int32).contiguous())
+
+
+def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                            v_cache: torch.Tensor, top_idx: torch.Tensor,
+                            window_start: torch.Tensor, pos: torch.Tensor,
+                            enc_end: torch.Tensor, *, sink_size: int,
+                            window_size: int, sm_scale: float,
+                            softcap: float = 0.0,
+                            k_ret: Optional[torch.Tensor] = None,
+                            v_ret: Optional[torch.Tensor] = None
+                            ) -> torch.Tensor:
+    """Decode attention over a contiguous cache. q (b, H, hd); k/v_cache
+    (b, n_max, G, hd); top_idx (b, G, Hg, k) retrieved positions;
+    window_start / pos / enc_end (b,) int32 → (b, H, hd) float32.
+
+    The winners (unless given pre-gathered) and the window come through
+    the contiguous row-gather kernel, K and V together; the sink is a view
+    of the first ``sink_size`` rows. As the reference's
+    ``dynamic_slice``, the window's start clamps to n_max - W for the
+    gather, while its masks keep the unclamped ``window_start``."""
+    b, H, hd = q.shape
+    n, G = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, G, H // G, hd).float()
+    if k_ret is None:
+        k_ret, v_ret = gather_kv_heads(k_cache, top_idx, v_cache)
+    start = window_start.clamp(0, n - window_size)
+    w_idx = (start[:, None] + torch.arange(window_size, device=q.device)
+             ).to(torch.int32).contiguous()
+    k_loc, v_loc = gather_rows(k_cache, v_cache, w_idx)
+    return _segment_attention(
+        qg, k_cache[:, :sink_size], v_cache[:, :sink_size], k_ret, v_ret,
+        k_loc, v_loc, top_idx, window_start, pos, enc_end,
+        sink_size=sink_size, window_size=window_size, sm_scale=sm_scale,
+        softcap=softcap).reshape(b, H, hd)
 
 
 def dense_segment_scores(qg: torch.Tensor, k_sink: torch.Tensor,
@@ -159,3 +217,23 @@ def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
         window_start, pos, enc_end, sink_size=sink_size,
         window_size=window_size, sm_scale=sm_scale, softcap=softcap
     ).reshape(b, H, hd)
+
+
+def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos: torch.Tensor, *,
+                           sm_scale: float,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Full-cache decode attention (the full-attention baseline): q
+    (b, H, hd), caches (b, n_max, G, hd); row i attends to positions
+    ≤ pos[i] → (b, H, hd) float32. Float32 scores, a mask and a softmax,
+    as the reference computes them."""
+    b, H, hd = q.shape
+    n, G = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(b, G, H // G, hd).float()
+    s = torch.einsum("bghd,bngd->bghn", qg, k_cache.float()) * sm_scale
+    s = _softcap(s, softcap)
+    valid = torch.arange(n, device=q.device)[None] <= pos[:, None]
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bghn,bngd->bghd", p, v_cache.float())
+    return out.reshape(b, H, hd)

@@ -1,6 +1,6 @@
-"""ParisKV cache state (port of the main-path part of
-``repro/core/cache.py``): Sink / Retrieval / Local / Update regions, the
-contiguous solo-prefill cache, and the paged block pool.
+"""ParisKV cache state (port of ``repro/core/cache.py`` without the
+chunked-fill, prefix-sharing and tiered parts): Sink / Retrieval / Local /
+Update regions, the contiguous per-slot cache, and the paged block pool.
 
       0 ........ sink | sink ........ enc_end | enc_end ....... pos | ...
       [   Sink     ]   [   Retrieval region ]  [ Local + Update buf ]
@@ -19,8 +19,14 @@ A block table ``bt`` (b, n_max // block_size) int32 maps logical position
 unallocated (reads clip to block 0 and are masked, writes are dropped).
 
 Where the reference returns an updated copy (``.at[].set``), the port
-updates the pool and histogram tensors **in place** (``index_put_``) and
-returns them, so a step never copies a pool.
+updates the cache, pool and histogram tensors **in place**
+(``index_put_``) and returns them, so a step never copies a store.
+
+``jax.lax.dynamic_update_slice`` and ``dynamic_slice`` move an
+out-of-range start back so the slice fits; torch indexing raises instead.
+The contiguous ops clamp their starts the same way wherever the reference
+relies on it: a finished row stays frozen at ``pos`` and its next append
+lands at ``pos + 1``, which is ``n_max`` when prompt + gen == n_max.
 """
 from __future__ import annotations
 
@@ -30,8 +36,8 @@ import torch
 
 from repro_torch.core import encode
 from repro_torch.core.config import ParisKVConfig
-from repro_torch.core.retrieval import bucket_histogram
-from repro_torch.kernels.gather_kv import (gather_heads_physical,
+from repro_torch.core.retrieval import bucket_histogram, region_mask
+from repro_torch.kernels.gather_kv import (gather_heads_physical, gather_rows,
                                           gather_rows_paged)
 
 PAGED_DEFAULT_BLOCK = 128
@@ -118,11 +124,87 @@ def prefill_write(cache: LayerKVCache, k_new: torch.Tensor,
     return cache, initial_regions(lengths, cfg)
 
 
+def append_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
+              k_t: torch.Tensor, v_t: torch.Tensor,
+              pos: torch.Tensor) -> None:
+    """Write one token's K/V (b, G, hd) at per-row position ``pos`` (b,) of
+    contiguous stores (b, n, G, hd), in place; a position past the store
+    clamps to its last row."""
+    b, n = k_cache.shape[:2]
+    rows = torch.arange(b, device=pos.device)
+    at = pos.long().clamp(0, n - 1)
+    k_cache[rows, at] = k_t.to(k_cache.dtype)
+    v_cache[rows, at] = v_t.to(v_cache.dtype)
+
+
+def decode_append(cache: LayerKVCache, k_t: torch.Tensor, v_t: torch.Tensor,
+                  pos: torch.Tensor) -> LayerKVCache:
+    """Append one token's K/V (b, G, hd) at per-row position ``pos`` (b,),
+    in place (clamped as ``append_kv``)."""
+    append_kv(cache.k, cache.v, k_t, v_t, pos)
+    return cache
+
+
+def promote_block(cache: LayerKVCache, start: int, cfg: ParisKVConfig,
+                  signs: torch.Tensor) -> LayerKVCache:
+    """Encode metadata for keys [start, start + update_interval) of every
+    row, in place (the start clamps so the block fits)."""
+    b = cache.k.shape[0]
+    starts = torch.full((b,), int(start), dtype=torch.int32,
+                        device=cache.k.device)
+    return promote_rows(cache, starts,
+                        torch.ones((b,), dtype=torch.bool,
+                                   device=cache.k.device), cfg, signs)
+
+
+def promote_rows(cache: LayerKVCache, starts: torch.Tensor,
+                 mask: torch.Tensor, cfg: ParisKVConfig,
+                 signs: torch.Tensor) -> LayerKVCache:
+    """Per-row block promotion, in place: every row with ``mask[i]`` gets
+    metadata for keys [starts[i], starts[i] + update_interval). As in the
+    reference every row's block is encoded (one batched computation) and
+    the unmasked rows keep their old metadata; each start clamps to
+    [0, n - update_interval]. The key block comes through the contiguous
+    row-gather kernel."""
+    U = cfg.update_interval
+    b, n = cache.k.shape[:2]
+    st = starts.to(torch.int32).clamp(0, n - U)
+    lidx = (st[:, None] + torch.arange(U, dtype=torch.int32,
+                                       device=st.device)).contiguous()
+    blk = gather_rows(cache.k, None, lidx)                      # (b, U, G, hd)
+    meta = _encode_block(blk, cfg, signs)                       # (b, G, U, B)
+    rows, at = torch.arange(b, device=st.device)[:, None], lidx.long()
+    keep = mask[:, None, None, None]
+    for dst, new in zip(cache[2:], meta):
+        old = dst[rows, :, at]                                  # (b, U, G, B)
+        dst[rows, :, at] = torch.where(keep, new.transpose(1, 2), old)
+    return cache
+
+
+def promote_trigger(regions: CacheRegions, cfg: ParisKVConfig) -> torch.Tensor:
+    """Per-row bool: True where the Local+Buffer window is full."""
+    return (regions.pos + 1 - regions.enc_end) >= window_size(cfg)
+
+
+def maybe_promote(cache: LayerKVCache, regions: CacheRegions,
+                  cfg: ParisKVConfig, signs: torch.Tensor
+                  ) -> Tuple[LayerKVCache, CacheRegions]:
+    """Sliding-window update (§4.2.1), per row: every row whose window is
+    full encodes its oldest ``update_interval`` tokens and advances its
+    enc_end. The reference skips the encode with ``lax.cond`` when no row
+    triggers; here a host ``if`` decides (one device synchronization)."""
+    trigger = promote_trigger(regions, cfg)
+    if bool(trigger.any()):
+        promote_rows(cache, regions.enc_end, trigger, cfg, signs)
+    new_enc = torch.where(trigger, regions.enc_end + cfg.update_interval,
+                          regions.enc_end)
+    return cache, CacheRegions(pos=regions.pos, enc_end=new_enc)
+
+
 def retrieval_valid_mask(n_max: int, regions: CacheRegions,
                          cfg: ParisKVConfig) -> torch.Tensor:
     """(b, n_max) bool mask over each row's retrieval region."""
-    idx = torch.arange(n_max, device=regions.enc_end.device)
-    return (idx >= cfg.sink_size) & (idx < regions.enc_end[..., None])
+    return region_mask(n_max, regions.enc_end, cfg)
 
 
 # ----------------------------------------------------------- paged pool ----
@@ -186,6 +268,23 @@ def paged_decode_append(pool: PagedLayerKVCache, block_tables: torch.Tensor,
     return pool
 
 
+def paged_meta_view(pool: PagedLayerKVCache, block_tables: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each row's logical metadata view through its block table: (ids,
+    codes, weights), each (b, G, nblk·bs, B), materialized (the meta-view
+    fallback's per-step gather). Unallocated entries clip to block 0; the
+    retrieval region never reaches them."""
+    nb = pool.meta_ids.shape[0]
+    b, nblk = block_tables.shape
+    safe = block_tables.clamp(0, nb - 1).long()
+
+    def view(a):
+        out = a[safe]                               # (b, nblk, G, bs, B)
+        G, bs, B = out.shape[2:]
+        return out.transpose(1, 2).reshape(b, G, nblk * bs, B)
+    return view(pool.meta_ids), view(pool.meta_codes), view(pool.meta_w)
+
+
 def paged_gather_rows(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
                       block_tables: torch.Tensor, lidx: torch.Tensor):
     """K (and V) rows at per-row logical positions: pool (nb, bs, G, hd),
@@ -206,8 +305,8 @@ def gather_heads_physical_kv(pool_k: torch.Tensor,
 def paged_ids_view(pool: PagedLayerKVCache,
                    block_tables: torch.Tensor) -> torch.Tensor:
     """Each row's logical centroid-id view (b, G, n, B) through its table
-    (unallocated entries clip to block 0). Audits only: the decode path
-    never materializes it."""
+    (unallocated entries clip to block 0). Audits only: the fused decode
+    path never materializes it."""
     nb = pool.meta_ids.shape[0]
     b, nblk = block_tables.shape
     ids = pool.meta_ids[block_tables.clamp(0, nb - 1).long()]
@@ -249,11 +348,6 @@ def paged_promote_rows_hist(pool: PagedLayerKVCache, hist: torch.Tensor,
     hist += bucket_histogram(meta.centroid_ids, inc[:, None, :],
                              cfg.num_centroids())
     return pool, hist
-
-
-def promote_trigger(regions: CacheRegions, cfg: ParisKVConfig) -> torch.Tensor:
-    """Per-row bool: True where the Local+Buffer window is full."""
-    return (regions.pos + 1 - regions.enc_end) >= window_size(cfg)
 
 
 def paged_maybe_promote_hist(pool: PagedLayerKVCache, hist: torch.Tensor,

@@ -1,5 +1,7 @@
-"""Fused two-stage paged retrieval (port of the main-path part of
-``repro/core/retrieval.py``).
+"""Two-stage retrieval (port of ``repro/core/retrieval.py``): the
+contiguous pipeline ``retrieve`` (and ``retrieve_paged`` over a paged
+store's materialized logical view), and the fused paged pipeline
+``retrieve_paged_fused``.
 
 Stage I   scores the pool's uint8 centroid ids through the block table
           against per-(subspace, centroid) tier weights built from the
@@ -11,9 +13,19 @@ Stage II  reranks the candidates with RSQ-IP, reading their codes and
 Top-k     keeps the ``top_k`` best estimates (a stable sort, so ties go to
           the lowest candidate slot as ``lax.top_k`` does).
 
-Every kernel wrapper dispatches on the device of its tensors, so
-``retrieve_paged_fused`` has no kernel switch: CPU tensors run the plain
-versions, CUDA tensors the Hopper kernels.
+The contiguous pipeline computes its bucket histogram per query over the
+valid region (or a strided sample of it, ``hist_sample``), scores through
+the contiguous Stage-I kernel, and reranks with the paged Stage-II kernel:
+a contiguous metadata store (b, G, n, B) is a pool of b blocks of size n,
+so candidate c of row i lives at physical row i·n + c.
+
+The reference takes a general ``valid`` mask (..., n); every caller passes
+``cache.retrieval_valid_mask``, the interval [sink, enc_end) per row, so
+the port takes ``enc_end`` (b,) instead and the kernels mask by it.
+
+Every kernel wrapper dispatches on the device of its tensors, so no
+function here has a kernel switch: CPU tensors run the plain versions,
+CUDA tensors the Hopper kernels.
 """
 from __future__ import annotations
 
@@ -26,10 +38,18 @@ from repro_torch.core import centroids
 from repro_torch.core.config import ParisKVConfig
 from repro_torch.core.encode import QueryTransform
 from repro_torch.kernels.bucket_topk import bucket_topk
-from repro_torch.kernels.collision import collision_scores_paged_kernel
+from repro_torch.kernels.collision import (collision_scores_kernel,
+                                           collision_scores_paged_kernel)
 from repro_torch.kernels.rerank import rerank_paged_kernel
 
 NEG_INF = -1e30
+
+
+class RetrievalResult(NamedTuple):
+    indices: torch.Tensor        # (b, G, Hg, k) int32 final top-k positions
+    scores: torch.Tensor         # (b, G, Hg, k) float32 RSQ-IP estimates
+    cand_indices: torch.Tensor   # (b, G, Hg, C) int32 Stage-I candidates
+    coarse_scores: torch.Tensor  # (b, G, Hg, n) int32 Stage-I scores
 
 
 class PagedRetrievalResult(NamedTuple):
@@ -110,6 +130,50 @@ def collision_scores_paged(pool_ids: torch.Tensor, block_tables: torch.Tensor,
                                          enc_end, cfg.sink_size)
 
 
+def region_mask(n: int, enc_end: torch.Tensor,
+                cfg: ParisKVConfig) -> torch.Tensor:
+    """(b, n) bool: each row's retrieval region [sink, enc_end)."""
+    pos = torch.arange(n, device=enc_end.device)
+    return (pos >= cfg.sink_size) & (pos < enc_end[:, None])
+
+
+def collision_scores(meta_ids: torch.Tensor, q_sub: torch.Tensor,
+                     enc_end: torch.Tensor, cfg: ParisKVConfig,
+                     hist_sample: int = 0) -> torch.Tensor:
+    """Stage-I coarse scores over a contiguous metadata store (Eq. 15).
+
+    meta_ids (b, G, n, B) uint8, q_sub (b, G, Hg, B, m), enc_end (b,)
+    int32 → (b, G, Hg, n) int32, -1 outside [sink, enc_end). The bucket
+    histogram is computed here per query over the region — from a strided
+    sample of about ``hist_sample`` keys, scaled back, when > 0 — and the
+    per-key lookup runs in the contiguous Stage-I kernel."""
+    nc = cfg.num_centroids()
+    n = meta_ids.shape[-2]
+    cs = centroids.centroid_scores(q_sub, cfg.m)
+    valid = region_mask(n, enc_end, cfg)[:, None]             # (b, 1, n)
+    stride = max(n // hist_sample, 1) if hist_sample else 1
+    if stride > 1:
+        counts = bucket_histogram(meta_ids[:, :, ::stride],
+                                  valid[..., ::stride], nc) * stride
+    else:
+        counts = bucket_histogram(meta_ids, valid, nc)         # (b, G, B, nc)
+    n_valid = valid.sum(-1)                                   # (b, 1)
+    table = tier_weight_table(cs, counts[:, :, None], n_valid[..., None],
+                              cfg)
+    return collision_scores_kernel(meta_ids.contiguous(),
+                                   table.to(torch.int32).contiguous(),
+                                   enc_end.to(torch.int32).contiguous(),
+                                   cfg.sink_size)
+
+
+def select_candidates(scores: torch.Tensor,
+                      num_candidates: int) -> torch.Tensor:
+    """Top-C by integer score, descending, ties lowest index first
+    (``lax.top_k``'s order): a stable descending sort."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[..., :num_candidates].to(torch.int32)
+
+
 def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
                              score_range: int) -> torch.Tensor:
     """Sort-free top-C over small-range integer scores; ``lax.top_k``'s
@@ -130,14 +194,81 @@ def rerank_paged(pool_codes: torch.Tensor, pool_w: torch.Tensor,
                                cfg.sink_size, cfg.m, cfg.magnitude_bits)
 
 
+def rerank(meta_codes: torch.Tensor, meta_w: torch.Tensor,
+           qt: QueryTransform, cand_idx: torch.Tensor, enc_end: torch.Tensor,
+           cfg: ParisKVConfig) -> torch.Tensor:
+    """Stage-II RSQ-IP estimates (b, G, Hg, C) float32 of the candidates
+    over a contiguous store (b, G, n, B); candidates outside
+    [sink, enc_end) get NEG_INF. Runs the paged Stage-II kernel with each
+    batch row as one block: candidate c of row i is physical row i·n + c."""
+    b, _, n, _ = meta_codes.shape
+    rows = torch.arange(b, device=cand_idx.device)[:, None, None, None] * n
+    return rerank_paged(meta_codes, meta_w, (cand_idx + rows).to(torch.int32),
+                        cand_idx, qt, enc_end, cfg)
+
+
+def _top_k(est: torch.Tensor, cand: torch.Tensor, top_k: int):
+    """The ``top_k`` best estimates and their candidate positions, ties to
+    the lowest candidate slot (``lax.top_k``)."""
+    top_est, top_pos = torch.sort(est, dim=-1, descending=True, stable=True)
+    top_est, top_pos = top_est[..., :top_k], top_pos[..., :top_k]
+    return top_est, cand.gather(-1, top_pos)
+
+
+def retrieve(meta_ids: torch.Tensor, meta_codes: torch.Tensor,
+             meta_w: torch.Tensor, qt: QueryTransform, enc_end: torch.Tensor,
+             cfg: ParisKVConfig, num_candidates: int, top_k: int,
+             hist_sample: int = 0,
+             bucket_select: bool = True) -> RetrievalResult:
+    """The two-stage pipeline (Algorithm 1) over a contiguous metadata
+    store (b, G, n, B) for queries qt (b, G, Hg, ...). ``bucket_select``
+    takes the sort-free bucket top-C (identical index set, ascending)
+    instead of a stable sort (descending)."""
+    coarse = collision_scores(meta_ids, qt.q_sub, enc_end, cfg,
+                              hist_sample=hist_sample)
+    if bucket_select:
+        cand = select_candidates_bucket(coarse, num_candidates,
+                                        max(cfg.tier_weights)
+                                        * meta_ids.shape[-1])
+    else:
+        cand = select_candidates(coarse, num_candidates)
+    est = rerank(meta_codes, meta_w, qt, cand, enc_end, cfg)
+    top_est, top_idx = _top_k(est, cand, top_k)
+    return RetrievalResult(top_idx, top_est, cand, coarse)
+
+
+def split_block_relative(idx: torch.Tensor, block_size: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Logical positions → (logical block, in-block offset)."""
+    blk = torch.div(idx, block_size, rounding_mode="floor")
+    return blk, idx - blk * block_size
+
+
+def retrieve_paged(view, qt: QueryTransform, enc_end: torch.Tensor,
+                   cfg: ParisKVConfig, num_candidates: int, top_k: int,
+                   block_tables: torch.Tensor, block_size: int,
+                   hist_sample: int = 0,
+                   bucket_select: bool = True) -> PagedRetrievalResult:
+    """``retrieve`` over a paged store's materialized logical metadata view
+    (``cache.paged_meta_view``: ids, codes, weights, each (b, G, n, B)),
+    the winners translated to block-relative physical addresses."""
+    res = retrieve(*view, qt, enc_end, cfg, num_candidates, top_k,
+                   hist_sample=hist_sample, bucket_select=bucket_select)
+    safe_blk, off, phys_rows = _block_relative(res.indices, block_tables,
+                                               block_size)
+    return PagedRetrievalResult(
+        indices=res.indices, block_ids=safe_blk, offsets=off,
+        phys_rows=phys_rows, scores=res.scores,
+        cand_indices=res.cand_indices, coarse_scores=res.coarse_scores)
+
+
 def _block_relative(idx: torch.Tensor, block_tables: torch.Tensor,
                     block_size: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Logical positions → (physical block, offset, flat physical row),
     unallocated (< 0) table entries clipped to block 0."""
     b = block_tables.shape[0]
-    blk = torch.div(idx, block_size, rounding_mode="floor")
-    off = idx - blk * block_size
+    blk, off = split_block_relative(idx, block_size)
     phys_blk = block_tables.gather(1, blk.reshape(b, -1).long()).reshape(
         blk.shape).clamp_min(0)
     return phys_blk, off, phys_blk * block_size + off
@@ -161,9 +292,7 @@ def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
     _, _, cand_phys = _block_relative(cand, block_tables, bs)
     est = rerank_paged(pool.meta_codes, pool.meta_w, cand_phys, cand, qt,
                        enc_end, cfg)
-    top_est, top_pos = torch.sort(est, dim=-1, descending=True, stable=True)
-    top_est, top_pos = top_est[..., :top_k], top_pos[..., :top_k]
-    top_idx = cand.gather(-1, top_pos)
+    top_est, top_idx = _top_k(est, cand, top_k)
     safe_blk, off, phys_rows = _block_relative(top_idx, block_tables, bs)
     return PagedRetrievalResult(
         indices=top_idx, block_ids=safe_blk, offsets=off,

@@ -1,9 +1,12 @@
-"""Hand-written Hopper kernels for the four hot paths of paged ParisKV decode.
+"""Hand-written Hopper kernels for the hot paths of ParisKV decode.
 
-  collision/    Stage-I tier-weight accumulation over the paged id pool
+  collision/    Stage-I tier-weight accumulation, over the paged id pool
+                (collision_paged) or a contiguous id store (collision)
   bucket_topk/  histogram + threshold walk + ordered compaction (top-C)
-  rerank/       Stage-II RSQ-IP with the physical-row gather fused in
-  gather_kv/    block-table-indirect K/V row gather (winners, sink, window)
+  rerank/       Stage-II RSQ-IP with the physical-row gather fused in (a
+                contiguous store is a pool of one block per batch row)
+  gather_kv/    K/V row gather, block-table-indirect (gather_rows_paged) or
+                from a contiguous store (gather_rows): winners and window
 
 Each subpackage has ``ops.py`` (the wrapper) and ``ref.py`` (the plain
 PyTorch version). A wrapper takes the plain version only for CPU tensors;
@@ -15,7 +18,7 @@ kernels.
 from __future__ import annotations
 
 KERNELS = ("collision_paged", "bucket_topk", "rerank_paged",
-           "gather_rows_paged")
+           "gather_rows_paged", "collision", "gather_rows")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

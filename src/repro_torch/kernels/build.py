@@ -43,6 +43,8 @@ SIGNATURES = {
                      _I, _I, _I, _I, _I, _P],
     "gather_rows_paged": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
                           _I, _I, _I, _I, _P],
+    "collision": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gather_rows": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P],
 }
 
 

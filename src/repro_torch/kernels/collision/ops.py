@@ -1,11 +1,13 @@
-"""Wrapper of the paged Stage-I collision kernel (csrc/collision_paged.cu)."""
+"""Wrappers of the Stage-I collision kernels: paged
+(csrc/collision_paged.cu) and contiguous (csrc/collision.cu)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import build as K
-from repro_torch.kernels.collision.ref import collision_paged_ref
+from repro_torch.kernels.collision.ref import (collision_paged_ref,
+                                              collision_ref)
 
 
 def collision_scores_paged_kernel(pool_ids: torch.Tensor,
@@ -38,4 +40,34 @@ def collision_scores_paged_kernel(pool_ids: torch.Tensor,
              K.ptr(tables), K.ptr(enc_end), K.ptr(out), nb, G, Hg, bs, nblk,
              B, nc, int(sink_size), b)
     LAUNCHES["collision_paged"] += 1
+    return out
+
+
+def collision_scores_kernel(ids: torch.Tensor, tables: torch.Tensor,
+                            enc_end: torch.Tensor,
+                            sink_size: int) -> torch.Tensor:
+    """Contiguous Stage-I scores, masked to [sink, enc_end).
+
+    ids (b, G, n, B) uint8 (the contiguous cache's meta_ids as it lies),
+    tables (b, G, Hg, B, nc) int32, enc_end (b,) int32 → (b, G, Hg, n)
+    int32. CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if ids.device.type == "cpu":
+        return collision_ref(ids[:, :, None], tables, enc_end, sink_size)
+    K.check_cuda("collision", ids, tables, enc_end)
+    b, G, n, B = ids.shape
+    Hg, nc = tables.shape[2], tables.shape[-1]
+    if (ids.dtype != torch.uint8 or tables.dtype != torch.int32
+            or enc_end.dtype != torch.int32):
+        raise TypeError("collision: expects uint8 ids and int32 tables and "
+                        "enc_end")
+    if (tables.shape != (b, G, Hg, B, nc) or B not in (8, 16) or nc > 256
+            or nc % 4 or enc_end.shape != (b,) or ids.data_ptr() % 16
+            or tables.data_ptr() % 16):
+        raise ValueError(f"collision: unsupported shapes ids "
+                         f"{tuple(ids.shape)}, tables {tuple(tables.shape)}")
+    out = torch.empty((b, G, Hg, n), dtype=torch.int32, device=ids.device)
+    K.launch("collision", K.ptr(ids), K.ptr(tables), K.ptr(enc_end),
+             K.ptr(out), b * G, G, Hg, n, B, nc, int(sink_size))
+    LAUNCHES["collision"] += 1
     return out

@@ -1,5 +1,8 @@
-"""Plain PyTorch version of the paged Stage-I collision kernel."""
+"""Plain PyTorch versions of the Stage-I collision kernels (paged and
+contiguous)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -23,3 +26,28 @@ def collision_paged_ref(pool_ids: torch.Tensor, block_tables: torch.Tensor,
     pos = torch.arange(n, device=ids.device)
     valid = (pos[None] >= sink_size) & (pos[None] < enc_end[:, None])
     return torch.where(valid[:, None, None, :], scores, -1)
+
+
+def collision_ref(ids: torch.Tensor, table: torch.Tensor,
+                  enc_end: Optional[torch.Tensor] = None,
+                  sink_size: int = 0) -> torch.Tensor:
+    """Stage-I scores over contiguous id streams: ids (..., n, B) uint8 or
+    int, table (..., B, nc) int32, their leading dims broadcast → (..., n)
+    int32 with S_i = Σ_s table[s, ids[i, s]] (the reference's
+    ``collision_scores_kernel``). With ``enc_end`` (b,) aligned to the first
+    leading dim, positions outside [sink_size, enc_end) become -1."""
+    n, B = ids.shape[-2:]
+    nc = table.shape[-1]
+    lead = torch.broadcast_shapes(ids.shape[:-2], table.shape[:-2])
+    offsets = torch.arange(B, device=ids.device) * nc
+    idx = (ids.long() + offsets).reshape(ids.shape[:-2] + (n * B,))
+    flat = table.reshape(table.shape[:-2] + (B * nc,))
+    per_key = flat.expand(lead + (B * nc,)).gather(
+        -1, idx.expand(lead + (n * B,)))
+    scores = per_key.reshape(lead + (n, B)).sum(-1).to(torch.int32)
+    if enc_end is None:
+        return scores
+    pos = torch.arange(n, device=ids.device)
+    valid = (pos >= sink_size) & (pos < enc_end[:, None])
+    valid = valid.reshape(valid.shape[:1] + (1,) * (len(lead) - 1) + (n,))
+    return torch.where(valid, scores, -1)

@@ -1,5 +1,7 @@
-"""Plain PyTorch versions of the paged K/V row gather (ports of
-``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``)."""
+"""Plain PyTorch versions of the K/V row gathers: paged (ports of
+``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``) and
+contiguous (``repro/kernels/gather_kv/gather_kv.py:gather_rows_pallas`` and
+``repro/core/attention.py:gather_kv_heads``)."""
 from __future__ import annotations
 
 import torch
@@ -28,3 +30,23 @@ def gather_heads_physical_ref(pool: torch.Tensor,
     rows = phys_rows.long().clamp(0, nb * bs - 1)
     heads = torch.arange(G, device=rows.device)[None, :, None, None]
     return flat[rows, heads]
+
+
+def gather_rows_ref(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """store (R, n, ...), idx (R, L) positions → (R, L, ...) with
+    out[i, l] = store[i, idx[i, l]] (the reference's
+    ``gather_rows_pallas`` batched over R). Indices clip to [0, n)."""
+    R, n = store.shape[:2]
+    rows = torch.arange(R, device=store.device)[:, None]
+    return store[rows, idx.long().clamp(0, n - 1)]
+
+
+def gather_heads_ref(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """store (b, n, G, hd), idx (b, G, Q, k) positions → (b, G, Q, k, hd)
+    with out[i, g, q, j] = store[i, idx[i, g, q, j], g] (the reference's
+    ``core/attention.py:gather_kv_heads``). Indices clip to [0, n)."""
+    b, n, G = store.shape[:3]
+    dev = store.device
+    rows = torch.arange(b, device=dev)[:, None, None, None]
+    heads = torch.arange(G, device=dev)[None, :, None, None]
+    return store[rows, idx.long().clamp(0, n - 1), heads]

@@ -19,12 +19,11 @@ def rerank_paged_ref(pool_codes: torch.Tensor, pool_w: torch.Tensor,
     phys_rows / cand_idx (b, G, Hg, C) int32, q_sub (b, G, Hg, B, m),
     q_norm (b, G, Hg), enc_end (b,) → (b, G, Hg, C) float32."""
     nb, G, bs, B = pool_codes.shape
-    flat_codes = pool_codes.transpose(1, 2).reshape(nb * bs, G, B)
-    flat_w = pool_w.transpose(1, 2).reshape(nb * bs, G, B)
     rows = phys_rows.long().clamp(0, nb * bs - 1)
+    blk, off = rows // bs, rows % bs
     heads = torch.arange(G, device=rows.device)[None, :, None, None]
-    codes = flat_codes[rows, heads]                       # (b, G, Hg, C, B)
-    w = flat_w[rows, heads]
+    codes = pool_codes[blk, heads, off]                   # (b, G, Hg, C, B)
+    w = pool_w[blk, heads, off]
     v = quantizer.decode_directions(codes, m, bits)       # (..., C, B, m)
     dots = torch.einsum("...cbm,...bm->...cb", v, q_sub.float())
     est = q_norm[..., None] * (w * dots).sum(-1)

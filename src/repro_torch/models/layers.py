@@ -134,6 +134,88 @@ def _decode_qkv(p: dict, x_t: torch.Tensor, spec: AttnSpec,
     return q[:, 0], k[:, 0], v[:, 0]
 
 
+def attn_decode_dense(p: dict, x_t: torch.Tensor,
+                      kv: Tuple[torch.Tensor, torch.Tensor],
+                      pos: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """Full-attention decode over a contiguous cache (the baseline; global
+    layers only, the reference's ring-buffer branch serves sliding layers,
+    which qwen2 has none of). Appends the token at ``pos`` (b,) in place
+    (clamped as ``cache.append_kv``) → y (b, d)."""
+    k_cache, v_cache = kv
+    b = x_t.shape[0]
+    q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
+    C.append_kv(k_cache, v_cache, k_t, v_t, pos)
+    out = A.dense_decode_attention(q, k_cache, v_cache, pos,
+                                   sm_scale=spec.scale(), softcap=spec.softcap)
+    return out.reshape(b, -1).to(x_t.dtype) @ p["wo"]
+
+
+def attn_decode_pariskv(p: dict, x_t: torch.Tensor, cache: C.LayerKVCache,
+                        regions: C.CacheRegions, spec: AttnSpec,
+                        pcfg: ParisKVConfig, signs: torch.Tensor,
+                        num_candidates: int
+                        ) -> Tuple[torch.Tensor, R.RetrievalResult]:
+    """ParisKV decode of one layer over the contiguous per-slot cache
+    (paper Fig. 2 B.1→B.3): append the token in place, retrieve over the
+    Retrieval region (Stage I with a per-query bucket histogram, top-C,
+    Stage II), attend over Sink ∪ Top-k ∪ Local/Buffer. The caller
+    promotes. → (y (b, d), the retrieval result)."""
+    b = x_t.shape[0]
+    H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    pos = regions.pos + 1
+    q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
+    C.decode_append(cache, k_t, v_t, pos)
+
+    qt = E.encode_query(q.reshape(b, G, H // G, hd), pcfg, signs)
+    res = R.retrieve(cache.meta_ids, cache.meta_codes, cache.meta_w, qt,
+                     regions.enc_end, pcfg, num_candidates, pcfg.top_k,
+                     hist_sample=pcfg.hist_sample)
+    W = C.window_size(pcfg)
+    ws = (pos + 1 - W).clamp_min(0)
+    out = A.sparse_decode_attention(
+        q, cache.k, cache.v, res.indices, ws, pos, regions.enc_end,
+        sink_size=pcfg.sink_size, window_size=W, sm_scale=spec.scale(),
+        softcap=spec.softcap)
+    return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
+
+
+def attn_decode_pariskv_paged(p: dict, x_t: torch.Tensor,
+                              pool: C.PagedLayerKVCache,
+                              block_tables: torch.Tensor,
+                              regions: C.CacheRegions, spec: AttnSpec,
+                              pcfg: ParisKVConfig, signs: torch.Tensor,
+                              num_candidates: int, append_index=None
+                              ) -> Tuple[torch.Tensor,
+                                         R.PagedRetrievalResult]:
+    """The meta-view fallback (``PagedServingEngine(fused=False)``): the
+    same math as ``attn_decode_pariskv`` over the block pool. The token is
+    appended through the block table, retrieval runs over the materialized
+    logical metadata view (the contiguous Stage I, a per-query histogram),
+    the winners come back block-relative, and the three attention segments
+    are gathered from the pool. Token-identical to the fused path."""
+    b = x_t.shape[0]
+    H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    pos = regions.pos + 1
+    q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
+    C.paged_decode_append(pool, block_tables, k_t, v_t, pos,
+                          index=append_index)
+
+    qt = E.encode_query(q.reshape(b, G, H // G, hd), pcfg, signs)
+    view = C.paged_meta_view(pool, block_tables)
+    res = R.retrieve_paged(view, qt, regions.enc_end, pcfg, num_candidates,
+                           pcfg.top_k, block_tables, pool.k.shape[1],
+                           hist_sample=pcfg.hist_sample)
+    k_ret, v_ret = C.gather_heads_physical_kv(pool.k, pool.v, res.phys_rows)
+
+    W = C.window_size(pcfg)
+    ws = (pos + 1 - W).clamp_min(0)
+    out = A.sparse_decode_attention_paged(
+        q, pool.k, pool.v, block_tables, res.indices, ws, pos,
+        regions.enc_end, k_ret, v_ret, sink_size=pcfg.sink_size,
+        window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
+    return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
+
+
 def attn_decode_pariskv_paged_fused(p: dict, x_t: torch.Tensor,
                                     pool: C.PagedLayerKVCache,
                                     hist: torch.Tensor,

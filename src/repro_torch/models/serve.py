@@ -1,20 +1,23 @@
-"""Serving-side forward passes over the paged pool (port of the solo-prefill
-paged path of ``repro/models/serve.py``).
+"""Serving-side forward passes (port of the solo-prefill paths of
+``repro/models/serve.py``).
 
-* ``prefill`` runs the prompt through every layer into a contiguous
-  batch=1 cache (``core.cache.LayerKVCache``) with ParisKV metadata.
-* ``admit_paged`` scatters that cache into the shared block pool and
-  computes the slot's incremental bucket histogram.
-* ``decode_chunk`` runs ``num_steps`` greedy decode steps; every layer
-  goes through ``layers.attn_decode_pariskv_paged_fused`` and promotes its
-  oldest window tokens when a row's window fills.
+* ``prefill`` runs LEFT-aligned prompts (or right-aligned ones with no
+  ``lengths``, as the wave engine sends them) through every layer into
+  contiguous caches (``core.cache.LayerKVCache``) with ParisKV metadata.
+* ``admit_slot`` copies a batch-1 prefill into a contiguous slot;
+  ``admit_paged`` scatters it into the shared block pool and computes the
+  slot's incremental bucket histogram.
+* ``decode_step`` / ``decode_chunk`` run greedy decode steps over
+  contiguous caches (``block_tables`` None) or the paged pool (fused, or
+  the meta-view fallback with ``paged_fused=False``), ParisKV or the
+  full-attention baseline (``use_pariskv=False``, contiguous only).
 
 The reference scans layers and steps with ``lax.scan`` and guards the
 promotion encode with ``lax.cond``; here they are Python loops and a host
-``if``. Deciding "any row promotes" and selecting the rows whose append
-block is allocated each read a small tensor back from the device: two
-synchronizations per decode step, shared by all layers. Pool and
-histogram tensors are updated in place.
+``if``. Deciding "any row promotes" reads a bool back from the device once
+per step; the paged paths also select the rows whose append block is
+allocated (a second synchronization), both shared by all layers. Cache,
+pool and histogram tensors are updated in place.
 """
 from __future__ import annotations
 
@@ -149,59 +152,73 @@ def prefill(params: dict, cfg: ModelConfig, tokens, n_max: int,
 def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                   cache: dict, regions: CC.CacheRegions, signs: torch.Tensor,
                   num_candidates: int, will_promote: torch.Tensor,
-                  any_promote: bool, block_tables: torch.Tensor,
-                  append_index, record: Optional[list]) -> torch.Tensor:
-    """One layer of one decode step: fused paged ParisKV attention, then
-    (when ``any_promote``) promotion of every triggered row's oldest
-    ``update_interval`` window tokens with the histogram maintained."""
+                  any_promote: bool, block_tables: Optional[torch.Tensor],
+                  append_index, record: Optional[list], use_pariskv: bool,
+                  paged_fused: bool) -> torch.Tensor:
+    """One layer of one decode step. ParisKV layers run the contiguous
+    path (``block_tables`` None), the fused paged path, or the paged
+    meta-view fallback (``paged_fused=False``), then (when
+    ``any_promote``) promote every triggered row's oldest
+    ``update_interval`` window tokens — on the paged paths with the
+    histogram maintained. ``use_pariskv=False`` is the full-attention
+    baseline over the contiguous cache (no promotion)."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_t, p["norm_attn"], cfg.norm_eps)
-    y, res = L.attn_decode_pariskv_paged_fused(
-        p["attn"], h, cache["kv"], cache["hist"], block_tables, regions,
-        ld.attn, pcfg, signs, num_candidates, append_index=append_index)
-    if record is not None:
+    kv = cache["kv"]
+    res = None
+    if not (use_pariskv and ld.use_pariskv):
+        y = L.attn_decode_dense(p["attn"], h, (kv.k, kv.v), regions.pos + 1,
+                                ld.attn)
+    elif block_tables is None:
+        y, res = L.attn_decode_pariskv(p["attn"], h, kv, regions, ld.attn,
+                                       pcfg, signs, num_candidates)
+        if any_promote:
+            CC.promote_rows(kv, regions.enc_end, will_promote, pcfg, signs)
+    else:
+        if paged_fused:
+            y, res = L.attn_decode_pariskv_paged_fused(
+                p["attn"], h, kv, cache["hist"], block_tables, regions,
+                ld.attn, pcfg, signs, num_candidates,
+                append_index=append_index)
+        else:
+            y, res = L.attn_decode_pariskv_paged(
+                p["attn"], h, kv, block_tables, regions, ld.attn, pcfg,
+                signs, num_candidates, append_index=append_index)
+        if any_promote:
+            CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
+                                       regions.enc_end, will_promote, pcfg,
+                                       signs)
+    if record is not None and res is not None:
         record.append(res)
-    if any_promote:
-        CC.paged_promote_rows_hist(cache["kv"], cache["hist"], block_tables,
-                                   regions.enc_end, will_promote, pcfg,
-                                   signs)
     x_t = x_t + y.to(x_t.dtype)
     h = L.rms_norm(x_t, p["norm_mlp"], cfg.norm_eps)
     return x_t + L.mlp_fwd(p["mlp"], h).to(x_t.dtype)
 
 
-def _stage_pass(params: dict, cfg: ModelConfig, x_t: torch.Tensor,
-                caches: List[dict], regions: CC.CacheRegions,
-                signs: torch.Tensor, num_candidates: int,
-                will_promote: torch.Tensor, any_promote: bool,
-                block_tables: torch.Tensor,
-                record: Optional[list]) -> torch.Tensor:
-    """One step's layer stack, layer by layer (the reference scans each
-    stage's stacked layers). The rows whose append block is allocated are
-    selected once and shared by every layer."""
-    bs = caches[0]["kv"].k.shape[1]
-    append_index = CC.paged_append_index(block_tables, regions.pos + 1, bs)
-    for ld, p, cache in zip(layer_defs(cfg), params["layers"], caches):
-        x_t = _layer_decode(p, x_t, ld, cfg, cache, regions, signs,
-                            num_candidates, will_promote, any_promote,
-                            block_tables, append_index, record)
-    return x_t
-
-
 @torch.no_grad()
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
-                state: ServeState, block_tables: torch.Tensor,
+                state: ServeState, block_tables: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
-                record: Optional[list] = None):
-    """One decode step over the paged pool: token (b,) int32 → (logits
-    (b, vocab), new state). The caches update in place.
+                record: Optional[list] = None, use_pariskv: bool = True,
+                paged_fused: bool = True):
+    """One decode step: token (b,) int32 → (logits (b, vocab), new state).
+    The caches update in place.
 
-    Rows advance independently: ``active`` (b,) bool freezes the
-    ``pos``/``enc_end`` of inactive rows (free or finished slots) and keeps
-    them from promoting; their compute still runs and their append lands
-    at the dead position pos + 1 (or is dropped through an unallocated
-    table entry). ``record``, when a list, receives each layer's
-    PagedRetrievalResult (for audits and parity tests)."""
+    ``block_tables`` (b, nblk) int32 selects the paged pool (caches from
+    ``make_paged_caches``), None the contiguous per-slot caches
+    (``make_caches``); ``paged_fused=False`` takes the paged meta-view
+    fallback and ``use_pariskv=False`` the full-attention baseline
+    (contiguous only). Rows advance independently: ``active`` (b,) bool
+    freezes the ``pos``/``enc_end`` of inactive rows (free or finished
+    slots) and keeps them from promoting; their compute still runs and
+    their append lands at the dead position pos + 1 (clamped to the store,
+    or dropped through an unallocated table entry). ``record``, when a
+    list, receives each layer's retrieval result (audits and parity
+    tests).
+
+    Deciding "any row promotes" reads one bool back from the device; the
+    paged paths also select the rows whose append block is allocated, once
+    per step for all layers."""
     pcfg = cfg.pariskv
     b = token.shape[0]
     dev = token.device
@@ -211,12 +228,23 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     act = (torch.ones((b,), dtype=torch.bool, device=dev) if active is None
            else active)
     will_promote = CC.promote_trigger(regions, pcfg) & act
-    any_promote = bool(will_promote.any())           # host sync
-    bs = state.caches[0]["kv"].k.shape[1]
-    num_candidates = pcfg.candidate_count(block_tables.shape[1] * bs)
-    x_t = _stage_pass(params, cfg, x_t, state.caches, regions, signs,
-                      num_candidates, will_promote, any_promote,
-                      block_tables, record)
+    append_index = None
+    if block_tables is None:
+        n_max = state.caches[0]["kv"].k.shape[1]
+    else:
+        if not use_pariskv:
+            raise ValueError("paged decode serves the ParisKV path only")
+        bs = state.caches[0]["kv"].k.shape[1]
+        n_max = block_tables.shape[1] * bs
+        append_index = CC.paged_append_index(block_tables, regions.pos + 1,
+                                             bs)
+    any_promote = use_pariskv and bool(will_promote.any())   # host sync
+    num_candidates = pcfg.candidate_count(n_max)
+    for ld, p, cache in zip(layer_defs(cfg), params["layers"], state.caches):
+        x_t = _layer_decode(p, x_t, ld, cfg, cache, regions, signs,
+                            num_candidates, will_promote, any_promote,
+                            block_tables, append_index, record, use_pariskv,
+                            paged_fused)
     x_t = L.rms_norm(x_t, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x_t)
     new_regions = CC.CacheRegions(
@@ -228,42 +256,61 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 
 
 # ------------------------------------------------------- slot state ---------
+def _zeros_slot_state(caches, batch: int, dev) -> SlotState:
+    def z():
+        return torch.zeros((batch,), dtype=torch.int32, device=dev)
+    return SlotState(caches=caches, regions=regions_init(batch, dev),
+                     cur_tok=z(), remaining=z())
+
+
+def init_slot_state(cfg: ModelConfig, batch: int, n_max: int,
+                    device=None) -> SlotState:
+    """Empty slot state over contiguous per-slot caches of ``n_max``
+    positions on ``device`` (the first CUDA card unless ``device="cpu"``);
+    every slot starts free at ``pos = -1``."""
+    dev = resolve_device(device)
+    return _zeros_slot_state(make_caches(cfg, batch, n_max, dev), batch, dev)
+
+
 def init_paged_slot_state(cfg: ModelConfig, batch: int, num_blocks: int,
                           block_size: int, device=None) -> SlotState:
     """Empty slot state over a shared block pool on ``device`` (the first
     CUDA card unless ``device="cpu"``). Block tables are host-managed by
     the engine and passed to ``decode_chunk`` per call."""
     dev = resolve_device(device)
-
-    def z():
-        return torch.zeros((batch,), dtype=torch.int32, device=dev)
-    return SlotState(
-        caches=make_paged_caches(cfg, batch, num_blocks, block_size, dev),
-        regions=regions_init(batch, dev), cur_tok=z(), remaining=z())
+    return _zeros_slot_state(
+        make_paged_caches(cfg, batch, num_blocks, block_size, dev), batch,
+        dev)
 
 
 @torch.no_grad()
 def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
-                 num_steps: int, block_tables: torch.Tensor,
+                 num_steps: int, block_tables: Optional[torch.Tensor] = None,
                  eos_id: Optional[int] = None, device=None,
-                 nonfinite: Optional[torch.Tensor] = None):
+                 nonfinite: Optional[torch.Tensor] = None,
+                 use_pariskv: bool = True, paged_fused: bool = True):
     """``num_steps`` greedy decode steps with per-slot active masking.
     Returns (tokens (b, num_steps) int32 with -1 at inactive steps, state).
-    Runs on the first CUDA card unless ``device="cpu"``; the state, params
-    and tables must live there. ``nonfinite``, a 0-d int64 device tensor,
-    accumulates the count of non-finite logits (no synchronization)."""
+    ``block_tables`` None means contiguous caches (``init_slot_state``);
+    ``use_pariskv`` and ``paged_fused`` as in ``decode_step``. Runs on the
+    first CUDA card unless ``device="cpu"``; the state, params and tables
+    must live there. ``nonfinite``, a 0-d int64 device tensor, accumulates
+    the count of non-finite logits (no synchronization)."""
     dev = resolve_device(device)
     _check_params(params, dev)
     if state.cur_tok.device.type != dev.type:
         raise ValueError(f"state lives on {state.cur_tok.device}, the call "
                          f"runs on {dev}")
-    block_tables = block_tables.to(dev)
+    if block_tables is not None:
+        block_tables = block_tables.to(dev)
     emitted = []
     for _ in range(num_steps):
         active = state.remaining > 0
         logits, new = decode_step(params, cfg, state.cur_tok,
                                   ServeState(state.caches, state.regions),
-                                  block_tables, active=active)
+                                  block_tables, active=active,
+                                  use_pariskv=use_pariskv,
+                                  paged_fused=paged_fused)
         if nonfinite is not None:
             nonfinite += (~torch.isfinite(logits)).sum()
         nxt = logits.argmax(-1).to(torch.int32)
@@ -289,6 +336,22 @@ def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
         CC.paged_scatter_prefill(lc["kv"], lc1["kv"], phys_blocks)
         lc["hist"][slot] = CC.bucket_hist_from_meta(lc1["kv"].meta_ids,
                                                     regions1, pcfg)[0]
+    state.regions.pos[slot] = regions1.pos[0]
+    state.regions.enc_end[slot] = regions1.enc_end[0]
+    state.cur_tok[slot] = tok0
+    state.remaining[slot] = rem
+    return state
+
+
+@torch.no_grad()
+def admit_slot(state: SlotState, slot: int, caches1: List[dict],
+               regions1: CC.CacheRegions, tok0: int, rem: int) -> SlotState:
+    """Install a solo (batch=1) prefill result into contiguous slot
+    ``slot``, in place: every cache tensor's row ``slot`` takes the batch-1
+    row whole (the reference's ``ServingEngine._admit_impl``)."""
+    for lc, lc1 in zip(state.caches, caches1):
+        for big, small in zip(lc["kv"], lc1["kv"]):
+            big[slot] = small[0]
     state.regions.pos[slot] = regions1.pos[0]
     state.regions.enc_end[slot] = regions1.enc_end[0]
     state.cur_tok[slot] = tok0

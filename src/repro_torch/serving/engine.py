@@ -1,15 +1,20 @@
-"""Slot-based continuous batching over the paged ParisKV pool (port of the
-main-path part of ``repro/serving/engine.py``).
+"""Serving engines (port of ``repro/serving/engine.py`` without chunked
+prefill, prefix sharing, offload, fault handling and mesh sharding).
 
-``ServingEngine`` is the stepwise loop — cancellations → admission → one
-decode chunk → collection/eviction — with honest per-request timing:
-``ttft_s`` runs from admission (the request leaves the queue) to its first
-token on the host, ``decode_s`` from the first token to the end of the
-chunk in which the request finished, and ``token_times`` stamps each token
-with the chunk boundary at which it became host-visible.
+``ServingEngine`` is slot-based continuous batching over contiguous
+per-slot caches of ``n_max`` positions: the stepwise loop — cancellations
+→ admission → one decode chunk → collection/eviction — with honest
+per-request timing: ``ttft_s`` runs from admission (the request leaves the
+queue) to its first token on the host, ``decode_s`` from the first token
+to the end of the chunk in which the request finished, and ``token_times``
+stamps each token with the chunk boundary at which it became host-visible.
+A queued request is prefilled solo (batch 1, LEFT-aligned, padded to a
+power-of-two bucket capped at ``n_max``) and copied into its slot.
+``use_pariskv=False`` serves the full-attention baseline.
 
-``PagedServingEngine`` serves it over one global pool of ``num_blocks ×
-block_size`` token blocks shared by all ``max_batch`` slots:
+``PagedServingEngine`` runs the same loop over one global pool of
+``num_blocks × block_size`` token blocks shared by all ``max_batch``
+slots:
 
 * admission needs ``⌈(prompt + gen) / block_size⌉`` unreserved blocks
   (worst-case reservation, FIFO backpressure: the head of the queue waits);
@@ -20,9 +25,17 @@ block_size`` token blocks shared by all ``max_batch`` slots:
 * a finished or cancelled slot's blocks and histogram row are zeroed and
   its blocks return to the free list.
 
-Decode runs the fused retrieval path on the Hopper kernels. Only the main
-path is ported: every other engine option raises ``NotImplementedError``
-naming the ROADMAP item that will port it.
+Its decode runs the fused retrieval path, or with ``fused=False`` the
+meta-view fallback (token-identical).
+
+``WaveServingEngine`` is the legacy lockstep baseline: each wave of up to
+``max_batch`` requests is prefilled as one right-aligned batch (the pad
+zeros are real tokens to attention, as in the reference) and decoded
+together to the wave's longest generation.
+
+Every stage that was a Pallas kernel on the TPU runs a Hopper kernel on
+the card. Options that are not ported yet raise ``NotImplementedError``
+naming the ROADMAP item that will port them.
 """
 from __future__ import annotations
 
@@ -107,23 +120,35 @@ def _finalize_output(req: Request, eos_id: Optional[int],
     req.decode_s = t_now - req._t_first
 
 
-class ServingEngine:
-    """The stepwise continuous-batching loop shared by the slot engines.
+def _not_ported(engine: str, options) -> None:
+    for flag, value, default, item in options:
+        if value != default:
+            raise NotImplementedError(
+                f"{engine}({flag}={value!r}) is not ported yet: ROADMAP "
+                f"{item}")
 
-    The contiguous slot engine itself (per-slot ``n_max`` regions) is not
-    ported yet (ROADMAP A12); ``PagedServingEngine`` supplies the device
-    state and the paging hooks."""
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+class ServingEngine:
+    """Slot-based continuous batching over contiguous per-slot caches (see
+    module docstring). Runs on the first CUDA card unless
+    ``device="cpu"``; ``params`` must live there. ``PagedServingEngine``
+    overrides the device state and the paging hooks."""
 
     def __init__(self, cfg: ModelConfig, params, n_max: int = 4096,
                  max_batch: int = 8, greedy: bool = True,
-                 chunk_size: int = 8, eos_id: Optional[int] = None,
-                 device=None):
+                 use_pariskv: bool = True, chunk_size: int = 8,
+                 eos_id: Optional[int] = None, prefill_budget: int = 0,
+                 faults=None, device=None):
         if not greedy:
             raise ValueError("sampling is on-device argmax; greedy only")
-        if type(self) is ServingEngine:
-            raise NotImplementedError(
-                "the contiguous slot engine is not ported yet (ROADMAP "
-                "A12); use PagedServingEngine")
+        _not_ported(type(self).__name__, (
+            ("prefill_budget", prefill_budget, 0, "A7 (chunked prefill)"),
+            ("faults", faults, None, "A10 (fault handling)")))
         self.device = resolve_device(device)
         if param_device(params).type != self.device.type:
             raise ValueError(f"params live on {param_device(params)}, the "
@@ -132,6 +157,7 @@ class ServingEngine:
         self.params = params
         self.n_max = n_max
         self.max_batch = max_batch
+        self.use_pariskv = use_pariskv
         self.chunk_size = chunk_size
         self.eos_id = eos_id
         self.queue: List[Request] = []
@@ -142,6 +168,8 @@ class ServingEngine:
         self._slots: List[Optional[Request]] = []
         self._done: List[Request] = []
         self._cancelled: set = set()
+        self._enc: Dict[int, int] = {}           # slot → host view of enc_end
+        self._enc_after = np.zeros((max_batch,), np.int64)
 
     def submit(self, req: Request) -> None:
         if len(req.prompt) + req.max_new_tokens > self.n_max:
@@ -168,9 +196,10 @@ class ServingEngine:
     def pending(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self._slots)
 
-    # -- hooks the paged engine implements -----------------------------------
+    # -- device state and hooks (the paged engine overrides) ----------------
     def _init_state(self) -> SV.SlotState:
-        raise NotImplementedError
+        return SV.init_slot_state(self.cfg, self.max_batch, self.n_max,
+                                  device=self.device)
 
     def _can_admit(self) -> bool:
         return True
@@ -182,22 +211,40 @@ class ServingEngine:
         """Undo _pre_admit for a request that finished at prefill."""
 
     def _install_solo(self, slot: int, req: Request, state1, tok0) -> None:
-        raise NotImplementedError
+        self._state = SV.admit_slot(
+            self._state, slot, state1.caches, state1.regions, tok0,
+            req.max_new_tokens - 1)
+        self._enc[slot] = int(state1.regions.enc_end[0])
 
     def _pre_chunk_slot(self, slot: int, req: Request) -> None:
         """Per-slot host work before a chunk (paged: lazy allocation)."""
 
+    def _decode_chunk(self, block_tables=None, paged_fused: bool = True):
+        tokens, self._state = SV.decode_chunk(
+            self.params, self.cfg, self._state, self.chunk_size,
+            block_tables, eos_id=self.eos_id, device=self.device,
+            nonfinite=self.nonfinite_logits, use_pariskv=self.use_pariskv,
+            paged_fused=paged_fused)
+        self._enc_after = self._state.regions.enc_end.cpu().numpy()
+        return tokens.cpu().numpy(), self._state.remaining.cpu().numpy()
+
     def _run_chunk(self):
-        raise NotImplementedError
+        return self._decode_chunk()
 
     def _release_slot(self, slot: int) -> None:
         """Reclaim a finished slot's resources (paged: blocks)."""
+        self._enc.pop(slot, None)
 
     def _evict_device(self, slot: int) -> None:
         self._state = SV.cancel_slot(self._state, slot)
+        self._enc.pop(slot, None)
 
     def _after_collect(self, slot: int, req: Request) -> None:
-        """Host-side position tracking (paged allocator)."""
+        """Count the slot's sliding-window promotions from its enc_end."""
+        enc = int(self._enc_after[slot])
+        req.promotions += (enc - self._enc[slot]) // \
+            self.cfg.pariskv.update_interval
+        self._enc[slot] = enc
 
     # -- loop phases ----------------------------------------------------------
     def _finish_request(self, req: Request, t_now: float) -> None:
@@ -308,19 +355,13 @@ class PagedServingEngine(ServingEngine):
                  prefill_budget: int = 0, offload: bool = False,
                  share_prefixes: bool = False, mesh_shards: int = 1,
                  faults=None, device=None):
-        for flag, value, default, item in (
-                ("fused", fused, True, "A6 (meta-view fallback)"),
-                ("prefill_budget", prefill_budget, 0, "A7 (chunked prefill)"),
-                ("share_prefixes", share_prefixes, False,
-                 "A8 (prefix sharing)"),
-                ("offload", offload, False, "A9 (host-offloaded tier)"),
-                ("faults", faults, None, "A10 (fault handling)"),
-                ("mesh_shards", mesh_shards, 1,
-                 "A11 (head-sharded multi-GPU serving)")):
-            if value != default:
-                raise NotImplementedError(
-                    f"PagedServingEngine({flag}={value!r}) is not ported "
-                    f"yet: ROADMAP {item}")
+        _not_ported("PagedServingEngine", (
+            ("prefill_budget", prefill_budget, 0, "A7 (chunked prefill)"),
+            ("share_prefixes", share_prefixes, False, "A8 (prefix sharing)"),
+            ("offload", offload, False, "A9 (host-offloaded tier)"),
+            ("faults", faults, None, "A10 (fault handling)"),
+            ("mesh_shards", mesh_shards, 1,
+             "A11 (head-sharded multi-GPU serving)")))
         if not use_pariskv:
             raise ValueError("the paged engine serves the ParisKV path only")
         if n_max % block_size != 0:
@@ -329,6 +370,7 @@ class PagedServingEngine(ServingEngine):
         super().__init__(cfg, params, n_max=n_max, max_batch=max_batch,
                          greedy=greedy, chunk_size=chunk_size,
                          eos_id=eos_id, device=device)
+        self.fused = fused
         self.block_size = block_size
         self.nblk = n_max // block_size
         self.num_blocks = (max_batch * self.nblk if num_blocks is None
@@ -338,9 +380,7 @@ class PagedServingEngine(ServingEngine):
         self._resv: Dict[int, int] = {}          # slot → unallocated reserve
         self._pos: Dict[int, int] = {}           # slot → host view of pos
         self._need: Dict[int, int] = {}          # slot → total token budget
-        self._enc: Dict[int, int] = {}           # slot → host view of enc_end
         self._bt = np.full((max_batch, self.nblk), -1, np.int32)
-        self._enc_after = np.zeros((max_batch,), np.int64)
 
     # ------------------------------------------------------------ helpers --
     def blocks_needed(self, req: Request) -> int:
@@ -438,20 +478,13 @@ class PagedServingEngine(ServingEngine):
         self._ensure_blocks(slot)
 
     def _run_chunk(self):
-        tokens, self._state = SV.decode_chunk(
-            self.params, self.cfg, self._state, self.chunk_size,
-            torch.from_numpy(self._bt), eos_id=self.eos_id,
-            device=self.device, nonfinite=self.nonfinite_logits)
-        self._enc_after = self._state.regions.enc_end.cpu().numpy()
-        return tokens.cpu().numpy(), self._state.remaining.cpu().numpy()
+        return self._decode_chunk(torch.from_numpy(self._bt),
+                                  paged_fused=self.fused)
 
     def _after_collect(self, slot: int, req: Request) -> None:
         # host view of the device pos: last prompt token + decoded tokens
         self._pos[slot] = len(req.prompt) - 1 + max(0, len(req._tokens) - 1)
-        enc = int(self._enc_after[slot])
-        req.promotions += (enc - self._enc[slot]) // \
-            self.cfg.pariskv.update_interval
-        self._enc[slot] = enc
+        super()._after_collect(slot, req)
 
     def _release_slot(self, slot: int) -> None:
         self._clear_device(slot)
@@ -478,3 +511,82 @@ class PagedServingEngine(ServingEngine):
                     f"layer {li}: incremental histogram != recompute for "
                     f"slots {slots}")
 
+
+class WaveServingEngine:
+    """Legacy lockstep wave scheduler (the reference's benchmark baseline).
+
+    All requests of a wave are prefilled as one right-aligned padded batch
+    with no ``lengths`` (the pad zeros are real tokens to attention) and
+    decoded together, every row active, to the wave's longest generation;
+    new requests join only at wave boundaries. Timing is wave-level: every
+    request of a wave reports the shared prefill time as ``ttft_s`` and the
+    shared decode time as ``decode_s``. Runs on the first CUDA card unless
+    ``device="cpu"``; ``params`` must live there."""
+
+    def __init__(self, cfg: ModelConfig, params, n_max: int = 4096,
+                 max_batch: int = 8, greedy: bool = True,
+                 use_pariskv: bool = True, device=None):
+        if not greedy:
+            raise ValueError("sampling is on-device argmax; greedy only")
+        self.device = resolve_device(device)
+        if param_device(params).type != self.device.type:
+            raise ValueError(f"params live on {param_device(params)}, the "
+                             f"engine runs on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.n_max = n_max
+        self.max_batch = max_batch
+        self.use_pariskv = use_pariskv
+        self.queue: List[Request] = []
+        self.peak_concurrency = 0   # max requests decoding in one wave
+        self.decode_steps = 0
+        self.nonfinite_logits = torch.zeros((), dtype=torch.int64,
+                                            device=self.device)
+
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _pad_prompts(self, reqs: List[Request]) -> np.ndarray:
+        s = max(max(len(r.prompt) for r in reqs), 8)
+        toks = np.zeros((len(reqs), s), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i, s - len(r.prompt):] = r.prompt   # right-align
+        return toks
+
+    def run(self) -> List[Request]:
+        done: List[Request] = []
+        while self.queue:
+            wave = self.queue[:self.max_batch]
+            self.queue = self.queue[self.max_batch:]
+            done.extend(self._run_wave(wave))
+        return done
+
+    def _run_wave(self, wave: List[Request]) -> List[Request]:
+        b = len(wave)
+        self.peak_concurrency = max(self.peak_concurrency, b)
+        toks = self._pad_prompts(wave)
+        t0 = time.perf_counter()
+        logits, state = SV.prefill(self.params, self.cfg, toks, self.n_max,
+                                   device=self.device)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        for r in wave:
+            r.ttft_s = t1 - t0
+        max_new = max(r.max_new_tokens for r in wave)
+        outs = np.zeros((b, max_new), np.int32)
+        tok = logits.argmax(-1).to(torch.int32)
+        for step in range(max_new):
+            outs[:, step] = tok.cpu().numpy()
+            logits, state = SV.decode_step(self.params, self.cfg, tok, state,
+                                           use_pariskv=self.use_pariskv)
+            self.nonfinite_logits += (~torch.isfinite(logits)).sum()
+            tok = logits.argmax(-1).to(torch.int32)
+        _sync(self.device)
+        t2 = time.perf_counter()
+        self.decode_steps += max_new
+        for i, r in enumerate(wave):
+            r.output = outs[i, :r.max_new_tokens]
+            r.decode_s = t2 - t1
+            r.token_times = [t1 + (j + 1) * (t2 - t1) / max_new
+                             for j in range(len(r.output))]
+        return wave

@@ -1,0 +1,95 @@
+"""Each CUDA kernel of the port against its plain PyTorch version on the
+card: exact for integer outputs and gathers, Stage II to float32
+reassociation. Every test here needs a card and skips without one.
+
+This file imports neither JAX nor the JAX package, so it runs on a machine
+that has only PyTorch (with ``--noconftest``: the suite's conftest imports
+JAX):
+
+    PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import retrieval as TR  # noqa: E402
+from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
+from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E402
+                                           collision_scores_paged_kernel)
+from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
+from repro_torch.kernels.gather_kv import (gather_heads,  # noqa: E402
+                                           gather_heads_physical,
+                                           gather_rows, gather_rows_paged)
+from repro_torch.kernels.rerank import rerank_paged_kernel  # noqa: E402
+
+G, HG = 2, 2
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernels run only on one")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nsub", [8, 16])
+def test_kernels_match_plain_on_card(card, nsub):
+    """Each CUDA kernel equals its plain version on the card (exact for
+    integer outputs and gathers; rerank to float32 reassociation)."""
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision.ref import collision_paged_ref
+    from repro_torch.kernels.gather_kv.ref import (gather_heads_physical_ref,
+                                                   gather_heads_ref,
+                                                   gather_rows_paged_ref,
+                                                   gather_rows_ref)
+    from repro_torch.kernels.rerank.ref import rerank_paged_ref
+
+    gen = torch.Generator(device=card).manual_seed(nsub)
+    nb, bs, b, nblk = 10, 32, 2, 4
+
+    def ri(lo, hi, shape, dt=torch.int32):
+        return torch.randint(lo, hi, shape, generator=gen, device=card,
+                             dtype=dt)
+    ids = ri(0, 256, (nb, G, bs, nsub), torch.uint8)
+    bt = torch.tensor([[7, 2, 9, -1], [0, 5, -1, -1]], dtype=torch.int32,
+                      device=card)
+    tables = ri(0, 7, (b, G, HG, nsub, 256))
+    enc_end = torch.tensor([110, 50], dtype=torch.int32, device=card)
+    got = collision_scores_paged_kernel(ids, bt, tables, enc_end, 16)
+    assert torch.equal(got, collision_paged_ref(ids, bt, tables, enc_end, 16))
+    cand = bucket_topk(got, 40, 6 * nsub)
+    assert torch.equal(cand, bucket_topk_ref(got, 40, 6 * nsub))
+    codes = ri(-2 ** 31, 2 ** 31 - 1, (nb, G, bs, nsub))
+    w = torch.rand((nb, G, bs, nsub), generator=gen, device=card)
+    _, _, phys = TR._block_relative(cand, bt, bs)
+    q_sub = torch.randn((b, G, HG, nsub, 8), generator=gen, device=card)
+    q_norm = torch.rand((b, G, HG), generator=gen, device=card)
+    args = (codes, w, phys, cand, q_sub, q_norm, enc_end, 16, 8, 3)
+    torch.testing.assert_close(rerank_paged_kernel(*args),
+                               rerank_paged_ref(*args), rtol=1e-5, atol=1e-4)
+    pool = torch.randn((2, nb, bs, G, 128), generator=gen, device=card
+                       ).to(torch.bfloat16)
+    lidx = ri(0, 128, (b, 24))
+    gk, gv = gather_rows_paged(pool[0], pool[1], bt, lidx)
+    assert torch.equal(gk, gather_rows_paged_ref(pool[0], bt, lidx))
+    assert torch.equal(gv, gather_rows_paged_ref(pool[1], bt, lidx))
+    wk = gather_heads_physical(pool[0], None, phys)
+    assert torch.equal(wk, gather_heads_physical_ref(pool[0], phys))
+
+    # contiguous Stage I (ragged n) and the contiguous gathers
+    n = 1000
+    cids = ri(0, 256, (b, G, n, nsub), torch.uint8)
+    ctab = ri(0, 7, (b, G, HG, nsub, 256))
+    cenc = torch.tensor([n - 3, 300], dtype=torch.int32, device=card)
+    assert torch.equal(collision_scores_kernel(cids, ctab, cenc, 16),
+                       collision_ref(cids[:, :, None], ctab, cenc, 16))
+    store = torch.randn((2, b, n, G, 128), generator=gen, device=card
+                        ).to(torch.bfloat16)
+    hidx = ri(-5, n + 5, (b, G, HG, 37))
+    hk, hv = gather_heads(store[0], store[1], hidx)
+    assert torch.equal(hk, gather_heads_ref(store[0], hidx))
+    assert torch.equal(hv, gather_heads_ref(store[1], hidx))
+    ridx = ri(0, n, (b, 300))
+    assert torch.equal(gather_rows(store[0], None, ridx),
+                       gather_rows_ref(store[0], ridx))

@@ -3,7 +3,8 @@ qwen2 smoke config in float32: identical greedy tokens per uid on the
 staggered-admission workload (ample and backpressured pools), with the
 reference's parameters carried across by ``params_from_jax`` and by an
 npz checkpoint round trip through ``load_npz``; plus the allocator's
-accounting, cancellation and the options that are not ported yet."""
+accounting, cancellation, the options that are not ported yet and the
+device rule of every engine."""
 import dataclasses
 
 import numpy as np
@@ -20,8 +21,8 @@ from repro.serving import PagedServingEngine as JEngine  # noqa: E402
 from repro.serving import Request as JRequest  # noqa: E402
 from repro_torch import configs as TC  # noqa: E402
 from repro_torch.models import convert  # noqa: E402
-from repro_torch.serving import PagedServingEngine, Request  # noqa: E402
-from repro_torch.serving.engine import ServingEngine  # noqa: E402
+from repro_torch.serving import (PagedServingEngine, Request,  # noqa: E402
+                                 ServingEngine, WaveServingEngine)
 
 CFG_J = dataclasses.replace(JC.smoke("qwen2-1.5b"), dtype="float32")
 CFG_T = dataclasses.replace(TC.smoke("qwen2-1.5b"), dtype="float32")
@@ -185,7 +186,7 @@ def test_cancel_mid_flight_reclaims_blocks_and_hist(workload):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(fused=False), "A6"), (dict(prefill_budget=16), "A7"),
+    (dict(prefill_budget=16), "A7"),
     (dict(share_prefixes=True), "A8"), (dict(offload=True), "A9"),
     (dict(faults=object()), "A10"), (dict(mesh_shards=2), "A11")])
 def test_options_not_ported_raise_with_roadmap_item(workload, option, item):
@@ -193,18 +194,27 @@ def test_options_not_ported_raise_with_roadmap_item(workload, option, item):
     params = convert.params_from_jax(jax.device_get(pj), CFG_T, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         PagedServingEngine(CFG_T, params, device="cpu", **option, **ENGINE)
+    slot_option = {k: v for k, v in option.items()
+                   if k in ("prefill_budget", "faults")}
+    if slot_option:
+        with pytest.raises(NotImplementedError, match=item):
+            ServingEngine(CFG_T, params, device="cpu", **slot_option)
 
 
 def test_engine_needs_a_card_or_an_explicit_cpu(workload):
     pj, _ = workload
     params = convert.params_from_jax(jax.device_get(pj), CFG_T, device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        ServingEngine(CFG_T, params, device="cpu")
-    if torch.cuda.is_available():
-        with pytest.raises(ValueError, match="params live on cpu"):
-            PagedServingEngine(CFG_T, params, **ENGINE)
-        return
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        PagedServingEngine(CFG_T, params, **ENGINE)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        convert.params_from_jax(jax.device_get(pj), CFG_T)
+    engines = [lambda **kw: PagedServingEngine(CFG_T, params, **ENGINE, **kw),
+               lambda **kw: ServingEngine(CFG_T, params, **kw),
+               lambda **kw: WaveServingEngine(CFG_T, params, **kw)]
+    for make in engines:
+        make(device="cpu")
+        if torch.cuda.is_available():
+            with pytest.raises(ValueError, match="params live on cpu"):
+                make()
+            continue
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            convert.params_from_jax(jax.device_get(pj), CFG_T)

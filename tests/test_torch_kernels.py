@@ -1,4 +1,4 @@
-"""The port's four kernel modules against the JAX reference's kernels.
+"""The port's kernel modules against the JAX reference's kernels.
 
 On the CPU every wrapper takes its plain PyTorch version (``ref.py``); the
 JAX side runs its Pallas kernels as its own tests do here (interpret mode)
@@ -7,8 +7,8 @@ shapes with ragged n, ties, -1 scores and -1 block-table entries. Integer
 outputs and gathered rows must be identical; Stage-II estimates agree to
 float32 reassociation (rtol 1e-5, atol 1e-5).
 
-``test_kernels_match_plain_on_card`` compares each CUDA kernel with its
-plain version on the card; it skips without one."""
+``tests/test_torch_cuda.py`` compares each CUDA kernel with its plain
+version on the card."""
 import numpy as np
 import pytest
 
@@ -22,15 +22,21 @@ from repro.core import retrieval as JR  # noqa: E402
 from repro.core import srht as JS  # noqa: E402
 from repro.core.config import ParisKVConfig as JP  # noqa: E402
 from repro.kernels.bucket_topk.ops import bucket_topk as j_bucket_topk  # noqa: E402
+from repro.kernels.collision import collision_scores_kernel as j_coll_flat  # noqa: E402
 from repro.kernels.collision import collision_scores_paged_kernel as j_coll  # noqa: E402
+from repro.kernels.gather_kv.ops import gather_kv_kernel as j_gather  # noqa: E402
 from repro.kernels.gather_kv.ops import gather_kv_paged_kernel  # noqa: E402
 from repro.kernels.rerank import rerank_paged_kernel as j_rerank  # noqa: E402
 from repro_torch import kernels as TK  # noqa: E402
 from repro_torch.core import retrieval as TR  # noqa: E402
 from repro_torch.core.config import ParisKVConfig as TP  # noqa: E402
 from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
-from repro_torch.kernels.collision import collision_scores_paged_kernel  # noqa: E402
-from repro_torch.kernels.gather_kv import (gather_heads_physical,  # noqa: E402
+from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E402
+                                           collision_scores_paged_kernel)
+from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
+from repro_torch.kernels.gather_kv import (gather_heads,  # noqa: E402
+                                           gather_heads_physical,
+                                           gather_kv_kernel, gather_rows,
                                            gather_rows_paged)
 from repro_torch.kernels.rerank import rerank_paged_kernel  # noqa: E402
 
@@ -70,6 +76,65 @@ def test_collision_plain_matches_pallas_kernel():
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want == -1).any() and (want > 0).any()
+
+
+@pytest.mark.parametrize("n", [1000, 1024, 4096])
+@pytest.mark.parametrize("ids_dtype", [np.uint8, np.int32])
+def test_contiguous_collision_plain_matches_pallas_kernel(n, ids_dtype):
+    """collision_ref == the reference's ``collision_scores_kernel`` (the
+    Pallas ``_collision_pallas`` in interpret mode, which pads n to its
+    block) over lead dims (2, 3), and the masked wrapper equals it inside
+    [sink, enc_end) and -1 outside."""
+    rng = np.random.RandomState(n)
+    ids = rng.randint(0, 256, size=(2, 3, n, B)).astype(ids_dtype)
+    tables = rng.randint(0, 7, size=(2, 3, B, 256)).astype(np.int32)
+    want = np.asarray(j_coll_flat(jnp.asarray(ids), jnp.asarray(tables)))
+    got = collision_ref(_t(ids), _t(tables))
+    assert got.dtype == torch.int32 and got.shape == (2, 3, n)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    enc_end = np.array([n - 7, 40], np.int32)
+    heads = np.stack([tables, tables[:, ::-1]], 2)            # (2, 3, 2, ..)
+    masked = collision_scores_kernel(_t(ids.astype(np.uint8)), _t(heads),
+                                     _t(enc_end), 16).numpy()
+    assert masked.shape == (2, 3, 2, n)
+    for i, e in enumerate(enc_end):
+        np.testing.assert_array_equal(masked[i, :, 0, 16:e], want[i, :, 16:e])
+        assert (masked[i, :, :, :16] == -1).all()
+        assert (masked[i, :, :, e:] == -1).all()
+    np.testing.assert_array_equal(masked[:, 1:2, 1, 16:40],
+                                  want[:, 1:2, 16:40])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contiguous_gather_plain_matches_pallas_kernel(dtype):
+    """gather_kv_kernel (plain on the CPU) == the reference's
+    ``gather_kv_kernel`` (the Pallas ``_gather_rows_pallas``, interpret
+    mode) with duplicate indices and an index broadcast over lead dims;
+    the per-row and per-head helpers equal the reference's jnp gathers."""
+    rng = np.random.RandomState(5)
+    store = rng.randn(2, 3, 50, 64).astype(np.float32)
+    idx = rng.randint(0, 50, size=(2, 3, 17)).astype(np.int32)
+    idx[:, :, :4] = 7                                    # duplicates
+    js = jnp.asarray(store).astype(dtype)
+    ts = _t(store).to(getattr(torch, dtype))
+    for ix in (idx, idx[:1, :1]):
+        want = np.asarray(j_gather(js, jnp.asarray(ix)), np.float32)
+        got = gather_kv_kernel(ts, _t(ix))
+        assert got.dtype == ts.dtype
+        np.testing.assert_array_equal(got.float().numpy(), want)
+
+    from repro.core.attention import gather_kv_heads as j_heads
+    cache = rng.randn(2, 40, G, D).astype(np.float32)
+    hidx = rng.randint(0, 40, size=(2, G, HG, 9)).astype(np.int32)
+    wk, wv = gather_heads(_t(cache), _t(cache * 2), _t(hidx))
+    want = np.asarray(j_heads(jnp.asarray(cache), jnp.asarray(hidx)))
+    np.testing.assert_array_equal(wk.numpy(), want)
+    np.testing.assert_array_equal(wv.numpy(), 2 * want)
+    ridx = rng.randint(0, 40, size=(2, 11)).astype(np.int32)
+    rows = gather_rows(_t(cache), None, _t(ridx))
+    np.testing.assert_array_equal(
+        rows.numpy(), cache[np.arange(2)[:, None], ridx])
 
 
 def test_collision_scores_paged_matches_jnp_twin():
@@ -213,59 +278,16 @@ def test_wrappers_never_fall_back_off_the_cpu():
         lambda: gather_rows_paged(
             torch.empty((4, 8, G, D), **m), None, bt,
             torch.empty((2, 5), dtype=torch.int32, **m)),
+        lambda: collision_scores_kernel(
+            torch.empty((2, G, 40, 16), dtype=torch.uint8, **m),
+            torch.empty((2, G, HG, 16, 256), dtype=torch.int32, **m), i32, 2),
+        lambda: gather_rows(torch.empty((2, 40, G, D), **m), None,
+                            torch.empty((2, 5), dtype=torch.int32, **m)),
+        lambda: gather_heads(torch.empty((2, 40, G, D), **m), None,
+                             torch.empty((2, G, HG, 5), dtype=torch.int32,
+                                         **m)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="no kernel for device meta"):
             call()
     assert TK.LAUNCHES == before
-
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("no CUDA card: the CUDA kernels run only on one")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("nsub", [8, 16])
-def test_kernels_match_plain_on_card(card, nsub):
-    """Each CUDA kernel equals its plain version on the card (exact for
-    integer outputs and gathers; rerank to float32 reassociation)."""
-    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
-    from repro_torch.kernels.collision.ref import collision_paged_ref
-    from repro_torch.kernels.gather_kv.ref import (gather_heads_physical_ref,
-                                                   gather_rows_paged_ref)
-    from repro_torch.kernels.rerank.ref import rerank_paged_ref
-
-    gen = torch.Generator(device=card).manual_seed(nsub)
-    nb, bs, b, nblk = 10, 32, 2, 4
-
-    def ri(lo, hi, shape, dt=torch.int32):
-        return torch.randint(lo, hi, shape, generator=gen, device=card,
-                             dtype=dt)
-    ids = ri(0, 256, (nb, G, bs, nsub), torch.uint8)
-    bt = torch.tensor([[7, 2, 9, -1], [0, 5, -1, -1]], dtype=torch.int32,
-                      device=card)
-    tables = ri(0, 7, (b, G, HG, nsub, 256))
-    enc_end = torch.tensor([110, 50], dtype=torch.int32, device=card)
-    got = collision_scores_paged_kernel(ids, bt, tables, enc_end, 16)
-    assert torch.equal(got, collision_paged_ref(ids, bt, tables, enc_end, 16))
-    cand = bucket_topk(got, 40, 6 * nsub)
-    assert torch.equal(cand, bucket_topk_ref(got, 40, 6 * nsub))
-    codes = ri(-2 ** 31, 2 ** 31 - 1, (nb, G, bs, nsub))
-    w = torch.rand((nb, G, bs, nsub), generator=gen, device=card)
-    _, _, phys = TR._block_relative(cand, bt, bs)
-    q_sub = torch.randn((b, G, HG, nsub, 8), generator=gen, device=card)
-    q_norm = torch.rand((b, G, HG), generator=gen, device=card)
-    args = (codes, w, phys, cand, q_sub, q_norm, enc_end, 16, 8, 3)
-    torch.testing.assert_close(rerank_paged_kernel(*args),
-                               rerank_paged_ref(*args), rtol=1e-5, atol=1e-4)
-    pool = torch.randn((2, nb, bs, G, 128), generator=gen, device=card
-                       ).to(torch.bfloat16)
-    lidx = ri(0, 128, (b, 24))
-    gk, gv = gather_rows_paged(pool[0], pool[1], bt, lidx)
-    assert torch.equal(gk, gather_rows_paged_ref(pool[0], bt, lidx))
-    assert torch.equal(gv, gather_rows_paged_ref(pool[1], bt, lidx))
-    wk = gather_heads_physical(pool[0], None, phys)
-    assert torch.equal(wk, gather_heads_physical_ref(pool[0], phys))

@@ -34,6 +34,8 @@ SIGNS_J = jnp.asarray(JS.rademacher_signs(CFG_J.padded_dim(D),
 SIGNS_T = torch.from_numpy(TS.rademacher_signs(CFG_T.padded_dim(D),
                                                CFG_T.srht_seed))
 BS, NBLK, NUM_BLOCKS = 32, 8, 20
+# jitted once per module: eager JAX would compile every primitive apart
+PREFILL_J = jax.jit(JCC.prefill_write, static_argnums=(3,))
 
 
 def _t(a):
@@ -62,9 +64,9 @@ def _build(k, v, lens, bt, phys):
     hists_j, hists_t, regs = [], [], []
     for i in range(b):
         c1 = JCC.init_layer_cache(1, n_max, G, D, CFG_J, jnp.float32)
-        c1, r1 = JCC.prefill_write(c1, jnp.asarray(k[i:i + 1]),
-                                   jnp.asarray(v[i:i + 1]), CFG_J, SIGNS_J,
-                                   lengths=jnp.asarray(lens[i:i + 1]))
+        c1, r1 = PREFILL_J(c1, jnp.asarray(k[i:i + 1]),
+                           jnp.asarray(v[i:i + 1]), CFG_J, SIGNS_J,
+                           lengths=jnp.asarray(lens[i:i + 1]))
         stacked = JCC.paged_scatter_prefill(
             JCC.PagedLayerKVCache(*jax.tree.map(lambda a: a[None], pool_j)),
             jax.tree.map(lambda a: a[None], c1), jnp.asarray(phys[i]))
@@ -206,3 +208,183 @@ def test_initial_regions_and_window(lengths):
     np.testing.assert_array_equal(got.enc_end.numpy(),
                                   np.asarray(want.enc_end))
     assert TCC.window_size(CFG_T) == JCC.window_size(CFG_J)
+
+
+def _contiguous(k, v, lens):
+    """A batched contiguous cache prefilled on both sides (LEFT-aligned,
+    per-row lengths)."""
+    b, S = k.shape[:2]
+    n_max = BS * NBLK
+    c_j = JCC.init_layer_cache(b, n_max, G, D, CFG_J, jnp.float32)
+    c_j, _ = PREFILL_J(c_j, jnp.asarray(k), jnp.asarray(v), CFG_J, SIGNS_J,
+                       lengths=jnp.asarray(lens))
+    c_t = TCC.init_layer_cache(b, n_max, G, D, CFG_T, torch.float32, "cpu")
+    TCC.prefill_write(c_t, _t(k), _t(v), CFG_T, SIGNS_T, lengths=_t(lens))
+    return c_j, c_t
+
+
+def _assert_same_retrieval(got, want, msg):
+    """Integer outputs exact (winners as sets: equal estimates may order
+    differently); estimates to float32 reassociation."""
+    for name in ("coarse_scores", "cand_indices"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      f"{name}, {msg}")
+    order_t = np.argsort(got.indices.numpy(), -1)
+    order_j = np.argsort(np.asarray(want.indices), -1)
+    fields = ["indices", "scores"] + (
+        ["phys_rows"] if hasattr(got, "phys_rows") else [])
+    for name in fields:
+        a = np.take_along_axis(getattr(got, name).numpy(), order_t, -1)
+        b = np.take_along_axis(np.asarray(getattr(want, name)), order_j, -1)
+        if name == "scores":
+            np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-3,
+                                       err_msg=f"{name}, {msg}")
+        else:
+            np.testing.assert_array_equal(a, b, f"{name}, {msg}")
+
+
+@pytest.mark.parametrize("hist_sample,bucket_select",
+                         [(0, True), (0, False), (64, True), (64, False)])
+def test_contiguous_and_meta_view_retrieval_identical_across_drift(
+        hist_sample, bucket_select):
+    """``retrieve`` over a contiguous cache and ``retrieve_paged`` over a
+    shuffled paged pool's materialized view (block tables with -1
+    entries) against the reference over 80 decode steps with promotions:
+    Stage-I scores, candidates, winners and physical rows identical,
+    estimates within rtol 1e-4 / atol 1e-3; ``rerank``'s enc_end mask
+    selects the same invalid candidates as the reference's valid[cand]."""
+    b, lens = 2, np.asarray([128, 40], np.int32)
+    rng = np.random.RandomState(7)
+    k = (rng.randn(b, 128, G, D) * np.linspace(2.0, 0.2, D)).astype(
+        np.float32)
+    v = rng.randn(b, 128, G, D).astype(np.float32)
+    bt, phys = _tables(b, [7, 5], seed=2)
+    pool_j, hist_j, pool_t, hist_t, pos, enc = _build(k, v, lens, bt, phys)
+    c_j, c_t = _contiguous(k, v, lens)
+    btj, btt = jnp.asarray(bt), _t(bt)
+    n = BS * NBLK
+    C = CFG_J.candidate_count(n)
+    kw = dict(hist_sample=hist_sample, bucket_select=bucket_select)
+
+    def j_retrieve(ids, codes, w, qt, valid):
+        meta = JE.KeyMetadata(ids[:, :, None], codes[:, :, None],
+                              w[:, :, None])
+        return JR.retrieve(meta, qt, valid, CFG_J, C, CFG_J.top_k, **kw)
+
+    retrieve_j = jax.jit(j_retrieve)
+    view_j = jax.jit(JCC.paged_meta_view)
+    paged_j = jax.jit(lambda view, qt, valid, bt_: JR.retrieve_paged(
+        JE.KeyMetadata(*(a[:, :, None] for a in view)), qt, valid, CFG_J,
+        C, CFG_J.top_k, bt_, BS, **kw))
+    rerank_j = jax.jit(lambda ids, codes, w, qt, cand, valid: JR.rerank(
+        JE.KeyMetadata(ids[:, :, None], codes[:, :, None], w[:, :, None]),
+        qt, cand, valid, CFG_J))
+    append_j = jax.jit(JCC.paged_decode_append)
+    promote_j = jax.jit(lambda p, h, bt_, r: JCC.paged_maybe_promote_hist(
+        p, h, bt_, r, CFG_J, SIGNS_J))
+    c_append_j = jax.jit(JCC.decode_append)
+    c_promote_j = jax.jit(lambda c, r: JCC.maybe_promote(c, r, CFG_J,
+                                                         SIGNS_J))
+    promotions = 0
+    for step in range(80):
+        kt = rng.randn(b, G, D).astype(np.float32)
+        pos = pos + 1
+        pj, pt = jnp.asarray(pos), _t(pos)
+        pool_j = append_j(pool_j, btj, jnp.asarray(kt), jnp.asarray(kt), pj)
+        TCC.paged_decode_append(pool_t, btt, _t(kt), _t(kt), pt)
+        c_j = c_append_j(c_j, jnp.asarray(kt), jnp.asarray(kt), pj)
+        TCC.decode_append(c_t, _t(kt), _t(kt), pt)
+        reg_j = JCC.CacheRegions(pos=pj, enc_end=jnp.asarray(enc))
+        reg_t = TCC.CacheRegions(pos=pt, enc_end=_t(enc))
+        pool_j, hist_j, _ = promote_j(pool_j, hist_j, btj, reg_j)
+        TCC.paged_maybe_promote_hist(pool_t, hist_t, btt, reg_t, CFG_T,
+                                     SIGNS_T)
+        c_j, reg_j = c_promote_j(c_j, reg_j)
+        _, reg_t = TCC.maybe_promote(c_t, reg_t, CFG_T, SIGNS_T)
+        new_enc = reg_t.enc_end.numpy()
+        np.testing.assert_array_equal(new_enc, np.asarray(reg_j.enc_end))
+        promotions += int((new_enc != enc).any())
+        enc = new_enc
+
+        valid_j = JCC.retrieval_valid_mask(n, reg_j, CFG_J)
+        np.testing.assert_array_equal(
+            TR.region_mask(n, reg_t.enc_end, CFG_T).numpy(),
+            np.asarray(valid_j))
+        valid_j = jnp.broadcast_to(valid_j[:, None, None], (b, G, 1, n))
+        q = rng.randn(b, G, H // G, D).astype(np.float32)
+        qj = JE.encode_query(jnp.asarray(q), CFG_J, SIGNS_J)
+        qt = TE.encode_query(_t(q), CFG_T, SIGNS_T)
+        msg = f"step {step}"
+
+        want = retrieve_j(c_j.meta_ids, c_j.meta_codes, c_j.meta_w, qj,
+                          valid_j)
+        got = TR.retrieve(c_t.meta_ids, c_t.meta_codes, c_t.meta_w, qt,
+                          reg_t.enc_end, CFG_T, C, CFG_T.top_k, **kw)
+        _assert_same_retrieval(got, want, "contiguous " + msg)
+        est_j = np.asarray(rerank_j(c_j.meta_ids, c_j.meta_codes, c_j.meta_w,
+                                    qj, want.cand_indices, valid_j))
+        est_t = TR.rerank(c_t.meta_codes, c_t.meta_w, qt, got.cand_indices,
+                          reg_t.enc_end, CFG_T).numpy()
+        np.testing.assert_array_equal(est_t == TR.NEG_INF, est_j == -1e30)
+        np.testing.assert_allclose(est_t, est_j, rtol=1e-4, atol=1e-3)
+
+        view_t = TCC.paged_meta_view(pool_t, btt)
+        ids_j, codes_j, w_j = view_j(pool_j, btj)
+        np.testing.assert_array_equal(view_t[0].numpy(), np.asarray(ids_j))
+        np.testing.assert_array_equal(view_t[1].numpy(),
+                                      np.asarray(codes_j).view(np.int32))
+        np.testing.assert_allclose(view_t[2].numpy(), np.asarray(w_j),
+                                   rtol=1e-5)
+        want = paged_j(view_j(pool_j, btj), qj, valid_j, btj)
+        got = TR.retrieve_paged(view_t, qt, reg_t.enc_end, CFG_T, C,
+                                CFG_T.top_k, btt, BS, **kw)
+        _assert_same_retrieval(got, want, "meta view " + msg)
+    assert promotions >= 2, "test never exercised post-promotion drift"
+    np.testing.assert_array_equal(c_t.meta_ids.numpy(),
+                                  np.asarray(c_j.meta_ids))
+
+
+def test_contiguous_cache_ops_clamp_like_the_reference():
+    """``decode_append`` at pos == n_max lands on the last row (JAX clamps
+    the update slice), and ``promote_rows`` with a partial mask and a
+    start past n_max - U encodes the clamped block of the masked rows
+    only: integers exact, weights within 1e-6."""
+    b, n = 3, 96
+    rng = np.random.RandomState(11)
+    k = rng.randn(b, n, G, D).astype(np.float32)
+    lens = np.asarray([n, 50, 70], np.int32)
+    c_j = JCC.init_layer_cache(b, n, G, D, CFG_J, jnp.float32)
+    c_j, _ = PREFILL_J(c_j, jnp.asarray(k), jnp.asarray(k), CFG_J, SIGNS_J,
+                       lengths=jnp.asarray(lens))
+    c_t = TCC.init_layer_cache(b, n, G, D, CFG_T, torch.float32, "cpu")
+    TCC.prefill_write(c_t, _t(k), _t(k), CFG_T, SIGNS_T, lengths=_t(lens))
+
+    kt = rng.randn(b, G, D).astype(np.float32)
+    pos = np.asarray([n, 50, n - 1], np.int32)
+    c_j = JCC.decode_append(c_j, jnp.asarray(kt), jnp.asarray(-kt),
+                            jnp.asarray(pos))
+    TCC.decode_append(c_t, _t(kt), _t(-kt), _t(pos))
+    np.testing.assert_array_equal(c_t.k.numpy(), np.asarray(c_j.k))
+    np.testing.assert_array_equal(c_t.v.numpy(), np.asarray(c_j.v))
+    np.testing.assert_array_equal(c_t.k[0, n - 1].numpy(), kt[0])
+
+    promote_j = jax.jit(lambda c, st, mk: JCC.promote_rows(c, st, mk, CFG_J,
+                                                           SIGNS_J))
+    for starts, mask in (([n - 10, 20, 40], [True, False, True]),
+                         ([0, n, 16], [False, True, True])):
+        c_j = promote_j(c_j, jnp.asarray(starts, jnp.int32),
+                        jnp.asarray(mask))
+        TCC.promote_rows(c_t, torch.tensor(starts, dtype=torch.int32),
+                         torch.tensor(mask), CFG_T, SIGNS_T)
+        np.testing.assert_array_equal(c_t.meta_ids.numpy(),
+                                      np.asarray(c_j.meta_ids))
+        np.testing.assert_array_equal(
+            c_t.meta_codes.numpy(), np.asarray(c_j.meta_codes).view(np.int32))
+        np.testing.assert_allclose(c_t.meta_w.numpy(), np.asarray(c_j.meta_w),
+                                   rtol=1e-6, atol=1e-6)
+    c_j = jax.jit(lambda c: JCC.promote_block(c, jnp.int32(n - 3), CFG_J,
+                                              SIGNS_J))(c_j)
+    TCC.promote_block(c_t, n - 3, CFG_T, SIGNS_T)
+    np.testing.assert_array_equal(c_t.meta_ids.numpy(),
+                                  np.asarray(c_j.meta_ids))
