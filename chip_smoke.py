@@ -443,12 +443,31 @@ def _prompts(cfg, seed: int = 0, lens=None):
             for n in (PROMPTS if lens is None else lens)]
 
 
+def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
+               cfg) -> int:
+    """Fail unless requests 0 .. n_requests-1 each got ``gen`` tokens, no
+    logit was non-finite, and every kernel in ``kernels`` launched at least
+    once per layer and decode step (the gathers twice: winners or sink,
+    and window). → the count of non-finite logits (0)."""
+    _check(sorted(done) == list(range(n_requests)), f"served {sorted(done)}")
+    for uid, r in done.items():
+        _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
+    steps = eng.decode_steps
+    for name in kernels:
+        per_step = 2 if name.startswith("gather_rows") else 1
+        need = per_step * cfg.num_layers * steps
+        _check(launches[name] >= need,
+               f"{name}: {launches[name]} launches < {need} "
+               f"({per_step} x {cfg.num_layers} layers x {steps} steps)")
+    nonfinite = int(eng.nonfinite_logits)
+    _check(nonfinite == 0, f"{nonfinite} non-finite logits")
+    return nonfinite
+
+
 def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False):
     """Serve ``prompts`` (uid = index) submitted before the chunks in
     ``arrivals``, with the launch counters zeroed just before and read just
-    after. Fails unless every request got ``gen`` tokens and every kernel
-    in ``kernels`` launched at least 28 × decode steps times (the gathers
-    twice that). → (record, {uid: request})."""
+    after, held to ``_check_run``. → (record, {uid: request})."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.serving import Request
@@ -475,17 +494,8 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False):
     launches = dict(K.LAUNCHES)
     done = {r.uid: r for r in eng._done}
     steps = eng.decode_steps
-    _check(sorted(done) == list(range(len(arrivals))), f"served {sorted(done)}")
-    for uid, r in done.items():
-        _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
-    for name in kernels:
-        per_step = 2 if name.startswith("gather_rows") else 1
-        need = per_step * cfg.num_layers * steps
-        _check(launches[name] >= need,
-               f"{name}: {launches[name]} launches < {need} "
-               f"({per_step} x {cfg.num_layers} layers x {steps} steps)")
-    nonfinite = int(eng.nonfinite_logits)
-    _check(nonfinite == 0, f"{nonfinite} non-finite logits")
+    nonfinite = _check_run(eng, done, len(arrivals), gen, launches, kernels,
+                           cfg)
     tokens = sum(len(r.output) for r in done.values())
     rec = dict(
         requests=[dict(uid=u, prompt=len(prompts[u]),
@@ -609,20 +619,17 @@ def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
-    for k in SLOT_KERNELS:
-        per_step = 2 if k.startswith("gather_rows") else 1
-        _check(launches[k] >= per_step * cfg.num_layers * wave.decode_steps,
-               f"wave: {k} launched {launches[k]} times")
-    _check(int(wave.nonfinite_logits) == 0, "wave: non-finite logits")
-    _check(all(len(r.output) == gen for r in done.values()),
-           "wave: a request is short")
+    _check_run(wave, done, len(prompts), gen, launches, SLOT_KERNELS, cfg)
+    outs["pariskv_wave"] = {u: r.output for u, r in done.items()}
     tokens = sum(len(r.output) for r in done.values())
     res["pariskv_wave"] = dict(
         ttft_s=done[0].ttft_s, decode_steps=wave.decode_steps,
         serve_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
         launches=launches)
-    agree = {name: float(np.mean([np.mean(outs[name][u] == outs[
-        "pariskv_slots"][u]) for u in outs[name]])) for name in outs}
+    # per request: the wave's shorter prompt attends to its left pad, so
+    # only the longest request is the same computation as in the slots
+    agree = {name: [float(np.mean(outs[name][u] == outs["pariskv_slots"][u]))
+                    for u in sorted(outs[name])] for name in outs}
     rec = dict(note="host-bound smoke throughputs on a shared host, not a "
                "benchmark", prompts=list(PROMPTS[:2]), new_tokens=gen,
                tokens_per_s={k: v["tokens_per_s"] for k, v in res.items()},

@@ -13,7 +13,7 @@ scores, a mask, a softmax).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -88,37 +88,26 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
-def gather_kv_heads(cache: torch.Tensor, idx: torch.Tensor,
-                    cache_v: Optional[torch.Tensor] = None):
-    """Per-(kv-head, query-head) selected rows of a contiguous store:
-    cache (b, n, G, hd), idx (b, G, Q, k) positions → (b, G, Q, k, hd)
-    (with ``cache_v``: K and V from one launch of the row-gather kernel)."""
-    return gather_heads(cache, cache_v, idx.to(torch.int32).contiguous())
-
-
 def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, top_idx: torch.Tensor,
                             window_start: torch.Tensor, pos: torch.Tensor,
                             enc_end: torch.Tensor, *, sink_size: int,
                             window_size: int, sm_scale: float,
-                            softcap: float = 0.0,
-                            k_ret: Optional[torch.Tensor] = None,
-                            v_ret: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            softcap: float = 0.0) -> torch.Tensor:
     """Decode attention over a contiguous cache. q (b, H, hd); k/v_cache
     (b, n_max, G, hd); top_idx (b, G, Hg, k) retrieved positions;
     window_start / pos / enc_end (b,) int32 → (b, H, hd) float32.
 
-    The winners (unless given pre-gathered) and the window come through
-    the contiguous row-gather kernel, K and V together; the sink is a view
-    of the first ``sink_size`` rows. As the reference's
+    The winners and the window come through the contiguous row-gather
+    kernel, K and V together; the sink is a view of the first
+    ``sink_size`` rows. As the reference's
     ``dynamic_slice``, the window's start clamps to n_max - W for the
     gather, while its masks keep the unclamped ``window_start``."""
     b, H, hd = q.shape
     n, G = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
-    if k_ret is None:
-        k_ret, v_ret = gather_kv_heads(k_cache, top_idx, v_cache)
+    k_ret, v_ret = gather_heads(k_cache, v_cache,
+                                top_idx.to(torch.int32).contiguous())
     start = window_start.clamp(0, n - window_size)
     w_idx = (start[:, None] + torch.arange(window_size, device=q.device)
              ).to(torch.int32).contiguous()

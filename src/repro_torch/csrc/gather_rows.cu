@@ -9,7 +9,8 @@
 // over a store (b, n, G, hd) whose batch row i owns positions [i*n, i*n+n):
 //   mode 0 (per kv head): idx (b, G, Q, k) -> out (b, G, Q, k, hd) with
 //     out[i,g,q,j] = store[i, idx[i,g,q,j], g]. The Stage-II winners
-//     (core/attention.py:gather_kv_heads).
+//     (core/attention.py:sparse_decode_attention; the reference's
+//     gather_kv_heads).
 //   mode 1 (per row): idx (b, L) -> out (b, L, G, hd) with
 //     out[i,l] = store[i, idx[i,l]]. The local window, the promoted key
 //     blocks, and the reference's batched contract gather_kv_kernel

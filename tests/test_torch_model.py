@@ -65,6 +65,29 @@ def test_blocks_match_reference():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
 
 
+@pytest.mark.parametrize("S,q_chunk,kv_chunk,ref_chunk,softcap", [
+    (200, 64, 128, 40, 0.0),     # pads to 256
+    (100, 32, 48, 20, 0.0),      # kv chunk rounds up to 64, pads to 128
+    (70, 16, 16, 35, 30.0),      # pads to 80, with a soft cap
+])
+def test_prefill_attention_ragged_length(S, q_chunk, kv_chunk, ref_chunk,
+                                         softcap):
+    """A length that the chunks do not divide (the reference asserts on
+    it): the port pads and drops the pad rows, and must equal the
+    reference run with chunks that divide S."""
+    rng = np.random.RandomState(S)
+    q = rng.randn(2, S, 4, 32).astype(np.float32)
+    kv = rng.randn(2, 2, S, 2, 32).astype(np.float32)
+    want = JA.blockwise_causal_attention(
+        jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(kv[1]),
+        sm_scale=0.3, softcap=softcap, q_chunk=ref_chunk, kv_chunk=ref_chunk)
+    got = TA.blockwise_causal_attention(
+        torch.from_numpy(q), torch.from_numpy(kv[0]), torch.from_numpy(kv[1]),
+        sm_scale=0.3, softcap=softcap, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    assert got.shape == (2, S, 4, 32)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
 def test_params_from_jax_layout(params):
     pj, pt = params
     assert len(pt["layers"]) == CFG_T.num_layers
