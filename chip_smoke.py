@@ -6,7 +6,7 @@ card: the quickest proof that the port builds and serves on the GPU.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build    — compile the six CUDA C++ kernels from ``src/repro_torch/csrc``
+1. build    — compile the seven CUDA C++ kernels from ``src/repro_torch/csrc``
               (one nvcc per source, in parallel) and print the seconds.
 2. device   — the card's name and power limit, as nvidia-smi reports them.
 3. kernels  — each kernel against its plain PyTorch version on the same
@@ -18,6 +18,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               with a cold L2 (and, as call_ms, the time including the host's
               launch gap), the plain version's time, a PyTorch yardstick
               where one call computes the same function, and the bound.
+              The tiered winner gather reads half its rows from a pinned
+              host pool; its bound prices those bytes at the card's
+              pinned host-to-device rate, measured here with one 256 MiB
+              copy.
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
               serving qwen2-1.5b at full width (28 layers, bf16, random
               weights from a seed) to four staggered requests of
@@ -42,7 +46,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (``use_pariskv=False``), and ``WaveServingEngine``, on
               requests of 3000/6000 prompt tokens with 64 new each: host-
               bound smoke throughputs, not a benchmark.
-8. parity   — 2 layers at full width in float32: one teacher-forced
+8. offload  — ``PagedServingEngine(offload=True)``: (a) the engine phase's
+              four requests with the K/V pool in pinned host memory and a
+              staging pool of a quarter of its blocks; tokens identical to
+              the engine phase's asserted, staging misses and hits > 0,
+              the tiered gather launched 28 × steps; tokens/s, TTFT, peak
+              device memory, pinned bytes, fetched bytes, miss share and
+              prefetch hits printed beside the resident run's, then a
+              profile of one chunk; the first two requests (64 new) with
+              overlap on and off, identical tokens asserted. (b) one
+              request of 65,536 prompt
+              tokens and 64 new through the offloaded engine (staging
+              pool 1/8 of 1024 blocks) and the resident paged engine:
+              identical tokens asserted, peak memory and TTFT printed.
+9. parity   — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -72,11 +89,18 @@ PROMPTS = (3000, 6000, 9000, 12000)      # the four requests of the engines
 GEN = 300
 ARRIVALS = (0, 2, 4, 6)                  # chunk before each submission
 LENS_AFTER = [p + GEN for p in PROMPTS]  # their lengths at the end
-PAGED_KERNELS = ("collision_paged", "bucket_topk", "rerank_paged",
-                 "gather_rows_paged")
-SLOT_KERNELS = ("collision", "bucket_topk", "rerank_paged", "gather_rows")
-METAVIEW_KERNELS = ("collision", "bucket_topk", "rerank_paged",
-                    "gather_rows_paged")
+# each path's kernels → their least launches per layer and decode step
+# (the paged gathers: winners, and sink + window; the tiered path reads
+# its winners with gather_rows_tiered)
+PAGED_KERNELS = {"collision_paged": 1, "bucket_topk": 1, "rerank_paged": 1,
+                 "gather_rows_paged": 2}
+SLOT_KERNELS = {"collision": 1, "bucket_topk": 1, "rerank_paged": 1,
+                "gather_rows": 2}
+METAVIEW_KERNELS = {"collision": 1, "bucket_topk": 1, "rerank_paged": 1,
+                    "gather_rows_paged": 2}
+OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1, "rerank_paged": 1,
+                   "gather_rows_paged": 1, "gather_rows_tiered": 1}
+LONG_PROMPT, LONG_GEN = 65536, 64        # the offload phase's long request
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -304,6 +328,7 @@ def kernel_phase(dev, cfg, seed: int = 0):
         library_ms=_time_ms(library, flush),
         bound=_bound(moved + lidx.numel() * 4 + phys.numel() * 4, 0))
     _contiguous_kernels(dev, cfg, gen, flush, lens, out)
+    _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out)
     for name, rec in out.items():
         rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
         print(f"kernel {name} " + json.dumps(rec), flush=True)
@@ -433,6 +458,80 @@ def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
         bound=_bound(moved + top_idx.numel() * 4 + w_idx.numel() * 4, 0))
 
 
+def _link_rate(dev, nbytes: int = 256 << 20) -> float:
+    """The card's pinned host → device copy rate, bytes/s: the median of
+    five copies of one ``nbytes`` pinned buffer."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        dst.copy_(src, non_blocking=True)
+        e.record()
+        torch.cuda.synchronize()
+        times.append(s.elapsed_time(e) / 1e3)
+    return nbytes / statistics.median(times)
+
+
+def _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out):
+    """7. The tiered winner gather at the decode shapes: the paged pool's
+    rows copied to a pinned host pool, about half of its 512 blocks staged
+    (the others -1 in dev_map), and every seventh winner a -1 row."""
+    import torch
+    from repro_torch.kernels.gather_kv import gather_heads_tiered
+    from repro_torch.kernels.gather_kv.ref import gather_heads_tiered_ref
+
+    nb, bs, G, hd = pool.k.shape
+    nd = nb // 2
+    host_k = pool.k.reshape(nb * bs, G, hd).cpu().pin_memory()
+    host_v = pool.v.reshape(nb * bs, G, hd).cpu().pin_memory()
+    staged = torch.randperm(nb, generator=gen, device=dev)[:nd]
+    dev_map = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+    dev_map[staged] = torch.arange(nd, dtype=torch.int32, device=dev)
+    stag_k, stag_v = pool.k[staged].contiguous(), pool.v[staged].contiguous()
+    valid = (top_idx >= sink) & (top_idx < enc_end[:, None, None, None])
+    valid[..., ::7] = False
+    rows = torch.where(valid, phys, -1).to(torch.int32).contiguous()
+
+    def kern():
+        return gather_heads_tiered(stag_k, stag_v, host_k, host_v, dev_map,
+                                   rows)
+
+    def plain():
+        return (gather_heads_tiered_ref(stag_k, host_k, dev_map, rows),
+                gather_heads_tiered_ref(stag_v, host_v, dev_map, rows))
+
+    got, want = kern(), plain()
+    _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+           "gather_rows_tiered differs from its plain version")
+    resident = dev_map[rows.clamp_min(0).long() // bs] >= 0
+    n_hit = int((resident & (rows >= 0)).sum())
+    n_miss = int((~resident & (rows >= 0)).sum())
+    _check(n_hit > 0 and n_miss > 0, f"{n_hit} staged, {n_miss} missed rows")
+    row_b = 2 * hd * pool.k.element_size()          # K and V of a head row
+    link = _link_rate(dev)
+    hbm_bytes = (n_hit * row_b + rows.numel() * row_b + rows.numel() * 4
+                 + nb * 4)
+    terms = dict(hbm_ms=hbm_bytes / HBM_BYTES_PER_S * 1e3,
+                 link_ms=n_miss * row_b / link * 1e3)
+    out["gather_rows_tiered"] = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows_tiered.cu",
+        replaces="src/repro/kernels/gather_kv/ops.py:27",
+        max_abs_err=0, tolerance="exact", staged_rows=n_hit,
+        missed_rows=n_miss, zero_rows=int((rows < 0).sum()),
+        pinned_h2d_gb_per_s=link / 1e9, bound_terms=terms,
+        ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        # the plain version gathers the missed rows on the host: unprimed,
+        # so its host work counts
+        plain_ms=_time_ms(plain, flush, primed=False), library_ms=None,
+        bound=(max(terms.values()), "bytes"))
+
+
 # ---------------------------------------------------------------- engine ---
 def _prompts(cfg, seed: int = 0, lens=None):
     """The engines' prompts: random tokens from ``seed``, one per length
@@ -447,14 +546,13 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
                cfg) -> int:
     """Fail unless requests 0 .. n_requests-1 each got ``gen`` tokens, no
     logit was non-finite, and every kernel in ``kernels`` launched at least
-    once per layer and decode step (the gathers twice: winners or sink,
-    and window). → the count of non-finite logits (0)."""
+    its given count per layer and decode step. → the count of non-finite
+    logits (0)."""
     _check(sorted(done) == list(range(n_requests)), f"served {sorted(done)}")
     for uid, r in done.items():
         _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
     steps = eng.decode_steps
-    for name in kernels:
-        per_step = 2 if name.startswith("gather_rows") else 1
+    for name, per_step in kernels.items():
         need = per_step * cfg.num_layers * steps
         _check(launches[name] >= need,
                f"{name}: {launches[name]} launches < {need} "
@@ -584,6 +682,107 @@ def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
     return rec
 
 
+def _tier_stats(eng, done):
+    """The offloaded engine's staging statistics over all requests."""
+    import torch
+    tot = {k: sum(getattr(r, k) for r in done.values()) for k in (
+        "staging_hits", "staging_misses", "fetched_bytes",
+        "prefetched_blocks", "prefetch_hits", "fetch_callbacks")}
+    hm = tot["staging_hits"] + tot["staging_misses"]
+    stats = getattr(torch.cuda, "host_memory_stats", lambda: {})()
+    return dict(tot, miss_share=tot["staging_misses"] / max(hm, 1),
+                num_device_blocks=eng.num_device_blocks,
+                num_blocks=eng.num_blocks,
+                pinned_host_bytes=eng.host.nbytes,
+                pinned_host_bytes_held=eng.host.held_bytes,
+                host_allocator_bytes=stats.get("allocated_bytes.current"))
+
+
+def _same_tokens(a, b) -> bool:
+    import numpy as np
+    return sorted(a) == sorted(b) and all(np.array_equal(a[u], b[u])
+                                          for u in a)
+
+
+def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
+    """(a) The engine phase's four requests through the offloaded engine
+    (staging pool of a quarter of the blocks); (b) one long request
+    through the offloaded engine (staging pool 1/8) and the resident
+    paged engine."""
+    import torch
+    from repro_torch.serving import PagedServingEngine
+
+    eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
+                             max_batch=4, num_blocks=512,
+                             num_device_blocks=128, chunk_size=8,
+                             offload=True, device=dev)
+    _warm(eng, cfg)
+    rec, done = _serve(eng, _prompts(cfg), GEN, ARRIVALS, OFFLOAD_KERNELS,
+                       cfg, audit=True)
+    tier = _tier_stats(eng, done)
+    same = _same_tokens({u: r.output for u, r in done.items()}, paged_out)
+    short = dict(rec, **tier, tokens_identical_to_engine_phase=same,
+                 resident_engine_phase=dict(
+                     tokens_per_s=paged_rec["tokens_per_s"],
+                     peak_mem_gb=paged_rec["peak_mem_gb"],
+                     ttft_s=[r["ttft_s"] for r in paged_rec["requests"]]))
+    print("offload " + json.dumps(short), flush=True)
+    _check(same, "offloaded tokens differ from the resident engine's")
+    _check(tier["staging_misses"] > 0 and tier["staging_hits"] > 0,
+           f"staging hits {tier['staging_hits']}, misses "
+           f"{tier['staging_misses']}")
+    profile_phase(eng, cfg, "offload")
+    del eng
+    torch.cuda.empty_cache()
+
+    # overlap on and off (one stream) on the first two requests
+    ovl = {}
+    for overlap in (True, False):
+        eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
+                                 max_batch=4, num_blocks=512,
+                                 num_device_blocks=128, chunk_size=8,
+                                 offload=True, overlap=overlap, device=dev)
+        _warm(eng, cfg)
+        r, done = _serve(eng, _prompts(cfg)[:2], 64, ARRIVALS[:2],
+                         OFFLOAD_KERNELS, cfg)
+        ovl[overlap] = (r["tokens_per_s"],
+                        {u: q.output for u, q in done.items()})
+        del eng
+    same_ovl = _same_tokens(ovl[True][1], ovl[False][1])
+    short["overlap_on_off"] = dict(
+        requests=2, new_tokens=64, tokens_identical=same_ovl,
+        tokens_per_s={"overlap": ovl[True][0], "one_stream": ovl[False][0]})
+    print("offload_overlap " + json.dumps(short["overlap_on_off"]),
+          flush=True)
+    _check(same_ovl, "overlap=False tokens differ from overlap=True")
+
+    # (b): one request past 64k tokens, staging pool 1/8 of the blocks
+    n_long = -(-(LONG_PROMPT + LONG_GEN) // 128) * 128
+    prompt = _prompts(cfg, seed=5, lens=(LONG_PROMPT,))
+    outs, recs = {}, {}
+    for name, kw, kernels in (
+            ("offloaded", dict(offload=True, num_device_blocks=128),
+             OFFLOAD_KERNELS),
+            ("resident", {}, PAGED_KERNELS)):
+        eng = PagedServingEngine(cfg, params, n_max=n_long, block_size=128,
+                                 max_batch=1, num_blocks=1024, chunk_size=8,
+                                 device=dev, **kw)
+        _warm(eng, cfg)
+        recs[name], done = _serve(eng, prompt, LONG_GEN, (0,), kernels, cfg)
+        if name == "offloaded":
+            recs[name].update(_tier_stats(eng, done))
+        outs[name] = {u: r.output for u, r in done.items()}
+        del eng
+        torch.cuda.empty_cache()
+    same = _same_tokens(outs["offloaded"], outs["resident"])
+    long_rec = dict(prompt=LONG_PROMPT, new_tokens=LONG_GEN, n_max=n_long,
+                    tokens_identical=same, **recs)
+    print("offload_long " + json.dumps(long_rec), flush=True)
+    _check(same, "long request: offloaded tokens differ from the resident "
+           "engine's")
+    return short, long_rec
+
+
 def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
     """ParisKV slots, full-attention slots and ParisKV waves on two
     requests of 3000/6000 prompt tokens submitted together."""
@@ -601,7 +800,7 @@ def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
                             chunk_size=8, use_pariskv=use_pariskv,
                             device=dev)
         _warm(eng, cfg)
-        kernels = SLOT_KERNELS if use_pariskv else ()
+        kernels = SLOT_KERNELS if use_pariskv else {}
         res[name], done = _serve(eng, prompts, gen, (0, 0), kernels, cfg)
         outs[name] = {u: r.output for u, r in done.items()}
         if not use_pariskv:
@@ -823,7 +1022,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    phases = ("kernels", "engine", "slot", "metaview", "baseline", "parity")
+    phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
+              "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -845,12 +1045,12 @@ def main() -> int:
     cfg = configs.get("qwen2-1.5b")
     kern = kernel_phase(dev, cfg) if "kernels" in only else {}
     params = None
-    if {"engine", "slot", "metaview", "baseline"} & set(only):
+    if {"engine", "slot", "metaview", "baseline", "offload"} & set(only):
         from repro_torch.models.model import init_params
         params = init_params(cfg, seed=0, device=dev)
     launches = {}             # kernel → launches on the first path using it
     paged_out = None
-    if "engine" in only:
+    if "engine" in only or "offload" in only:
         eng, engine, paged_out = engine_phase(dev, cfg, params)
         profile_phase(engine, cfg, "paged")
         del engine
@@ -865,6 +1065,10 @@ def main() -> int:
         metaview_phase(dev, cfg, params)
     if "baseline" in only:
         baseline_phase(dev, cfg, params)
+    if "offload" in only:
+        off, _ = offload_phase(dev, cfg, params, eng, paged_out)
+        launches.setdefault("gather_rows_tiered",
+                            off["launches"]["gather_rows_tiered"])
     if "parity" in only:
         parity_phase(dev, cfg)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

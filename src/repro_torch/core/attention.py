@@ -1,10 +1,12 @@
 """Attention for prefill and decode (port of ``repro/core/attention.py``
-without the chunked-fill and tiered parts).
+without the chunked-fill part).
 
 ``blockwise_causal_attention`` is the prefill attention, a two-level
 online softmax in plain torch ops (the JAX package leaves it to XLA).
-``sparse_decode_attention`` (contiguous cache) and
-``sparse_decode_attention_paged`` (block pool) are paper Eq. (2)-(3): one
+``sparse_decode_attention`` (contiguous cache),
+``sparse_decode_attention_paged`` (block pool) and
+``sparse_decode_attention_tiered`` (staging pool of the host-offloaded
+tier) are paper Eq. (2)-(3): one
 joint softmax over Sink ∪ Retrieved-top-k ∪ Local/Buffer window, three
 disjoint index ranges. Window and winner rows come through the gather
 kernels; the contiguous sink is a view. ``dense_decode_attention`` is the
@@ -13,7 +15,7 @@ scores, a mask, a softmax).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -136,13 +138,17 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
                        window_start: torch.Tensor, pos: torch.Tensor,
                        enc_end: torch.Tensor, *, sink_size: int,
                        window_size: int, sm_scale: float,
-                       softcap: float) -> torch.Tensor:
+                       softcap: float, s_sink: Optional[torch.Tensor] = None,
+                       s_loc: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Joint softmax over the three gathered segments (Eq. 2-3 core).
 
     qg (b, G, Hg, hd) float32; k/v_sink (b, sink, G, hd); k/v_ret
     (b, G, Hg, k, hd); k/v_loc (b, W, G, hd); top_idx (b, G, Hg, k)
-    logical positions → (b, G, Hg, hd) float32. Masked slots get exactly
-    zero probability (pools hold zeros or real activations, never NaN)."""
+    logical positions → (b, G, Hg, hd) float32. ``s_sink``/``s_loc`` are
+    the raw sink and window scores when the caller computed them already
+    (``dense_segment_scores``: the overlapped tiered schedule). Masked
+    slots get exactly zero probability (pools hold zeros or real
+    activations, never NaN)."""
     dev = qg.device
     s_ret = torch.einsum("bghd,bghkd->bghk", qg, k_ret.float())
     # only positions inside the retrieval region count: with an empty
@@ -151,7 +157,8 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
                  & (top_idx < enc_end[:, None, None, None]))
     s_ret = torch.where(ret_valid, s_ret, NEG_INF)
 
-    s_sink, s_loc = dense_segment_scores(qg, k_sink, k_loc)
+    if s_sink is None:
+        s_sink, s_loc = dense_segment_scores(qg, k_sink, k_loc)
     sink_valid = torch.arange(sink_size, device=dev)[None] <= pos[:, None]
     s_sink = torch.where(sink_valid[:, None, None, :], s_sink, NEG_INF)
 
@@ -179,7 +186,13 @@ def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
                                   pos: torch.Tensor, enc_end: torch.Tensor,
                                   k_ret: torch.Tensor, v_ret: torch.Tensor,
                                   *, sink_size: int, window_size: int,
-                                  sm_scale: float, softcap: float = 0.0
+                                  sm_scale: float, softcap: float = 0.0,
+                                  k_sink: Optional[torch.Tensor] = None,
+                                  v_sink: Optional[torch.Tensor] = None,
+                                  k_loc: Optional[torch.Tensor] = None,
+                                  v_loc: Optional[torch.Tensor] = None,
+                                  s_sink: Optional[torch.Tensor] = None,
+                                  s_loc: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """Decode attention over the paged pool. q (b, H, hd); pool_k/v
     (num_blocks, block_size, G, hd); block_tables (b, nblk) int32;
@@ -188,24 +201,68 @@ def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
     gathered by Stage II's physical rows → (b, H, hd) float32.
 
     Sink and window rows share one paged-gather launch (K and V
-    together): the index row is [0, sink) ++ [ws, ws + W)."""
-    from repro_torch.core import cache as CC
-
+    together): the index row is [0, sink) ++ [ws, ws + W). They (and
+    their raw scores ``s_sink``/``s_loc``) may arrive pre-gathered
+    instead (``dense_sink_window``: the overlapped tiered schedule runs
+    them while the winner gather is in flight); placement never changes
+    the values."""
     b, H, hd = q.shape
     G = pool_k.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
-    dev = q.device
+    if k_sink is None:
+        k_sink, v_sink, k_loc, v_loc = dense_sink_window(
+            pool_k, pool_v, block_tables, window_start,
+            sink_size=sink_size, window_size=window_size)
+    return _segment_attention(
+        qg, k_sink, v_sink, k_ret, v_ret, k_loc, v_loc, top_idx,
+        window_start, pos, enc_end, sink_size=sink_size,
+        window_size=window_size, sm_scale=sm_scale, softcap=softcap,
+        s_sink=s_sink, s_loc=s_loc).reshape(b, H, hd)
+
+
+def dense_sink_window(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                      block_tables: torch.Tensor, window_start: torch.Tensor,
+                      *, sink_size: int, window_size: int):
+    """The sink and window rows of every row's sequence through its block
+    table, K and V in one paged-gather launch → (k_sink, v_sink, k_loc,
+    v_loc), (b, sink, G, hd) and (b, W, G, hd)."""
+    from repro_torch.core import cache as CC
+
+    b = window_start.shape[0]
+    dev = window_start.device
     sink_idx = torch.arange(sink_size, device=dev).expand(b, sink_size)
     w_idx = window_start[:, None] + torch.arange(window_size, device=dev)
     k_dense, v_dense = CC.paged_gather_rows(
         pool_k, pool_v, block_tables, torch.cat([sink_idx, w_idx], dim=1))
-    k_sink, k_loc = k_dense[:, :sink_size], k_dense[:, sink_size:]
-    v_sink, v_loc = v_dense[:, :sink_size], v_dense[:, sink_size:]
-    return _segment_attention(
-        qg, k_sink, v_sink, k_ret, v_ret, k_loc, v_loc, top_idx,
-        window_start, pos, enc_end, sink_size=sink_size,
-        window_size=window_size, sm_scale=sm_scale, softcap=softcap
-    ).reshape(b, H, hd)
+    return (k_dense[:, :sink_size], v_dense[:, :sink_size],
+            k_dense[:, sink_size:], v_dense[:, sink_size:])
+
+
+def sparse_decode_attention_tiered(q: torch.Tensor, pool_k: torch.Tensor,
+                                   pool_v: torch.Tensor,
+                                   block_tables: torch.Tensor,
+                                   dev_map: torch.Tensor,
+                                   top_idx: torch.Tensor,
+                                   window_start: torch.Tensor,
+                                   pos: torch.Tensor, enc_end: torch.Tensor,
+                                   k_ret: torch.Tensor, v_ret: torch.Tensor,
+                                   *, sink_size: int, window_size: int,
+                                   sm_scale: float, softcap: float = 0.0,
+                                   **dense) -> torch.Tensor:
+    """Tiered twin of ``sparse_decode_attention_paged``: ``pool_k``/
+    ``pool_v`` are the bounded staging leaves and the host block tables
+    are composed with ``dev_map`` before any K/V read (the engine pins
+    sink and window blocks staged, so those reads always hit). The
+    winners arrive hit/miss-blended in ``k_ret``/``v_ret``; ``dense``
+    takes the pre-gathered sink/window pieces of the overlapped
+    schedule."""
+    from repro_torch.core import cache as CC
+
+    return sparse_decode_attention_paged(
+        q, pool_k, pool_v, CC.tiered_kv_tables(block_tables, dev_map),
+        top_idx, window_start, pos, enc_end, k_ret, v_ret,
+        sink_size=sink_size, window_size=window_size, sm_scale=sm_scale,
+        softcap=softcap, **dense)
 
 
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,6 +1,7 @@
 """ParisKV cache state (port of ``repro/core/cache.py`` without the
-chunked-fill, prefix-sharing and tiered parts): Sink / Retrieval / Local /
-Update regions, the contiguous per-slot cache, and the paged block pool.
+chunked-fill and prefix-sharing parts): Sink / Retrieval / Local / Update
+regions, the contiguous per-slot cache, the paged block pool and its
+tiered (host-offloaded) variant.
 
       0 ........ sink | sink ........ enc_end | enc_end ....... pos | ...
       [   Sink     ]   [   Retrieval region ]  [ Local + Update buf ]
@@ -211,18 +212,8 @@ def retrieval_valid_mask(n_max: int, regions: CacheRegions,
 def init_paged_cache(num_blocks: int, block_size: int, num_kv_heads: int,
                      head_dim: int, cfg: ParisKVConfig, dtype, device
                      ) -> PagedLayerKVCache:
-    B = cfg.num_subspaces(head_dim)
-    g = num_kv_heads
-
-    def z(shape, dt):
-        return torch.zeros(shape, dtype=dt, device=device)
-
-    return PagedLayerKVCache(
-        k=z((num_blocks, block_size, g, head_dim), dtype),
-        v=z((num_blocks, block_size, g, head_dim), dtype),
-        meta_ids=z((num_blocks, g, block_size, B), torch.uint8),
-        meta_codes=z((num_blocks, g, block_size, B), torch.int32),
-        meta_w=z((num_blocks, g, block_size, B), torch.float32))
+    return init_tiered_cache(num_blocks, num_blocks, block_size,
+                             num_kv_heads, head_dim, cfg, dtype, device)
 
 
 def paged_lookup_blocks(block_tables: torch.Tensor, lidx: torch.Tensor,
@@ -325,7 +316,8 @@ def bucket_hist_from_meta(meta_ids: torch.Tensor, regions: CacheRegions,
 def paged_promote_rows_hist(pool: PagedLayerKVCache, hist: torch.Tensor,
                             block_tables: torch.Tensor, starts: torch.Tensor,
                             mask: torch.Tensor, cfg: ParisKVConfig,
-                            signs: torch.Tensor
+                            signs: torch.Tensor,
+                            kv_tables: Optional[torch.Tensor] = None
                             ) -> Tuple[PagedLayerKVCache, torch.Tensor]:
     """Encode metadata for the keys at logical positions
     [starts[i], starts[i] + update_interval) of every row with ``mask[i]``,
@@ -333,11 +325,17 @@ def paged_promote_rows_hist(pool: PagedLayerKVCache, hist: torch.Tensor,
     (positions >= sink under allocated blocks only), all in place.
 
     No decrement is needed: the span starts at the pre-promotion enc_end,
-    so the stale ids it overwrites were never counted."""
+    so the stale ids it overwrites were never counted.
+
+    ``kv_tables`` (default ``block_tables``) addresses the K gather: a
+    tiered pool passes its composed staging tables while the metadata
+    scatter keeps the host tables (the promoted span lies in the pinned
+    local window, so its blocks are always staged)."""
     U = cfg.update_interval
     bs = pool.k.shape[1]
     lidx = starts[:, None] + torch.arange(U, device=starts.device)[None]
-    rows = paged_gather_rows(pool.k, None, block_tables, lidx)  # (b,U,G,hd)
+    kvt = block_tables if kv_tables is None else kv_tables
+    rows = paged_gather_rows(pool.k, None, kvt, lidx)          # (b,U,G,hd)
     meta = _encode_block(rows, cfg, signs)                       # (b,G,U,B)
     pb, off = paged_lookup_blocks(block_tables, lidx, bs)
     write = mask[:, None] & (pb >= 0)                            # (b, U)
@@ -383,11 +381,7 @@ def paged_scatter_prefill(pool: PagedLayerKVCache, cache1: LayerKVCache,
     for pool_t, src in ((pool.k, cache1.k), (pool.v, cache1.v)):
         view = src[0].reshape((nblk, bs) + src.shape[2:])
         pool_t[dst] = view[keep].to(pool_t.dtype)
-    for pool_t, src in zip(pool[2:], cache1[2:]):
-        g, B = src.shape[1], src.shape[-1]
-        view = src[0].reshape(g, nblk, bs, B).transpose(0, 1)
-        pool_t[dst] = view[keep]
-    return pool
+    return tiered_scatter_prefill_meta(pool, cache1, phys_blocks)
 
 
 def paged_clear_blocks(pool: PagedLayerKVCache,
@@ -398,4 +392,95 @@ def paged_clear_blocks(pool: PagedLayerKVCache,
     blocks = phys_blocks[(phys_blocks >= 0) & (phys_blocks < nb)].long()
     for t in pool:
         t[blocks] = 0
+    return pool
+
+
+# --------------------------------------------------------- tiered pool ----
+# The tiered layout keeps the retrieval metadata of all ``num_blocks``
+# blocks on the device but bounds the K/V leaves to ``num_device_blocks``
+# staging blocks; the full K/V pool lives in host memory
+# (serving/offload.py:HostKVPool). Metadata goes through the host block
+# tables; K/V through the composed tables ``tiered_kv_tables(bt,
+# dev_map)``, where "unallocated" and "allocated but not staged" both come
+# out < 0. The engine pins every block a chunk writes or reads densely
+# (sink, window, append frontier), so appends, promotion gathers and the
+# sink/window reads always hit staging; Stage-II winners may be missing
+# and are read from the host pool (kernels/gather_kv:gather_heads_tiered).
+
+def init_tiered_cache(num_blocks: int, num_device_blocks: int,
+                      block_size: int, num_kv_heads: int, head_dim: int,
+                      cfg: ParisKVConfig, dtype, device) -> PagedLayerKVCache:
+    """Tiered pool: meta leaves of ``num_blocks`` blocks, K/V staging
+    leaves of ``num_device_blocks`` (equal counts: the resident pool)."""
+    B = cfg.num_subspaces(head_dim)
+    g = num_kv_heads
+
+    def z(shape, dt):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return PagedLayerKVCache(
+        k=z((num_device_blocks, block_size, g, head_dim), dtype),
+        v=z((num_device_blocks, block_size, g, head_dim), dtype),
+        meta_ids=z((num_blocks, g, block_size, B), torch.uint8),
+        meta_codes=z((num_blocks, g, block_size, B), torch.int32),
+        meta_w=z((num_blocks, g, block_size, B), torch.float32))
+
+
+def tiered_kv_tables(block_tables: torch.Tensor,
+                     dev_map: torch.Tensor) -> torch.Tensor:
+    """Compose per-slot host block tables (b, nblk) (< 0 unallocated) with
+    the residency map ``dev_map`` (num_blocks,) (host block → staging
+    block, -1 not staged) → (b, nblk) staging blocks, < 0 wherever the
+    block is unallocated or not staged."""
+    nb = dev_map.shape[0]
+    mapped = dev_map[block_tables.clamp(0, nb - 1).long()]
+    return torch.where(block_tables >= 0, mapped, -1).to(torch.int32)
+
+
+def tiered_scatter_prefill_meta(pool: PagedLayerKVCache,
+                                cache1: LayerKVCache,
+                                phys_blocks: torch.Tensor
+                                ) -> PagedLayerKVCache:
+    """Metadata half of ``paged_scatter_prefill`` for a solo (batch=1)
+    admission into a tiered pool, in place: the prompt's K/V goes to the
+    host pool and reaches staging through the residency installer. Entries
+    of ``phys_blocks`` outside [0, num_blocks) are skipped."""
+    nb, _, bs = pool.meta_ids.shape[:3]
+    nblk = phys_blocks.shape[0]
+    keep = torch.nonzero((phys_blocks >= 0) & (phys_blocks < nb)).flatten()
+    dst = phys_blocks[keep].long()
+    for pool_t, src in zip(pool[2:], cache1[2:]):
+        g, B = src.shape[1], src.shape[-1]
+        view = src[0].reshape(g, nblk, bs, B).transpose(0, 1)
+        pool_t[dst] = view[keep].to(pool_t.dtype)
+    return pool
+
+
+def tiered_stage_blocks(pool: PagedLayerKVCache, stag_blocks: torch.Tensor,
+                        k_payload: torch.Tensor, v_payload: torch.Tensor
+                        ) -> PagedLayerKVCache:
+    """Install host K/V block payloads (n, block_size, G, hd) into staging
+    slots ``stag_blocks`` (n,), in place; ids outside [0,
+    num_device_blocks) are pad slots and skipped."""
+    nd = pool.k.shape[0]
+    keep = torch.nonzero((stag_blocks >= 0) & (stag_blocks < nd)).flatten()
+    dst = stag_blocks[keep].long()
+    for dst_t, src in ((pool.k, k_payload), (pool.v, v_payload)):
+        dst_t[dst] = src[keep.to(src.device)].to(dst_t.device, dst_t.dtype)
+    return pool
+
+
+def tiered_clear_blocks(pool: PagedLayerKVCache, meta_blocks: torch.Tensor,
+                        stag_blocks: torch.Tensor) -> PagedLayerKVCache:
+    """Eviction hygiene for a tiered pool, in place: zero the host blocks
+    ``meta_blocks`` on the metadata leaves and the staging blocks
+    ``stag_blocks`` on the K/V leaves (two id spaces); out-of-range ids
+    are sentinels and skipped."""
+    nd, nb = pool.k.shape[0], pool.meta_ids.shape[0]
+    sb = stag_blocks[(stag_blocks >= 0) & (stag_blocks < nd)].long()
+    mb = meta_blocks[(meta_blocks >= 0) & (meta_blocks < nb)].long()
+    for t in pool[:2]:
+        t[sb] = 0
+    for t in pool[2:]:
+        t[mb] = 0
     return pool

@@ -298,3 +298,17 @@ def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
         indices=top_idx, block_ids=safe_blk, offsets=off,
         phys_rows=phys_rows, scores=top_est, cand_indices=cand,
         coarse_scores=coarse)
+
+
+def tiered_winner_rows(phys_rows: torch.Tensor, dev_map: torch.Tensor,
+                       block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Winner → staging-row translation for a tiered pool. Stage II's
+    ``phys_rows`` address the *host* block space; ``dev_map``
+    (num_blocks,) int32 maps host block → staging block (-1 = not
+    staged). → (resident, stag_rows): ``resident`` marks winners whose
+    block is staged, ``stag_rows`` their flat staging row (meaningless
+    where not resident)."""
+    host_blk = torch.div(phys_rows, block_size, rounding_mode="floor")
+    off = phys_rows - host_blk * block_size
+    stag = dev_map[host_blk.clamp(0, dev_map.shape[0] - 1).long()]
+    return stag >= 0, stag.clamp_min(0) * block_size + off

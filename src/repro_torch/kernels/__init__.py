@@ -6,7 +6,9 @@
   rerank/       Stage-II RSQ-IP with the physical-row gather fused in (a
                 contiguous store is a pool of one block per batch row)
   gather_kv/    K/V row gather, block-table-indirect (gather_rows_paged) or
-                from a contiguous store (gather_rows): winners and window
+                from a contiguous store (gather_rows): winners and window;
+                the tiered winner gather (gather_rows_tiered) reads staged
+                rows from HBM and missed rows from pinned host memory
 
 Each subpackage has ``ops.py`` (the wrapper) and ``ref.py`` (the plain
 PyTorch version). A wrapper takes the plain version only for CPU tensors;
@@ -18,7 +20,8 @@ kernels.
 from __future__ import annotations
 
 KERNELS = ("collision_paged", "bucket_topk", "rerank_paged",
-           "gather_rows_paged", "collision", "gather_rows")
+           "gather_rows_paged", "collision", "gather_rows",
+           "gather_rows_tiered")
 
 LAUNCHES = {name: 0 for name in KERNELS}
 

@@ -45,6 +45,8 @@ SIGNATURES = {
                           _I, _I, _I, _I, _P],
     "collision": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gather_rows": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P],
+    "gather_rows_tiered": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                           _I, _I, _I, _I, _P],
 }
 
 

@@ -1,5 +1,6 @@
 """Wrappers of the K/V row gather kernels: paged
-(csrc/gather_rows_paged.cu) and contiguous (csrc/gather_rows.cu).
+(csrc/gather_rows_paged.cu), contiguous (csrc/gather_rows.cu) and tiered
+(csrc/gather_rows_tiered.cu).
 
 K and V go through one launch: pass the V tensor to get
 ``(k_rows, v_rows)``, or ``None`` for a single tensor (promotion gathers K
@@ -14,6 +15,7 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import build as K
 from repro_torch.kernels.gather_kv.ref import (gather_heads_physical_ref,
                                                gather_heads_ref,
+                                               gather_heads_tiered_ref,
                                                gather_rows_paged_ref,
                                                gather_rows_ref)
 
@@ -148,3 +150,52 @@ def gather_kv_kernel(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     flat_idx = idx.expand(lead + (k,)).reshape(-1, k).to(torch.int32)
     out = gather_rows(store.reshape(-1, n, d), None, flat_idx.contiguous())
     return out.reshape(lead + (k, d))
+
+
+# ----------------------------------------- tiered (gather_rows_tiered.cu) ---
+def gather_heads_tiered(stag_k: torch.Tensor, stag_v: torch.Tensor,
+                        host_k: torch.Tensor, host_v: torch.Tensor,
+                        dev_map: torch.Tensor, rows: torch.Tensor):
+    """Stage-II winners of a tiered pool, K and V in one launch.
+
+    stag_k/v (nd, bs, G, hd) the staging pool; host_k/v (nb·bs, G, hd) the
+    host pool's rows (pinned when the staging pool is on a card); dev_map
+    (nb,) int32; rows (b, G, Q, k) int32 flat host rows, < 0 for a zero
+    row → (k_ret, v_ret) (b, G, Q, k, hd): staged rows from the staging
+    pool, the others from the host pool (``gather_heads_tiered_ref``).
+    CPU tensors take the plain version; CUDA tensors launch the kernel or
+    raise (a pageable host pool would fault on the card, so it raises)."""
+    if stag_k.device.type == "cpu":
+        return tuple(gather_heads_tiered_ref(s, h, dev_map, rows)
+                     for s, h in ((stag_k, host_k), (stag_v, host_v)))
+    K.check_cuda("gather_rows_tiered", stag_k, stag_v, dev_map, rows)
+    nd, bs, G, hd = stag_k.shape
+    nb = dev_map.shape[0]
+    for name, h in (("host_k", host_k), ("host_v", host_v)):
+        if h.device.type != "cpu" or not h.is_pinned():
+            raise ValueError(f"gather_rows_tiered: {name} must be pinned "
+                             f"host memory (got {h.device}, pinned="
+                             f"{h.device.type == 'cpu' and h.is_pinned()})")
+        if (tuple(h.shape) != (nb * bs, G, hd) or h.dtype != stag_k.dtype
+                or not h.is_contiguous()):
+            raise ValueError(f"gather_rows_tiered: {name} must be a "
+                             f"contiguous {stag_k.dtype} (nb*bs, G, hd) = "
+                             f"{(nb * bs, G, hd)} tensor, got "
+                             f"{h.dtype} {tuple(h.shape)}")
+    if stag_v.shape != stag_k.shape or stag_v.dtype != stag_k.dtype:
+        raise ValueError("gather_rows_tiered: K and V staging pools differ")
+    if rows.dtype != torch.int32 or dev_map.dtype != torch.int32:
+        raise TypeError("gather_rows_tiered: expects int32 rows and dev_map")
+    row_bytes = hd * stag_k.element_size()
+    if row_bytes % 16:
+        raise ValueError(f"gather_rows_tiered: rows of {row_bytes} bytes are "
+                         f"not a multiple of 16")
+    b, _, Q, k = rows.shape
+    outs = [torch.empty((b, G, Q, k, hd), dtype=stag_k.dtype,
+                        device=stag_k.device) for _ in range(2)]
+    K.launch("gather_rows_tiered", K.ptr(stag_k), K.ptr(stag_v),
+             K.ptr(host_k), K.ptr(host_v), K.ptr(outs[0]), K.ptr(outs[1]),
+             K.ptr(rows), K.ptr(dev_map), rows.numel(), nb, nd, bs, G, Q * k,
+             row_bytes // 16, 2)
+    LAUNCHES["gather_rows_tiered"] += 1
+    return tuple(outs)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the K/V row gathers: paged (ports of
-``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``) and
+``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``),
 contiguous (``repro/kernels/gather_kv/gather_kv.py:gather_rows_pallas`` and
-``repro/core/attention.py:gather_kv_heads``)."""
+``repro/core/attention.py:gather_kv_heads``) and tiered (the winner
+hit/miss blend of ``repro/models/layers.py:attn_decode_pariskv_tiered``)."""
 from __future__ import annotations
 
 import torch
@@ -50,3 +51,24 @@ def gather_heads_ref(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     rows = torch.arange(b, device=dev)[:, None, None, None]
     heads = torch.arange(G, device=dev)[None, :, None, None]
     return store[rows, idx.long().clamp(0, n - 1), heads]
+
+
+def gather_heads_tiered_ref(staging: torch.Tensor, host: torch.Tensor,
+                            dev_map: torch.Tensor,
+                            rows: torch.Tensor) -> torch.Tensor:
+    """staging (nd, bs, G, hd); host (nb·bs, G, hd) the full pool's rows;
+    dev_map (nb,) host block → staging block (-1 = not staged); rows
+    (b, G, Q, k) flat host rows → (b, G, Q, k, hd). Entry (i, g, q, j) is
+    zero where rows[i, g, q, j] < 0, head g of the staged copy of that row
+    where its block is staged, else head g of the host row."""
+    nd, bs, G, hd = staging.shape
+    nb = dev_map.shape[0]
+    want = rows.long()
+    phys = want.clamp(0, nb * bs - 1)
+    s = dev_map.long()[torch.div(phys, bs, rounding_mode="floor")]
+    heads = torch.arange(G, device=rows.device)[None, :, None, None]
+    hit = staging.reshape(nd * bs, G, hd)[
+        s.clamp(0, nd - 1) * bs + phys % bs, heads]
+    miss = host[phys.to(host.device), heads.to(host.device)].to(hit.device)
+    out = torch.where((s >= 0)[..., None], hit, miss)
+    return torch.where((want >= 0)[..., None], out, torch.zeros_like(out))

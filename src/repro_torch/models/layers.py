@@ -8,7 +8,7 @@ attention (bq/bk/bv with ``qkv_bias``), wi_gate/wi_up/wo_mlp for the MLP.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -19,6 +19,7 @@ from repro_torch.core import cache as C
 from repro_torch.core import encode as E
 from repro_torch.core import retrieval as R
 from repro_torch.core.config import ParisKVConfig
+from repro_torch.kernels.gather_kv import gather_heads_tiered
 
 
 def truncated_normal_(t: torch.Tensor, generator: torch.Generator,
@@ -256,3 +257,119 @@ def attn_decode_pariskv_paged_fused(p: dict, x_t: torch.Tensor,
         regions.enc_end, k_ret, v_ret, sink_size=pcfg.sink_size,
         window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
+
+
+class SideStream(NamedTuple):
+    """The CUDA stream of the overlapped winner gather and the two events
+    that order it against the main stream (recorded anew at each layer,
+    so none is created per step)."""
+    stream: "torch.cuda.Stream"
+    ready: "torch.cuda.Event"
+    done: "torch.cuda.Event"
+
+    @classmethod
+    def create(cls, device) -> "SideStream":
+        return cls(torch.cuda.Stream(device), torch.cuda.Event(),
+                   torch.cuda.Event())
+
+
+def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
+                               pool: C.PagedLayerKVCache, hist: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               kv_tables: torch.Tensor,
+                               dev_map: torch.Tensor, host_k: torch.Tensor,
+                               host_v: torch.Tensor,
+                               regions: C.CacheRegions, spec: AttnSpec,
+                               pcfg: ParisKVConfig, signs: torch.Tensor,
+                               num_candidates: int, fused: bool = True,
+                               append_index=None, side=None
+                               ) -> Tuple[torch.Tensor,
+                                          R.PagedRetrievalResult, dict]:
+    """ParisKV decode of one layer over a **tiered** pool: metadata,
+    Stage I/II and promotion as on the paged paths (host block tables;
+    ``fused=False`` takes the meta view), K/V through the staging pool.
+
+    The append and the sink/window gathers go through ``kv_tables``
+    (``cache.tiered_kv_tables(block_tables, dev_map)``, composed once per
+    chunk); the engine pins those blocks staged. Stage-II winners are
+    resolved against ``dev_map`` inside one kernel launch
+    (``gather_heads_tiered``): staged rows from the staging pool, missed
+    rows from this layer's host rows ``host_k``/``host_v`` (nb·bs, G, hd),
+    pinned on a card and read through unified virtual addressing. A
+    winner's K/V is the same bytes on either tier, so residency moves
+    bytes, never tokens.
+
+    With a ``SideStream`` ``side`` the winner gather runs on its CUDA
+    stream, after an event recorded once Stage II is done, while the main
+    stream gathers the sink and window and scores them
+    (``dense_segment_scores``); the main stream waits for the side
+    stream's event before the joint softmax. With ``side`` None everything
+    runs in order on one stream; the values are identical.
+
+    → (y (b, d), the retrieval result, fetch-stat increments
+    {"touched": (num_blocks,) int32 winner references per host block (the
+    prefetch predictor's signal), "rows": (b, 3) int32 [winner rows,
+    staging hits, host fetches], "calls": tiered gathers issued (1)})."""
+    b = x_t.shape[0]
+    H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    bs = pool.k.shape[1]
+    pos = regions.pos + 1
+    q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
+    C.paged_decode_append(pool, kv_tables, k_t, v_t, pos, index=append_index)
+
+    qt = E.encode_query(q.reshape(b, G, H // G, hd), pcfg, signs)
+    if fused:
+        res = R.retrieve_paged_fused(pool, block_tables, qt, hist,
+                                     regions.enc_end, pcfg, num_candidates,
+                                     pcfg.top_k)
+    else:
+        view = C.paged_meta_view(pool, block_tables)
+        res = R.retrieve_paged(view, qt, regions.enc_end, pcfg,
+                               num_candidates, pcfg.top_k, block_tables, bs,
+                               hist_sample=pcfg.hist_sample)
+    resident, _ = R.tiered_winner_rows(res.phys_rows, dev_map, bs)
+    ret_valid = ((res.indices >= pcfg.sink_size)
+                 & (res.indices < regions.enc_end[:, None, None, None]))
+    # the reference's blend: staged rows whatever their validity, host
+    # rows for valid misses, zeros for invalid misses
+    rows = torch.where(ret_valid | resident, res.phys_rows,
+                       -1).to(torch.int32).contiguous()
+    W = C.window_size(pcfg)
+    ws = (pos + 1 - W).clamp_min(0)
+    dense = {}
+    if side is not None:
+        main = torch.cuda.current_stream()
+        side.ready.record(main)
+        side.stream.wait_event(side.ready)
+        with torch.cuda.stream(side.stream):
+            k_ret, v_ret = gather_heads_tiered(pool.k, pool.v, host_k,
+                                               host_v, dev_map, rows)
+            side.done.record()
+        rows.record_stream(side.stream)
+        k_sink, v_sink, k_loc, v_loc = A.dense_sink_window(
+            pool.k, pool.v, kv_tables, ws, sink_size=pcfg.sink_size,
+            window_size=W)
+        s_sink, s_loc = A.dense_segment_scores(
+            q.reshape(b, G, H // G, hd).float(), k_sink, k_loc)
+        dense = dict(k_sink=k_sink, v_sink=v_sink, k_loc=k_loc,
+                     v_loc=v_loc, s_sink=s_sink, s_loc=s_loc)
+        main.wait_event(side.done)
+        k_ret.record_stream(main)
+        v_ret.record_stream(main)
+    else:
+        k_ret, v_ret = gather_heads_tiered(pool.k, pool.v, host_k, host_v,
+                                           dev_map, rows)
+
+    touched = torch.zeros((dev_map.shape[0],), dtype=torch.int32,
+                          device=x_t.device)
+    touched.index_add_(0, res.block_ids.flatten().long(),
+                       ret_valid.flatten().to(torch.int32))
+    stats = {"touched": touched, "calls": 1,
+             "rows": torch.stack([ret_valid, ret_valid & resident,
+                                  ret_valid & ~resident], -1).sum(
+                                      (1, 2, 3), dtype=torch.int32)}
+    out = A.sparse_decode_attention_tiered(
+        q, pool.k, pool.v, block_tables, dev_map, res.indices, ws, pos,
+        regions.enc_end, k_ret, v_ret, sink_size=pcfg.sink_size,
+        window_size=W, sm_scale=spec.scale(), softcap=spec.softcap, **dense)
+    return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res, stats

@@ -6,11 +6,15 @@
   contiguous caches (``core.cache.LayerKVCache``) with ParisKV metadata.
 * ``admit_slot`` copies a batch-1 prefill into a contiguous slot;
   ``admit_paged`` scatters it into the shared block pool and computes the
-  slot's incremental bucket histogram.
+  slot's incremental bucket histogram; ``admit_tiered`` scatters only the
+  metadata and the histogram into a tiered pool (the engine writes the
+  prompt's K/V to the host pool).
 * ``decode_step`` / ``decode_chunk`` run greedy decode steps over
   contiguous caches (``block_tables`` None) or the paged pool (fused, or
   the meta-view fallback with ``paged_fused=False``), ParisKV or the
-  full-attention baseline (``use_pariskv=False``, contiguous only).
+  full-attention baseline (``use_pariskv=False``, contiguous only); with
+  ``dev_map`` the paged pool is tiered (staging K/V on the device, the
+  full K/V in host memory).
 
 The reference scans layers and steps with ``lax.scan`` and guards the
 promotion encode with ``lax.cond``; here they are Python loops and a host
@@ -38,6 +42,18 @@ from repro_torch.models.model import (LayerDef, _embed, _unembed, layer_defs,
 class ServeState(NamedTuple):
     caches: Any              # list over layers of {"kv": ..., "hist": ...}
     regions: CC.CacheRegions
+
+
+class TierView(NamedTuple):
+    """One decode chunk's view of the host-offloaded tier: the residency
+    map (frozen for the chunk), the host block tables composed with it,
+    each layer's host K/V rows (k, v) (num_blocks·block_size, G, hd), and
+    the ``layers.SideStream`` of the overlapped winner gather (None: one
+    stream)."""
+    dev_map: torch.Tensor
+    kv_tables: torch.Tensor
+    host_kv: list
+    side: Any
 
 
 class SlotState(NamedTuple):
@@ -78,25 +94,54 @@ def make_caches(cfg: ModelConfig, batch: int, n_max: int,
 
 
 def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
-                      block_size: int, device) -> List[dict]:
+                      block_size: int, device,
+                      num_device_blocks: Optional[int] = None) -> List[dict]:
     """Per layer: the shared block pool ``kv`` and the slot-local
-    (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``."""
+    (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``.
+
+    ``num_device_blocks`` makes the pool tiered: metadata for all
+    ``num_blocks`` blocks, K/V for a staging pool of ``num_device_blocks``
+    (the full K/V lives in ``serving.offload.HostKVPool``), plus the
+    ``fetch`` statistics of a chunk: ``touched`` (num_blocks,) int32
+    winner references per host block, ``rows`` (batch, 3) int32 [winner
+    rows, staging hits, host fetches], ``calls`` the tiered gathers
+    issued (a host count) — zeroed at each ``decode_chunk`` entry."""
     pcfg = cfg.pariskv
     dt = torch_dtype(cfg)
     hist_shape = (batch, cfg.num_kv_heads,
                   pcfg.num_subspaces(cfg.head_dim), pcfg.num_centroids())
+    nd = num_blocks if num_device_blocks is None else num_device_blocks
     out = []
     for ld in layer_defs(cfg):
         if not ld.use_pariskv:
             raise NotImplementedError("only ParisKV layers are paged "
                                       "(ROADMAP A13)")
-        out.append({
-            "kv": CC.init_paged_cache(num_blocks, block_size,
-                                      cfg.num_kv_heads, cfg.head_dim, pcfg,
-                                      dt, device),
+        entry = {
+            "kv": CC.init_tiered_cache(num_blocks, nd, block_size,
+                                       cfg.num_kv_heads, cfg.head_dim, pcfg,
+                                       dt, device),
             "hist": torch.zeros(hist_shape, dtype=torch.int32,
-                                device=device)})
+                                device=device)}
+        if num_device_blocks is not None:
+            entry["fetch"] = {
+                "touched": torch.zeros((num_blocks,), dtype=torch.int32,
+                                       device=device),
+                "rows": torch.zeros((batch, 3), dtype=torch.int32,
+                                    device=device),
+                "calls": 0}
+        out.append(entry)
     return out
+
+
+def offload_support_reason(cfg: ModelConfig) -> Optional[str]:
+    """Why the tiered host-offloaded pool cannot serve this architecture,
+    or None when it can: it pages exactly what ``make_paged_caches`` pages
+    (ParisKV attention K/V), so only MLA's latent caches are out."""
+    for i, ld in enumerate(layer_defs(cfg)):
+        if ld.mixer == "mla":
+            return (f"config {cfg.name!r}: layer {i} mixer 'mla' keeps "
+                    f"latent caches contiguous")
+    return None
 
 
 def regions_init(batch: int, device) -> CC.CacheRegions:
@@ -154,13 +199,17 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                   num_candidates: int, will_promote: torch.Tensor,
                   any_promote: bool, block_tables: Optional[torch.Tensor],
                   append_index, record: Optional[list], use_pariskv: bool,
-                  paged_fused: bool) -> torch.Tensor:
+                  paged_fused: bool, tier: Optional[TierView] = None,
+                  host_kv=None) -> torch.Tensor:
     """One layer of one decode step. ParisKV layers run the contiguous
     path (``block_tables`` None), the fused paged path, or the paged
-    meta-view fallback (``paged_fused=False``), then (when
-    ``any_promote``) promote every triggered row's oldest
+    meta-view fallback (``paged_fused=False``) — over a tiered pool when
+    ``tier`` is given, with this layer's host rows ``host_kv`` and the
+    step's fetch statistics added to the cache's ``fetch`` entry — then
+    (when ``any_promote``) promote every triggered row's oldest
     ``update_interval`` window tokens — on the paged paths with the
-    histogram maintained. ``use_pariskv=False`` is the full-attention
+    histogram maintained (a tiered pool gathers the keys through the
+    composed staging tables). ``use_pariskv=False`` is the full-attention
     baseline over the contiguous cache (no promotion)."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_t, p["norm_attn"], cfg.norm_eps)
@@ -174,6 +223,20 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                                        pcfg, signs, num_candidates)
         if any_promote:
             CC.promote_rows(kv, regions.enc_end, will_promote, pcfg, signs)
+    elif tier is not None:
+        y, res, delta = L.attn_decode_pariskv_tiered(
+            p["attn"], h, kv, cache["hist"], block_tables, tier.kv_tables,
+            tier.dev_map, *host_kv, regions, ld.attn, pcfg, signs,
+            num_candidates, fused=paged_fused, append_index=append_index,
+            side=tier.side)
+        if any_promote:
+            CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
+                                       regions.enc_end, will_promote, pcfg,
+                                       signs, kv_tables=tier.kv_tables)
+        f = cache["fetch"]
+        f["touched"] += delta["touched"]
+        f["rows"] += delta["rows"]
+        f["calls"] += delta["calls"]
     else:
         if paged_fused:
             y, res = L.attn_decode_pariskv_paged_fused(
@@ -200,7 +263,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 state: ServeState, block_tables: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
                 record: Optional[list] = None, use_pariskv: bool = True,
-                paged_fused: bool = True):
+                paged_fused: bool = True, tier: Optional[TierView] = None):
     """One decode step: token (b,) int32 → (logits (b, vocab), new state).
     The caches update in place.
 
@@ -214,7 +277,7 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     their append lands at the dead position pos + 1 (clamped to the store,
     or dropped through an unallocated table entry). ``record``, when a
     list, receives each layer's retrieval result (audits and parity
-    tests).
+    tests). ``tier`` serves a tiered pool (``decode_chunk`` builds it).
 
     Deciding "any row promotes" reads one bool back from the device; the
     paged paths also select the rows whose append block is allocated, once
@@ -236,15 +299,18 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             raise ValueError("paged decode serves the ParisKV path only")
         bs = state.caches[0]["kv"].k.shape[1]
         n_max = block_tables.shape[1] * bs
-        append_index = CC.paged_append_index(block_tables, regions.pos + 1,
-                                             bs)
+        append_index = CC.paged_append_index(
+            block_tables if tier is None else tier.kv_tables,
+            regions.pos + 1, bs)
     any_promote = use_pariskv and bool(will_promote.any())   # host sync
     num_candidates = pcfg.candidate_count(n_max)
-    for ld, p, cache in zip(layer_defs(cfg), params["layers"], state.caches):
+    for li, (ld, p, cache) in enumerate(zip(layer_defs(cfg), params["layers"],
+                                            state.caches)):
         x_t = _layer_decode(p, x_t, ld, cfg, cache, regions, signs,
                             num_candidates, will_promote, any_promote,
                             block_tables, append_index, record, use_pariskv,
-                            paged_fused)
+                            paged_fused, tier,
+                            None if tier is None else tier.host_kv[li])
     x_t = L.rms_norm(x_t, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x_t)
     new_regions = CC.CacheRegions(
@@ -273,14 +339,17 @@ def init_slot_state(cfg: ModelConfig, batch: int, n_max: int,
 
 
 def init_paged_slot_state(cfg: ModelConfig, batch: int, num_blocks: int,
-                          block_size: int, device=None) -> SlotState:
+                          block_size: int, device=None,
+                          num_device_blocks: Optional[int] = None
+                          ) -> SlotState:
     """Empty slot state over a shared block pool on ``device`` (the first
-    CUDA card unless ``device="cpu"``). Block tables are host-managed by
+    CUDA card unless ``device="cpu"``); ``num_device_blocks`` makes the
+    pool tiered (``make_paged_caches``). Block tables are host-managed by
     the engine and passed to ``decode_chunk`` per call."""
     dev = resolve_device(device)
     return _zeros_slot_state(
-        make_paged_caches(cfg, batch, num_blocks, block_size, dev), batch,
-        dev)
+        make_paged_caches(cfg, batch, num_blocks, block_size, dev,
+                          num_device_blocks), batch, dev)
 
 
 @torch.no_grad()
@@ -288,14 +357,22 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                  num_steps: int, block_tables: Optional[torch.Tensor] = None,
                  eos_id: Optional[int] = None, device=None,
                  nonfinite: Optional[torch.Tensor] = None,
-                 use_pariskv: bool = True, paged_fused: bool = True):
+                 use_pariskv: bool = True, paged_fused: bool = True,
+                 dev_map=None, host_kv=None, side=None):
     """``num_steps`` greedy decode steps with per-slot active masking.
     Returns (tokens (b, num_steps) int32 with -1 at inactive steps, state).
     ``block_tables`` None means contiguous caches (``init_slot_state``);
     ``use_pariskv`` and ``paged_fused`` as in ``decode_step``. Runs on the
     first CUDA card unless ``device="cpu"``; the state, params and tables
     must live there. ``nonfinite``, a 0-d int64 device tensor, accumulates
-    the count of non-finite logits (no synchronization)."""
+    the count of non-finite logits (no synchronization).
+
+    ``dev_map`` (num_blocks,) int32 (host block → staging block, -1 = not
+    staged) serves a tiered pool (``init_paged_slot_state(...,
+    num_device_blocks=)``) with the per-layer host rows ``host_kv`` and,
+    on a card, the overlap's ``side`` stream: the map is uploaded and
+    composed with the tables once, frozen for the chunk, and the chunk's
+    ``fetch`` statistics restart at zero."""
     dev = resolve_device(device)
     _check_params(params, dev)
     if state.cur_tok.device.type != dev.type:
@@ -303,6 +380,15 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                          f"runs on {dev}")
     if block_tables is not None:
         block_tables = block_tables.to(dev)
+    tier = None
+    if dev_map is not None:
+        dev_map = torch.as_tensor(dev_map, dtype=torch.int32).to(dev)
+        tier = TierView(dev_map, CC.tiered_kv_tables(block_tables, dev_map),
+                        host_kv, side)
+        for lc in state.caches:
+            lc["fetch"]["touched"].zero_()
+            lc["fetch"]["rows"].zero_()
+            lc["fetch"]["calls"] = 0
     emitted = []
     for _ in range(num_steps):
         active = state.remaining > 0
@@ -310,7 +396,7 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                                   ServeState(state.caches, state.regions),
                                   block_tables, active=active,
                                   use_pariskv=use_pariskv,
-                                  paged_fused=paged_fused)
+                                  paged_fused=paged_fused, tier=tier)
         if nonfinite is not None:
             nonfinite += (~torch.isfinite(logits)).sum()
         nxt = logits.argmax(-1).to(torch.int32)
@@ -326,14 +412,16 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
 @torch.no_grad()
 def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
                 caches1: List[dict], regions1: CC.CacheRegions, tok0: int,
-                rem: int, pcfg) -> SlotState:
+                rem: int, pcfg, scatter=CC.paged_scatter_prefill
+                ) -> SlotState:
     """Install a solo (batch=1) prefill result into slot ``slot``, in
     place: pool blocks scatter to ``phys_blocks`` (n_max // block_size
     entries, sentinels >= num_blocks for unallocated ones) and the slot's
-    histogram is computed from the prefilled metadata."""
+    histogram is computed from the prefilled metadata. ``scatter`` writes
+    one layer's blocks (``admit_tiered`` passes the metadata-only one)."""
     phys_blocks = phys_blocks.to(state.cur_tok.device)
     for lc, lc1 in zip(state.caches, caches1):
-        CC.paged_scatter_prefill(lc["kv"], lc1["kv"], phys_blocks)
+        scatter(lc["kv"], lc1["kv"], phys_blocks)
         lc["hist"][slot] = CC.bucket_hist_from_meta(lc1["kv"].meta_ids,
                                                     regions1, pcfg)[0]
     state.regions.pos[slot] = regions1.pos[0]
@@ -341,6 +429,18 @@ def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
     state.cur_tok[slot] = tok0
     state.remaining[slot] = rem
     return state
+
+
+def admit_tiered(state: SlotState, slot: int, phys_blocks: torch.Tensor,
+                 caches1: List[dict], regions1: CC.CacheRegions, tok0: int,
+                 rem: int, pcfg) -> SlotState:
+    """``admit_paged`` for a tiered pool: the device gets the metadata and
+    the histogram only; the engine writes the prompt's K/V to the host
+    pool and stages what the staging policy wants. ``phys_blocks`` may
+    cover just the prefill's bucketed capacity: later logical blocks get
+    metadata through promotion, before they enter the retrieval region."""
+    return admit_paged(state, slot, phys_blocks, caches1, regions1, tok0,
+                       rem, pcfg, scatter=CC.tiered_scatter_prefill_meta)
 
 
 @torch.no_grad()

@@ -1,3 +1,5 @@
-"""Serving engines: contiguous slots, the paged pool, and lockstep waves."""
-from repro_torch.serving.engine import (PagedServingEngine, Request,  # noqa: F401
-                                        ServingEngine, WaveServingEngine)
+"""Serving engines: contiguous slots, the paged pool (resident or
+host-offloaded), and lockstep waves."""
+from repro_torch.serving.engine import (  # noqa: F401
+    OffloadedPagedServingEngine, PagedServingEngine, Request, ServingEngine,
+    WaveServingEngine)

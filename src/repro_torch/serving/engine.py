@@ -1,5 +1,5 @@
 """Serving engines (port of ``repro/serving/engine.py`` without chunked
-prefill, prefix sharing, offload, fault handling and mesh sharding).
+prefill, prefix sharing, fault handling and mesh sharding).
 
 ``ServingEngine`` is slot-based continuous batching over contiguous
 per-slot caches of ``n_max`` positions: the stepwise loop — cancellations
@@ -26,7 +26,9 @@ slots:
   its blocks return to the free list.
 
 Its decode runs the fused retrieval path, or with ``fused=False`` the
-meta-view fallback (token-identical).
+meta-view fallback (token-identical). ``offload=True`` returns an
+``OffloadedPagedServingEngine``: the K/V pool lives in (pinned) host
+memory and the device keeps the metadata and a bounded staging pool.
 
 ``WaveServingEngine`` is the legacy lockstep baseline: each wave of up to
 ``max_batch`` requests is prefilled as one right-aligned batch (the pad
@@ -51,7 +53,9 @@ from repro_torch import resolve_device
 from repro_torch.core import cache as CC
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import serve as SV
-from repro_torch.models.model import param_device
+from repro_torch.models.layers import SideStream
+from repro_torch.models.model import param_device, torch_dtype
+from repro_torch.serving import offload as offload_lib
 
 
 @dataclasses.dataclass
@@ -66,6 +70,15 @@ class Request:
     cancelled: bool = False
     token_times: Optional[list] = None   # host-visibility time per token
     promotions: int = 0             # sliding-window promotions of its slot
+    # offloaded engine only (OffloadedPagedServingEngine's docstring):
+    staging_hits: int = 0
+    staging_misses: int = 0
+    fetched_bytes: int = 0
+    fetched_unique_bytes: int = 0
+    prefetched_blocks: int = 0
+    prefetch_hits: int = 0
+    fetch_stall_s: float = 0.0
+    fetch_callbacks: int = 0
     # engine-internal:
     _tokens: Optional[list] = None
     _t_admit: float = 0.0
@@ -83,14 +96,15 @@ def _bucket(n: int, floor: int = 8, cap: Optional[int] = None) -> int:
     return b if cap is None else min(b, cap)
 
 
-def _solo_prefill(params, cfg: ModelConfig, req: Request, n_max: int,
+def _solo_prefill(params, cfg: ModelConfig, req: Request, cap: int,
                   device):
     """Solo (batch=1) prefill of a request's prompt, LEFT-aligned and
-    padded to a power-of-two bucket capped at n_max. → (state1, tok0)."""
-    s = _bucket(len(req.prompt), cap=n_max)
+    padded to a power-of-two bucket capped at ``cap``, into caches of
+    ``cap`` positions. → (state1, tok0)."""
+    s = _bucket(len(req.prompt), cap=cap)
     toks = np.zeros((1, s), np.int32)
     toks[0, :len(req.prompt)] = req.prompt
-    logits, state1 = SV.prefill(params, cfg, toks, n_max,
+    logits, state1 = SV.prefill(params, cfg, toks, cap,
                                 lengths=[len(req.prompt)], device=device)
     return state1, int(logits[0].argmax(-1))     # blocks: first token
 
@@ -219,12 +233,17 @@ class ServingEngine:
     def _pre_chunk_slot(self, slot: int, req: Request) -> None:
         """Per-slot host work before a chunk (paged: lazy allocation)."""
 
-    def _decode_chunk(self, block_tables=None, paged_fused: bool = True):
+    def _solo_cap(self, plen: int) -> int:
+        """Capacity of a solo prefill (the offloaded engine buckets it)."""
+        return self.n_max
+
+    def _decode_chunk(self, block_tables=None, paged_fused: bool = True,
+                      **tier):
         tokens, self._state = SV.decode_chunk(
             self.params, self.cfg, self._state, self.chunk_size,
             block_tables, eos_id=self.eos_id, device=self.device,
             nonfinite=self.nonfinite_logits, use_pariskv=self.use_pariskv,
-            paged_fused=paged_fused)
+            paged_fused=paged_fused, **tier)
         self._enc_after = self._state.regions.enc_end.cpu().numpy()
         return tokens.cpu().numpy(), self._state.remaining.cpu().numpy()
 
@@ -280,7 +299,8 @@ class ServingEngine:
             t_admit = time.perf_counter()
             self._pre_admit(slot, req)
             state1, tok0 = _solo_prefill(self.params, self.cfg, req,
-                                         self.n_max, self.device)
+                                         self._solo_cap(len(req.prompt)),
+                                         self.device)
             t_first = time.perf_counter()
             req.ttft_s = t_first - t_admit
             req._t_admit, req._t_first = t_admit, t_first
@@ -345,7 +365,13 @@ class PagedServingEngine(ServingEngine):
     ``block_size`` tokens per block (``n_max`` must be a multiple);
     ``num_blocks`` defaults to ``max_batch * n_max // block_size``, the
     contiguous engine's footprint. Runs on the first CUDA card unless
-    ``device="cpu"``; ``params`` must live there."""
+    ``device="cpu"``; ``params`` must live there. ``offload=True``
+    constructs an ``OffloadedPagedServingEngine``."""
+
+    def __new__(cls, *args, **kwargs):
+        if cls is PagedServingEngine and kwargs.get("offload"):
+            return super().__new__(OffloadedPagedServingEngine)
+        return super().__new__(cls)
 
     def __init__(self, cfg: ModelConfig, params, n_max: int = 4096,
                  max_batch: int = 8, block_size: int = CC.PAGED_DEFAULT_BLOCK,
@@ -358,7 +384,6 @@ class PagedServingEngine(ServingEngine):
         _not_ported("PagedServingEngine", (
             ("prefill_budget", prefill_budget, 0, "A7 (chunked prefill)"),
             ("share_prefixes", share_prefixes, False, "A8 (prefix sharing)"),
-            ("offload", offload, False, "A9 (host-offloaded tier)"),
             ("faults", faults, None, "A10 (fault handling)"),
             ("mesh_shards", mesh_shards, 1,
              "A11 (head-sharded multi-GPU serving)")))
@@ -510,6 +535,348 @@ class PagedServingEngine(ServingEngine):
                 raise AssertionError(
                     f"layer {li}: incremental histogram != recompute for "
                     f"slots {slots}")
+
+
+class OffloadedPagedServingEngine(PagedServingEngine):
+    """Paged serving over the tiered host-offloaded pool (what
+    ``PagedServingEngine(offload=True)`` returns).
+
+    The device keeps all retrieval metadata (ids, codes, weights and the
+    per-slot bucket histograms) and a staging pool of
+    ``num_device_blocks`` K/V blocks (default ``num_blocks // 4``); the
+    full K/V pool lives in host memory (``serving.offload.HostKVPool``),
+    pinned on a card. Each decode step runs Stage I/II exactly as the
+    resident engine; one kernel launch per layer then reads the staged
+    winners from HBM and the missed ones from pinned host memory over
+    PCIe (``kernels/gather_kv:gather_heads_tiered``). A winner's bytes are
+    the same on either tier, so the tokens are the resident engine's.
+
+    Residency changes only at chunk boundaries:
+
+    * every block a chunk writes or reads densely (sink, local window,
+      append frontier) is pinned staged; a required block not staged is
+      copied in before the chunk;
+    * ``prefetch=True`` also stages the previous chunks' most-touched
+      winner blocks (exponential decay 0.5); ``prefetch_hook(touched, k)``
+      overrides the predictor (a wrong hook costs bytes, not tokens);
+    * staging slots recycle by a second-chance clock over unpinned
+      blocks; an evicted block is written back to the host pool first.
+
+    Admission prefills solo at the prompt's bucketed capacity
+    (``_solo_cap``, not ``n_max``), writes the prompt's K/V to the host
+    pool and scatters only metadata and the histogram to the device.
+    Eviction and ``cancel(uid)`` reclaim both tiers: host blocks zeroed,
+    staging slots freed without write-back.
+
+    ``overlap=True`` (on a card) runs each layer's winner gather on a side
+    stream while the main stream gathers and scores the sink and window;
+    ``overlap=False`` runs all of it on one stream. Tokens are identical.
+
+    Per-request statistics on ``Request``:
+
+    * ``staging_hits`` / ``staging_misses``: winner head rows (inside the
+      retrieval region) served from staging / from host memory;
+      ``fetched_bytes``: the misses' K+V bytes; ``prefetched_blocks`` /
+      ``prefetch_hits``: blocks staged by the predictor for the request,
+      and those a winner then touched. These equal the reference's.
+    * ``fetched_unique_bytes``: the host bytes the kernel read for the
+      request. It reads every missed head row (no deduplication), so this
+      equals ``fetched_bytes``.
+    * ``fetch_callbacks``: the tiered gathers (kernel launches on a card)
+      of the chunks the request decoded in, shared among the requests in
+      proportion to their host fetches (evenly when none fetched), as the
+      reference shares its host callbacks.
+    * ``fetch_stall_s``: host seconds spent waiting for a fetch: always 0,
+      since the misses are read by the device inside the decode step and
+      the host never waits for one (their time is the kernel's).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, n_max: int = 4096,
+                 max_batch: int = 8, block_size: int = CC.PAGED_DEFAULT_BLOCK,
+                 num_blocks: Optional[int] = None, greedy: bool = True,
+                 use_pariskv: bool = True, chunk_size: int = 8,
+                 eos_id: Optional[int] = None, fused: bool = True,
+                 prefill_budget: int = 0, offload: bool = True,
+                 num_device_blocks: Optional[int] = None,
+                 prefetch: bool = True, prefetch_hook=None,
+                 overlap: bool = True, share_prefixes: bool = False,
+                 mesh_shards: int = 1,
+                 fetch_timeout_s: Optional[float] = None, faults=None,
+                 device=None):
+        if mesh_shards > 1:
+            raise NotImplementedError(
+                f"config {cfg.name!r}: offload=True with mesh_shards="
+                f"{mesh_shards} cannot run on several devices — the tiered "
+                f"host pool is read by single-device kernels; shard the "
+                f"resident engine (offload=False) instead")
+        _not_ported("PagedServingEngine", (
+            ("fetch_timeout_s", fetch_timeout_s, None,
+             "A10 (fault handling)"),))
+        reason = SV.offload_support_reason(cfg)
+        if reason is not None:
+            raise ValueError(f"offloaded paged serving unavailable — "
+                             f"{reason}")
+        super().__init__(cfg, params, n_max=n_max, max_batch=max_batch,
+                         block_size=block_size, num_blocks=num_blocks,
+                         greedy=greedy, use_pariskv=use_pariskv,
+                         chunk_size=chunk_size, eos_id=eos_id, fused=fused,
+                         prefill_budget=prefill_budget,
+                         share_prefixes=share_prefixes, faults=faults,
+                         device=device)
+        self.num_device_blocks = (max(1, self.num_blocks // 4)
+                                  if num_device_blocks is None
+                                  else num_device_blocks)
+        self.prefetch = prefetch
+        self.prefetch_hook = prefetch_hook
+        self.overlap = bool(overlap)
+        self._names = [f"l{i}" for i in range(cfg.num_layers)]
+        self.host = offload_lib.HostKVPool(
+            {n: (cfg.num_kv_heads, cfg.head_dim) for n in self._names},
+            self.num_blocks, block_size, torch_dtype(cfg),
+            pinned=self.device.type == "cuda")
+        self._host_kv = [self.host.flat(n) for n in self._names]
+        self._side = (SideStream.create(self.device)
+                      if self.overlap and self.device.type == "cuda"
+                      else None)
+        self.staging = offload_lib.StagingMap(self.num_blocks,
+                                              self.num_device_blocks)
+        self._touched_last = np.zeros((self.num_blocks,), np.float64)
+        self._touch_decay = 0.5
+        self._last_prefetch: List[int] = []
+        self.fetch_callbacks = 0          # tiered gathers, all chunks
+
+    # ------------------------------------------------------------ admission --
+    def _solo_cap(self, plen: int) -> int:
+        """Bucketed prefill capacity: power-of-two prompt bucket rounded
+        up to whole blocks, never above n_max."""
+        b = _bucket(plen, cap=self.n_max)
+        return min(self.n_max, -(-b // self.block_size) * self.block_size)
+
+    def _install_solo(self, slot: int, req: Request, state1, tok0) -> None:
+        cap = state1.caches[0]["kv"].k.shape[1]
+        phys = self._phys_row(self._alloc[slot])[:cap // self.block_size]
+        for name, lc1 in zip(self._names, state1.caches):
+            self.host.write_prefill(name, phys.numpy(), lc1["kv"].k[0],
+                                    lc1["kv"].v[0])
+        self._state = SV.admit_tiered(
+            self._state, slot, phys, state1.caches, state1.regions, tok0,
+            req.max_new_tokens - 1, self.cfg.pariskv)
+        self._enc[slot] = int(state1.regions.enc_end[0])
+
+    # ------------------------------------------------------------- staging --
+    def _update_staging(self) -> None:
+        """Chunk-boundary residency update: pin the chunk's write/dense-
+        read set (staging absent blocks), then prefetch predicted winner
+        blocks into the remaining capacity, writing evicted blocks back to
+        the host pool before any install reads it."""
+        sm = self.staging
+        sm.unpin_all()
+        pos = self._state.regions.pos.cpu().numpy()
+        enc = self._state.regions.enc_end.cpu().numpy()
+        bs = self.block_size
+        W = CC.window_size(self.cfg.pariskv)
+        sink = self.cfg.pariskv.sink_size
+        required: List[tuple] = []        # (host_block, slot), pin order
+        seen: set = set()
+
+        def want(slot, lo_blk, hi_blk):
+            row = self._bt[slot]
+            for lb in range(max(0, lo_blk), min(self.nblk, hi_blk)):
+                hb = int(row[lb])
+                if hb >= 0 and hb not in seen:
+                    seen.add(hb)
+                    required.append((hb, slot))
+
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            # decode appends [pos+1, pos+1+chunk); window + promotion
+            # reads reach down to min(enc_end, pos+1-W)
+            p1 = int(pos[slot]) + 1
+            lo = max(0, min(int(enc[slot]), p1 - W))
+            hi = p1 + self.chunk_size
+            if sink > 0:
+                want(slot, 0, -(-sink // bs))
+            want(slot, lo // bs, -(-(hi + 1) // bs))
+
+        writebacks: List[tuple] = []      # (evicted host block, staging slot)
+        installs: List[tuple] = []        # (host block, staging slot)
+        for hb, _ in required:
+            if sm.resident(hb):
+                sm.pin(hb)
+                continue
+            got = sm.acquire()
+            if got is None:
+                raise RuntimeError(
+                    f"staging pool exhausted while pinning the chunk's "
+                    f"write/dense-read set (num_device_blocks="
+                    f"{self.num_device_blocks}); grow the staging pool or "
+                    f"shrink max_batch/chunk_size")
+            s, ev = got
+            if ev >= 0:
+                writebacks.append((ev, s))
+            sm.install(hb, s)
+            installs.append((hb, s))
+            sm.pinned[s] = True
+
+        self._last_prefetch = []
+        if self.prefetch:
+            owner = {b: sl for sl, blks in self._alloc.items() for b in blks}
+            k = max(1, self.num_device_blocks // 4)
+            if self.prefetch_hook is not None:
+                cand = list(self.prefetch_hook(self._touched_last.copy(), k))
+            else:
+                order = np.argsort(-self._touched_last, kind="stable")
+                cand = [int(hb) for hb in order[:k]
+                        if self._touched_last[hb] > 0]
+            wanted = [int(hb) for hb in cand
+                      if 0 <= int(hb) < self.num_blocks and int(hb) not in
+                      seen and not sm.resident(int(hb)) and int(hb) in owner]
+            for hb, (s, ev) in zip(wanted, sm.acquire_batch(len(wanted))):
+                if ev >= 0:
+                    writebacks.append((ev, s))
+                sm.install(hb, s)
+                installs.append((hb, s))
+                self._last_prefetch.append(hb)
+                owner_req = self._slots[owner[hb]]
+                if owner_req is not None:
+                    owner_req.prefetched_blocks += 1
+
+        if writebacks:
+            evs = np.asarray([e for e, _ in writebacks], np.int64)
+            ss = torch.tensor([s for _, s in writebacks], device=self.device)
+            for name, lc in zip(self._names, self._state.caches):
+                self.host.writeback(name, evs, lc["kv"].k[ss],
+                                    lc["kv"].v[ss])
+        if installs:
+            hbs = np.asarray([h for h, _ in installs], np.int64)
+            ss = torch.tensor([s for _, s in installs], device=self.device)
+            for name, lc in zip(self._names, self._state.caches):
+                CC.tiered_stage_blocks(lc["kv"], ss,
+                                       *self.host.read_blocks(name, hbs))
+
+    def _harvest_fetch_stats(self) -> None:
+        """Read the chunk's fetch statistics back (one copy each for the
+        summed touch counts and rows): per-request staging hit/miss/byte
+        counters, gather attribution, prefetch-hit accounting, and the
+        exponential-decay touch scores that seed the next chunk's
+        prefetch."""
+        caches = self._state.caches
+        touched = torch.stack([lc["fetch"]["touched"] for lc in caches]
+                              ).sum(0).cpu().numpy()
+        rows = torch.stack([lc["fetch"]["rows"] for lc in caches]
+                           ).sum(0).cpu().numpy().astype(np.int64)
+        calls = sum(lc["fetch"]["calls"] for lc in caches)
+        # every entry shares (G, hd, dtype): one price per head row
+        miss_b = rows[:, 2] * self.host.bytes_per_head_row(self._names[0])
+        self.fetch_callbacks += calls
+        self.host.fetch_callbacks += calls
+        self.host.fetched_head_rows += int(rows[:, 2].sum())
+        active = [s for s, rq in enumerate(self._slots) if rq is not None]
+        tot = int(rows[:, 2].sum())
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            req.staging_hits += int(rows[slot, 1])
+            req.staging_misses += int(rows[slot, 2])
+            req.fetched_bytes += int(miss_b[slot])
+            req.fetched_unique_bytes += int(miss_b[slot])
+            share = (rows[slot, 2] / tot if tot
+                     else 1.0 / max(len(active), 1))
+            req.fetch_callbacks += int(round(calls * share))
+        owner = {b: sl for sl, blks in self._alloc.items() for b in blks}
+        for hb in self._last_prefetch:
+            if touched[hb] > 0:
+                sl = owner.get(hb)
+                if sl is not None and self._slots[sl] is not None:
+                    self._slots[sl].prefetch_hits += 1
+        self.staging.touch(np.flatnonzero(touched > 0))
+        self._touched_last = self._touch_decay * self._touched_last + touched
+
+    # ------------------------------------------- loop phases (overrides) ----
+    def _init_state(self) -> SV.SlotState:
+        return SV.init_paged_slot_state(
+            self.cfg, self.max_batch, self.num_blocks, self.block_size,
+            device=self.device, num_device_blocks=self.num_device_blocks)
+
+    def start(self) -> None:
+        super().start()
+        self.staging = offload_lib.StagingMap(self.num_blocks,
+                                              self.num_device_blocks)
+        self.host.zero_all()
+        self.host.reset_counters()
+        self._touched_last = np.zeros((self.num_blocks,), np.float64)
+        self._last_prefetch = []
+        self.fetch_callbacks = 0
+
+    def _run_chunk(self):
+        self._update_staging()
+        out = self._decode_chunk(
+            torch.from_numpy(self._bt), paged_fused=self.fused,
+            dev_map=torch.from_numpy(self.staging.dev_map.copy()),
+            host_kv=self._host_kv, side=self._side)
+        self._harvest_fetch_stats()
+        return out
+
+    def _clear_device(self, slot: int) -> None:
+        """Reclaim both tiers of the slot's blocks: free their staging
+        slots (no write-back: the data is dead), zero the slot's metadata
+        blocks, freed staging blocks and histogram row on the device, and
+        its host blocks."""
+        blocks = np.asarray(self._alloc.get(slot, ()), np.int64)
+        freed = self.staging.release_host_blocks(blocks)
+        meta = torch.from_numpy(blocks).to(self.device)
+        stag = torch.tensor(freed, dtype=torch.int64, device=self.device)
+        for lc in self._state.caches:
+            CC.tiered_clear_blocks(lc["kv"], meta, stag)
+            lc["hist"][slot] = 0
+        if blocks.size:
+            self.host.zero_blocks(blocks)
+
+    # -------------------------------------------------------------- audit --
+    def verify_invariants(self, check_hist: bool = True) -> None:
+        """Raise AssertionError unless the staging map mirrors ownership
+        (``dev_map[hb] == s`` ⟺ ``owner[s] == hb``), free staging slots are
+        unique and unowned, free + resident == num_device_blocks, and every
+        staged host block is allocated to some slot; with ``check_hist``
+        also ``verify_hist``."""
+        if check_hist:
+            self.verify_hist()
+        sm = self.staging
+        allocated = {b for blks in self._alloc.values() for b in blks}
+
+        def check(cond, msg):
+            if not cond:
+                raise AssertionError(msg)
+        for hb in np.flatnonzero(sm.dev_map >= 0):
+            s = int(sm.dev_map[hb])
+            check(int(sm.owner[s]) == int(hb),
+                  f"staging slot {s}: owner {int(sm.owner[s])} != dev_map "
+                  f"inverse {int(hb)}")
+            check(int(hb) in allocated, f"host block {int(hb)} staged but "
+                  f"not allocated to any slot")
+        for s in np.flatnonzero(sm.owner >= 0):
+            hb = int(sm.owner[s])
+            check(int(sm.dev_map[hb]) == int(s),
+                  f"host block {hb}: dev_map {int(sm.dev_map[hb])} != "
+                  f"owning staging slot {int(s)}")
+        free = list(sm.free)
+        check(len(set(free)) == len(free),
+              "staging free list holds duplicate slots")
+        for s in free:
+            check(int(sm.owner[s]) < 0,
+                  f"staging slot {s} free but owned by block "
+                  f"{int(sm.owner[s])}")
+        check(len(free) + sm.resident_count() == self.num_device_blocks,
+              f"staging accounting leak: free + resident != "
+              f"{self.num_device_blocks}")
+
+    def run(self) -> List[Request]:
+        done = super().run()
+        if self.staging.resident_count() != 0:
+            raise RuntimeError("staging leak: the residency map retained "
+                               "blocks after the run")
+        return done
 
 
 class WaveServingEngine:

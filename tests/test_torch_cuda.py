@@ -19,6 +19,7 @@ from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E40
 from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
 from repro_torch.kernels.gather_kv import (gather_heads,  # noqa: E402
                                            gather_heads_physical,
+                                           gather_heads_tiered,
                                            gather_rows, gather_rows_paged)
 from repro_torch.kernels.rerank import rerank_paged_kernel  # noqa: E402
 
@@ -93,3 +94,34 @@ def test_kernels_match_plain_on_card(card, nsub):
     ridx = ri(0, n, (b, 300))
     assert torch.equal(gather_rows(store[0], None, ridx),
                        gather_rows_ref(store[0], ridx))
+
+
+@pytest.mark.cuda
+def test_tiered_gather_matches_plain_on_card(card):
+    """The tiered winner gather reads staged rows from the card and missed
+    rows from a pinned host pool, byte-identical to its plain version
+    (zero rows for -1); a pageable host pool raises instead of faulting."""
+    from repro_torch.kernels.gather_kv.ref import gather_heads_tiered_ref
+
+    gen = torch.Generator().manual_seed(5)
+    nb, nd, bs, b, k = 40, 12, 32, 2, 37
+    host = torch.randn((2, nb * bs, G, 128), generator=gen).to(
+        torch.bfloat16).pin_memory()
+    stag = torch.randn((2, nd, bs, G, 128), generator=gen).to(
+        torch.bfloat16).to(card)
+    dev_map = torch.full((nb,), -1, dtype=torch.int32)
+    dev_map[torch.randperm(nb, generator=gen)[:nd]] = torch.arange(
+        nd, dtype=torch.int32)
+    rows = torch.randint(0, nb * bs, (b, G, HG, k), generator=gen,
+                         dtype=torch.int32)
+    rows[..., ::5] = -1
+    dm, rw = dev_map.to(card), rows.to(card)
+    got = gather_heads_tiered(stag[0], stag[1], host[0], host[1], dm, rw)
+    torch.cuda.synchronize()
+    staged = dev_map[rows.clamp_min(0).long() // bs] >= 0
+    assert staged.any() and (~staged & (rows >= 0)).any() and (rows < 0).any()
+    for g, s, h in zip(got, stag, host):
+        assert torch.equal(g, gather_heads_tiered_ref(s, h, dm, rw))
+    with pytest.raises(ValueError, match="pinned"):
+        gather_heads_tiered(stag[0], stag[1], host[0].clone(), host[1], dm,
+                            rw)

@@ -187,7 +187,8 @@ def test_cancel_mid_flight_reclaims_blocks_and_hist(workload):
 
 @pytest.mark.parametrize("option,item", [
     (dict(prefill_budget=16), "A7"),
-    (dict(share_prefixes=True), "A8"), (dict(offload=True), "A9"),
+    (dict(share_prefixes=True), "A8"),
+    (dict(offload=True, fetch_timeout_s=1.0), "A10"),
     (dict(faults=object()), "A10"), (dict(mesh_shards=2), "A11")])
 def test_options_not_ported_raise_with_roadmap_item(workload, option, item):
     pj, _ = workload
