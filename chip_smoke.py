@@ -6,8 +6,9 @@ card: the quickest proof that the port builds and serves on the GPU.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build    — compile the seven CUDA C++ kernels from ``src/repro_torch/csrc``
-              (one nvcc per source, in parallel) and print the seconds.
+1. build    — compile the eight CUDA C++ kernels from the seven sources in
+              ``src/repro_torch/csrc`` (one nvcc per source, in parallel)
+              and print the seconds.
 2. device   — the card's name and power limit, as nvidia-smi reports them.
 3. kernels  — each kernel against its plain PyTorch version on the same
               inputs on the card, at the decode path's shapes for
@@ -21,7 +22,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               The tiered winner gather reads half its rows from a pinned
               host pool; its bound prices those bytes at the card's
               pinned host-to-device rate, measured here with one 256 MiB
-              copy.
+              copy. Stage I and the top-C cut are also checked on an all-tie
+              set and on threshold ties spread over every segment, timed
+              back to back as a pair, and the ptxas report (registers,
+              shared memory, spills) of both is printed.
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
               serving qwen2-1.5b at full width (28 layers, bf16, random
               weights from a seed) to four staggered requests of
@@ -91,13 +95,15 @@ ARRIVALS = (0, 2, 4, 6)                  # chunk before each submission
 LENS_AFTER = [p + GEN for p in PROMPTS]  # their lengths at the end
 # each path's kernels → their least launches per layer and decode step
 # (the paged gathers: winners, and sink + window; the tiered path reads
-# its winners with gather_rows_tiered)
+# its winners with gather_rows_tiered). The paged Stage I hands the top-C
+# its histograms; the contiguous one does not, so the slot and meta-view
+# paths run the histogram pass (bucket_hist), and the paged paths never.
 PAGED_KERNELS = {"collision_paged": 1, "bucket_topk": 1, "rerank_paged": 1,
                  "gather_rows_paged": 2}
-SLOT_KERNELS = {"collision": 1, "bucket_topk": 1, "rerank_paged": 1,
-                "gather_rows": 2}
-METAVIEW_KERNELS = {"collision": 1, "bucket_topk": 1, "rerank_paged": 1,
-                    "gather_rows_paged": 2}
+SLOT_KERNELS = {"collision": 1, "bucket_hist": 1, "bucket_topk": 1,
+                "rerank_paged": 1, "gather_rows": 2}
+METAVIEW_KERNELS = {"collision": 1, "bucket_hist": 1, "bucket_topk": 1,
+                    "rerank_paged": 1, "gather_rows_paged": 2}
 OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1, "rerank_paged": 1,
                    "gather_rows_paged": 1, "gather_rows_tiered": 1}
 LONG_PROMPT, LONG_GEN = 65536, 64        # the offload phase's long request
@@ -154,9 +160,15 @@ def kernel_phase(dev, cfg, seed: int = 0):
     from repro_torch.core import centroids
     from repro_torch.core import encode as E
     from repro_torch.core import retrieval as R
-    from repro_torch.kernels.bucket_topk import bucket_topk
-    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
-    from repro_torch.kernels.collision import collision_scores_paged_kernel
+    from repro_torch.kernels import SEG_LEN
+    from repro_torch.kernels import build as KB
+    from repro_torch.kernels.bucket_topk import bucket_topk, segment_histogram
+    from repro_torch.kernels.bucket_topk import ops as TO
+    from repro_torch.kernels.bucket_topk.ref import (bucket_topk_ref,
+                                                     bucket_topk_segments_ref,
+                                                     segment_histogram_ref)
+    from repro_torch.kernels.collision import (collision_scores_paged_kernel,
+                                               lane_packed_table)
     from repro_torch.kernels.collision.ref import collision_paged_ref
     from repro_torch.kernels.gather_kv import (gather_heads_physical,
                                                gather_rows_paged)
@@ -205,57 +217,140 @@ def kernel_phase(dev, cfg, seed: int = 0):
     cs = centroids.centroid_scores(qt.q_sub, m)
     n_valid = (enc_end - sink).clamp_min(0)
     tables = R.tier_weight_table(cs, hist[:, :, None], n_valid[:, None, None],
-                                 pcfg).to(torch.int32).contiguous()
+                                 pcfg, out=lane_packed_table(*cs.shape,
+                                                             device=dev))
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    # what the timing method measures for one launch of a trivial kernel
+    tiny = torch.zeros(1, dtype=torch.int32, device=dev)
+    print("event_floor " + json.dumps(dict(
+        note="one PyTorch add on one int32: the least device time the "
+             "timing method reports for a launch",
+        ms=_time_ms(lambda: tiny.add_(1), flush))), flush=True)
     out = {}
     nval = int(n_valid.sum())
+    rng_s = R.max_collision_score(pcfg, B)
 
-    # 1. Stage I
-    got = collision_scores_paged_kernel(pool.meta_ids, bt, tables, enc_end,
-                                        sink)
-    want = collision_paged_ref(pool.meta_ids, bt, tables, enc_end, sink)
-    err = int((got - want).abs().max())
+    # 1. Stage I, with the score histograms per segment
+    def stage1():
+        return collision_scores_paged_kernel(pool.meta_ids, bt, tables,
+                                             enc_end, sink, rng_s)
+    coarse, seg_hist = stage1()
+    want, want_hist = collision_paged_ref(pool.meta_ids, bt, tables, enc_end,
+                                          sink, rng_s)
+    err = max(int((coarse - want).abs().max()),
+              int((seg_hist - want_hist).abs().max()))
     _check(err == 0, f"collision_paged differs from its plain version ({err})")
-    coarse = got
+    valid_blocks = int(sum(min(-(-int(e) // SEG_LEN), n // SEG_LEN)
+                           - sink // SEG_LEN for e in enc_end) * G)
     out["collision_paged"] = dict(
         route="cuda", source="src/repro_torch/csrc/collision_paged.cu",
         replaces="src/repro/kernels/collision/collision.py:146",
-        max_abs_err=err, tolerance="exact",
-        ms=_time_ms(lambda: collision_scores_paged_kernel(
-            pool.meta_ids, bt, tables, enc_end, sink), flush),
-        call_ms=_time_ms(lambda: collision_scores_paged_kernel(
-            pool.meta_ids, bt, tables, enc_end, sink), flush, primed=False),
+        max_abs_err=err, tolerance="exact (scores and seg_hist)",
+        blocks=(n // SEG_LEN) * b * G, blocks_with_valid_keys=valid_blocks,
+        ms=_time_ms(stage1, flush),
+        call_ms=_time_ms(stage1, flush, primed=False),
         plain_ms=_time_ms(lambda: collision_paged_ref(
-            pool.meta_ids, bt, tables, enc_end, sink), flush),
+            pool.meta_ids, bt, tables, enc_end, sink, rng_s), flush),
         library_ms=None,
-        bound=_bound(G * nval * B + tables.numel() * 4 + bt.numel() * 4
-                     + b * 4 + coarse.numel() * 4, G * Hg * nval * B))
+        bound=_bound(G * nval * B + tables.numel() + bt.numel() * 4
+                     + b * 4 + coarse.numel() * 4 + seg_hist.numel() * 4,
+                     G * nval * B))
 
-    # 2. bucket top-C, on the Stage-I scores and on an all-tie row set
-    rng_s = max(pcfg.tier_weights) * B
-    got = bucket_topk(coarse, C, rng_s)
-    want = bucket_topk_ref(coarse, C, rng_s)
-    _check(torch.equal(got, want), "bucket_topk differs from its plain version")
+    # 2. bucket top-C from Stage I's histograms, exact on Stage I's scores,
+    # on an all-tie set and on threshold ties spread over every segment
     ties = torch.zeros_like(coarse)
     ties[..., :sink] = -1
-    tie_ok = torch.equal(bucket_topk(ties, C, rng_s),
-                         bucket_topk_ref(ties, C, rng_s))
-    _check(tie_ok, "bucket_topk differs on the all-tie case")
-    cand = got
+    spread = torch.randint(-1, 80, coarse.shape, generator=gen, device=dev,
+                           dtype=torch.int32)
+    spread[..., 5::9] = 90                  # 1,820 ties a row, 64 segments
+    cases = {"stage1": (coarse, seg_hist), "all_ties": (ties, None),
+             "ties_over_segments": (spread, None)}
+    grids = (4, 8, 16, 32)                  # warps (segments) per block
+
+    def cut_at(scores, h, warps):
+        """The cut at another grid (launched directly, so not counted)."""
+        o = torch.empty(scores.shape[:-1] + (C,), dtype=torch.int32,
+                        device=dev)
+        KB.launch("bucket_topk", KB.ptr(scores), KB.ptr(h), KB.ptr(o),
+                  scores.numel() // n, n, C, rng_s + 2, SEG_LEN,
+                  TO._vec(scores), warps)
+        return o
+    for name, (scores, h) in cases.items():
+        h_ref = segment_histogram_ref(scores, rng_s)
+        if h is None:
+            h = segment_histogram(scores, rng_s)
+            _check(torch.equal(h, h_ref),
+                   f"bucket_hist differs from its plain version ({name})")
+        cand = bucket_topk(scores, C, rng_s, seg_hist=h)
+        _check(torch.equal(cand, bucket_topk_ref(scores, C, rng_s))
+               and torch.equal(cand, bucket_topk_segments_ref(
+                   scores, h_ref, C, rng_s)),
+               f"bucket_topk differs from its plain versions ({name})")
+        _check(torch.equal(bucket_topk(scores, C, rng_s), cand),
+               f"bucket_topk without seg_hist differs ({name})")
+        for warps in grids:
+            _check(torch.equal(cut_at(scores, h, warps), cand),
+                   f"bucket_topk at {warps} warps a block differs ({name})")
+        if name == "ties_over_segments":    # every candidate is a tie
+            seg_of = cand // SEG_LEN
+            _check(bool((seg_of.amax(-1) - seg_of.amin(-1) >= 2).all())
+                   and bool((cand[..., -1] < 5 + 9 * 1819).all()),
+                   "the taken ties span < 3 segments or the whole quota")
+    cand = bucket_topk(coarse, C, rng_s, seg_hist=seg_hist)
     # ties at the threshold: the C-th largest score is shared with others
     kth = coarse.sort(-1, descending=True).values[..., C - 1:C]
     tie_rows = int(((coarse == kth).sum(-1) > 1).sum())
+    # the segments the cut must read: those holding a candidate
+    seg_read = int(torch.zeros(coarse.shape[:-1] + (n // SEG_LEN,),
+                               dtype=torch.int32, device=dev).scatter_(
+        -1, (cand // SEG_LEN).long(), 1).sum())
     out["bucket_topk"] = dict(
         route="cuda", source="src/repro_torch/csrc/bucket_topk.cu",
         replaces="src/repro/kernels/bucket_topk/bucket_topk.py:50",
         max_abs_err=0, tolerance="exact", rows_with_threshold_ties=tie_rows,
-        ms=_time_ms(lambda: bucket_topk(coarse, C, rng_s), flush),
-        call_ms=_time_ms(lambda: bucket_topk(coarse, C, rng_s), flush,
+        segments_read=seg_read, segments=seg_hist.numel() // (rng_s + 2),
+        ms=_time_ms(lambda: bucket_topk(coarse, C, rng_s, seg_hist=seg_hist),
+                    flush),
+        call_ms=_time_ms(lambda: bucket_topk(coarse, C, rng_s,
+                                             seg_hist=seg_hist), flush,
                          primed=False),
+        ms_without_seg_hist=_time_ms(lambda: bucket_topk(coarse, C, rng_s),
+                                     flush),
         plain_ms=_time_ms(lambda: bucket_topk_ref(coarse, C, rng_s), flush),
         library_ms=_time_ms(lambda: torch.topk(coarse, C, -1, sorted=False),
                             flush),
-        bound=_bound(coarse.numel() * 4 + cand.numel() * 4, coarse.numel()))
+        bound=_bound(seg_hist.numel() * 4 + seg_read * SEG_LEN * 4
+                     + cand.numel() * 4, 0))
+    rows = coarse.numel() // n
+    print("topk_grid " + json.dumps([dict(
+        warps=w, blocks=-(-(n // SEG_LEN) // w) * rows,
+        ms=_time_ms(lambda w=w: cut_at(coarse, seg_hist, w), flush))
+        for w in grids]), flush=True)
+    out["bucket_hist"] = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_topk.cu",
+        replaces="src/repro/kernels/bucket_topk/bucket_topk.py:50",
+        max_abs_err=0, tolerance="exact",
+        ms=_time_ms(lambda: segment_histogram(coarse, rng_s), flush),
+        call_ms=_time_ms(lambda: segment_histogram(coarse, rng_s), flush,
+                         primed=False),
+        plain_ms=_time_ms(lambda: segment_histogram_ref(coarse, rng_s),
+                          flush),
+        library_ms=None,
+        bound=_bound(coarse.numel() * 4 + seg_hist.numel() * 4,
+                     coarse.numel()))
+
+    def pair():
+        scores, h = stage1()
+        return bucket_topk(scores, C, rng_s, seg_hist=h)
+    out["collision_paged"]["pair"] = dict(
+        note="Stage I with seg_hist, then the cut from it; one L2 flush "
+             "before the pair",
+        ms=_time_ms(pair, flush), call_ms=_time_ms(pair, flush, primed=False),
+        bound_ms=out["collision_paged"]["bound"][0]
+        + out["bucket_topk"]["bound"][0])
+    print("kernel_pair " + json.dumps(out["collision_paged"]["pair"]),
+          flush=True)
+    _ptxas(B, nc, Hg, rng_s + 2, n)
 
     # 3. Stage II
     _, _, cand_phys = R._block_relative(cand, bt, bs)
@@ -333,6 +428,23 @@ def kernel_phase(dev, cfg, seed: int = 0):
         rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
         print(f"kernel {name} " + json.dumps(rec), flush=True)
     return out
+
+
+def _ptxas(B: int, nc: int, Hg: int, rng: int, n: int) -> None:
+    """Registers, shared memory and spills of the two kernels redesigned
+    for Hopper, from nvcc's -Xptxas -v logs, with the dynamic shared memory
+    each launch asks for at these shapes (their launchers' formulas)."""
+    from repro_torch.kernels import SEG_LEN
+    from repro_torch.kernels import build
+    nseg = -(-n // SEG_LEN)
+    dyn = {"collision_paged": B * nc * 8 + Hg * rng * 4,
+           "bucket_hist": 8 * rng * 4,
+           "bucket_topk": (rng + 2 * (nseg + 1) + 2) * 4}
+    for source in ("collision_paged", "bucket_topk"):
+        rec = {"kernels": build.ptxas_report(source),
+               "dynamic_smem_bytes": {k: v for k, v in dyn.items()
+                                      if build.SOURCE_OF[k] == source}}
+        print(f"ptxas {source} " + json.dumps(rec), flush=True)
 
 
 def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
@@ -632,6 +744,9 @@ def engine_phase(dev, cfg, params, n_max: int = 16384,
                        audit=True)
     for uid, r in done.items():
         _check(r.promotions >= 1, f"request {uid} never promoted")
+    _check(rec["launches"]["bucket_hist"] == 0,
+           "the paged path ran the histogram pass: Stage I's histograms "
+           "were not handed to the top-C cut")
     rec = dict(layers=cfg.num_layers, dtype=cfg.dtype,
                params=param_count(params), **rec)
     print("engine " + json.dumps(rec), flush=True)
@@ -720,6 +835,8 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
     rec, done = _serve(eng, _prompts(cfg), GEN, ARRIVALS, OFFLOAD_KERNELS,
                        cfg, audit=True)
     tier = _tier_stats(eng, done)
+    _check(rec["launches"]["bucket_hist"] == 0,
+           "the offload path ran the histogram pass")
     same = _same_tokens({u: r.output for u, r in done.items()}, paged_out)
     short = dict(rec, **tier, tokens_identical_to_engine_phase=same,
                  resident_engine_phase=dict(
@@ -848,6 +965,7 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch import kernels as K
     from repro_torch.serving import Request
 
     rng = np.random.RandomState(seed)
@@ -880,6 +998,11 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
     kernels = sorted(((e.key, e.self_device_time_total) for e in avg
                       if e.self_device_time_total > 0 and e.device_type
                       == DeviceType.CUDA), key=lambda kv: -kv[1])[:8]
+    # the port's own kernels, by their function names in csrc/
+    ours = {name: sum(e.self_device_time_total for e in avg
+                      if f"{name}_kernel" in e.key
+                      and e.device_type == DeviceType.CUDA) / eng.chunk_size
+            for name in K.KERNELS}
     while eng.pending():
         eng.step_serve()
     rec = dict(path=path, rows=4, steps=eng.chunk_size,
@@ -889,7 +1012,8 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
                launches_per_step=launches / eng.chunk_size,
                memcpy_per_step=copies / eng.chunk_size,
                top_kernels_us_per_step=[
-                   (k[:60], v / eng.chunk_size) for k, v in kernels])
+                   (k[:60], v / eng.chunk_size) for k, v in kernels],
+               port_kernels_us_per_step={k: v for k, v in ours.items() if v})
     print("profile " + json.dumps(rec), flush=True)
     return rec
 

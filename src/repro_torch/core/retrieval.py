@@ -7,7 +7,8 @@ Stage I   scores the pool's uint8 centroid ids through the block table
           against per-(subspace, centroid) tier weights built from the
           incrementally maintained bucket histogram (kernels/collision);
 Top-C     cuts to the candidates with the sort-free bucket top-C
-          (kernels/bucket_topk);
+          (kernels/bucket_topk), from the score histograms per segment
+          that the paged Stage I writes beside its scores;
 Stage II  reranks the candidates with RSQ-IP, reading their codes and
           weights by physical pool row (kernels/rerank);
 Top-k     keeps the ``top_k`` best estimates (a stable sort, so ties go to
@@ -30,7 +31,7 @@ CUDA tensors the Hopper kernels.
 from __future__ import annotations
 
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,7 +40,8 @@ from repro_torch.core.config import ParisKVConfig
 from repro_torch.core.encode import QueryTransform
 from repro_torch.kernels.bucket_topk import bucket_topk
 from repro_torch.kernels.collision import (collision_scores_kernel,
-                                           collision_scores_paged_kernel)
+                                           collision_scores_paged_kernel,
+                                           lane_packed_table)
 from repro_torch.kernels.rerank import rerank_paged_kernel
 
 NEG_INF = -1e30
@@ -79,55 +81,77 @@ def bucket_histogram(ids: torch.Tensor, valid: torch.Tensor,
 
 @functools.lru_cache(maxsize=16)
 def _tier_tensors(pcts: Tuple[float, ...], weights: Tuple[int, ...],
-                  device: str) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tier percentiles and weights (plus the 0 weight past the last tier)
-    on ``device``, copied once: a host-to-device copy per call would
-    synchronize the stream on every decode layer."""
+                  device: str, dtype: torch.dtype = torch.int32
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tier percentiles and weights (plus the 0 weight past the last tier,
+    as ``dtype``) on ``device``, copied once: a host-to-device copy per
+    call would synchronize the stream on every decode layer."""
     return (torch.tensor(pcts, dtype=torch.float32, device=device),
-            torch.tensor(weights + (0,), dtype=torch.int32, device=device))
+            torch.tensor(weights + (0,), dtype=dtype, device=device))
 
 
 def tier_weight_table(cent_scores: torch.Tensor, counts: torch.Tensor,
-                      n_valid: torch.Tensor,
-                      cfg: ParisKVConfig) -> torch.Tensor:
+                      n_valid: torch.Tensor, cfg: ParisKVConfig,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-(subspace, centroid) integer tier weight (App. B.2.1).
 
     cent_scores (..., B, 2^m) proxy scores; counts (..., B, 2^m) bucket
     histogram (broadcast against extra query-head dims); n_valid (...,)
-    indexable keys → (..., B, 2^m) int32 weights in {0, .., 6}. The bucket
-    ranking is a stable argsort and the tier lookup a right-side
-    searchsorted, as in the reference."""
+    indexable keys → (..., B, 2^m) int32 weights in {0, .., 6}, or written
+    into ``out`` in its type and layout (the paged Stage I's uint8
+    byte-lane table). The bucket ranking is a stable argsort and the tier
+    lookup a right-side searchsorted, as in the reference."""
     counts = torch.broadcast_to(counts, cent_scores.shape)
     order = torch.argsort(-cent_scores, dim=-1, stable=True)
     counts_sorted = counts.gather(-1, order)
     csum_exclusive = counts_sorted.cumsum(-1) - counts_sorted
     denom = (n_valid.float() * cfg.rho).clamp_min(1.0)
     pos_frac = csum_exclusive.float() / denom[..., None, None]
+    dtype = torch.int32 if out is None else out.dtype
     pcts, wts = _tier_tensors(cfg.tier_pcts, cfg.tier_weights,
-                              str(cent_scores.device))
+                              str(cent_scores.device), dtype)
     tier = torch.searchsorted(pcts, pos_frac.contiguous(), right=True)
     w_sorted = wts[tier.clamp_max(len(cfg.tier_weights))]
     # back to bucket-id order through the inverse permutation
-    return torch.empty_like(w_sorted).scatter_(-1, order, w_sorted)
+    if out is None:
+        out = torch.empty_like(w_sorted)
+    return out.scatter_(-1, order, w_sorted)
+
+
+def max_collision_score(cfg: ParisKVConfig, num_subspaces: int) -> int:
+    """The largest Stage-I score: every subspace at the top tier weight."""
+    return max(cfg.tier_weights) * num_subspaces
+
+
+def collision_scores_paged_hist(pool_ids: torch.Tensor,
+                                block_tables: torch.Tensor,
+                                q_sub: torch.Tensor, counts: torch.Tensor,
+                                enc_end: torch.Tensor, cfg: ParisKVConfig):
+    """Stage-I coarse scores over the paged pool, with their histograms per
+    segment for ``select_candidates_bucket``.
+
+    pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32, q_sub
+    (b, G, Hg, B, m), counts (b, G, B, 2^m) int32 incremental histogram,
+    enc_end (b,) int32 → (scores (b, G, Hg, nblk·bs) int32, -1 outside
+    [sink, enc_end); seg_hist (b, G, Hg, nseg, max score + 2) int32)."""
+    cs = centroids.centroid_scores(q_sub, cfg.m)
+    n_valid = (enc_end - cfg.sink_size).clamp_min(0)
+    table = tier_weight_table(cs, counts[:, :, None], n_valid[:, None, None],
+                              cfg, out=lane_packed_table(*cs.shape,
+                                                         device=cs.device))
+    return collision_scores_paged_kernel(
+        pool_ids, block_tables, table, enc_end, cfg.sink_size,
+        max_collision_score(cfg, pool_ids.shape[-1]))
 
 
 def collision_scores_paged(pool_ids: torch.Tensor, block_tables: torch.Tensor,
                            q_sub: torch.Tensor, counts: torch.Tensor,
                            enc_end: torch.Tensor,
                            cfg: ParisKVConfig) -> torch.Tensor:
-    """Stage-I coarse scores over the paged pool.
-
-    pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32, q_sub
-    (b, G, Hg, B, m), counts (b, G, B, 2^m) int32 incremental histogram,
-    enc_end (b,) int32 → (b, G, Hg, nblk·bs) int32, -1 outside
-    [sink, enc_end)."""
-    cs = centroids.centroid_scores(q_sub, cfg.m)
-    n_valid = (enc_end - cfg.sink_size).clamp_min(0)
-    table = tier_weight_table(cs, counts[:, :, None], n_valid[:, None, None],
-                              cfg)
-    return collision_scores_paged_kernel(pool_ids, block_tables,
-                                         table.to(torch.int32).contiguous(),
-                                         enc_end, cfg.sink_size)
+    """The scores of ``collision_scores_paged_hist``: (b, G, Hg, nblk·bs)
+    int32, -1 outside [sink, enc_end)."""
+    return collision_scores_paged_hist(pool_ids, block_tables, q_sub, counts,
+                                       enc_end, cfg)[0]
 
 
 def region_mask(n: int, enc_end: torch.Tensor,
@@ -175,10 +199,14 @@ def select_candidates(scores: torch.Tensor,
 
 
 def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
-                             score_range: int) -> torch.Tensor:
+                             score_range: int,
+                             seg_hist: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
     """Sort-free top-C over small-range integer scores; ``lax.top_k``'s
-    index set, ascending, ties lowest-index first."""
-    return bucket_topk(scores.contiguous(), num_candidates, score_range)
+    index set, ascending, ties lowest-index first. ``seg_hist``: the
+    scores' histograms per segment, from the paged Stage I."""
+    return bucket_topk(scores.contiguous(), num_candidates, score_range,
+                       seg_hist=seg_hist)
 
 
 def rerank_paged(pool_codes: torch.Tensor, pool_w: torch.Tensor,
@@ -227,9 +255,9 @@ def retrieve(meta_ids: torch.Tensor, meta_codes: torch.Tensor,
     coarse = collision_scores(meta_ids, qt.q_sub, enc_end, cfg,
                               hist_sample=hist_sample)
     if bucket_select:
-        cand = select_candidates_bucket(coarse, num_candidates,
-                                        max(cfg.tier_weights)
-                                        * meta_ids.shape[-1])
+        cand = select_candidates_bucket(
+            coarse, num_candidates,
+            max_collision_score(cfg, meta_ids.shape[-1]))
     else:
         cand = select_candidates(coarse, num_candidates)
     est = rerank(meta_codes, meta_w, qt, cand, enc_end, cfg)
@@ -285,10 +313,11 @@ def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
     (b,) int32 the per-row retrieval-region end."""
     bs = pool.meta_ids.shape[2]
     B = pool.meta_ids.shape[-1]
-    coarse = collision_scores_paged(pool.meta_ids, block_tables, qt.q_sub,
-                                    counts, enc_end, cfg)
+    coarse, seg_hist = collision_scores_paged_hist(
+        pool.meta_ids, block_tables, qt.q_sub, counts, enc_end, cfg)
     cand = select_candidates_bucket(coarse, num_candidates,
-                                    max(cfg.tier_weights) * B)
+                                    max_collision_score(cfg, B),
+                                    seg_hist=seg_hist)
     _, _, cand_phys = _block_relative(cand, block_tables, bs)
     est = rerank_paged(pool.meta_codes, pool.meta_w, cand_phys, cand, qt,
                        enc_end, cfg)

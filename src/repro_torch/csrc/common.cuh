@@ -12,6 +12,11 @@ namespace repro {
 // JAX package's NEG_INF (core/retrieval.py), which is finite.
 constexpr float kNegInf = -1e30f;
 
+// Positions per segment of the score histograms that Stage I hands the
+// top-C cut (kernels/__init__.py:SEG_LEN). Stage I runs one block of
+// kSegLen threads per segment.
+constexpr int kSegLen = 256;
+
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }

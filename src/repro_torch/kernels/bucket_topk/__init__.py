@@ -1,1 +1,2 @@
-from repro_torch.kernels.bucket_topk.ops import bucket_topk  # noqa: F401
+from repro_torch.kernels.bucket_topk.ops import (  # noqa: F401
+    bucket_topk, segment_histogram)

@@ -6,7 +6,9 @@ into its own shared library, all processes started together:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o lib<name>.so <name>.cu
 
-Libraries go to ``build/repro_torch_kernels/<hash>/`` at the repository
+A source may export several launchers (``bucket_topk.cu`` holds
+``bucket_hist`` too: ``SOURCE_OF``). Libraries go to
+``build/repro_torch_kernels/<hash>/`` at the repository
 root, keyed by a hash of every source and header, so an edited kernel
 rebuilds and an unchanged one loads in milliseconds. ``nvcc``'s register
 and spill report (``-Xptxas -v``) is kept beside each library as
@@ -31,14 +33,16 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FNS: Dict[str, object] = {}
 
 # C signature of each kernel's launcher: every pointer and the stream are
 # c_void_p (a plain int would be cut to 32 bits), sizes are c_int / c_int64.
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
-    "collision_paged": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _P],
-    "bucket_topk": [_P, _P, _I, _I, _I, _I, _P],
+    "collision_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _P],
+    "bucket_hist": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "bucket_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rerank_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                      _I, _I, _I, _I, _I, _P],
     "gather_rows_paged": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
@@ -48,6 +52,9 @@ SIGNATURES = {
     "gather_rows_tiered": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                            _I, _I, _I, _I, _P],
 }
+# launcher → the source (csrc/<source>.cu, lib<source>.so) exporting it
+SOURCE_OF = {name: name for name in SIGNATURES}
+SOURCE_OF["bucket_hist"] = "bucket_topk"
 
 
 def _nvcc() -> str:
@@ -76,7 +83,7 @@ def build_all() -> Path:
     out_dir = BUILD_ROOT / _source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in SIGNATURES:
+    for name in sorted(set(SOURCE_OF.values())):
         lib = out_dir / f"lib{name}.so"
         if lib.exists():
             continue
@@ -101,22 +108,53 @@ def build_all() -> Path:
     return out_dir
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name`` (building all on first use)."""
-    if name not in _LIBS:
-        lib = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
-        fn = getattr(lib, f"{name}_launch")
+def launcher(name: str):
+    """The C function ``<name>_launch`` with its signature set (building
+    every library on first use)."""
+    if name not in _FNS:
+        src = SOURCE_OF[name]
+        if src not in _LIBS:
+            _LIBS[src] = ctypes.CDLL(str(build_all() / f"lib{src}.so"))
+        fn = getattr(_LIBS[src], f"{name}_launch")
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return _LIBS[name]
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def ptxas_report(source: str) -> Dict[str, Dict[str, int]]:
+    """Registers, static shared memory and spill bytes of each kernel in
+    ``csrc/<source>.cu``, read from nvcc's ``-Xptxas -v`` log beside its
+    library: {mangled kernel name: {"registers", "smem_static",
+    "spill_stores", "spill_loads"}}."""
+    import re
+    log = (build_all() / f"{source}.log").read_text()
+    out: Dict[str, Dict[str, int]] = {}
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem_static"] = int(sm.group(1)) if sm else 0
+    return out
 
 
 def launch(name: str, *args) -> None:
     """Call ``<name>_launch(*args, stream)`` on the current CUDA stream and
     raise if the launch was refused (``cudaGetLastError`` != 0)."""
     stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(library(name), f"{name}_launch")(*args, stream)
+    err = launcher(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {err}")

@@ -4,43 +4,84 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, SEG_LEN
 from repro_torch.kernels import build as K
 from repro_torch.kernels.collision.ref import (collision_paged_ref,
                                               collision_ref)
 
 
+def lane_packed_table(b: int, G: int, Hg: int, B: int, nc: int,
+                      device) -> torch.Tensor:
+    """An uninitialized (b, G, Hg, B, nc) uint8 tier table in the layout
+    the paged Stage-I kernel reads: its storage is (b, G, B, nc, 8), the Hg
+    query heads' weights of one (subspace, centroid) in the low bytes of
+    one 8-byte word (Hg <= 8). The bytes past Hg are never written: a sum's
+    carries run only towards higher bytes, so they never reach the Hg
+    bytes the kernel reads."""
+    if not 0 < Hg <= 8:
+        raise ValueError(f"lane_packed_table: Hg={Hg} does not fit 8 lanes")
+    return torch.empty((b, G, B, nc, 8), dtype=torch.uint8,
+                       device=device).permute(0, 1, 4, 2, 3)[:, :, :Hg]
+
+
+def _lane_packed(tables: torch.Tensor) -> bool:
+    b, G, Hg, B, nc = tables.shape
+    return (tables.dtype == torch.uint8
+            and tables.stride() == (G * B * nc * 8, B * nc * 8, 1, nc * 8, 8)
+            and tables.data_ptr() % 16 == 0)
+
+
 def collision_scores_paged_kernel(pool_ids: torch.Tensor,
                                   block_tables: torch.Tensor,
                                   tables: torch.Tensor, enc_end: torch.Tensor,
-                                  sink_size: int) -> torch.Tensor:
-    """Block-table-indirect Stage-I scores, masked to [sink, enc_end).
+                                  sink_size: int, score_range: int):
+    """Block-table-indirect Stage-I scores, masked to [sink, enc_end), and
+    their histograms per segment.
 
     pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32 (< 0 =
-    unallocated, clipped to block 0), tables (b, G, Hg, B, nc) int32,
-    enc_end (b,) int32 → (b, G, Hg, nblk·bs) int32. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    unallocated, clipped to block 0), tables (b, G, Hg, B, nc) tier
+    weights (on the card uint8 in the ``lane_packed_table`` layout; any
+    integer layout on the CPU), enc_end (b,) int32, ``score_range`` the
+    largest score (< 256 on the card: its byte lanes hold sums up to 255)
+    → (scores (b, G, Hg, nblk·bs) int32, seg_hist (b, G, Hg,
+    ceil(n / SEG_LEN), score_range + 2) int32), the histograms per segment
+    that ``bucket_topk`` takes. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     if pool_ids.device.type == "cpu":
         return collision_paged_ref(pool_ids, block_tables, tables, enc_end,
-                                   sink_size)
-    K.check_cuda("collision_paged", pool_ids, block_tables, tables, enc_end)
+                                   sink_size, score_range)
+    K.check_cuda("collision_paged", pool_ids, block_tables, enc_end)
+    if tables.device != pool_ids.device:
+        raise ValueError(f"collision_paged: tables on {tables.device}")
     nb, G, bs, B = pool_ids.shape
     b, nblk = block_tables.shape
     Hg, nc = tables.shape[2], tables.shape[-1]
     if (pool_ids.dtype != torch.uint8 or block_tables.dtype != torch.int32
-            or tables.dtype != torch.int32 or enc_end.dtype != torch.int32):
-        raise TypeError("collision_paged: expects uint8 ids and int32 "
-                        "tables, block tables and enc_end")
-    if tables.shape != (b, G, Hg, B, nc) or B not in (8, 16) or nc > 256:
+            or tables.dtype != torch.uint8 or enc_end.dtype != torch.int32):
+        raise TypeError("collision_paged: expects uint8 ids and tables, "
+                        "int32 block tables and enc_end")
+    if not 0 <= score_range < 256:
+        raise ValueError(f"collision_paged: needs 0 <= score_range < 256 on "
+                         f"the card (byte lanes), got {score_range}")
+    if (tables.shape != (b, G, Hg, B, nc) or B not in (8, 16) or nc > 256
+            or nc % 16 or not 0 < Hg <= 8 or enc_end.shape != (b,)
+            or pool_ids.data_ptr() % 16):
         raise ValueError(f"collision_paged: unsupported shapes "
                          f"{tuple(tables.shape)} for B={B}")
-    out = torch.empty((b, G, Hg, nblk * bs), dtype=torch.int32,
+    if not _lane_packed(tables):
+        raise ValueError("collision_paged: tables must lie in the byte-lane "
+                         "layout of lane_packed_table")
+    n = nblk * bs
+    out = torch.empty((b, G, Hg, n), dtype=torch.int32,
                       device=pool_ids.device)
+    hist = torch.empty((b, G, Hg, -(-n // SEG_LEN), score_range + 2),
+                       dtype=torch.int32, device=pool_ids.device)
     K.launch("collision_paged", K.ptr(pool_ids), K.ptr(block_tables),
-             K.ptr(tables), K.ptr(enc_end), K.ptr(out), nb, G, Hg, bs, nblk,
-             B, nc, int(sink_size), b)
+             K.ptr(tables), K.ptr(enc_end), K.ptr(out), K.ptr(hist), nb, G,
+             Hg, bs, nblk, B, nc, int(sink_size), b, score_range + 2,
+             SEG_LEN)
     LAUNCHES["collision_paged"] += 1
-    return out
+    return out, hist
 
 
 def collision_scores_kernel(ids: torch.Tensor, tables: torch.Tensor,

@@ -6,13 +6,17 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.bucket_topk.ref import segment_histogram_ref
+
 
 def collision_paged_ref(pool_ids: torch.Tensor, block_tables: torch.Tensor,
                         tables: torch.Tensor, enc_end: torch.Tensor,
-                        sink_size: int) -> torch.Tensor:
+                        sink_size: int, score_range: Optional[int] = None):
     """pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32,
-    tables (b, G, Hg, B, nc) int32, enc_end (b,) int32 →
-    (b, G, Hg, nblk·bs) int32 scores, -1 outside [sink_size, enc_end)."""
+    tables (b, G, Hg, B, nc) uint8 or int32, enc_end (b,) int32 →
+    (b, G, Hg, nblk·bs) int32 scores, -1 outside [sink_size, enc_end).
+    With ``score_range`` → (scores, their histograms per segment,
+    ``segment_histogram_ref(scores, score_range)``)."""
     nb, G, bs, B = pool_ids.shape
     b, nblk = block_tables.shape
     Hg, nc = tables.shape[2], tables.shape[-1]
@@ -25,7 +29,10 @@ def collision_paged_ref(pool_ids: torch.Tensor, block_tables: torch.Tensor,
     scores = per_key.reshape(b, G, Hg, n, B).sum(-1).to(torch.int32)
     pos = torch.arange(n, device=ids.device)
     valid = (pos[None] >= sink_size) & (pos[None] < enc_end[:, None])
-    return torch.where(valid[:, None, None, :], scores, -1)
+    scores = torch.where(valid[:, None, None, :], scores, -1)
+    if score_range is None:
+        return scores
+    return scores, segment_histogram_ref(scores, score_range)
 
 
 def collision_ref(ids: torch.Tensor, table: torch.Tensor,

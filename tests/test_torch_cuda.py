@@ -15,7 +15,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import retrieval as TR  # noqa: E402
 from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
 from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E402
-                                           collision_scores_paged_kernel)
+                                           collision_scores_paged_kernel,
+                                           lane_packed_table)
 from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
 from repro_torch.kernels.gather_kv import (gather_heads,  # noqa: E402
                                            gather_heads_physical,
@@ -55,12 +56,17 @@ def test_kernels_match_plain_on_card(card, nsub):
     ids = ri(0, 256, (nb, G, bs, nsub), torch.uint8)
     bt = torch.tensor([[7, 2, 9, -1], [0, 5, -1, -1]], dtype=torch.int32,
                       device=card)
-    tables = ri(0, 7, (b, G, HG, nsub, 256))
+    tables = lane_packed_table(b, G, HG, nsub, 256, card)
+    tables.copy_(ri(0, 7, (b, G, HG, nsub, 256), torch.uint8))
     enc_end = torch.tensor([110, 50], dtype=torch.int32, device=card)
-    got = collision_scores_paged_kernel(ids, bt, tables, enc_end, 16)
-    assert torch.equal(got, collision_paged_ref(ids, bt, tables, enc_end, 16))
-    cand = bucket_topk(got, 40, 6 * nsub)
+    got, hist = collision_scores_paged_kernel(ids, bt, tables, enc_end, 16,
+                                              6 * nsub)
+    want, want_hist = collision_paged_ref(ids, bt, tables, enc_end, 16,
+                                          6 * nsub)
+    assert torch.equal(got, want) and torch.equal(hist, want_hist)
+    cand = bucket_topk(got, 40, 6 * nsub, seg_hist=hist)
     assert torch.equal(cand, bucket_topk_ref(got, 40, 6 * nsub))
+    assert torch.equal(bucket_topk(got, 40, 6 * nsub), cand)
     codes = ri(-2 ** 31, 2 ** 31 - 1, (nb, G, bs, nsub))
     w = torch.rand((nb, G, bs, nsub), generator=gen, device=card)
     _, _, phys = TR._block_relative(cand, bt, bs)
@@ -94,6 +100,71 @@ def test_kernels_match_plain_on_card(card, nsub):
     ridx = ri(0, n, (b, 300))
     assert torch.equal(gather_rows(store[0], None, ridx),
                        gather_rows_ref(store[0], ridx))
+
+
+@pytest.mark.cuda
+def test_topc_segments_match_plain_on_card(card):
+    """Stage I with its histograms per segment, the histogram pass and the
+    cut from histograms equal their plain versions exactly over several
+    segments: on Stage I's own output (rows shorter than C), on all ties,
+    and on threshold ties spread over every segment with the quota ending
+    inside one; wrong inputs raise."""
+    from repro_torch.kernels import SEG_LEN
+    from repro_torch.kernels.bucket_topk import segment_histogram
+    from repro_torch.kernels.bucket_topk.ref import (bucket_topk_ref,
+                                                     segment_histogram_ref)
+    from repro_torch.kernels.collision.ref import collision_paged_ref
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    nb, bs, b, nblk, hg, nsub, sr = 64, 64, 3, 20, 6, 16, 96
+    ids = torch.randint(0, 256, (nb, G, bs, nsub), generator=gen,
+                        device=card, dtype=torch.uint8)
+    bt = torch.randperm(nb, generator=gen, device=card)[:b * nblk].reshape(
+        b, nblk).to(torch.int32)
+    bt[1, 12:] = -1
+    tables = lane_packed_table(b, G, hg, nsub, 256, card)
+    tables.copy_(torch.randint(0, 7, (b, G, hg, nsub, 256), generator=gen,
+                               device=card, dtype=torch.uint8))
+    enc_end = torch.tensor([1280, 700, 100], dtype=torch.int32, device=card)
+    got, hist = collision_scores_paged_kernel(ids, bt, tables, enc_end, 64,
+                                              sr)
+    want, want_hist = collision_paged_ref(ids, bt, tables, enc_end, 64, sr)
+    assert torch.equal(got, want) and torch.equal(hist, want_hist)
+    assert hist.shape[-2] == nblk * bs // SEG_LEN
+
+    ties = torch.full_like(got, 7)
+    spread = torch.randint(-1, 80, got.shape, generator=gen, device=card,
+                           dtype=torch.int32)
+    spread[..., 5::9] = 90                 # 142 ties in every segment
+    for scores, k in ((got, 300), (ties, 300), (spread, 120)):
+        h = segment_histogram(scores, sr)
+        assert torch.equal(h, segment_histogram_ref(scores, sr))
+        cand = bucket_topk(scores, k, sr, seg_hist=h)
+        assert torch.equal(cand, bucket_topk_ref(scores, k, sr))
+        assert torch.equal(bucket_topk(scores, k, sr), cand)
+    for n in (1000, 1024):                 # ragged n: scalar loads
+        s = spread[..., :n].contiguous()
+        assert torch.equal(segment_histogram(s, sr),
+                           segment_histogram_ref(s, sr))
+        assert torch.equal(bucket_topk(s, 77, sr), bucket_topk_ref(s, 77, sr))
+    # a row past 64k positions: its histograms do not fit shared memory
+    long = torch.randint(-1, 97, (2, 70000), generator=gen, device=card,
+                         dtype=torch.int32)
+    long[:, 40000:] = -1
+    assert torch.equal(bucket_topk(long, 3000, sr),
+                       bucket_topk_ref(long, 3000, sr))
+
+    with pytest.raises(ValueError, match="score_range"):
+        collision_scores_paged_kernel(ids, bt, tables, enc_end, 64, 256)
+    with pytest.raises(ValueError, match="score_range"):
+        collision_scores_paged_kernel(ids, bt, tables, enc_end, 64, -1)
+    with pytest.raises(TypeError):
+        collision_scores_paged_kernel(ids, bt, tables.int(), enc_end, 64, sr)
+    with pytest.raises(ValueError, match="byte-lane"):
+        collision_scores_paged_kernel(ids, bt, tables.contiguous(), enc_end,
+                                      64, sr)
+    with pytest.raises(ValueError, match="seg_hist"):
+        bucket_topk(got, 300, sr, seg_hist=hist[..., 1:, :])
 
 
 @pytest.mark.cuda

@@ -71,8 +71,9 @@ def test_collision_plain_matches_pallas_kernel():
     want = np.asarray(j_coll(jnp.asarray(ids), jnp.asarray(bt),
                              jnp.asarray(tables), jnp.asarray(enc_end),
                              CFG_J.sink_size))
-    got = collision_scores_paged_kernel(_t(ids), _t(bt), _t(tables),
-                                        _t(enc_end), CFG_T.sink_size)
+    got = collision_scores_paged_kernel(
+        _t(ids), _t(bt), _t(tables), _t(enc_end), CFG_T.sink_size,
+        TR.max_collision_score(CFG_T, B))[0]
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want == -1).any() and (want > 0).any()
@@ -265,7 +266,7 @@ def test_wrappers_never_fall_back_off_the_cpu():
     calls = [
         lambda: collision_scores_paged_kernel(
             ids, bt, torch.empty((2, G, HG, 16, 256), dtype=torch.int32,
-                                 **m), i32, 2),
+                                 **m), i32, 2, 96),
         lambda: bucket_topk(torch.empty((2, 50), dtype=torch.int32, **m),
                             8, 96),
         lambda: rerank_paged_kernel(

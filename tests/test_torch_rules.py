@@ -36,10 +36,10 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
 def test_port_kernels_are_cuda_sources_in_the_package():
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.build import SIGNATURES
+    from repro_torch.kernels.build import SIGNATURES, SOURCE_OF
     assert sorted(SIGNATURES) == sorted(KERNELS)
     for name in KERNELS:
-        src = (csrc / f"{name}.cu").read_text()
+        src = (csrc / f"{SOURCE_OF[name]}.cu").read_text()
         assert f"{name}_launch" in src and "Replaces the TPU kernel" in src
 
 
