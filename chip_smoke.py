@@ -23,17 +23,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
               host pool; its bound prices those bytes at the card's
               pinned host-to-device rate, measured here with one 256 MiB
               copy. Stage I and the top-C cut are also checked on an all-tie
-              set and on threshold ties spread over every segment, timed
-              back to back as a pair, and the ptxas report (registers,
-              shared memory, spills) of both is printed.
+              set and on threshold ties spread over every segment and timed
+              back to back as a pair; Stage II with its top-k
+              (rerank_topk_paged) is held, at the paged and the contiguous
+              shapes and at every grid it can launch (stage2_grid), to the
+              plain top-k of its own estimates on the main inputs, on all
+              ties and on a row with fewer valid candidates than k; the
+              decode gather is held bit-exact with and without winners;
+              both are timed beside the chains they replace; the ptxas
+              report (registers, shared memory, spills) of the four
+              redesigned kernels is printed.
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
               serving qwen2-1.5b at full width (28 layers, bf16, random
               weights from a seed) to four staggered requests of
               ~3k/6k/9k/12k prompt tokens and 300 new tokens each. Launch
               counters are zeroed just before and read just after; each
               kernel of the path must have launched at least 28 × decode
-              steps times, every request must promote, and the incremental
-              histograms must equal a recompute at every chunk.
+              steps times (Stage II exactly that, the paged gather at most
+              28 more per promotion), every request must promote, and the
+              incremental histograms must equal a recompute at every chunk.
    profile  — then one decode chunk of the same engine (four rows) under
               torch.profiler: wall and device-busy time per step, kernel
               launches and host-device copies per step, the top kernels.
@@ -93,19 +101,22 @@ PROMPTS = (3000, 6000, 9000, 12000)      # the four requests of the engines
 GEN = 300
 ARRIVALS = (0, 2, 4, 6)                  # chunk before each submission
 LENS_AFTER = [p + GEN for p in PROMPTS]  # their lengths at the end
-# each path's kernels → their least launches per layer and decode step
-# (the paged gathers: winners, and sink + window; the tiered path reads
-# its winners with gather_rows_tiered). The paged Stage I hands the top-C
-# its histograms; the contiguous one does not, so the slot and meta-view
-# paths run the histogram pass (bucket_hist), and the paged paths never.
-PAGED_KERNELS = {"collision_paged": 1, "bucket_topk": 1, "rerank_paged": 1,
-                 "gather_rows_paged": 2}
+# each path's kernels → their launches per layer and decode step (the
+# paged gather moves sink, window and winner rows in one launch; the tiered
+# path reads its winners with gather_rows_tiered, so its paged gather moves
+# sink and window only). Promotion adds K-only paged gathers. The paged
+# Stage I hands the top-C its histograms; the contiguous one does not, so
+# the slot and meta-view paths run the histogram pass (bucket_hist), and
+# the paged paths never.
+PAGED_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
+                 "rerank_topk_paged": 1, "gather_rows_paged": 1}
 SLOT_KERNELS = {"collision": 1, "bucket_hist": 1, "bucket_topk": 1,
-                "rerank_paged": 1, "gather_rows": 2}
+                "rerank_topk_paged": 1, "gather_rows": 2}
 METAVIEW_KERNELS = {"collision": 1, "bucket_hist": 1, "bucket_topk": 1,
-                    "rerank_paged": 1, "gather_rows_paged": 2}
-OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1, "rerank_paged": 1,
-                   "gather_rows_paged": 1, "gather_rows_tiered": 1}
+                    "rerank_topk_paged": 1, "gather_rows_paged": 1}
+OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
+                   "rerank_topk_paged": 1, "gather_rows_paged": 1,
+                   "gather_rows_tiered": 1}
 LONG_PROMPT, LONG_GEN = 65536, 64        # the offload phase's long request
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
@@ -170,12 +181,13 @@ def kernel_phase(dev, cfg, seed: int = 0):
     from repro_torch.kernels.collision import (collision_scores_paged_kernel,
                                                lane_packed_table)
     from repro_torch.kernels.collision.ref import collision_paged_ref
-    from repro_torch.kernels.gather_kv import (gather_heads_physical,
-                                               gather_rows_paged)
-    from repro_torch.kernels.gather_kv.ref import (gather_heads_physical_ref,
-                                                   gather_rows_paged_ref)
-    from repro_torch.kernels.rerank import rerank_paged_kernel
-    from repro_torch.kernels.rerank.ref import rerank_paged_ref
+    from repro_torch.kernels.gather_kv import gather_decode_paged
+    from repro_torch.kernels.gather_kv import ops as GO
+    from repro_torch.kernels.gather_kv.ref import gather_decode_paged_ref
+    from repro_torch.kernels.rerank import ops as RO
+    from repro_torch.kernels.rerank import rerank_topk_paged
+    from repro_torch.kernels.rerank.ref import (block_relative,
+                                                rerank_topk_paged_ref)
     from repro_torch.models.serve import rotation_signs
 
     pcfg = cfg.pariskv
@@ -350,109 +362,228 @@ def kernel_phase(dev, cfg, seed: int = 0):
         + out["bucket_topk"]["bound"][0])
     print("kernel_pair " + json.dumps(out["collision_paged"]["pair"]),
           flush=True)
-    _ptxas(B, nc, Hg, rng_s + 2, n)
 
-    # 3. Stage II
-    _, _, cand_phys = R._block_relative(cand, bt, bs)
-    args = (pool.meta_codes, pool.meta_w, cand_phys, cand, qt.q_sub,
-            qt.q_norm, enc_end, sink, m, pcfg.magnitude_bits)
-    got = rerank_paged_kernel(*args)
-    want = rerank_paged_ref(*args)
-    err = float((got - want).abs().max())
-    _check(torch.allclose(got, want, rtol=RERANK_RTOL, atol=RERANK_ATOL),
-           f"rerank_paged differs from its plain version ({err})")
-    est = got
+    # 3. Stage II with the top-k, through the block table: the estimates
+    # against the plain version, the selection exactly against the plain
+    # top-k of the kernel's own estimates, on the main path's inputs, on
+    # all ties (|q| = 0: every estimate is +0.0 or -0.0) and on a row with
+    # fewer valid candidates than k
+    q_sub = qt.q_sub.float().contiguous()
+    q_norm = qt.q_norm.float().contiguous()
+    args = (pool.meta_codes, pool.meta_w, bt, cand, q_sub, q_norm, enc_end,
+            sink, k_top, m, pcfg.magnitude_bits)
+    won, err = _stage2_checks(args, bs, "paged")
+    rows2 = b * G * Hg
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    split = RO.default_split(rows2, C, sms)
+    grid = []
+    for sp in RO.SPLITS:
+        for th in (256, 512):
+            _stage2_checks(args, bs, f"paged split {sp} threads {th}",
+                           grid=(sp, th))
+            grid.append(dict(split=sp, threads=th, blocks=rows2 * sp,
+                             ms=_time_ms(lambda sp=sp, th=th: RO.launch(
+                                 *args, sp, th), flush)))
+    print("stage2_grid " + json.dumps(grid), flush=True)
+
+    def chain():
+        """The chain this kernel replaced: the candidates' rows, the
+        estimates alone (this kernel at top_k 1 stands in for an
+        estimates-only kernel), a stable sort, slice, gather and the
+        winners' rows."""
+        block_relative(cand, bt, bs)
+        est1 = rerank_topk_paged(*args[:8], 1, *args[9:]).est
+        top = torch.sort(est1, dim=-1, descending=True, stable=True).indices
+        return block_relative(cand.gather(-1, top[..., :k_top]), bt, bs)
+
+    def chain_torch():
+        """The torch ops of that chain alone, on this run's estimates."""
+        block_relative(cand, bt, bs)
+        top = torch.sort(won.est, dim=-1, descending=True,
+                         stable=True).indices
+        return block_relative(cand.gather(-1, top[..., :k_top]), bt, bs)
     n_cand = int(((cand >= sink) & (cand < enc_end[:, None, None, None]))
                  .sum())
-    out["rerank_paged"] = dict(
-        route="cuda", source="src/repro_torch/csrc/rerank_paged.cu",
+    out["rerank_topk_paged"] = dict(
+        route="cuda", source="src/repro_torch/csrc/rerank_topk_paged.cu",
         replaces="src/repro/kernels/rerank/rerank.py:78",
         max_abs_err=err,
-        tolerance=f"rtol {RERANK_RTOL}, atol {RERANK_ATOL}: float32 sums "
-                  f"of B*m products in another order",
-        ms=_time_ms(lambda: rerank_paged_kernel(*args), flush),
-        call_ms=_time_ms(lambda: rerank_paged_kernel(*args), flush,
+        tolerance=f"estimates rtol {RERANK_RTOL}, atol {RERANK_ATOL}: "
+                  f"float32 sums of B*m products in another order; the "
+                  f"selection exact against the plain top-k of the kernel's "
+                  f"own estimates",
+        split=split, threads=RO.THREADS, valid_candidates=n_cand,
+        ms=_time_ms(lambda: rerank_topk_paged(*args), flush),
+        call_ms=_time_ms(lambda: rerank_topk_paged(*args), flush,
                          primed=False),
-        plain_ms=_time_ms(lambda: rerank_paged_ref(*args), flush),
+        plain_ms=_time_ms(lambda: rerank_topk_paged_ref(*args), flush),
         library_ms=None,
-        bound=_bound(n_cand * B * 8 + cand.numel() * 12
-                     + qt.q_sub.numel() * 4 + qt.q_norm.numel() * 4,
+        chain_ms=_time_ms(chain, flush),
+        chain="the chain it replaces: block lookup of the candidates, "
+              "estimates, stable sort/slice/gather, block lookup of the "
+              "winners",
+        chain_torch_ms=_time_ms(chain_torch, flush),
+        chain_torch_call_ms=_time_ms(chain_torch, flush, primed=False),
+        bound=_bound(n_cand * B * 8 + cand.numel() * 8 + bt.numel() * 4
+                     + b * 4 + rows2 * k_top * 16 + q_sub.numel() * 4
+                     + q_norm.numel() * 4,
                      n_cand * (2 * B * m + 2 * B)))
 
-    # 4. K/V gathers: sink + window by logical position, winners by row
-    top_pos = torch.sort(est, dim=-1, descending=True, stable=True).indices
-    top_idx = cand.gather(-1, top_pos[..., :k_top])
-    _, _, phys = R._block_relative(top_idx, bt, bs)
-    ws = (pos + 2 - W).clamp_min(0)
-    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
-                      ws[:, None] + torch.arange(W, device=dev)], 1
-                     ).to(torch.int32).contiguous()
-    phys = phys.to(torch.int32).contiguous()
+    # 4. the decode gather: sink and window rows through the table (from
+    # the window start), winners by physical row, K and V, one launch
+    ws = (pos + 2 - W).clamp_min(0).to(torch.int32)
+    phys = won.phys_rows
 
     def kern():
-        return (gather_rows_paged(pool.k, pool.v, bt, lidx),
-                gather_heads_physical(pool.k, pool.v, phys))
+        return gather_decode_paged(pool.k, pool.v, bt, ws, sink, W, phys)
 
     def plain():
-        return ([gather_rows_paged_ref(p, bt, lidx) for p in (pool.k, pool.v)],
-                [gather_heads_physical_ref(p, phys) for p in (pool.k, pool.v)])
+        return gather_decode_paged_ref(pool.k, pool.v, bt, ws, sink, W, phys)
+
+    for rows_w in (phys, None):     # with and without winners
+        got_g = gather_decode_paged(pool.k, pool.v, bt, ws, sink, W, rows_w)
+        want_g = gather_decode_paged_ref(pool.k, pool.v, bt, ws, sink, W,
+                                         rows_w)
+        _check(all(x is y or torch.equal(x, y)
+                   for x, y in zip(got_g, want_g)),
+               f"gather_rows_paged differs from its plain version "
+               f"(winners {rows_w is not None})")
+
+    def chain_g():
+        """The two launches this mode replaced, with their index
+        construction: the sink and window positions, then one launch for
+        them and one for the winners."""
+        lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                          ws[:, None] + torch.arange(W, device=dev)], 1
+                         ).to(torch.int32).contiguous()
+        return (GO._launch(pool.k, pool.v, bt, b, sink + W, lidx=lidx),
+                GO._launch(pool.k, pool.v, bt, b, 0, phys=phys))
 
     flat_k = pool.k.reshape(nb * bs, G, hd)
     flat_v = pool.v.reshape(nb * bs, G, hd)
     heads = torch.arange(G, device=dev)[None, :, None, None]
+    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                      ws[:, None] + torch.arange(W, device=dev)], 1)
     rows_l = (bt.long().gather(1, (lidx // bs).long()).clamp_min(0) * bs
               + lidx % bs)
     rows_p = phys.long()
 
-    def library():
+    def indexing():
         return (flat_k[rows_l], flat_v[rows_l], flat_k[rows_p, heads],
                 flat_v[rows_p, heads])
 
-    (gk, gv), (wk, wv) = kern()
-    (pk, pv), (qk, qv) = plain()
-    same = all(torch.equal(x, y) for x, y in
-               ((gk, pk), (gv, pv), (wk, qk), (wv, qv)))
-    _check(same, "gather_rows_paged differs from its plain version")
-    moved = 2 * (gk.numel() + gv.numel() + wk.numel() + wv.numel()) * 2
+    dk, dv, wk, wv = kern()
+    moved = 2 * (dk.numel() + dv.numel() + wk.numel() + wv.numel()) * 2
     out["gather_rows_paged"] = dict(
         route="cuda", source="src/repro_torch/csrc/gather_rows_paged.cu",
         replaces="src/repro/kernels/gather_kv/gather_kv.py:87",
         max_abs_err=0, tolerance="exact",
         ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        ms_without_winners=_time_ms(
+            lambda: gather_decode_paged(pool.k, pool.v, bt, ws, sink, W),
+            flush),
         plain_ms=_time_ms(plain, flush),
-        library_ms=_time_ms(library, flush),
-        bound=_bound(moved + lidx.numel() * 4 + phys.numel() * 4, 0))
+        library_ms=_time_ms(indexing, flush),
+        chain_ms=_time_ms(chain_g, flush),
+        chain="the two launches it replaces, with their index "
+              "construction",
+        bound=_bound(moved + phys.numel() * 4 + b * 4 + bt.numel() * 4, 0))
+    _ptxas(B, nc, Hg, rng_s + 2, n, C, k_top)
     _contiguous_kernels(dev, cfg, gen, flush, lens, out)
-    _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out)
+    _tiered_kernel(dev, pool, won.top_idx, phys, enc_end, sink, gen, flush,
+                   out)
     for name, rec in out.items():
         rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
         print(f"kernel {name} " + json.dumps(rec), flush=True)
     return out
 
 
-def _ptxas(B: int, nc: int, Hg: int, rng: int, n: int) -> None:
-    """Registers, shared memory and spills of the two kernels redesigned
+def _ptxas(B: int, nc: int, Hg: int, rng: int, n: int, C: int,
+           k: int) -> None:
+    """Registers, shared memory and spills of the four kernels redesigned
     for Hopper, from nvcc's -Xptxas -v logs, with the dynamic shared memory
     each launch asks for at these shapes (their launchers' formulas)."""
     from repro_torch.kernels import SEG_LEN
     from repro_torch.kernels import build
+    from repro_torch.kernels.rerank import ops as RO
     nseg = -(-n // SEG_LEN)
     dyn = {"collision_paged": B * nc * 8 + Hg * rng * 4,
            "bucket_hist": 8 * rng * 4,
-           "bucket_topk": (rng + 2 * (nseg + 1) + 2) * 4}
-    for source in ("collision_paged", "bucket_topk"):
+           "bucket_topk": (rng + 2 * (nseg + 1) + 2) * 4,
+           "rerank_topk_paged": RO.smem_bytes(C, B, k),
+           "gather_rows_paged": 0}
+    for source in ("collision_paged", "bucket_topk", "rerank_topk_paged",
+                   "gather_rows_paged"):
         rec = {"kernels": build.ptxas_report(source),
                "dynamic_smem_bytes": {k: v for k, v in dyn.items()
                                       if build.SOURCE_OF[k] == source}}
         print(f"ptxas {source} " + json.dumps(rec), flush=True)
 
 
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit (a float's sign of zero included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def _stage2_checks(args, bs: int, label: str, grid=None):
+    """``rerank_topk_paged(*args)`` (or its launch at ``grid`` = (split,
+    threads)) against its plain version: the
+    estimates within the Stage-II tolerance, and the selection (estimates,
+    positions, physical rows and blocks) exactly the plain top-k of the
+    kernel's own estimates; then the same on all ties (|q| = 0) and on a
+    row with fewer valid candidates than k (batch row 0's region cut to
+    50 positions). → (the main inputs' result, the largest estimate
+    difference)."""
+    import torch
+    from repro_torch.kernels.rerank import ops as RO
+    from repro_torch.kernels.rerank import rerank_topk_paged
+    from repro_torch.kernels.rerank.ref import (block_relative,
+                                                rerank_topk_paged_ref,
+                                                topk_ref)
+    codes, w, bt, cand, q_sub, q_norm, enc_end, sink, k = args[:9]
+    short = enc_end.clone()
+    short[0] = sink + 50
+    cases = {"": args,
+             " all ties": args[:5] + (torch.zeros_like(q_norm),) + args[6:],
+             " short row": args[:6] + (short,) + args[7:]}
+    first, worst = None, 0.0
+    for name, a in cases.items():
+        won = (rerank_topk_paged(*a) if grid is None
+               else RO.launch(*a, *grid))
+        plain = rerank_topk_paged_ref(*a)
+        err = float((won.est - plain.est).abs().max())
+        _check(torch.allclose(won.est, plain.est, rtol=RERANK_RTOL,
+                              atol=RERANK_ATOL),
+               f"rerank_topk_paged estimates differ from the plain version "
+               f"({label}{name}: {err})")
+        top_est, top_pos = topk_ref(won.est, k)
+        top_idx = cand.gather(-1, top_pos)
+        blk, phys = block_relative(top_idx, bt, bs)
+        _check(_bits_equal(won.top_est, top_est)
+               and torch.equal(won.top_idx, top_idx.to(torch.int32))
+               and torch.equal(won.phys_rows, phys.to(torch.int32))
+               and torch.equal(won.block_ids, blk.to(torch.int32)),
+               f"rerank_topk_paged selection differs from the plain top-k "
+               f"of its estimates ({label}{name})")
+        if name == " all ties":
+            _check(bool((won.top_est == 0).all()), "all-ties case not tied")
+        if name == " short row":
+            _check(bool((won.top_est[0, ..., 50:] == -1e30).all()),
+                   "short row: fewer than k valid not reached")
+        if first is None:
+            first = won
+        worst = max(worst, err)
+    return first, worst
+
+
 def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
     """Contiguous Stage I and the contiguous K/V gathers at the slot
     engine's shapes: a (b, n_max) per-slot cache of the same four rows.
-    The slot path's top-C and Stage II reuse bucket_topk and rerank_paged
-    (a contiguous store is a pool of one block per row); both are held
-    against their plain versions at these shapes too."""
+    The slot path's top-C and Stage II reuse bucket_topk and
+    rerank_topk_paged (a contiguous store is a pool of one block per row);
+    both are held against their plain versions at these shapes too."""
     import torch
     from repro_torch.core import cache as CC
     from repro_torch.core import centroids
@@ -465,8 +596,6 @@ def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
     from repro_torch.kernels.gather_kv import gather_heads, gather_rows
     from repro_torch.kernels.gather_kv.ref import (gather_heads_ref,
                                                    gather_rows_ref)
-    from repro_torch.kernels.rerank import rerank_paged_kernel
-    from repro_torch.kernels.rerank.ref import rerank_paged_ref
     from repro_torch.models.serve import rotation_signs
 
     pcfg = cfg.pariskv
@@ -519,19 +648,16 @@ def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
     cand = bucket_topk(coarse, C, rng_s)
     _check(torch.equal(cand, bucket_topk_ref(coarse, C, rng_s)),
            "bucket_topk differs from its plain version (contiguous)")
-    phys = (cand + torch.arange(b, device=dev)[:, None, None, None] * n
-            ).to(torch.int32)
-    args = (cache.meta_codes, cache.meta_w, phys, cand, qt.q_sub, qt.q_norm,
-            enc_end, sink, m, pcfg.magnitude_bits)
-    est, want = rerank_paged_kernel(*args), rerank_paged_ref(*args)
-    _check(torch.allclose(est, want, rtol=RERANK_RTOL, atol=RERANK_ATOL),
-           "rerank_paged differs from its plain version (contiguous)")
-    out["rerank_paged"]["max_abs_err_contiguous"] = float(
-        (est - want).abs().max())
+    # (a contiguous store is a pool of b blocks of n: block table arange(b))
+    args = (cache.meta_codes, cache.meta_w,
+            torch.arange(b, dtype=torch.int32, device=dev)[:, None], cand,
+            qt.q_sub.float().contiguous(), qt.q_norm.float().contiguous(),
+            enc_end, sink, pcfg.top_k, m, pcfg.magnitude_bits)
+    won, err = _stage2_checks(args, n, "contiguous")
+    out["rerank_topk_paged"]["max_abs_err_contiguous"] = err
 
     # 6. contiguous gathers: winners per kv head, the window per row
-    top = torch.sort(est, dim=-1, descending=True, stable=True).indices
-    top_idx = cand.gather(-1, top[..., :pcfg.top_k]).contiguous()
+    top_idx = won.top_idx
     ws = (pos + 2 - W).clamp(0, n - W)
     w_idx = (ws[:, None] + torch.arange(W, device=dev)).to(
         torch.int32).contiguous()
@@ -658,8 +784,9 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
                cfg) -> int:
     """Fail unless requests 0 .. n_requests-1 each got ``gen`` tokens, no
     logit was non-finite, and every kernel in ``kernels`` launched at least
-    its given count per layer and decode step. → the count of non-finite
-    logits (0)."""
+    its given count per layer and decode step: Stage II exactly once, the
+    paged gather once plus at most one K-only promotion gather per layer
+    and promotion. → the count of non-finite logits (0)."""
     _check(sorted(done) == list(range(n_requests)), f"served {sorted(done)}")
     for uid, r in done.items():
         _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
@@ -669,6 +796,16 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
         _check(launches[name] >= need,
                f"{name}: {launches[name]} launches < {need} "
                f"({per_step} x {cfg.num_layers} layers x {steps} steps)")
+    if "rerank_topk_paged" in kernels:
+        _check(launches["rerank_topk_paged"] == cfg.num_layers * steps,
+               f"rerank_topk_paged: {launches['rerank_topk_paged']} launches, "
+               f"not one per layer-step ({cfg.num_layers * steps})")
+    if "gather_rows_paged" in kernels:
+        most = cfg.num_layers * (steps + sum(r.promotions
+                                             for r in done.values()))
+        _check(launches["gather_rows_paged"] <= most,
+               f"gather_rows_paged: {launches['gather_rows_paged']} launches "
+               f"> {most}: more than one per layer-step and promotion")
     nonfinite = int(eng.nonfinite_logits)
     _check(nonfinite == 0, f"{nonfinite} non-finite logits")
     return nonfinite

@@ -3,23 +3,23 @@ without the chunked-fill part).
 
 ``blockwise_causal_attention`` is the prefill attention, a two-level
 online softmax in plain torch ops (the JAX package leaves it to XLA).
-``sparse_decode_attention`` (contiguous cache),
-``sparse_decode_attention_paged`` (block pool) and
-``sparse_decode_attention_tiered`` (staging pool of the host-offloaded
-tier) are paper Eq. (2)-(3): one
-joint softmax over Sink ∪ Retrieved-top-k ∪ Local/Buffer window, three
-disjoint index ranges. Window and winner rows come through the gather
-kernels; the contiguous sink is a view. ``dense_decode_attention`` is the
-full-attention baseline, written as the reference writes it (float32
-scores, a mask, a softmax).
+``sparse_decode_attention`` (contiguous cache) and
+``sparse_decode_attention_paged`` (block pool, also the staging pool of the
+host-offloaded tier) are paper Eq. (2)-(3): one joint softmax over Sink ∪
+Retrieved-top-k ∪ Local/Buffer window, three disjoint index ranges.
+Window and winner rows come through the gather kernels (over a paged pool
+sink, window and winners in one launch); the contiguous sink is a view.
+``dense_decode_attention`` is the full-attention baseline, written as the
+reference writes it (float32 scores, a mask, a softmax).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.gather_kv import gather_heads, gather_rows
+from repro_torch.kernels.gather_kv import (gather_decode_paged, gather_heads,
+                                          gather_rows)
 
 NEG_INF = -1e30
 
@@ -178,91 +178,72 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
     return out
 
 
+class DecodeRows(NamedTuple):
+    """A decode step's gathered K/V rows over a paged pool: sink (b, sink,
+    G, hd), window (b, W, G, hd) and winners (b, G, Hg, k, hd)."""
+    k_sink: torch.Tensor
+    v_sink: torch.Tensor
+    k_loc: torch.Tensor
+    v_loc: torch.Tensor
+    k_ret: Optional[torch.Tensor]
+    v_ret: Optional[torch.Tensor]
+
+
+def paged_decode_rows(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                      block_tables: torch.Tensor, window_start: torch.Tensor,
+                      phys_rows: Optional[torch.Tensor] = None, *,
+                      sink_size: int, window_size: int) -> DecodeRows:
+    """Every K/V row a paged decode step attends to, in one gather launch:
+    each row's sink ([0, sink)) and window ([ws, ws + W)) through its block
+    table, positions computed in the kernel from ``window_start`` (b,)
+    int32, and the winners' head rows at ``phys_rows`` (b, G, Hg, k) int32
+    flat physical rows (winners None without them: the tiered path reads
+    its winners with its own kernel)."""
+    k_dense, v_dense, k_ret, v_ret = gather_decode_paged(
+        pool_k, pool_v, block_tables, window_start, sink_size, window_size,
+        phys_rows)
+    return DecodeRows(k_dense[:, :sink_size], v_dense[:, :sink_size],
+                      k_dense[:, sink_size:], v_dense[:, sink_size:], k_ret,
+                      v_ret)
+
+
 def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
                                   pool_v: torch.Tensor,
                                   block_tables: torch.Tensor,
                                   top_idx: torch.Tensor,
                                   window_start: torch.Tensor,
                                   pos: torch.Tensor, enc_end: torch.Tensor,
-                                  k_ret: torch.Tensor, v_ret: torch.Tensor,
+                                  phys_rows: Optional[torch.Tensor] = None,
                                   *, sink_size: int, window_size: int,
                                   sm_scale: float, softcap: float = 0.0,
-                                  k_sink: Optional[torch.Tensor] = None,
-                                  v_sink: Optional[torch.Tensor] = None,
-                                  k_loc: Optional[torch.Tensor] = None,
-                                  v_loc: Optional[torch.Tensor] = None,
+                                  rows: Optional[DecodeRows] = None,
                                   s_sink: Optional[torch.Tensor] = None,
                                   s_loc: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """Decode attention over the paged pool. q (b, H, hd); pool_k/v
     (num_blocks, block_size, G, hd); block_tables (b, nblk) int32;
     top_idx (b, G, Hg, k) logical positions; window_start / pos / enc_end
-    (b,) int32; k_ret/v_ret (b, G, Hg, k, hd) the retrieved rows, already
-    gathered by Stage II's physical rows → (b, H, hd) float32.
+    (b,) int32; phys_rows (b, G, Hg, k) int32 Stage II's physical rows of
+    the winners → (b, H, hd) float32.
 
-    Sink and window rows share one paged-gather launch (K and V
-    together): the index row is [0, sink) ++ [ws, ws + W). They (and
-    their raw scores ``s_sink``/``s_loc``) may arrive pre-gathered
-    instead (``dense_sink_window``: the overlapped tiered schedule runs
-    them while the winner gather is in flight); placement never changes
-    the values."""
+    Sink, window and winner rows come through one gather launch
+    (``paged_decode_rows``), unless they arrive as ``rows`` (with their raw
+    sink and window scores ``s_sink``/``s_loc``: the tiered path gathers
+    its winners with its own kernel, and its overlapped schedule scores
+    the sink and window while that gather is in flight); placement never
+    changes the values."""
     b, H, hd = q.shape
     G = pool_k.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
-    if k_sink is None:
-        k_sink, v_sink, k_loc, v_loc = dense_sink_window(
-            pool_k, pool_v, block_tables, window_start,
-            sink_size=sink_size, window_size=window_size)
+    if rows is None:
+        rows = paged_decode_rows(pool_k, pool_v, block_tables, window_start,
+                                 phys_rows, sink_size=sink_size,
+                                 window_size=window_size)
     return _segment_attention(
-        qg, k_sink, v_sink, k_ret, v_ret, k_loc, v_loc, top_idx,
-        window_start, pos, enc_end, sink_size=sink_size,
+        qg, rows.k_sink, rows.v_sink, rows.k_ret, rows.v_ret, rows.k_loc,
+        rows.v_loc, top_idx, window_start, pos, enc_end, sink_size=sink_size,
         window_size=window_size, sm_scale=sm_scale, softcap=softcap,
         s_sink=s_sink, s_loc=s_loc).reshape(b, H, hd)
-
-
-def dense_sink_window(pool_k: torch.Tensor, pool_v: torch.Tensor,
-                      block_tables: torch.Tensor, window_start: torch.Tensor,
-                      *, sink_size: int, window_size: int):
-    """The sink and window rows of every row's sequence through its block
-    table, K and V in one paged-gather launch → (k_sink, v_sink, k_loc,
-    v_loc), (b, sink, G, hd) and (b, W, G, hd)."""
-    from repro_torch.core import cache as CC
-
-    b = window_start.shape[0]
-    dev = window_start.device
-    sink_idx = torch.arange(sink_size, device=dev).expand(b, sink_size)
-    w_idx = window_start[:, None] + torch.arange(window_size, device=dev)
-    k_dense, v_dense = CC.paged_gather_rows(
-        pool_k, pool_v, block_tables, torch.cat([sink_idx, w_idx], dim=1))
-    return (k_dense[:, :sink_size], v_dense[:, :sink_size],
-            k_dense[:, sink_size:], v_dense[:, sink_size:])
-
-
-def sparse_decode_attention_tiered(q: torch.Tensor, pool_k: torch.Tensor,
-                                   pool_v: torch.Tensor,
-                                   block_tables: torch.Tensor,
-                                   dev_map: torch.Tensor,
-                                   top_idx: torch.Tensor,
-                                   window_start: torch.Tensor,
-                                   pos: torch.Tensor, enc_end: torch.Tensor,
-                                   k_ret: torch.Tensor, v_ret: torch.Tensor,
-                                   *, sink_size: int, window_size: int,
-                                   sm_scale: float, softcap: float = 0.0,
-                                   **dense) -> torch.Tensor:
-    """Tiered twin of ``sparse_decode_attention_paged``: ``pool_k``/
-    ``pool_v`` are the bounded staging leaves and the host block tables
-    are composed with ``dev_map`` before any K/V read (the engine pins
-    sink and window blocks staged, so those reads always hit). The
-    winners arrive hit/miss-blended in ``k_ret``/``v_ret``; ``dense``
-    takes the pre-gathered sink/window pieces of the overlapped
-    schedule."""
-    from repro_torch.core import cache as CC
-
-    return sparse_decode_attention_paged(
-        q, pool_k, pool_v, CC.tiered_kv_tables(block_tables, dev_map),
-        top_idx, window_start, pos, enc_end, k_ret, v_ret,
-        sink_size=sink_size, window_size=window_size, sm_scale=sm_scale,
-        softcap=softcap, **dense)
 
 
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

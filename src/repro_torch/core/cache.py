@@ -38,8 +38,7 @@ import torch
 from repro_torch.core import encode
 from repro_torch.core.config import ParisKVConfig
 from repro_torch.core.retrieval import bucket_histogram, region_mask
-from repro_torch.kernels.gather_kv import (gather_heads_physical, gather_rows,
-                                          gather_rows_paged)
+from repro_torch.kernels.gather_kv import gather_rows, gather_rows_paged
 
 PAGED_DEFAULT_BLOCK = 128
 
@@ -282,15 +281,6 @@ def paged_gather_rows(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
     lidx (b, L) → (b, L, G, hd) each (kernels/gather_kv, mode logical)."""
     return gather_rows_paged(pool_k, pool_v, block_tables,
                              lidx.to(torch.int32).contiguous())
-
-
-def gather_heads_physical_kv(pool_k: torch.Tensor,
-                             pool_v: Optional[torch.Tensor],
-                             phys_rows: torch.Tensor):
-    """Per-kv-head gather by flat physical pool row: phys_rows (b, G, Q, k)
-    → (b, G, Q, k, hd) for K (and V) (kernels/gather_kv, mode physical)."""
-    return gather_heads_physical(pool_k, pool_v,
-                                 phys_rows.to(torch.int32).contiguous())
 
 
 def paged_ids_view(pool: PagedLayerKVCache,

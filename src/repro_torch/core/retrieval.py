@@ -10,15 +10,17 @@ Top-C     cuts to the candidates with the sort-free bucket top-C
           (kernels/bucket_topk), from the score histograms per segment
           that the paged Stage I writes beside its scores;
 Stage II  reranks the candidates with RSQ-IP, reading their codes and
-          weights by physical pool row (kernels/rerank);
-Top-k     keeps the ``top_k`` best estimates (a stable sort, so ties go to
-          the lowest candidate slot as ``lax.top_k`` does).
+          weights through the block table, and keeps the ``top_k`` best
+          estimates in ``lax.top_k``'s order (the float's total order,
+          ties to the lowest candidate slot), with the winners' physical
+          rows and blocks: one kernel (kernels/rerank).
 
 The contiguous pipeline computes its bucket histogram per query over the
 valid region (or a strided sample of it, ``hist_sample``), scores through
 the contiguous Stage-I kernel, and reranks with the paged Stage-II kernel:
-a contiguous metadata store (b, G, n, B) is a pool of b blocks of size n,
-so candidate c of row i lives at physical row i·n + c.
+a contiguous metadata store (b, G, n, B) is a pool of b blocks of size n
+with the block table ``arange(b)[:, None]``, so candidate c of row i lives
+at physical row i·n + c.
 
 The reference takes a general ``valid`` mask (..., n); every caller passes
 ``cache.retrieval_valid_mask``, the interval [sink, enc_end) per row, so
@@ -42,7 +44,8 @@ from repro_torch.kernels.bucket_topk import bucket_topk
 from repro_torch.kernels.collision import (collision_scores_kernel,
                                            collision_scores_paged_kernel,
                                            lane_packed_table)
-from repro_torch.kernels.rerank import rerank_paged_kernel
+from repro_torch.kernels.rerank import RerankTopK, rerank_topk_paged
+from repro_torch.kernels.rerank.ref import block_relative
 
 NEG_INF = -1e30
 
@@ -58,7 +61,6 @@ class PagedRetrievalResult(NamedTuple):
     """Retrieval result addressed block-relatively for a paged KV pool."""
     indices: torch.Tensor      # (b, G, Hg, k) int32 logical positions
     block_ids: torch.Tensor    # (b, G, Hg, k) int32 physical block per hit
-    offsets: torch.Tensor      # (b, G, Hg, k) int32 offset within the block
     phys_rows: torch.Tensor    # (b, G, Hg, k) int32 flat pool row ids
     scores: torch.Tensor       # (b, G, Hg, k) float32 RSQ-IP estimates
     cand_indices: torch.Tensor  # (b, G, Hg, C) int32 Stage-I candidates
@@ -209,17 +211,27 @@ def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
                        seg_hist=seg_hist)
 
 
-def rerank_paged(pool_codes: torch.Tensor, pool_w: torch.Tensor,
-                 phys_rows: torch.Tensor, cand_idx: torch.Tensor,
-                 qt: QueryTransform, enc_end: torch.Tensor,
-                 cfg: ParisKVConfig) -> torch.Tensor:
-    """Stage-II RSQ-IP estimates (b, G, Hg, C) float32 of the candidates,
-    read by physical pool row; invalid candidates get NEG_INF."""
-    return rerank_paged_kernel(pool_codes, pool_w, phys_rows.contiguous(),
-                               cand_idx.contiguous(),
-                               qt.q_sub.float().contiguous(),
-                               qt.q_norm.float().contiguous(), enc_end,
-                               cfg.sink_size, cfg.m, cfg.magnitude_bits)
+@functools.lru_cache(maxsize=16)
+def _row_tables(b: int, device: str) -> torch.Tensor:
+    """(b, 1) int32 block table of a contiguous store seen as a pool of b
+    blocks (row i is block i), made once per shape and device."""
+    return torch.arange(b, dtype=torch.int32, device=device)[:, None]
+
+
+def rerank_topk(codes: torch.Tensor, weights: torch.Tensor,
+                qt: QueryTransform, cand_idx: torch.Tensor,
+                enc_end: torch.Tensor, cfg: ParisKVConfig, top_k: int,
+                block_tables: Optional[torch.Tensor] = None) -> RerankTopK:
+    """Stage II and the top-k (one kernel) over a paged pool's metadata
+    (nb, G, bs, B) through ``block_tables``, or over a contiguous store
+    (b, G, n, B) without them: each batch row is then one block of size n
+    (candidate c of row i is physical row i·n + c)."""
+    if block_tables is None:
+        block_tables = _row_tables(codes.shape[0], str(codes.device))
+    return rerank_topk_paged(
+        codes, weights, block_tables, cand_idx.contiguous(),
+        qt.q_sub.float().contiguous(), qt.q_norm.float().contiguous(),
+        enc_end, cfg.sink_size, top_k, cfg.m, cfg.magnitude_bits)
 
 
 def rerank(meta_codes: torch.Tensor, meta_w: torch.Tensor,
@@ -227,20 +239,8 @@ def rerank(meta_codes: torch.Tensor, meta_w: torch.Tensor,
            cfg: ParisKVConfig) -> torch.Tensor:
     """Stage-II RSQ-IP estimates (b, G, Hg, C) float32 of the candidates
     over a contiguous store (b, G, n, B); candidates outside
-    [sink, enc_end) get NEG_INF. Runs the paged Stage-II kernel with each
-    batch row as one block: candidate c of row i is physical row i·n + c."""
-    b, _, n, _ = meta_codes.shape
-    rows = torch.arange(b, device=cand_idx.device)[:, None, None, None] * n
-    return rerank_paged(meta_codes, meta_w, (cand_idx + rows).to(torch.int32),
-                        cand_idx, qt, enc_end, cfg)
-
-
-def _top_k(est: torch.Tensor, cand: torch.Tensor, top_k: int):
-    """The ``top_k`` best estimates and their candidate positions, ties to
-    the lowest candidate slot (``lax.top_k``)."""
-    top_est, top_pos = torch.sort(est, dim=-1, descending=True, stable=True)
-    top_est, top_pos = top_est[..., :top_k], top_pos[..., :top_k]
-    return top_est, cand.gather(-1, top_pos)
+    [sink, enc_end) get NEG_INF."""
+    return rerank_topk(meta_codes, meta_w, qt, cand_idx, enc_end, cfg, 1).est
 
 
 def retrieve(meta_ids: torch.Tensor, meta_codes: torch.Tensor,
@@ -260,16 +260,8 @@ def retrieve(meta_ids: torch.Tensor, meta_codes: torch.Tensor,
             max_collision_score(cfg, meta_ids.shape[-1]))
     else:
         cand = select_candidates(coarse, num_candidates)
-    est = rerank(meta_codes, meta_w, qt, cand, enc_end, cfg)
-    top_est, top_idx = _top_k(est, cand, top_k)
-    return RetrievalResult(top_idx, top_est, cand, coarse)
-
-
-def split_block_relative(idx: torch.Tensor, block_size: int
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Logical positions → (logical block, in-block offset)."""
-    blk = torch.div(idx, block_size, rounding_mode="floor")
-    return blk, idx - blk * block_size
+    won = rerank_topk(meta_codes, meta_w, qt, cand, enc_end, cfg, top_k)
+    return RetrievalResult(won.top_idx, won.top_est, cand, coarse)
 
 
 def retrieve_paged(view, qt: QueryTransform, enc_end: torch.Tensor,
@@ -279,27 +271,15 @@ def retrieve_paged(view, qt: QueryTransform, enc_end: torch.Tensor,
                    bucket_select: bool = True) -> PagedRetrievalResult:
     """``retrieve`` over a paged store's materialized logical metadata view
     (``cache.paged_meta_view``: ids, codes, weights, each (b, G, n, B)),
-    the winners translated to block-relative physical addresses."""
+    the winners translated to physical pool rows through the block table
+    (unallocated entries clip to block 0)."""
     res = retrieve(*view, qt, enc_end, cfg, num_candidates, top_k,
                    hist_sample=hist_sample, bucket_select=bucket_select)
-    safe_blk, off, phys_rows = _block_relative(res.indices, block_tables,
-                                               block_size)
+    blk, phys_rows = block_relative(res.indices, block_tables, block_size)
     return PagedRetrievalResult(
-        indices=res.indices, block_ids=safe_blk, offsets=off,
-        phys_rows=phys_rows, scores=res.scores,
-        cand_indices=res.cand_indices, coarse_scores=res.coarse_scores)
-
-
-def _block_relative(idx: torch.Tensor, block_tables: torch.Tensor,
-                    block_size: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Logical positions → (physical block, offset, flat physical row),
-    unallocated (< 0) table entries clipped to block 0."""
-    b = block_tables.shape[0]
-    blk, off = split_block_relative(idx, block_size)
-    phys_blk = block_tables.gather(1, blk.reshape(b, -1).long()).reshape(
-        blk.shape).clamp_min(0)
-    return phys_blk, off, phys_blk * block_size + off
+        indices=res.indices, block_ids=blk, phys_rows=phys_rows,
+        scores=res.scores, cand_indices=res.cand_indices,
+        coarse_scores=res.coarse_scores)
 
 
 def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
@@ -310,22 +290,20 @@ def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
 
     ``pool`` is a cache.PagedLayerKVCache (only its metadata is read);
     ``counts`` the (b, G, B, 2^m) incremental bucket histogram; ``enc_end``
-    (b,) int32 the per-row retrieval-region end."""
-    bs = pool.meta_ids.shape[2]
+    (b,) int32 the per-row retrieval-region end. Stage II reads the
+    candidates' codes through the block table and returns the winners with
+    their physical rows and blocks (one kernel)."""
     B = pool.meta_ids.shape[-1]
     coarse, seg_hist = collision_scores_paged_hist(
         pool.meta_ids, block_tables, qt.q_sub, counts, enc_end, cfg)
     cand = select_candidates_bucket(coarse, num_candidates,
                                     max_collision_score(cfg, B),
                                     seg_hist=seg_hist)
-    _, _, cand_phys = _block_relative(cand, block_tables, bs)
-    est = rerank_paged(pool.meta_codes, pool.meta_w, cand_phys, cand, qt,
-                       enc_end, cfg)
-    top_est, top_idx = _top_k(est, cand, top_k)
-    safe_blk, off, phys_rows = _block_relative(top_idx, block_tables, bs)
+    won = rerank_topk(pool.meta_codes, pool.meta_w, qt, cand, enc_end, cfg,
+                      top_k, block_tables)
     return PagedRetrievalResult(
-        indices=top_idx, block_ids=safe_blk, offsets=off,
-        phys_rows=phys_rows, scores=top_est, cand_indices=cand,
+        indices=won.top_idx, block_ids=won.block_ids,
+        phys_rows=won.phys_rows, scores=won.top_est, cand_indices=cand,
         coarse_scores=coarse)
 
 

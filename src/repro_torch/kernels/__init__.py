@@ -5,12 +5,17 @@
   bucket_topk/  top-C: threshold from score histograms per segment, then
                 an ordered compaction (bucket_topk); the histogram pass
                 (bucket_hist) for callers that bring no histograms
-  rerank/       Stage-II RSQ-IP with the physical-row gather fused in (a
-                contiguous store is a pool of one block per batch row)
-  gather_kv/    K/V row gather, block-table-indirect (gather_rows_paged) or
-                from a contiguous store (gather_rows): winners and window;
-                the tiered winner gather (gather_rows_tiered) reads staged
-                rows from HBM and missed rows from pinned host memory
+  rerank/       Stage II with the final top-k (rerank_topk_paged): RSQ-IP
+                of the candidates, their codes read through the block table,
+                then the top-k in lax.top_k's order with the winners'
+                physical rows and blocks (a contiguous store is a pool of
+                one block per batch row)
+  gather_kv/    K/V row gather, block-table-indirect (gather_rows_paged: on
+                decode the sink, window and winner rows in one launch;
+                promotion rows by logical position) or from a contiguous
+                store (gather_rows): winners and window; the tiered winner
+                gather (gather_rows_tiered) reads staged rows from HBM and
+                missed rows from pinned host memory
 
 Each subpackage has ``ops.py`` (the wrapper) and ``ref.py`` (the plain
 PyTorch version). A wrapper takes the plain version only for CPU tensors;
@@ -33,9 +38,9 @@ runs the histogram pass ``bucket_hist`` first: two launches instead of one.
 """
 from __future__ import annotations
 
-KERNELS = ("collision_paged", "bucket_topk", "bucket_hist", "rerank_paged",
-           "gather_rows_paged", "collision", "gather_rows",
-           "gather_rows_tiered")
+KERNELS = ("collision_paged", "bucket_topk", "bucket_hist",
+           "rerank_topk_paged", "gather_rows_paged", "collision",
+           "gather_rows", "gather_rows_tiered")
 
 # positions per segment of the score histograms (csrc/common.cuh:kSegLen)
 SEG_LEN = 256

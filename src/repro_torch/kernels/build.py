@@ -22,7 +22,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -43,10 +43,8 @@ SIGNATURES = {
                         _I, _I, _I, _I, _P],
     "bucket_hist": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bucket_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "rerank_paged": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                     _I, _I, _I, _I, _I, _P],
-    "gather_rows_paged": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _P],
+    "rerank_topk_paged": [_P] * 13 + [_I] * 14 + [_P],
+    "gather_rows_paged": [_P] * 10 + [_L, _L] + [_I] * 9 + [_P],
     "collision": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "gather_rows": [_P, _P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _I, _P],
     "gather_rows_tiered": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
@@ -160,8 +158,9 @@ def launch(name: str, *args) -> None:
                            f"cudaError {err}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
+    """A tensor's device address for a launcher; None is a null pointer."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def check_cuda(name: str, *tensors: torch.Tensor) -> None:

@@ -1,6 +1,7 @@
 """Wrappers of the K/V row gather kernels: paged
-(csrc/gather_rows_paged.cu), contiguous (csrc/gather_rows.cu) and tiered
-(csrc/gather_rows_tiered.cu).
+(csrc/gather_rows_paged.cu: a decode step's sink, window and winner rows,
+or promotion rows by logical position), contiguous (csrc/gather_rows.cu)
+and tiered (csrc/gather_rows_tiered.cu).
 
 K and V go through one launch: pass the V tensor to get
 ``(k_rows, v_rows)``, or ``None`` for a single tensor (promotion gathers K
@@ -13,35 +14,51 @@ import torch
 
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels import build as K
-from repro_torch.kernels.gather_kv.ref import (gather_heads_physical_ref,
+from repro_torch.kernels.gather_kv.ref import (gather_decode_paged_ref,
                                                gather_heads_ref,
                                                gather_heads_tiered_ref,
                                                gather_rows_paged_ref,
                                                gather_rows_ref)
 
 
-def _launch(mode, pool_k, pool_v, idx, block_tables, out_shape, L, qk,
-            row_bytes):
+def _launch(pool_k, pool_v, block_tables, b, L, *, lidx=None, wstart=None,
+            sink=0, phys=None):
+    """One launch of the paged gather: ``L`` dense rows per batch row (at
+    ``lidx``, or sink and window rows from ``wstart``) and the winner head
+    rows at ``phys``, for K (and V) → ([dense K, dense V], [winners K,
+    winners V]), absent parts empty lists."""
     pools = [p for p in (pool_k, pool_v) if p is not None]
-    K.check_cuda("gather_rows_paged", *pools, idx, block_tables)
-    if row_bytes % 16:
-        raise ValueError(f"gather_rows_paged: rows of {row_bytes} bytes are "
-                         f"not a multiple of 16")
-    if idx.dtype != torch.int32 or block_tables.dtype != torch.int32:
+    idx = [t for t in (lidx, wstart, phys) if t is not None]
+    K.check_cuda("gather_rows_paged", *pools, block_tables, *idx)
+    nb, bs, G, hd = pool_k.shape
+    head_bytes = hd * pool_k.element_size()
+    if head_bytes % 16:
+        raise ValueError(f"gather_rows_paged: head rows of {head_bytes} bytes "
+                         f"are not a multiple of 16")
+    if any(t.dtype != torch.int32 for t in [block_tables, *idx]):
         raise TypeError("gather_rows_paged: expects int32 indices/tables")
     if pool_v is not None and (pool_v.shape != pool_k.shape
                                or pool_v.dtype != pool_k.dtype):
         raise ValueError("gather_rows_paged: K and V pools differ")
-    nb, bs, G = pool_k.shape[:3]
-    outs = [torch.empty(out_shape, dtype=p.dtype, device=p.device)
-            for p in pools]
-    rows = idx.numel()
+    dense = [torch.empty((b, L, G, hd), dtype=p.dtype, device=p.device)
+             for p in pools] if L else []
+    ret = [torch.empty(tuple(phys.shape) + (hd,), dtype=p.dtype,
+                       device=p.device) for p in pools] if phys is not None \
+        else []
+    head_vec = head_bytes // 16
+
+    def two(outs):
+        return ((K.ptr(outs[0]), K.ptr(outs[-1])) if outs
+                else (K.ptr(None),) * 2)
     K.launch("gather_rows_paged", K.ptr(pools[0]), K.ptr(pools[-1]),
-             K.ptr(outs[0]), K.ptr(outs[-1]), K.ptr(idx), K.ptr(block_tables),
-             mode, rows, L, block_tables.shape[-1], nb, bs, G, qk,
-             row_bytes // 16, len(pools))
+             *two(dense), *two(ret), K.ptr(lidx), K.ptr(wstart),
+             K.ptr(block_tables), K.ptr(phys), b * L * G * head_vec,
+             0 if phys is None else phys.numel() * head_vec, L, sink,
+             block_tables.shape[-1], nb, bs, G,
+             1 if phys is None else phys.shape[2] * phys.shape[3], head_vec,
+             len(pools))
     LAUNCHES["gather_rows_paged"] += 1
-    return outs
+    return dense, ret
 
 
 def gather_rows_paged(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
@@ -55,31 +72,32 @@ def gather_rows_paged(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
         outs = [gather_rows_paged_ref(p, block_tables, lidx)
                 for p in (pool_k, pool_v) if p is not None]
     else:
-        b, L = lidx.shape
-        G, hd = pool_k.shape[2:]
-        outs = _launch(0, pool_k, pool_v, lidx, block_tables, (b, L, G, hd),
-                       L, 1, G * hd * pool_k.element_size())
+        outs, _ = _launch(pool_k, pool_v, block_tables, *lidx.shape,
+                          lidx=lidx)
     return outs[0] if pool_v is None else tuple(outs)
 
 
-def gather_heads_physical(pool_k: torch.Tensor,
-                          pool_v: Optional[torch.Tensor],
-                          phys_rows: torch.Tensor):
-    """Per-kv-head rows by flat physical pool row.
+def gather_decode_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                        block_tables: torch.Tensor, window_start: torch.Tensor,
+                        sink: int, window: int,
+                        phys_rows: Optional[torch.Tensor] = None):
+    """A decode step's K/V rows in one launch: each row's ``sink`` sink rows
+    and ``window`` window rows through its block table (positions
+    [0, sink) and [ws, ws + window), computed from ``window_start``), and
+    the winners' head rows by flat physical pool row.
 
-    pool (nb, bs, G, hd), phys_rows (b, G, Q, k) int32 → (b, G, Q, k, hd)
-    for K (and V). CPU tensors take the plain version; CUDA tensors launch
-    the kernel or raise."""
+    pool_k/v (nb, bs, G, hd), block_tables (b, nblk) int32, window_start
+    (b,) int32, phys_rows (b, G, Q, k) int32 or None → (k_dense, v_dense,
+    k_ret, v_ret): dense (b, sink + window, G, hd), sink rows first;
+    winners (b, G, Q, k, hd), or None without ``phys_rows``. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
     if pool_k.device.type == "cpu":
-        outs = [gather_heads_physical_ref(p, phys_rows)
-                for p in (pool_k, pool_v) if p is not None]
-    else:
-        b, G, Q, k = phys_rows.shape
-        hd = pool_k.shape[3]
-        outs = _launch(1, pool_k, pool_v, phys_rows, phys_rows,
-                       (b, G, Q, k, hd), 1, Q * k,
-                       hd * pool_k.element_size())
-    return outs[0] if pool_v is None else tuple(outs)
+        return gather_decode_paged_ref(pool_k, pool_v, block_tables,
+                                       window_start, sink, window, phys_rows)
+    b = window_start.shape[0]
+    dense, ret = _launch(pool_k, pool_v, block_tables, b, sink + window,
+                         wstart=window_start, sink=sink, phys=phys_rows)
+    return (*dense, *(ret or (None, None)))
 
 
 # ------------------------------------------- contiguous (gather_rows.cu) ----

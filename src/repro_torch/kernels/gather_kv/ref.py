@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the K/V row gathers: paged (ports of
-``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``),
+``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``,
+and the decode gather built from the two),
 contiguous (``repro/kernels/gather_kv/gather_kv.py:gather_rows_pallas`` and
 ``repro/core/attention.py:gather_kv_heads``) and tiered (the winner
 hit/miss blend of ``repro/models/layers.py:attn_decode_pariskv_tiered``)."""
@@ -31,6 +32,26 @@ def gather_heads_physical_ref(pool: torch.Tensor,
     rows = phys_rows.long().clamp(0, nb * bs - 1)
     heads = torch.arange(G, device=rows.device)[None, :, None, None]
     return flat[rows, heads]
+
+
+def gather_decode_paged_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                            block_tables: torch.Tensor,
+                            window_start: torch.Tensor, sink: int,
+                            window: int, phys_rows=None):
+    """The decode gather as the two plain gathers: sink and window rows at
+    the positions [0, sink) ++ [ws, ws + window) (``gather_rows_paged_ref``)
+    and the winners' head rows (``gather_heads_physical_ref``) → (k_dense,
+    v_dense, k_ret, v_ret), the winners None without ``phys_rows``."""
+    b = window_start.shape[0]
+    dev = window_start.device
+    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                      window_start[:, None]
+                      + torch.arange(window, device=dev)], dim=1)
+    dense = [gather_rows_paged_ref(p, block_tables, lidx)
+             for p in (pool_k, pool_v)]
+    ret = [None, None] if phys_rows is None else [
+        gather_heads_physical_ref(p, phys_rows) for p in (pool_k, pool_v)]
+    return (*dense, *ret)
 
 
 def gather_rows_ref(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

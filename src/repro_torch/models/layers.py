@@ -206,13 +206,11 @@ def attn_decode_pariskv_paged(p: dict, x_t: torch.Tensor,
     res = R.retrieve_paged(view, qt, regions.enc_end, pcfg, num_candidates,
                            pcfg.top_k, block_tables, pool.k.shape[1],
                            hist_sample=pcfg.hist_sample)
-    k_ret, v_ret = C.gather_heads_physical_kv(pool.k, pool.v, res.phys_rows)
-
     W = C.window_size(pcfg)
     ws = (pos + 1 - W).clamp_min(0)
     out = A.sparse_decode_attention_paged(
         q, pool.k, pool.v, block_tables, res.indices, ws, pos,
-        regions.enc_end, k_ret, v_ret, sink_size=pcfg.sink_size,
+        regions.enc_end, res.phys_rows, sink_size=pcfg.sink_size,
         window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
 
@@ -248,13 +246,11 @@ def attn_decode_pariskv_paged_fused(p: dict, x_t: torch.Tensor,
     res = R.retrieve_paged_fused(pool, block_tables, qt, hist,
                                  regions.enc_end, pcfg, num_candidates,
                                  pcfg.top_k)
-    k_ret, v_ret = C.gather_heads_physical_kv(pool.k, pool.v, res.phys_rows)
-
     W = C.window_size(pcfg)
     ws = (pos + 1 - W).clamp_min(0)
     out = A.sparse_decode_attention_paged(
         q, pool.k, pool.v, block_tables, res.indices, ws, pos,
-        regions.enc_end, k_ret, v_ret, sink_size=pcfg.sink_size,
+        regions.enc_end, res.phys_rows, sink_size=pcfg.sink_size,
         window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
 
@@ -336,7 +332,7 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
                        -1).to(torch.int32).contiguous()
     W = C.window_size(pcfg)
     ws = (pos + 1 - W).clamp_min(0)
-    dense = {}
+    scores = {}
     if side is not None:
         main = torch.cuda.current_stream()
         side.ready.record(main)
@@ -346,19 +342,19 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
                                                host_v, dev_map, rows)
             side.done.record()
         rows.record_stream(side.stream)
-        k_sink, v_sink, k_loc, v_loc = A.dense_sink_window(
-            pool.k, pool.v, kv_tables, ws, sink_size=pcfg.sink_size,
-            window_size=W)
+        dense = A.paged_decode_rows(pool.k, pool.v, kv_tables, ws,
+                                    sink_size=pcfg.sink_size, window_size=W)
         s_sink, s_loc = A.dense_segment_scores(
-            q.reshape(b, G, H // G, hd).float(), k_sink, k_loc)
-        dense = dict(k_sink=k_sink, v_sink=v_sink, k_loc=k_loc,
-                     v_loc=v_loc, s_sink=s_sink, s_loc=s_loc)
+            q.reshape(b, G, H // G, hd).float(), dense.k_sink, dense.k_loc)
+        scores = dict(s_sink=s_sink, s_loc=s_loc)
         main.wait_event(side.done)
         k_ret.record_stream(main)
         v_ret.record_stream(main)
     else:
         k_ret, v_ret = gather_heads_tiered(pool.k, pool.v, host_k, host_v,
                                            dev_map, rows)
+        dense = A.paged_decode_rows(pool.k, pool.v, kv_tables, ws,
+                                    sink_size=pcfg.sink_size, window_size=W)
 
     touched = torch.zeros((dev_map.shape[0],), dtype=torch.int32,
                           device=x_t.device)
@@ -368,8 +364,9 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
              "rows": torch.stack([ret_valid, ret_valid & resident,
                                   ret_valid & ~resident], -1).sum(
                                       (1, 2, 3), dtype=torch.int32)}
-    out = A.sparse_decode_attention_tiered(
-        q, pool.k, pool.v, block_tables, dev_map, res.indices, ws, pos,
-        regions.enc_end, k_ret, v_ret, sink_size=pcfg.sink_size,
-        window_size=W, sm_scale=spec.scale(), softcap=spec.softcap, **dense)
+    out = A.sparse_decode_attention_paged(
+        q, pool.k, pool.v, kv_tables, res.indices, ws, pos, regions.enc_end,
+        sink_size=pcfg.sink_size, window_size=W, sm_scale=spec.scale(),
+        softcap=spec.softcap, rows=dense._replace(k_ret=k_ret, v_ret=v_ret),
+        **scores)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res, stats

@@ -12,17 +12,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import retrieval as TR  # noqa: E402
 from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
 from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E402
                                            collision_scores_paged_kernel,
                                            lane_packed_table)
 from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
-from repro_torch.kernels.gather_kv import (gather_heads,  # noqa: E402
-                                           gather_heads_physical,
-                                           gather_heads_tiered,
+from repro_torch.kernels.gather_kv import (gather_decode_paged,  # noqa: E402
+                                           gather_heads, gather_heads_tiered,
                                            gather_rows, gather_rows_paged)
-from repro_torch.kernels.rerank import rerank_paged_kernel  # noqa: E402
+from repro_torch.kernels.rerank import rerank_topk_paged  # noqa: E402
 
 G, HG = 2, 2
 
@@ -41,11 +39,13 @@ def test_kernels_match_plain_on_card(card, nsub):
     integer outputs and gathers; rerank to float32 reassociation)."""
     from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
     from repro_torch.kernels.collision.ref import collision_paged_ref
-    from repro_torch.kernels.gather_kv.ref import (gather_heads_physical_ref,
+    from repro_torch.kernels.gather_kv.ref import (gather_decode_paged_ref,
                                                    gather_heads_ref,
                                                    gather_rows_paged_ref,
                                                    gather_rows_ref)
-    from repro_torch.kernels.rerank.ref import rerank_paged_ref
+    from repro_torch.kernels.rerank.ref import (block_relative,
+                                                rerank_topk_paged_ref,
+                                                topk_ref)
 
     gen = torch.Generator(device=card).manual_seed(nsub)
     nb, bs, b, nblk = 10, 32, 2, 4
@@ -69,20 +69,29 @@ def test_kernels_match_plain_on_card(card, nsub):
     assert torch.equal(bucket_topk(got, 40, 6 * nsub), cand)
     codes = ri(-2 ** 31, 2 ** 31 - 1, (nb, G, bs, nsub))
     w = torch.rand((nb, G, bs, nsub), generator=gen, device=card)
-    _, _, phys = TR._block_relative(cand, bt, bs)
     q_sub = torch.randn((b, G, HG, nsub, 8), generator=gen, device=card)
     q_norm = torch.rand((b, G, HG), generator=gen, device=card)
-    args = (codes, w, phys, cand, q_sub, q_norm, enc_end, 16, 8, 3)
-    torch.testing.assert_close(rerank_paged_kernel(*args),
-                               rerank_paged_ref(*args), rtol=1e-5, atol=1e-4)
+    args = (codes, w, bt, cand, q_sub, q_norm, enc_end, 16, 25, 8, 3)
+    got, want = rerank_topk_paged(*args), rerank_topk_paged_ref(*args)
+    torch.testing.assert_close(got.est, want.est, rtol=1e-5, atol=1e-4)
+    # the selection: exactly the plain top-k of the kernel's own estimates
+    top_est, top_pos = topk_ref(got.est, 25)
+    assert torch.equal(got.top_est, top_est)
+    assert torch.equal(got.top_idx, cand.gather(-1, top_pos))
+    blk, phys = block_relative(got.top_idx, bt, bs)
+    assert torch.equal(got.block_ids, blk) and torch.equal(got.phys_rows, phys)
     pool = torch.randn((2, nb, bs, G, 128), generator=gen, device=card
                        ).to(torch.bfloat16)
     lidx = ri(0, 128, (b, 24))
     gk, gv = gather_rows_paged(pool[0], pool[1], bt, lidx)
     assert torch.equal(gk, gather_rows_paged_ref(pool[0], bt, lidx))
     assert torch.equal(gv, gather_rows_paged_ref(pool[1], bt, lidx))
-    wk = gather_heads_physical(pool[0], None, phys)
-    assert torch.equal(wk, gather_heads_physical_ref(pool[0], phys))
+    ws = torch.tensor([40, 90], dtype=torch.int32, device=card)
+    for phys in (got.phys_rows, None):
+        outs = gather_decode_paged(pool[0], pool[1], bt, ws, 16, 30, phys)
+        want_g = gather_decode_paged_ref(pool[0], pool[1], bt, ws, 16, 30,
+                                         phys)
+        assert all(x is y or torch.equal(x, y) for x, y in zip(outs, want_g))
 
     # contiguous Stage I (ragged n) and the contiguous gathers
     n = 1000

@@ -34,11 +34,11 @@ from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
 from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E402
                                            collision_scores_paged_kernel)
 from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
-from repro_torch.kernels.gather_kv import (gather_heads,  # noqa: E402
-                                           gather_heads_physical,
-                                           gather_kv_kernel, gather_rows,
-                                           gather_rows_paged)
-from repro_torch.kernels.rerank import rerank_paged_kernel  # noqa: E402
+from repro_torch.kernels.gather_kv import (gather_decode_paged,  # noqa: E402
+                                           gather_heads, gather_kv_kernel,
+                                           gather_rows, gather_rows_paged)
+from repro_torch.kernels.rerank import rerank_topk_paged  # noqa: E402
+from repro_torch.kernels.rerank.ref import rerank_paged_ref  # noqa: E402
 
 CFG_J = JP(sink_size=16, local_size=64, update_interval=32, top_k=32,
            min_candidates=64)
@@ -201,9 +201,9 @@ def test_rerank_plain_matches_pallas_kernel_and_twin():
     enc_end = np.array([150], np.int32)
     q_sub = rng.randn(1, G, HG, B, 8).astype(np.float32)
     q_norm = np.abs(rng.randn(1, G, HG)).astype(np.float32) + 0.5
-    got = rerank_paged_kernel(_t(codes.view(np.int32)), _t(w), _t(phys),
-                              _t(cand), _t(q_sub), _t(q_norm), _t(enc_end),
-                              CFG_T.sink_size, 8, 3)
+    got = rerank_paged_ref(_t(codes.view(np.int32)), _t(w), _t(phys),
+                           _t(cand), _t(q_sub), _t(q_norm), _t(enc_end),
+                           CFG_T.sink_size, 8, 3)
     # the Pallas kernel per (b, h) row; it applies no validity mask
     for h in range(HG):
         want = np.asarray(j_rerank(jnp.asarray(codes), jnp.asarray(w),
@@ -245,8 +245,18 @@ def test_gather_plain_matches_pallas_kernel_and_twins():
                                   pallas[alloc])
     assert not alloc.all()
 
+    # the decode gather: sink and window rows through the table (window
+    # starts reaching the -1 entries) and the winners by physical row
     phys = rng.randint(0, nb * bs, size=(2, G, HG, 7)).astype(np.int32)
-    wk, wv = gather_heads_physical(_t(pool_k), _t(pool_v), _t(phys))
+    ws = np.array([40, 50], np.int32)
+    dk, dv, wk, wv = gather_decode_paged(_t(pool_k), _t(pool_v), _t(bt),
+                                         _t(ws), 3, 20, _t(phys))
+    dense = np.concatenate([np.broadcast_to(np.arange(3), (2, 3)),
+                            ws[:, None] + np.arange(20)], 1).astype(np.int32)
+    for got, pool in ((dk, pool_k), (dv, pool_v)):
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(JCC.paged_gather_rows(
+                jnp.asarray(pool), jnp.asarray(bt), jnp.asarray(dense))))
     for got, pool in ((wk, pool_k), (wv, pool_v)):
         np.testing.assert_array_equal(
             got.numpy(), np.asarray(JCC.gather_heads_physical(
@@ -269,16 +279,18 @@ def test_wrappers_never_fall_back_off_the_cpu():
                                  **m), i32, 2, 96),
         lambda: bucket_topk(torch.empty((2, 50), dtype=torch.int32, **m),
                             8, 96),
-        lambda: rerank_paged_kernel(
+        lambda: rerank_topk_paged(
             torch.empty((4, G, 8, 16), dtype=torch.int32, **m),
-            torch.empty((4, G, 8, 16), **m),
-            torch.empty((2, G, HG, 5), dtype=torch.int32, **m),
+            torch.empty((4, G, 8, 16), **m), bt,
             torch.empty((2, G, HG, 5), dtype=torch.int32, **m),
             torch.empty((2, G, HG, 16, 8), **m), torch.empty((2, G, HG), **m),
-            i32, 2),
+            i32, 2, 3),
         lambda: gather_rows_paged(
             torch.empty((4, 8, G, D), **m), None, bt,
             torch.empty((2, 5), dtype=torch.int32, **m)),
+        lambda: gather_decode_paged(
+            torch.empty((4, 8, G, D), **m), torch.empty((4, 8, G, D), **m),
+            bt, i32, 2, 3, torch.empty((2, G, HG, 5), dtype=torch.int32, **m)),
         lambda: collision_scores_kernel(
             torch.empty((2, G, 40, 16), dtype=torch.uint8, **m),
             torch.empty((2, G, HG, 16, 256), dtype=torch.int32, **m), i32, 2),
