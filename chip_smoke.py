@@ -6,7 +6,7 @@ card: the quickest proof that the port builds and serves on the GPU.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
-1. build    — compile the eight CUDA C++ kernels from the seven sources in
+1. build    — compile the seven CUDA C++ kernels from the six sources in
               ``src/repro_torch/csrc`` (one nvcc per source, in parallel)
               and print the seconds.
 2. device   — the card's name and power limit, as nvidia-smi reports them.
@@ -30,9 +30,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
               plain top-k of its own estimates on the main inputs, on all
               ties and on a row with fewer valid candidates than k; the
               decode gather is held bit-exact with and without winners;
-              both are timed beside the chains they replace; the ptxas
-              report (registers, shared memory, spills) of the four
-              redesigned kernels is printed.
+              both are timed beside the chains they replace. At the slot
+              engine's shapes (a contiguous cache seen as a pool of one
+              block per batch row) the region's bucket histogram
+              (bucket_count, at stride 1 and 4, at every grid it can
+              launch: count_grid) is held exactly to its plain version and
+              timed beside the scatter_add chain it replaced, and Stage I,
+              the cut, Stage II and the decode gather (a window start
+              clamped to n - W) are held to theirs and timed as the
+              contiguous route of the TPU kernels #5 and #6; the ptxas
+              report (registers, shared memory, spills) of the five
+              kernels designed for Hopper is printed.
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
               serving qwen2-1.5b at full width (28 layers, bf16, random
               weights from a seed) to four staggered requests of
@@ -47,13 +55,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launches and host-device copies per step, the top kernels.
               The slot phase ends with the same profile of its engine.
 5. slot     — the contiguous ``ServingEngine`` on the same four requests:
-              contiguous Stage I, top-C, Stage II and the contiguous
-              gathers each launched at least 28 (gathers 56) × steps,
+              the region's histogram, Stage I, top-C and Stage II each
+              launched exactly 28 × steps, the decode gather 28 × steps
+              plus at most 28 per promotion, the histogram pass never;
               every request promoted, token agreement with the engine
               phase printed as a rate (bf16 promises no identity).
 6. metaview — ``PagedServingEngine(fused=False)`` and the fused engine on
               the first two requests with 64 new tokens: identical tokens
-              asserted, contiguous Stage I launched 28 × steps.
+              asserted, Stage I over the view launched exactly 28 × steps.
 7. baseline — the slot engine with ParisKV and with full attention
               (``use_pariskv=False``), and ``WaveServingEngine``, on
               requests of 3000/6000 prompt tokens with 64 new each: host-
@@ -66,7 +75,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               device memory, pinned bytes, fetched bytes, miss share and
               prefetch hits printed beside the resident run's, then a
               profile of one chunk; the first two requests (64 new) with
-              overlap on and off, identical tokens asserted. (b) one
+              overlap on and off, identical tokens asserted; the same two
+              (32 new) once more, untimed, counting in every tiered-gather
+              launch the missed winner head rows that repeat a row already
+              read in that launch (``offload_duplicates``). (b) one
               request of 65,536 prompt
               tokens and 64 new through the offloaded engine (staging
               pool 1/8 of 1024 blocks) and the resident paged engine:
@@ -104,16 +116,18 @@ LENS_AFTER = [p + GEN for p in PROMPTS]  # their lengths at the end
 # each path's kernels → their launches per layer and decode step (the
 # paged gather moves sink, window and winner rows in one launch; the tiered
 # path reads its winners with gather_rows_tiered, so its paged gather moves
-# sink and window only). Promotion adds K-only paged gathers. The paged
-# Stage I hands the top-C its histograms; the contiguous one does not, so
-# the slot and meta-view paths run the histogram pass (bucket_hist), and
-# the paged paths never.
+# sink and window only). Promotion adds K-only paged gathers. A contiguous
+# store (slot path, meta view) runs the paged kernels over one block per
+# batch row, after its region's bucket histogram (bucket_count; the paged
+# engines also launch it at admission and in their histogram audits).
+# Stage I hands the top-C its histograms on every path: the histogram pass
+# (bucket_hist) must never launch.
 PAGED_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
                  "rerank_topk_paged": 1, "gather_rows_paged": 1}
-SLOT_KERNELS = {"collision": 1, "bucket_hist": 1, "bucket_topk": 1,
-                "rerank_topk_paged": 1, "gather_rows": 2}
-METAVIEW_KERNELS = {"collision": 1, "bucket_hist": 1, "bucket_topk": 1,
-                    "rerank_topk_paged": 1, "gather_rows_paged": 1}
+SLOT_KERNELS = {"bucket_count": 1, **PAGED_KERNELS}
+METAVIEW_KERNELS = SLOT_KERNELS
+# kernels launched exactly once per layer and decode step where listed
+EXACT = ("collision_paged", "bucket_topk", "rerank_topk_paged")
 OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
                    "rerank_topk_paged": 1, "gather_rows_paged": 1,
                    "gather_rows_tiered": 1}
@@ -500,8 +514,8 @@ def kernel_phase(dev, cfg, seed: int = 0):
 
 def _ptxas(B: int, nc: int, Hg: int, rng: int, n: int, C: int,
            k: int) -> None:
-    """Registers, shared memory and spills of the four kernels redesigned
-    for Hopper, from nvcc's -Xptxas -v logs, with the dynamic shared memory
+    """Registers, shared memory and spills of the five kernels designed for
+    Hopper, from nvcc's -Xptxas -v logs, with the dynamic shared memory
     each launch asks for at these shapes (their launchers' formulas)."""
     from repro_torch.kernels import SEG_LEN
     from repro_torch.kernels import build
@@ -511,9 +525,9 @@ def _ptxas(B: int, nc: int, Hg: int, rng: int, n: int, C: int,
            "bucket_hist": 8 * rng * 4,
            "bucket_topk": (rng + 2 * (nseg + 1) + 2) * 4,
            "rerank_topk_paged": RO.smem_bytes(C, B, k),
-           "gather_rows_paged": 0}
+           "gather_rows_paged": 0, "bucket_count": B * nc * 4}
     for source in ("collision_paged", "bucket_topk", "rerank_topk_paged",
-                   "gather_rows_paged"):
+                   "gather_rows_paged", "bucket_count"):
         rec = {"kernels": build.ptxas_report(source),
                "dynamic_smem_bytes": {k: v for k, v in dyn.items()
                                       if build.SOURCE_OF[k] == source}}
@@ -579,29 +593,35 @@ def _stage2_checks(args, bs: int, label: str, grid=None):
 
 
 def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
-    """Contiguous Stage I and the contiguous K/V gathers at the slot
-    engine's shapes: a (b, n_max) per-slot cache of the same four rows.
-    The slot path's top-C and Stage II reuse bucket_topk and
-    rerank_topk_paged (a contiguous store is a pool of one block per row);
-    both are held against their plain versions at these shapes too."""
+    """The slot engine's shapes: a (b, n_max) per-slot cache of the same
+    four rows, seen as a pool of one block per batch row (``row_tables``).
+    The slot path runs the paged kernels over it after its region's bucket
+    histogram (bucket_count, the one kernel of its own); each is held
+    against its plain version at these shapes, and the contiguous routes
+    of the TPU kernels #5 (Stage I) and #6 (the gather) are timed."""
     import torch
     from repro_torch.core import cache as CC
     from repro_torch.core import centroids
     from repro_torch.core import encode as E
     from repro_torch.core import retrieval as R
+    from repro_torch.kernels import row_tables
     from repro_torch.kernels.bucket_topk import bucket_topk
     from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
-    from repro_torch.kernels.collision import collision_scores_kernel
-    from repro_torch.kernels.collision.ref import collision_ref
-    from repro_torch.kernels.gather_kv import gather_heads, gather_rows
-    from repro_torch.kernels.gather_kv.ref import (gather_heads_ref,
-                                                   gather_rows_ref)
+    from repro_torch.kernels.collision import (bucket_count,
+                                               collision_scores_kernel,
+                                               lane_packed_table)
+    from repro_torch.kernels.collision import ops as CO
+    from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                                   collision_paged_ref)
+    from repro_torch.kernels.gather_kv import gather_decode_paged
+    from repro_torch.kernels.gather_kv.ref import gather_decode_paged_ref
     from repro_torch.models.serve import rotation_signs
 
     pcfg = cfg.pariskv
     b, G, hd, n = 4, cfg.num_kv_heads, cfg.head_dim, 16384
     Hg = cfg.num_heads // G
     B, m, sink = pcfg.num_subspaces(hd), pcfg.m, pcfg.sink_size
+    nc = pcfg.num_centroids()
     C, W = pcfg.candidate_count(n), CC.window_size(pcfg)
     signs = rotation_signs(cfg, dev)
     cache = CC.init_layer_cache(b, n, G, hd, pcfg, torch.bfloat16, dev)
@@ -617,83 +637,139 @@ def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
     pos = enc_end + pcfg.local_size + 150
     q = torch.randn((b, G, Hg, hd), generator=gen, device=dev)
     qt = E.encode_query(q, pcfg, signs)
-    valid = R.region_mask(n, enc_end, pcfg)[:, None]
-    counts = R.bucket_histogram(cache.meta_ids, valid, pcfg.num_centroids())
-    tables = R.tier_weight_table(
-        centroids.centroid_scores(qt.q_sub, m), counts[:, :, None],
-        valid.sum(-1)[..., None], pcfg).to(torch.int32).contiguous()
     nval = int((enc_end - sink).clamp_min(0).sum())
+    rows1 = row_tables(b, dev)
+    ids = cache.meta_ids
 
-    # 5. contiguous Stage I
+    # 8. the region's bucket histogram: exact at stride 1 (the slot path)
+    # and 4 (a hist_sample), at every grid it can launch
+    counts = bucket_count(ids, enc_end, sink, nc)
+    for stride in (1, 4):
+        got = counts if stride == 1 else bucket_count(ids, enc_end, sink, nc,
+                                                      stride)
+        _check(torch.equal(got, bucket_count_ref(ids, enc_end, sink, nc,
+                                                 stride)),
+               f"bucket_count differs from its plain version (stride "
+               f"{stride})")
+    grid = []
+    for cl in (1, 2, 4, 8, 16):
+        for th in (256, 512):
+            def launch(cl=cl, th=th):
+                return CO.launch_count(ids, enc_end, sink, nc, 1, cl, th)
+            _check(torch.equal(launch(), counts),
+                   f"bucket_count at cluster {cl}, {th} threads differs")
+            grid.append(dict(cluster=cl, threads=th, blocks=cl * b * G,
+                             ms=_time_ms(launch, flush)))
+    print("count_grid " + json.dumps(grid), flush=True)
+    # the scatter_add_ of the chain it replaced, alone, on its prepared
+    # int64 ids and int32 updates
+    valid = R.region_mask(n, enc_end, pcfg)[:, None]
+    ids_t = ids.transpose(-1, -2).reshape(-1, n).long()
+    upd = torch.broadcast_to(valid[..., None, :], (b, G, B, n)).reshape(
+        -1, n).to(torch.int32)
+    acc = torch.zeros((ids_t.shape[0], nc), dtype=torch.int32, device=dev)
+    out["bucket_count"] = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_count.cu",
+        replaces="none: the jnp bucket_histogram of "
+                 "src/repro/core/retrieval.py:79 (no TPU kernel)",
+        max_abs_err=0, tolerance="exact (stride 1 and 4)",
+        cluster=CO.count_cluster(n), threads=CO.COUNT_THREADS,
+        ms=_time_ms(lambda: bucket_count(ids, enc_end, sink, nc), flush),
+        call_ms=_time_ms(lambda: bucket_count(ids, enc_end, sink, nc), flush,
+                         primed=False),
+        plain_ms=_time_ms(lambda: bucket_count_ref(ids, enc_end, sink, nc),
+                          flush),
+        plain="the scatter_add chain the slot path ran: region mask, "
+              "broadcast, casts, zeros, transposed int64 ids, scatter_add_",
+        plain_call_ms=_time_ms(lambda: bucket_count_ref(ids, enc_end, sink,
+                                                        nc), flush,
+                               primed=False),
+        library_ms=_time_ms(lambda: acc.scatter_add_(1, ids_t, upd), flush),
+        library="scatter_add_ alone, on the chain's prepared ids and updates",
+        bound=_bound(G * nval * B + b * 4 + counts.numel() * 4,
+                     G * nval * B))
+
+    # 5. Stage I over the one-block-per-row table, with seg_hist
+    cs = centroids.centroid_scores(qt.q_sub, m)
+    n_valid = (enc_end - sink).clamp_min(0)
+    tables = R.tier_weight_table(cs, counts[:, :, None],
+                                 n_valid[:, None, None], pcfg,
+                                 out=lane_packed_table(*cs.shape, device=dev))
+    rng_s = R.max_collision_score(pcfg, B)
+
     def kern():
-        return collision_scores_kernel(cache.meta_ids, tables, enc_end, sink)
+        return collision_scores_kernel(ids, tables, enc_end, sink, rng_s)
 
     def plain():
-        return collision_ref(cache.meta_ids[:, :, None], tables, enc_end,
-                             sink)
-    coarse = kern()
-    err = int((coarse - plain()).abs().max())
-    _check(err == 0, f"collision differs from its plain version ({err})")
-    out["collision"] = dict(
-        route="cuda", source="src/repro_torch/csrc/collision.cu",
+        return collision_paged_ref(ids, rows1, tables, enc_end, sink, rng_s)
+    coarse, seg_hist = kern()
+    want, want_hist = plain()
+    err = max(int((coarse - want).abs().max()),
+              int((seg_hist - want_hist).abs().max()))
+    _check(err == 0, f"contiguous Stage I differs from its plain version "
+           f"({err})")
+    out["collision_paged/contiguous"] = dict(
+        route="cuda", source="src/repro_torch/csrc/collision_paged.cu",
         replaces="src/repro/kernels/collision/collision.py:83",
-        max_abs_err=err, tolerance="exact",
+        max_abs_err=err, tolerance="exact (scores and seg_hist)",
         ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
         plain_ms=_time_ms(plain, flush), library_ms=None,
-        bound=_bound(G * nval * B + tables.numel() * 4 + b * 4
-                     + coarse.numel() * 4, G * Hg * nval * B))
+        bound=_bound(G * nval * B + tables.numel() + rows1.numel() * 4
+                     + b * 4 + coarse.numel() * 4 + seg_hist.numel() * 4,
+                     G * nval * B))
 
-    # the slot path's top-C and Stage II at the contiguous shapes
-    rng_s = max(pcfg.tier_weights) * B
-    cand = bucket_topk(coarse, C, rng_s)
+    # the slot path's top-C (from seg_hist) and Stage II at these shapes
+    cand = bucket_topk(coarse, C, rng_s, seg_hist=seg_hist)
     _check(torch.equal(cand, bucket_topk_ref(coarse, C, rng_s)),
            "bucket_topk differs from its plain version (contiguous)")
-    # (a contiguous store is a pool of b blocks of n: block table arange(b))
-    args = (cache.meta_codes, cache.meta_w,
-            torch.arange(b, dtype=torch.int32, device=dev)[:, None], cand,
+    args = (cache.meta_codes, cache.meta_w, rows1, cand,
             qt.q_sub.float().contiguous(), qt.q_norm.float().contiguous(),
             enc_end, sink, pcfg.top_k, m, pcfg.magnitude_bits)
     won, err = _stage2_checks(args, n, "contiguous")
     out["rerank_topk_paged"]["max_abs_err_contiguous"] = err
+    phys = won.phys_rows
+    _check(torch.equal(phys, won.top_idx + n * rows1[:, :, None, None]),
+           "contiguous Stage II rows are not i*n + position")
 
-    # 6. contiguous gathers: winners per kv head, the window per row
-    top_idx = won.top_idx
-    ws = (pos + 2 - W).clamp(0, n - W)
-    w_idx = (ws[:, None] + torch.arange(W, device=dev)).to(
-        torch.int32).contiguous()
+    # 6. the decode gather over the one-block-per-row table: sink, window
+    # and winners in one launch; row 3's window start lies past n - W and
+    # clamps, as the slot path clamps it
+    ws = (pos + 2 - W).clamp_min(0)
+    ws[3] = n - W + 50
+    start = ws.clamp(0, n - W).to(torch.int32)
 
     def kern():
-        return (gather_heads(cache.k, cache.v, top_idx),
-                gather_rows(cache.k, cache.v, w_idx))
+        return gather_decode_paged(cache.k, cache.v, rows1, start, sink, W,
+                                   phys)
 
     def plain():
-        return ([gather_heads_ref(t, top_idx) for t in (cache.k, cache.v)],
-                [gather_rows_ref(t, w_idx) for t in (cache.k, cache.v)])
+        return gather_decode_paged_ref(cache.k, cache.v, rows1, start, sink,
+                                       W, phys)
 
     flat_k = cache.k.reshape(b * n, G, hd)
     flat_v = cache.v.reshape(b * n, G, hd)
-    rows_b = torch.arange(b, device=dev)
-    rows_h = (rows_b[:, None, None, None] * n + top_idx).long()
-    rows_w = (rows_b[:, None] * n + w_idx).long()
+    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                      start[:, None] + torch.arange(W, device=dev)], 1)
+    rows_d = (rows1.long() * n + lidx)
+    rows_h = phys.long()
     heads = torch.arange(G, device=dev)[None, :, None, None]
 
     def library():
-        return (flat_k[rows_h, heads], flat_v[rows_h, heads], flat_k[rows_w],
-                flat_v[rows_w])
+        return (flat_k[rows_d], flat_v[rows_d], flat_k[rows_h, heads],
+                flat_v[rows_h, heads])
 
-    (hk, hv), (lk, lv) = kern()
-    (pk, pv), (qk, qv) = plain()
-    same = all(torch.equal(x, y) for x, y in
-               ((hk, pk), (hv, pv), (lk, qk), (lv, qv)))
-    _check(same, "gather_rows differs from its plain version")
-    moved = 2 * (hk.numel() + hv.numel() + lk.numel() + lv.numel()) * 2
-    out["gather_rows"] = dict(
-        route="cuda", source="src/repro_torch/csrc/gather_rows.cu",
+    got, want = kern(), plain()
+    _check(all(torch.equal(x, y) for x, y in zip(got, want))
+           and torch.equal(got[0][3, -1], cache.k[3, n - 1]),
+           "contiguous decode gather differs from its plain version")
+    moved = 2 * sum(t.numel() for t in got) * 2
+    out["gather_rows_paged/contiguous"] = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows_paged.cu",
         replaces="src/repro/kernels/gather_kv/gather_kv.py:46",
-        max_abs_err=0, tolerance="exact",
+        max_abs_err=0, tolerance="exact (a window start clamped to n - W)",
         ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
         plain_ms=_time_ms(plain, flush), library_ms=_time_ms(library, flush),
-        bound=_bound(moved + top_idx.numel() * 4 + w_idx.numel() * 4, 0))
+        bound=_bound(moved + phys.numel() * 4 + b * 4 + rows1.numel() * 4, 0))
 
 
 def _link_rate(dev, nbytes: int = 256 << 20) -> float:
@@ -781,12 +857,13 @@ def _prompts(cfg, seed: int = 0, lens=None):
 
 
 def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
-               cfg) -> int:
+               cfg, exact=EXACT) -> int:
     """Fail unless requests 0 .. n_requests-1 each got ``gen`` tokens, no
     logit was non-finite, and every kernel in ``kernels`` launched at least
-    its given count per layer and decode step: Stage II exactly once, the
-    paged gather once plus at most one K-only promotion gather per layer
-    and promotion. → the count of non-finite logits (0)."""
+    its given count per layer and decode step: those in ``exact`` exactly
+    that, the paged gather once plus at most one K-only promotion gather
+    per layer and promotion, the histogram pass never. → the count of
+    non-finite logits (0)."""
     _check(sorted(done) == list(range(n_requests)), f"served {sorted(done)}")
     for uid, r in done.items():
         _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
@@ -796,10 +873,16 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
         _check(launches[name] >= need,
                f"{name}: {launches[name]} launches < {need} "
                f"({per_step} x {cfg.num_layers} layers x {steps} steps)")
-    if "rerank_topk_paged" in kernels:
-        _check(launches["rerank_topk_paged"] == cfg.num_layers * steps,
-               f"rerank_topk_paged: {launches['rerank_topk_paged']} launches, "
-               f"not one per layer-step ({cfg.num_layers * steps})")
+    for name in exact:
+        if name in kernels:
+            need = kernels[name] * cfg.num_layers * steps
+            _check(launches[name] == need,
+                   f"{name}: {launches[name]} launches, not {kernels[name]} "
+                   f"per layer-step ({need})")
+    if kernels:
+        _check(launches["bucket_hist"] == 0,
+               f"bucket_hist launched {launches['bucket_hist']} times: Stage "
+               f"I's histograms were not handed to the top-C cut")
     if "gather_rows_paged" in kernels:
         most = cfg.num_layers * (steps + sum(r.promotions
                                              for r in done.values()))
@@ -811,7 +894,8 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
     return nonfinite
 
 
-def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False):
+def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
+           exact=EXACT):
     """Serve ``prompts`` (uid = index) submitted before the chunks in
     ``arrivals``, with the launch counters zeroed just before and read just
     after, held to ``_check_run``. → (record, {uid: request})."""
@@ -842,7 +926,7 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False):
     done = {r.uid: r for r in eng._done}
     steps = eng.decode_steps
     nonfinite = _check_run(eng, done, len(arrivals), gen, launches, kernels,
-                           cfg)
+                           cfg, exact)
     tokens = sum(len(r.output) for r in done.values())
     rec = dict(
         requests=[dict(uid=u, prompt=len(prompts[u]),
@@ -881,9 +965,6 @@ def engine_phase(dev, cfg, params, n_max: int = 16384,
                        audit=True)
     for uid, r in done.items():
         _check(r.promotions >= 1, f"request {uid} never promoted")
-    _check(rec["launches"]["bucket_hist"] == 0,
-           "the paged path ran the histogram pass: Stage I's histograms "
-           "were not handed to the top-C cut")
     rec = dict(layers=cfg.num_layers, dtype=cfg.dtype,
                params=param_count(params), **rec)
     print("engine " + json.dumps(rec), flush=True)
@@ -898,7 +979,8 @@ def slot_phase(dev, cfg, params, paged_out, n_max: int = 16384):
     eng = ServingEngine(cfg, params, n_max=n_max, max_batch=4, chunk_size=8,
                         device=dev)
     _warm(eng, cfg)
-    rec, done = _serve(eng, _prompts(cfg), GEN, ARRIVALS, SLOT_KERNELS, cfg)
+    rec, done = _serve(eng, _prompts(cfg), GEN, ARRIVALS, SLOT_KERNELS, cfg,
+                       exact=EXACT + ("bucket_count",))
     for uid, r in done.items():
         _check(r.promotions >= 1, f"request {uid} never promoted")
     if paged_out:
@@ -972,8 +1054,6 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
     rec, done = _serve(eng, _prompts(cfg), GEN, ARRIVALS, OFFLOAD_KERNELS,
                        cfg, audit=True)
     tier = _tier_stats(eng, done)
-    _check(rec["launches"]["bucket_hist"] == 0,
-           "the offload path ran the histogram pass")
     same = _same_tokens({u: r.output for u, r in done.items()}, paged_out)
     short = dict(rec, **tier, tokens_identical_to_engine_phase=same,
                  resident_engine_phase=dict(
@@ -1009,6 +1089,9 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
     print("offload_overlap " + json.dumps(short["overlap_on_off"]),
           flush=True)
     _check(same_ovl, "overlap=False tokens differ from overlap=True")
+    short["miss_duplicates"] = _miss_duplicates(dev, cfg, params, n_max)
+    print("offload_duplicates " + json.dumps(short["miss_duplicates"]),
+          flush=True)
 
     # (b): one request past 64k tokens, staging pool 1/8 of the blocks
     n_long = -(-(LONG_PROMPT + LONG_GEN) // 128) * 128
@@ -1035,6 +1118,50 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
     _check(same, "long request: offloaded tokens differ from the resident "
            "engine's")
     return short, long_rec
+
+
+def _miss_duplicates(dev, cfg, params, n_max: int, gen: int = 32):
+    """The offload phase's first two requests once more, untimed, with
+    every tiered-gather launch counted on the card before it runs: its
+    winner head rows (row, kv head) that miss the staging pool, and how
+    many of them repeat one already read in that launch (several query
+    heads of a kv head picking the same row). The kernel reads every
+    missed row; a dedup would read each once."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.serving import PagedServingEngine
+
+    tally = dict(launches=0, missed_head_rows=0, unique_missed_head_rows=0)
+    real = L.gather_heads_tiered
+
+    def counted(stag_k, stag_v, host_k, host_v, dev_map, rows):
+        bs, G = stag_k.shape[1], stag_k.shape[2]
+        want = rows.long()
+        miss = (want >= 0) & (dev_map.long()[want.clamp_min(0) // bs] < 0)
+        heads = torch.arange(G, device=rows.device)[None, :, None, None]
+        key = (want * G + heads)[miss]
+        tally["launches"] += 1
+        tally["missed_head_rows"] += int(key.numel())
+        tally["unique_missed_head_rows"] += int(torch.unique(key).numel())
+        return real(stag_k, stag_v, host_k, host_v, dev_map, rows)
+
+    eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
+                             max_batch=4, num_blocks=512,
+                             num_device_blocks=128, chunk_size=8,
+                             offload=True, device=dev)
+    L.gather_heads_tiered = counted
+    try:
+        _serve(eng, _prompts(cfg)[:2], gen, ARRIVALS[:2], OFFLOAD_KERNELS,
+               cfg)
+    finally:
+        L.gather_heads_tiered = real
+    del eng
+    torch.cuda.empty_cache()
+    missed = tally["missed_head_rows"]
+    _check(tally["launches"] > 0 and missed > 0,
+           f"no missed winner rows counted: {tally}")
+    return dict(tally, requests=2, new_tokens=gen,
+                duplicate_share=1 - tally["unique_missed_head_rows"] / missed)
 
 
 def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
@@ -1315,13 +1442,17 @@ def main() -> int:
         eng, engine, paged_out = engine_phase(dev, cfg, params)
         profile_phase(engine, cfg, "paged")
         del engine
-        launches.update({k: eng["launches"][k] for k in PAGED_KERNELS})
+        launches.update({k: eng["launches"][k]
+                         for k in (*PAGED_KERNELS, "bucket_hist")})
     if "slot" in only:
         slot, engine = slot_phase(dev, cfg, params, paged_out)
         profile_phase(engine, cfg, "slot")
         del engine
-        for k in SLOT_KERNELS:
+        for k in (*SLOT_KERNELS, "bucket_hist"):
             launches.setdefault(k, slot["launches"][k])
+        # the contiguous routes of the TPU kernels #5 and #6
+        for k in ("collision_paged", "gather_rows_paged"):
+            launches[f"{k}/contiguous"] = slot["launches"][k]
     if "metaview" in only:
         metaview_phase(dev, cfg, params)
     if "baseline" in only:

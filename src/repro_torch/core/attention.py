@@ -7,8 +7,9 @@ online softmax in plain torch ops (the JAX package leaves it to XLA).
 ``sparse_decode_attention_paged`` (block pool, also the staging pool of the
 host-offloaded tier) are paper Eq. (2)-(3): one joint softmax over Sink ∪
 Retrieved-top-k ∪ Local/Buffer window, three disjoint index ranges.
-Window and winner rows come through the gather kernels (over a paged pool
-sink, window and winners in one launch); the contiguous sink is a view.
+Sink, window and winner rows come through one gather launch
+(``paged_decode_rows``); a contiguous cache is a pool of one block per
+batch row (``kernels.row_tables``).
 ``dense_decode_attention`` is the full-attention baseline, written as the
 reference writes it (float32 scores, a mask, a softmax).
 """
@@ -18,8 +19,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels.gather_kv import (gather_decode_paged, gather_heads,
-                                          gather_rows)
+from repro_torch.kernels import row_tables
+from repro_torch.kernels.gather_kv import gather_decode_paged
 
 NEG_INF = -1e30
 
@@ -93,30 +94,30 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
 def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: torch.Tensor, top_idx: torch.Tensor,
                             window_start: torch.Tensor, pos: torch.Tensor,
-                            enc_end: torch.Tensor, *, sink_size: int,
-                            window_size: int, sm_scale: float,
+                            enc_end: torch.Tensor, phys_rows: torch.Tensor,
+                            *, sink_size: int, window_size: int,
+                            sm_scale: float,
                             softcap: float = 0.0) -> torch.Tensor:
     """Decode attention over a contiguous cache. q (b, H, hd); k/v_cache
     (b, n_max, G, hd); top_idx (b, G, Hg, k) retrieved positions;
-    window_start / pos / enc_end (b,) int32 → (b, H, hd) float32.
+    window_start / pos / enc_end (b,) int32; phys_rows (b, G, Hg, k)
+    int32 the winners' rows i·n_max + position, as Stage II returns them
+    (``RetrievalResult.phys_rows``) → (b, H, hd) float32.
 
-    The winners and the window come through the contiguous row-gather
-    kernel, K and V together; the sink is a view of the first
-    ``sink_size`` rows. As the reference's
+    Sink, window and winner rows come through one gather launch over the
+    cache seen as a pool of one block per batch row. As the reference's
     ``dynamic_slice``, the window's start clamps to n_max - W for the
     gather, while its masks keep the unclamped ``window_start``."""
     b, H, hd = q.shape
     n, G = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
-    k_ret, v_ret = gather_heads(k_cache, v_cache,
-                                top_idx.to(torch.int32).contiguous())
-    start = window_start.clamp(0, n - window_size)
-    w_idx = (start[:, None] + torch.arange(window_size, device=q.device)
-             ).to(torch.int32).contiguous()
-    k_loc, v_loc = gather_rows(k_cache, v_cache, w_idx)
+    start = window_start.clamp(0, n - window_size).to(torch.int32)
+    rows = paged_decode_rows(k_cache, v_cache, row_tables(b, q.device),
+                             start, phys_rows, sink_size=sink_size,
+                             window_size=window_size)
     return _segment_attention(
-        qg, k_cache[:, :sink_size], v_cache[:, :sink_size], k_ret, v_ret,
-        k_loc, v_loc, top_idx, window_start, pos, enc_end,
+        qg, rows.k_sink, rows.v_sink, rows.k_ret, rows.v_ret, rows.k_loc,
+        rows.v_loc, top_idx, window_start, pos, enc_end,
         sink_size=sink_size, window_size=window_size, sm_scale=sm_scale,
         softcap=softcap).reshape(b, H, hd)
 

@@ -37,8 +37,10 @@ import torch
 
 from repro_torch.core import encode
 from repro_torch.core.config import ParisKVConfig
-from repro_torch.core.retrieval import bucket_histogram, region_mask
-from repro_torch.kernels.gather_kv import gather_rows, gather_rows_paged
+from repro_torch.kernels import row_tables
+from repro_torch.kernels.collision import bucket_count
+from repro_torch.kernels.collision.ref import bucket_histogram
+from repro_torch.kernels.gather_kv import gather_rows_paged
 
 PAGED_DEFAULT_BLOCK = 128
 
@@ -145,18 +147,6 @@ def decode_append(cache: LayerKVCache, k_t: torch.Tensor, v_t: torch.Tensor,
     return cache
 
 
-def promote_block(cache: LayerKVCache, start: int, cfg: ParisKVConfig,
-                  signs: torch.Tensor) -> LayerKVCache:
-    """Encode metadata for keys [start, start + update_interval) of every
-    row, in place (the start clamps so the block fits)."""
-    b = cache.k.shape[0]
-    starts = torch.full((b,), int(start), dtype=torch.int32,
-                        device=cache.k.device)
-    return promote_rows(cache, starts,
-                        torch.ones((b,), dtype=torch.bool,
-                                   device=cache.k.device), cfg, signs)
-
-
 def promote_rows(cache: LayerKVCache, starts: torch.Tensor,
                  mask: torch.Tensor, cfg: ParisKVConfig,
                  signs: torch.Tensor) -> LayerKVCache:
@@ -164,14 +154,15 @@ def promote_rows(cache: LayerKVCache, starts: torch.Tensor,
     metadata for keys [starts[i], starts[i] + update_interval). As in the
     reference every row's block is encoded (one batched computation) and
     the unmasked rows keep their old metadata; each start clamps to
-    [0, n - update_interval]. The key block comes through the contiguous
-    row-gather kernel."""
+    [0, n - update_interval]. The key block comes through the paged
+    gather's logical mode over the store's one-block-per-row table."""
     U = cfg.update_interval
     b, n = cache.k.shape[:2]
     st = starts.to(torch.int32).clamp(0, n - U)
     lidx = (st[:, None] + torch.arange(U, dtype=torch.int32,
                                        device=st.device)).contiguous()
-    blk = gather_rows(cache.k, None, lidx)                      # (b, U, G, hd)
+    blk = gather_rows_paged(cache.k, None, row_tables(b, cache.k.device),
+                            lidx)                               # (b, U, G, hd)
     meta = _encode_block(blk, cfg, signs)                       # (b, G, U, B)
     rows, at = torch.arange(b, device=st.device)[:, None], lidx.long()
     keep = mask[:, None, None, None]
@@ -199,12 +190,6 @@ def maybe_promote(cache: LayerKVCache, regions: CacheRegions,
     new_enc = torch.where(trigger, regions.enc_end + cfg.update_interval,
                           regions.enc_end)
     return cache, CacheRegions(pos=regions.pos, enc_end=new_enc)
-
-
-def retrieval_valid_mask(n_max: int, regions: CacheRegions,
-                         cfg: ParisKVConfig) -> torch.Tensor:
-    """(b, n_max) bool mask over each row's retrieval region."""
-    return region_mask(n_max, regions.enc_end, cfg)
 
 
 # ----------------------------------------------------------- paged pool ----
@@ -298,9 +283,10 @@ def paged_ids_view(pool: PagedLayerKVCache,
 def bucket_hist_from_meta(meta_ids: torch.Tensor, regions: CacheRegions,
                           cfg: ParisKVConfig) -> torch.Tensor:
     """Histogram a contiguous metadata store (b, G, n, B) over each row's
-    [sink, enc_end) → (b, G, B, 2^m) int32."""
-    valid = retrieval_valid_mask(meta_ids.shape[-2], regions, cfg)
-    return bucket_histogram(meta_ids, valid[:, None, :], cfg.num_centroids())
+    [sink, enc_end) → (b, G, B, 2^m) int32 (kernels/collision
+    ``bucket_count``)."""
+    return bucket_count(meta_ids, regions.enc_end, cfg.sink_size,
+                        cfg.num_centroids())
 
 
 def paged_promote_rows_hist(pool: PagedLayerKVCache, hist: torch.Tensor,

@@ -1,7 +1,7 @@
 """Two-stage retrieval (port of ``repro/core/retrieval.py``): the
 contiguous pipeline ``retrieve`` (and ``retrieve_paged`` over a paged
 store's materialized logical view), and the fused paged pipeline
-``retrieve_paged_fused``.
+``retrieve_paged_fused``. Both run the same four kernels.
 
 Stage I   scores the pool's uint8 centroid ids through the block table
           against per-(subspace, centroid) tier weights built from the
@@ -16,15 +16,16 @@ Stage II  reranks the candidates with RSQ-IP, reading their codes and
           rows and blocks: one kernel (kernels/rerank).
 
 The contiguous pipeline computes its bucket histogram per query over the
-valid region (or a strided sample of it, ``hist_sample``), scores through
-the contiguous Stage-I kernel, and reranks with the paged Stage-II kernel:
-a contiguous metadata store (b, G, n, B) is a pool of b blocks of size n
-with the block table ``arange(b)[:, None]``, so candidate c of row i lives
-at physical row i·n + c.
+valid region (or a strided sample of it, ``hist_sample``) in one kernel
+(kernels/collision ``bucket_count``), then runs the paged Stage I, top-C
+and Stage II kernels over the store: a contiguous metadata store (b, G, n,
+B) is a pool of b blocks of size n with the block table ``arange(b)[:,
+None]`` (``kernels.row_tables``), so candidate c of row i lives at
+physical row i·n + c.
 
 The reference takes a general ``valid`` mask (..., n); every caller passes
-``cache.retrieval_valid_mask``, the interval [sink, enc_end) per row, so
-the port takes ``enc_end`` (b,) instead and the kernels mask by it.
+its ``cache.retrieval_valid_mask``, the interval [sink, enc_end) per row,
+so the port takes ``enc_end`` (b,) instead and the kernels mask by it.
 
 Every kernel wrapper dispatches on the device of its tensors, so no
 function here has a kernel switch: CPU tensors run the plain versions,
@@ -40,8 +41,9 @@ import torch
 from repro_torch.core import centroids
 from repro_torch.core.config import ParisKVConfig
 from repro_torch.core.encode import QueryTransform
+from repro_torch.kernels import row_tables
 from repro_torch.kernels.bucket_topk import bucket_topk
-from repro_torch.kernels.collision import (collision_scores_kernel,
+from repro_torch.kernels.collision import (bucket_count,
                                            collision_scores_paged_kernel,
                                            lane_packed_table)
 from repro_torch.kernels.rerank import RerankTopK, rerank_topk_paged
@@ -55,6 +57,7 @@ class RetrievalResult(NamedTuple):
     scores: torch.Tensor         # (b, G, Hg, k) float32 RSQ-IP estimates
     cand_indices: torch.Tensor   # (b, G, Hg, C) int32 Stage-I candidates
     coarse_scores: torch.Tensor  # (b, G, Hg, n) int32 Stage-I scores
+    phys_rows: torch.Tensor      # (b, G, Hg, k) int32 row i·n + position
 
 
 class PagedRetrievalResult(NamedTuple):
@@ -65,20 +68,6 @@ class PagedRetrievalResult(NamedTuple):
     scores: torch.Tensor       # (b, G, Hg, k) float32 RSQ-IP estimates
     cand_indices: torch.Tensor  # (b, G, Hg, C) int32 Stage-I candidates
     coarse_scores: torch.Tensor  # (b, G, Hg, n) int32 Stage-I scores
-
-
-def bucket_histogram(ids: torch.Tensor, valid: torch.Tensor,
-                     num_buckets: int) -> torch.Tensor:
-    """Count keys per centroid bucket. ids (..., n, B), valid broadcastable
-    to (..., n) → (..., B, 2^m) int32."""
-    lead = ids.shape[:-2]
-    n, B = ids.shape[-2], ids.shape[-1]
-    ids_t = ids.transpose(-1, -2).reshape(-1, n).long()
-    upd = torch.broadcast_to(valid[..., None, :], lead + (B, n))
-    counts = torch.zeros((ids_t.shape[0], num_buckets), dtype=torch.int32,
-                         device=ids.device)
-    counts.scatter_add_(1, ids_t, upd.reshape(-1, n).to(torch.int32))
-    return counts.reshape(lead + (B, num_buckets))
 
 
 @functools.lru_cache(maxsize=16)
@@ -163,41 +152,25 @@ def region_mask(n: int, enc_end: torch.Tensor,
     return (pos >= cfg.sink_size) & (pos < enc_end[:, None])
 
 
-def collision_scores(meta_ids: torch.Tensor, q_sub: torch.Tensor,
-                     enc_end: torch.Tensor, cfg: ParisKVConfig,
-                     hist_sample: int = 0) -> torch.Tensor:
-    """Stage-I coarse scores over a contiguous metadata store (Eq. 15).
+def collision_scores_hist(meta_ids: torch.Tensor, q_sub: torch.Tensor,
+                          enc_end: torch.Tensor, cfg: ParisKVConfig,
+                          hist_sample: int = 0):
+    """Stage-I coarse scores over a contiguous metadata store (Eq. 15),
+    with their histograms per segment for ``select_candidates_bucket``.
 
     meta_ids (b, G, n, B) uint8, q_sub (b, G, Hg, B, m), enc_end (b,)
-    int32 → (b, G, Hg, n) int32, -1 outside [sink, enc_end). The bucket
+    int32 (<= n) → as ``collision_scores_paged_hist``. The bucket
     histogram is computed here per query over the region — from a strided
-    sample of about ``hist_sample`` keys, scaled back, when > 0 — and the
-    per-key lookup runs in the contiguous Stage-I kernel."""
-    nc = cfg.num_centroids()
+    sample of about ``hist_sample`` keys, scaled back, when > 0 — in one
+    kernel (``bucket_count``); the store is then scored as a pool of one
+    block per batch row."""
     n = meta_ids.shape[-2]
-    cs = centroids.centroid_scores(q_sub, cfg.m)
-    valid = region_mask(n, enc_end, cfg)[:, None]             # (b, 1, n)
     stride = max(n // hist_sample, 1) if hist_sample else 1
-    if stride > 1:
-        counts = bucket_histogram(meta_ids[:, :, ::stride],
-                                  valid[..., ::stride], nc) * stride
-    else:
-        counts = bucket_histogram(meta_ids, valid, nc)         # (b, G, B, nc)
-    n_valid = valid.sum(-1)                                   # (b, 1)
-    table = tier_weight_table(cs, counts[:, :, None], n_valid[..., None],
-                              cfg)
-    return collision_scores_kernel(meta_ids.contiguous(),
-                                   table.to(torch.int32).contiguous(),
-                                   enc_end.to(torch.int32).contiguous(),
-                                   cfg.sink_size)
-
-
-def select_candidates(scores: torch.Tensor,
-                      num_candidates: int) -> torch.Tensor:
-    """Top-C by integer score, descending, ties lowest index first
-    (``lax.top_k``'s order): a stable descending sort."""
-    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
-    return order[..., :num_candidates].to(torch.int32)
+    counts = bucket_count(meta_ids, enc_end, cfg.sink_size,
+                          cfg.num_centroids(), stride)      # (b, G, B, nc)
+    return collision_scores_paged_hist(
+        meta_ids, row_tables(meta_ids.shape[0], meta_ids.device), q_sub,
+        counts, enc_end, cfg)
 
 
 def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
@@ -206,16 +179,9 @@ def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
                              ) -> torch.Tensor:
     """Sort-free top-C over small-range integer scores; ``lax.top_k``'s
     index set, ascending, ties lowest-index first. ``seg_hist``: the
-    scores' histograms per segment, from the paged Stage I."""
+    scores' histograms per segment, from Stage I."""
     return bucket_topk(scores.contiguous(), num_candidates, score_range,
                        seg_hist=seg_hist)
-
-
-@functools.lru_cache(maxsize=16)
-def _row_tables(b: int, device: str) -> torch.Tensor:
-    """(b, 1) int32 block table of a contiguous store seen as a pool of b
-    blocks (row i is block i), made once per shape and device."""
-    return torch.arange(b, dtype=torch.int32, device=device)[:, None]
 
 
 def rerank_topk(codes: torch.Tensor, weights: torch.Tensor,
@@ -227,7 +193,7 @@ def rerank_topk(codes: torch.Tensor, weights: torch.Tensor,
     (b, G, n, B) without them: each batch row is then one block of size n
     (candidate c of row i is physical row i·n + c)."""
     if block_tables is None:
-        block_tables = _row_tables(codes.shape[0], str(codes.device))
+        block_tables = row_tables(codes.shape[0], codes.device)
     return rerank_topk_paged(
         codes, weights, block_tables, cand_idx.contiguous(),
         qt.q_sub.float().contiguous(), qt.q_norm.float().contiguous(),
@@ -246,35 +212,33 @@ def rerank(meta_codes: torch.Tensor, meta_w: torch.Tensor,
 def retrieve(meta_ids: torch.Tensor, meta_codes: torch.Tensor,
              meta_w: torch.Tensor, qt: QueryTransform, enc_end: torch.Tensor,
              cfg: ParisKVConfig, num_candidates: int, top_k: int,
-             hist_sample: int = 0,
-             bucket_select: bool = True) -> RetrievalResult:
+             hist_sample: int = 0) -> RetrievalResult:
     """The two-stage pipeline (Algorithm 1) over a contiguous metadata
-    store (b, G, n, B) for queries qt (b, G, Hg, ...). ``bucket_select``
-    takes the sort-free bucket top-C (identical index set, ascending)
-    instead of a stable sort (descending)."""
-    coarse = collision_scores(meta_ids, qt.q_sub, enc_end, cfg,
-                              hist_sample=hist_sample)
-    if bucket_select:
-        cand = select_candidates_bucket(
-            coarse, num_candidates,
-            max_collision_score(cfg, meta_ids.shape[-1]))
-    else:
-        cand = select_candidates(coarse, num_candidates)
+    store (b, G, n, B) for queries qt (b, G, Hg, ...): Stage I with its
+    histograms per segment, the sort-free bucket top-C from them (the
+    reference's index set, ascending), Stage II with its top-k. The
+    winners' ``phys_rows`` address the store as a pool of one block per
+    row (i·n + position), as the decode gather takes them."""
+    coarse, seg_hist = collision_scores_hist(meta_ids, qt.q_sub, enc_end,
+                                             cfg, hist_sample=hist_sample)
+    cand = select_candidates_bucket(
+        coarse, num_candidates, max_collision_score(cfg, meta_ids.shape[-1]),
+        seg_hist=seg_hist)
     won = rerank_topk(meta_codes, meta_w, qt, cand, enc_end, cfg, top_k)
-    return RetrievalResult(won.top_idx, won.top_est, cand, coarse)
+    return RetrievalResult(won.top_idx, won.top_est, cand, coarse,
+                           won.phys_rows)
 
 
 def retrieve_paged(view, qt: QueryTransform, enc_end: torch.Tensor,
                    cfg: ParisKVConfig, num_candidates: int, top_k: int,
                    block_tables: torch.Tensor, block_size: int,
-                   hist_sample: int = 0,
-                   bucket_select: bool = True) -> PagedRetrievalResult:
+                   hist_sample: int = 0) -> PagedRetrievalResult:
     """``retrieve`` over a paged store's materialized logical metadata view
     (``cache.paged_meta_view``: ids, codes, weights, each (b, G, n, B)),
     the winners translated to physical pool rows through the block table
     (unallocated entries clip to block 0)."""
     res = retrieve(*view, qt, enc_end, cfg, num_candidates, top_k,
-                   hist_sample=hist_sample, bucket_select=bucket_select)
+                   hist_sample=hist_sample)
     blk, phys_rows = block_relative(res.indices, block_tables, block_size)
     return PagedRetrievalResult(
         indices=res.indices, block_ids=blk, phys_rows=phys_rows,

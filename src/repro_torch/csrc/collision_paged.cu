@@ -3,7 +3,10 @@
 //
 // Replaces the TPU kernel repro/kernels/collision/collision.py
 // (_collision_paged_pallas / _paged_kernel, reached through
-// repro/kernels/collision/ops.py:collision_scores_paged_kernel).
+// repro/kernels/collision/ops.py:collision_scores_paged_kernel), and its
+// contiguous twin (_collision_pallas, through collision_scores_kernel): a
+// contiguous store (b, G, n, B) is a pool of b blocks of size n with the
+// block table arange(b)[:, None] (kernels/__init__.py:row_tables).
 //
 // Computes, for each batch row b, kv head g, query head h and logical
 // position p:
@@ -55,26 +58,6 @@
 #include "common.cuh"
 
 namespace {
-
-// A key's B centroid ids, kept as 32-bit words so that they stay in
-// registers; one 16-byte (B=16) or 8-byte (B=8) load.
-template <int B>
-struct KeyIds {
-  static_assert(B == 8 || B == 16, "B must be 8 or 16");
-  uint32_t w[B / 4];
-  __device__ __forceinline__ void load(const uint8_t* __restrict__ p) {
-    if constexpr (B == 16) {
-      const uint4 x = *reinterpret_cast<const uint4*>(p);
-      w[0] = x.x; w[1] = x.y; w[2] = x.z; w[3] = x.w;
-    } else {
-      const uint2 x = *reinterpret_cast<const uint2*>(p);
-      w[0] = x.x; w[1] = x.y;
-    }
-  }
-  __device__ __forceinline__ uint32_t operator[](int s) const {
-    return (w[s >> 2] >> ((s & 3) * 8)) & 0xFFu;
-  }
-};
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -136,7 +119,7 @@ collision_paged_kernel(const uint8_t* __restrict__ pool_ids,
   for (int c = tid; c < B * nc / 2; c += L)
     cp_async16(tab + 2 * c, tsrc + 2 * c);
   const bool valid = p >= vlo && p < vhi;
-  KeyIds<B> ids{};
+  repro::KeyIds<B> ids{};
   if (valid) {
     const int blk = repro::clampi(entry, 0, nb - 1);
     ids.load(pool_ids + (((size_t)blk * G + g) * bs + (p % bs)) * B);

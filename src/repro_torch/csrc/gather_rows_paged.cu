@@ -5,7 +5,12 @@
 // Replaces the TPU kernel repro/kernels/gather_kv/gather_kv.py
 // (_gather_rows_paged_pallas / _paged_kernel, reached through
 // repro/kernels/gather_kv/ops.py:gather_kv_paged_kernel), which DMAs one
-// (1, 1, d) row per grid step: out[i] = pool[bt[idx[i] // bs], idx[i] % bs].
+// (1, 1, d) row per grid step: out[i] = pool[bt[idx[i] // bs], idx[i] % bs],
+// and its contiguous twin (_gather_rows_pallas, through gather_kv_kernel):
+// a contiguous store (b, n, G, hd) is a pool of b blocks of size n with the
+// block table arange(b)[:, None] (kernels/__init__.py:row_tables), so the
+// slot path's decode and promotion gathers run here too. Positions must lie
+// in [0, nblk * bs): the contiguous callers clamp their window start.
 //
 // Two parts, each optional, in one flat index space:
 //   dense rows: out (b, L, G, hd) with out[i, l] = pool row of position p

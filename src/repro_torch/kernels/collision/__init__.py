@@ -1,2 +1,3 @@
 from repro_torch.kernels.collision.ops import (  # noqa: F401
-    collision_scores_kernel, collision_scores_paged_kernel, lane_packed_table)
+    bucket_count, collision_scores_kernel, collision_scores_paged_kernel,
+    lane_packed_table)

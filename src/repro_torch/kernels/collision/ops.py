@@ -1,13 +1,19 @@
-"""Wrappers of the Stage-I collision kernels: paged
-(csrc/collision_paged.cu) and contiguous (csrc/collision.cu)."""
+"""Wrappers of the Stage-I collision kernel (csrc/collision_paged.cu),
+over a paged pool or a contiguous store, and of the bucket histogram of a
+contiguous store's retrieval region (csrc/bucket_count.cu)."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, SEG_LEN
+from repro_torch.kernels import LAUNCHES, SEG_LEN, row_tables
 from repro_torch.kernels import build as K
-from repro_torch.kernels.collision.ref import (collision_paged_ref,
-                                              collision_ref)
+from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                              collision_paged_ref)
+
+# bucket_count's launch: threads per block, and at most this many blocks
+# in the cluster of one (b, g) row (csrc/bucket_count.cu)
+COUNT_THREADS = 512
+COUNT_MAX_CLUSTER = 8
 
 
 def lane_packed_table(b: int, G: int, Hg: int, B: int, nc: int,
@@ -85,30 +91,64 @@ def collision_scores_paged_kernel(pool_ids: torch.Tensor,
 
 
 def collision_scores_kernel(ids: torch.Tensor, tables: torch.Tensor,
-                            enc_end: torch.Tensor,
-                            sink_size: int) -> torch.Tensor:
-    """Contiguous Stage-I scores, masked to [sink, enc_end).
+                            enc_end: torch.Tensor, sink_size: int,
+                            score_range: int):
+    """Stage-I scores over a contiguous store, masked to [sink, enc_end),
+    with their histograms per segment: the paged kernel over the store seen
+    as a pool of one block per batch row (``row_tables``).
 
     ids (b, G, n, B) uint8 (the contiguous cache's meta_ids as it lies),
-    tables (b, G, Hg, B, nc) int32, enc_end (b,) int32 → (b, G, Hg, n)
-    int32. CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
-    if ids.device.type == "cpu":
-        return collision_ref(ids[:, :, None], tables, enc_end, sink_size)
-    K.check_cuda("collision", ids, tables, enc_end)
+    tables (b, G, Hg, B, nc) as ``collision_scores_paged_kernel`` takes
+    them, enc_end (b,) int32 → (scores (b, G, Hg, n) int32, seg_hist (b, G,
+    Hg, ceil(n / SEG_LEN), score_range + 2) int32)."""
+    return collision_scores_paged_kernel(
+        ids, row_tables(ids.shape[0], ids.device), tables, enc_end,
+        sink_size, score_range)
+
+
+def count_cluster(keys: int) -> int:
+    """Blocks in the cluster of one (b, g) row for ``keys`` sampled
+    positions: a power of two giving each thread about two keys, at most
+    ``COUNT_MAX_CLUSTER``."""
+    cluster = 1
+    while cluster < COUNT_MAX_CLUSTER and cluster * COUNT_THREADS * 2 < keys:
+        cluster *= 2
+    return cluster
+
+
+def launch_count(ids: torch.Tensor, enc_end: torch.Tensor, sink_size: int,
+                 num_buckets: int, stride: int, cluster: int,
+                 threads: int) -> torch.Tensor:
+    """One launch of the bucket histogram at a given grid (the wrapper's
+    checks, no launch count: ``bucket_count`` counts)."""
+    K.check_cuda("bucket_count", ids, enc_end)
     b, G, n, B = ids.shape
-    Hg, nc = tables.shape[2], tables.shape[-1]
-    if (ids.dtype != torch.uint8 or tables.dtype != torch.int32
-            or enc_end.dtype != torch.int32):
-        raise TypeError("collision: expects uint8 ids and int32 tables and "
-                        "enc_end")
-    if (tables.shape != (b, G, Hg, B, nc) or B not in (8, 16) or nc > 256
-            or nc % 4 or enc_end.shape != (b,) or ids.data_ptr() % 16
-            or tables.data_ptr() % 16):
-        raise ValueError(f"collision: unsupported shapes ids "
-                         f"{tuple(ids.shape)}, tables {tuple(tables.shape)}")
-    out = torch.empty((b, G, Hg, n), dtype=torch.int32, device=ids.device)
-    K.launch("collision", K.ptr(ids), K.ptr(tables), K.ptr(enc_end),
-             K.ptr(out), b * G, G, Hg, n, B, nc, int(sink_size))
-    LAUNCHES["collision"] += 1
+    if ids.dtype != torch.uint8 or enc_end.dtype != torch.int32:
+        raise TypeError("bucket_count: expects uint8 ids and int32 enc_end")
+    if (B not in (8, 16) or not 0 < num_buckets <= 256 or stride < 1
+            or sink_size < 0 or enc_end.shape != (b,) or ids.data_ptr() % 16):
+        raise ValueError(f"bucket_count: unsupported ids {tuple(ids.shape)}, "
+                         f"{num_buckets} buckets, stride {stride}")
+    out = torch.empty((b, G, B, num_buckets), dtype=torch.int32,
+                      device=ids.device)
+    K.launch("bucket_count", K.ptr(ids), K.ptr(enc_end), K.ptr(out), b, G,
+             n, B, num_buckets, int(sink_size), int(stride), cluster, threads)
+    return out
+
+
+def bucket_count(ids: torch.Tensor, enc_end: torch.Tensor, sink_size: int,
+                 num_buckets: int, stride: int = 1) -> torch.Tensor:
+    """The bucket histogram of each row's retrieval region [sink, enc_end)
+    of a contiguous metadata store, over every ``stride``-th position
+    (p ≡ 0 mod stride) and scaled back by ``stride``.
+
+    ids (b, G, n, B) uint8, enc_end (b,) int32 → (b, G, B, num_buckets)
+    int32, exact (``bucket_count_ref``). CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
+    if ids.device.type == "cpu":
+        return bucket_count_ref(ids, enc_end, sink_size, num_buckets, stride)
+    keys = -(-ids.shape[-2] // stride)
+    out = launch_count(ids, enc_end, sink_size, num_buckets, stride,
+                       count_cluster(keys), COUNT_THREADS)
+    LAUNCHES["bucket_count"] += 1
     return out

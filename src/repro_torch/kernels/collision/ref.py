@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the Stage-I collision kernels (paged and
-contiguous)."""
+"""Plain PyTorch versions of the Stage-I collision kernel (over a paged
+pool, or a contiguous store through its one-block-per-row table) and of
+the bucket histogram of a contiguous store's retrieval region."""
 from __future__ import annotations
 
 from typing import Optional
@@ -35,26 +36,31 @@ def collision_paged_ref(pool_ids: torch.Tensor, block_tables: torch.Tensor,
     return scores, segment_histogram_ref(scores, score_range)
 
 
-def collision_ref(ids: torch.Tensor, table: torch.Tensor,
-                  enc_end: Optional[torch.Tensor] = None,
-                  sink_size: int = 0) -> torch.Tensor:
-    """Stage-I scores over contiguous id streams: ids (..., n, B) uint8 or
-    int, table (..., B, nc) int32, their leading dims broadcast → (..., n)
-    int32 with S_i = Σ_s table[s, ids[i, s]] (the reference's
-    ``collision_scores_kernel``). With ``enc_end`` (b,) aligned to the first
-    leading dim, positions outside [sink_size, enc_end) become -1."""
-    n, B = ids.shape[-2:]
-    nc = table.shape[-1]
-    lead = torch.broadcast_shapes(ids.shape[:-2], table.shape[:-2])
-    offsets = torch.arange(B, device=ids.device) * nc
-    idx = (ids.long() + offsets).reshape(ids.shape[:-2] + (n * B,))
-    flat = table.reshape(table.shape[:-2] + (B * nc,))
-    per_key = flat.expand(lead + (B * nc,)).gather(
-        -1, idx.expand(lead + (n * B,)))
-    scores = per_key.reshape(lead + (n, B)).sum(-1).to(torch.int32)
-    if enc_end is None:
-        return scores
+def bucket_histogram(ids: torch.Tensor, valid: torch.Tensor,
+                     num_buckets: int) -> torch.Tensor:
+    """Count keys per centroid bucket (the reference's
+    ``core/retrieval.py:bucket_histogram``). ids (..., n, B), valid
+    broadcastable to (..., n) → (..., B, 2^m) int32."""
+    lead = ids.shape[:-2]
+    n, B = ids.shape[-2], ids.shape[-1]
+    ids_t = ids.transpose(-1, -2).reshape(-1, n).long()
+    upd = torch.broadcast_to(valid[..., None, :], lead + (B, n))
+    counts = torch.zeros((ids_t.shape[0], num_buckets), dtype=torch.int32,
+                         device=ids.device)
+    counts.scatter_add_(1, ids_t, upd.reshape(-1, n).to(torch.int32))
+    return counts.reshape(lead + (B, num_buckets))
+
+
+def bucket_count_ref(ids: torch.Tensor, enc_end: torch.Tensor,
+                     sink_size: int, num_buckets: int,
+                     stride: int = 1) -> torch.Tensor:
+    """ids (b, G, n, B), enc_end (b,) → (b, G, B, num_buckets) int32: the
+    bucket histogram of each row's [sink_size, enc_end), over the positions
+    p ≡ 0 (mod ``stride``) only and scaled back by ``stride`` (the
+    reference's strided ``hist_sample``)."""
+    n = ids.shape[-2]
     pos = torch.arange(n, device=ids.device)
-    valid = (pos >= sink_size) & (pos < enc_end[:, None])
-    valid = valid.reshape(valid.shape[:1] + (1,) * (len(lead) - 1) + (n,))
-    return torch.where(valid, scores, -1)
+    valid = (pos >= sink_size) & (pos < enc_end[:, None])       # (b, n)
+    counts = bucket_histogram(ids[:, :, ::stride], valid[:, None, ::stride],
+                              num_buckets)
+    return counts * stride if stride > 1 else counts

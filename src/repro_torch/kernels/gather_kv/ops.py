@@ -1,7 +1,8 @@
-"""Wrappers of the K/V row gather kernels: paged
+"""Wrappers of the K/V row gather kernels: through the block table
 (csrc/gather_rows_paged.cu: a decode step's sink, window and winner rows,
-or promotion rows by logical position), contiguous (csrc/gather_rows.cu)
-and tiered (csrc/gather_rows_tiered.cu).
+or promotion rows by logical position; over a paged pool, or a contiguous
+store through its one-block-per-row table ``row_tables``) and tiered
+(csrc/gather_rows_tiered.cu).
 
 K and V go through one launch: pass the V tensor to get
 ``(k_rows, v_rows)``, or ``None`` for a single tensor (promotion gathers K
@@ -12,13 +13,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES
+from repro_torch.kernels import LAUNCHES, row_tables
 from repro_torch.kernels import build as K
 from repro_torch.kernels.gather_kv.ref import (gather_decode_paged_ref,
-                                               gather_heads_ref,
                                                gather_heads_tiered_ref,
-                                               gather_rows_paged_ref,
-                                               gather_rows_ref)
+                                               gather_rows_paged_ref)
 
 
 def _launch(pool_k, pool_v, block_tables, b, L, *, lidx=None, wstart=None,
@@ -100,73 +99,19 @@ def gather_decode_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     return (*dense, *(ret or (None, None)))
 
 
-# ------------------------------------------- contiguous (gather_rows.cu) ----
-def _launch_contiguous(mode, store_k, store_v, idx, out_shape, G, qk,
-                       row_bytes):
-    stores = [s for s in (store_k, store_v) if s is not None]
-    K.check_cuda("gather_rows", *stores, idx)
-    if row_bytes % 16:
-        raise ValueError(f"gather_rows: rows of {row_bytes} bytes are not a "
-                         f"multiple of 16")
-    if idx.dtype != torch.int32:
-        raise TypeError("gather_rows: expects int32 indices")
-    if store_v is not None and (store_v.shape != store_k.shape
-                                or store_v.dtype != store_k.dtype):
-        raise ValueError("gather_rows: K and V stores differ")
-    outs = [torch.empty(out_shape, dtype=s.dtype, device=s.device)
-            for s in stores]
-    K.launch("gather_rows", K.ptr(stores[0]), K.ptr(stores[-1]),
-             K.ptr(outs[0]), K.ptr(outs[-1]), K.ptr(idx), mode, idx.numel(),
-             store_k.shape[1], G, qk, row_bytes // 16, len(stores))
-    LAUNCHES["gather_rows"] += 1
-    return outs
-
-
-def gather_rows(store_k: torch.Tensor, store_v: Optional[torch.Tensor],
-                idx: torch.Tensor):
-    """Whole rows by per-batch-row position.
-
-    store (b, n, ...), idx (b, L) int32 → (b, L, ...) for K (and V).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
-    if store_k.device.type == "cpu":
-        outs = [gather_rows_ref(s, idx) for s in (store_k, store_v)
-                if s is not None]
-    else:
-        b, L = idx.shape
-        row_bytes = store_k[0, 0].numel() * store_k.element_size()
-        outs = _launch_contiguous(1, store_k, store_v, idx,
-                                  (b, L) + tuple(store_k.shape[2:]), 1, L,
-                                  row_bytes)
-    return outs[0] if store_v is None else tuple(outs)
-
-
-def gather_heads(store_k: torch.Tensor, store_v: Optional[torch.Tensor],
-                 idx: torch.Tensor):
-    """Per-kv-head rows by per-batch-row position.
-
-    store (b, n, G, hd), idx (b, G, Q, k) int32 → (b, G, Q, k, hd) for K
-    (and V). CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
-    if store_k.device.type == "cpu":
-        outs = [gather_heads_ref(s, idx) for s in (store_k, store_v)
-                if s is not None]
-    else:
-        b, G, Q, k = idx.shape
-        hd = store_k.shape[3]
-        outs = _launch_contiguous(0, store_k, store_v, idx, (b, G, Q, k, hd),
-                                  G, Q * k, hd * store_k.element_size())
-    return outs[0] if store_v is None else tuple(outs)
-
-
 def gather_kv_kernel(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The reference's batched contract: store (..., n, d), idx (..., k)
-    (broadcast to the store's leading dims) → (..., k, d)."""
+    positions in [0, n) (broadcast to the store's leading dims) →
+    (..., k, d). The R = prod(...) stores are a pool (R, n, 1, d) of one
+    block per store (``row_tables``), gathered in the logical mode."""
     lead = store.shape[:-2]
     n, d = store.shape[-2:]
     k = idx.shape[-1]
     flat_idx = idx.expand(lead + (k,)).reshape(-1, k).to(torch.int32)
-    out = gather_rows(store.reshape(-1, n, d), None, flat_idx.contiguous())
+    R = flat_idx.shape[0]
+    out = gather_rows_paged(store.reshape(R, n, 1, d), None,
+                            row_tables(R, store.device),
+                            flat_idx.contiguous())
     return out.reshape(lead + (k, d))
 
 

@@ -1,9 +1,9 @@
-"""Plain PyTorch versions of the K/V row gathers: paged (ports of
-``repro/core/cache.py:paged_gather_rows`` and ``gather_heads_physical``,
-and the decode gather built from the two),
-contiguous (``repro/kernels/gather_kv/gather_kv.py:gather_rows_pallas`` and
-``repro/core/attention.py:gather_kv_heads``) and tiered (the winner
-hit/miss blend of ``repro/models/layers.py:attn_decode_pariskv_tiered``)."""
+"""Plain PyTorch versions of the K/V row gathers: through the block table
+(ports of ``repro/core/cache.py:paged_gather_rows`` and
+``gather_heads_physical``, and the decode gather built from the two; a
+contiguous store goes through its one-block-per-row table) and tiered (the
+winner hit/miss blend of
+``repro/models/layers.py:attn_decode_pariskv_tiered``)."""
 from __future__ import annotations
 
 import torch
@@ -52,26 +52,6 @@ def gather_decode_paged_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
     ret = [None, None] if phys_rows is None else [
         gather_heads_physical_ref(p, phys_rows) for p in (pool_k, pool_v)]
     return (*dense, *ret)
-
-
-def gather_rows_ref(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """store (R, n, ...), idx (R, L) positions → (R, L, ...) with
-    out[i, l] = store[i, idx[i, l]] (the reference's
-    ``gather_rows_pallas`` batched over R). Indices clip to [0, n)."""
-    R, n = store.shape[:2]
-    rows = torch.arange(R, device=store.device)[:, None]
-    return store[rows, idx.long().clamp(0, n - 1)]
-
-
-def gather_heads_ref(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """store (b, n, G, hd), idx (b, G, Q, k) positions → (b, G, Q, k, hd)
-    with out[i, g, q, j] = store[i, idx[i, g, q, j], g] (the reference's
-    ``core/attention.py:gather_kv_heads``). Indices clip to [0, n)."""
-    b, n, G = store.shape[:3]
-    dev = store.device
-    rows = torch.arange(b, device=dev)[:, None, None, None]
-    heads = torch.arange(G, device=dev)[None, :, None, None]
-    return store[rows, idx.long().clamp(0, n - 1), heads]
 
 
 def gather_heads_tiered_ref(staging: torch.Tensor, host: torch.Tensor,

@@ -175,8 +175,8 @@ def attn_decode_pariskv(p: dict, x_t: torch.Tensor, cache: C.LayerKVCache,
     ws = (pos + 1 - W).clamp_min(0)
     out = A.sparse_decode_attention(
         q, cache.k, cache.v, res.indices, ws, pos, regions.enc_end,
-        sink_size=pcfg.sink_size, window_size=W, sm_scale=spec.scale(),
-        softcap=spec.softcap)
+        res.phys_rows, sink_size=pcfg.sink_size, window_size=W,
+        sm_scale=spec.scale(), softcap=spec.softcap)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
 
 
@@ -191,7 +191,7 @@ def attn_decode_pariskv_paged(p: dict, x_t: torch.Tensor,
     """The meta-view fallback (``PagedServingEngine(fused=False)``): the
     same math as ``attn_decode_pariskv`` over the block pool. The token is
     appended through the block table, retrieval runs over the materialized
-    logical metadata view (the contiguous Stage I, a per-query histogram),
+    logical metadata view (Stage I over the view, a per-query histogram),
     the winners come back block-relative, and the three attention segments
     are gathered from the pool. Token-identical to the fused path."""
     b = x_t.shape[0]

@@ -27,6 +27,7 @@ from repro_torch.core import quantizer as TQ  # noqa: E402
 from repro_torch.core import retrieval as TR  # noqa: E402
 from repro_torch.core import srht as TS  # noqa: E402
 from repro_torch.core.config import ParisKVConfig as TP  # noqa: E402
+from repro_torch.kernels.collision.ref import bucket_histogram  # noqa: E402
 
 CFG_J, CFG_T = JP(), TP()
 D = 64
@@ -144,8 +145,7 @@ def test_bucket_histogram_and_tier_weights_exact():
     valid = rng.rand(2, 3, 300) < 0.7
     hj = np.asarray(JR.bucket_histogram(jnp.asarray(ids), jnp.asarray(valid),
                                         256))
-    ht = TR.bucket_histogram(torch.from_numpy(ids), torch.from_numpy(valid),
-                             256)
+    ht = bucket_histogram(torch.from_numpy(ids), torch.from_numpy(valid), 256)
     np.testing.assert_array_equal(ht.numpy(), hj)
     # tier tables from identical proxy scores (with exact ties, which the
     # stable argsort must order like the reference) and counts

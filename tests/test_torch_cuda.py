@@ -1,5 +1,6 @@
 """Each CUDA kernel of the port against its plain PyTorch version on the
-card: exact for integer outputs and gathers, Stage II to float32
+card, over a paged pool and over a contiguous store (one block per batch
+row): exact for integer outputs and gathers, Stage II to float32
 reassociation. Every test here needs a card and skips without one.
 
 This file imports neither JAX nor the JAX package, so it runs on a machine
@@ -12,14 +13,16 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import row_tables  # noqa: E402
 from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
-from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E402
+from repro_torch.kernels.collision import (bucket_count,  # noqa: E402
+                                           collision_scores_kernel,
                                            collision_scores_paged_kernel,
                                            lane_packed_table)
-from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
 from repro_torch.kernels.gather_kv import (gather_decode_paged,  # noqa: E402
-                                           gather_heads, gather_heads_tiered,
-                                           gather_rows, gather_rows_paged)
+                                           gather_heads_tiered,
+                                           gather_kv_kernel,
+                                           gather_rows_paged)
 from repro_torch.kernels.rerank import rerank_topk_paged  # noqa: E402
 
 G, HG = 2, 2
@@ -38,11 +41,10 @@ def test_kernels_match_plain_on_card(card, nsub):
     """Each CUDA kernel equals its plain version on the card (exact for
     integer outputs and gathers; rerank to float32 reassociation)."""
     from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
-    from repro_torch.kernels.collision.ref import collision_paged_ref
+    from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                                   collision_paged_ref)
     from repro_torch.kernels.gather_kv.ref import (gather_decode_paged_ref,
-                                                   gather_heads_ref,
-                                                   gather_rows_paged_ref,
-                                                   gather_rows_ref)
+                                                   gather_rows_paged_ref)
     from repro_torch.kernels.rerank.ref import (block_relative,
                                                 rerank_topk_paged_ref,
                                                 topk_ref)
@@ -93,22 +95,41 @@ def test_kernels_match_plain_on_card(card, nsub):
                                          phys)
         assert all(x is y or torch.equal(x, y) for x, y in zip(outs, want_g))
 
-    # contiguous Stage I (ragged n) and the contiguous gathers
+    # the contiguous route (ragged n): the region's bucket histogram
+    # (stride 1 and 3; row 1's region ends at the sink), Stage I over the
+    # one-block-per-row table, and the decode gather with a window start
+    # clamped to n - W
     n = 1000
     cids = ri(0, 256, (b, G, n, nsub), torch.uint8)
-    ctab = ri(0, 7, (b, G, HG, nsub, 256))
-    cenc = torch.tensor([n - 3, 300], dtype=torch.int32, device=card)
-    assert torch.equal(collision_scores_kernel(cids, ctab, cenc, 16),
-                       collision_ref(cids[:, :, None], ctab, cenc, 16))
+    cenc = torch.tensor([n - 3, 16], dtype=torch.int32, device=card)
+    for stride in (1, 3):
+        counts = bucket_count(cids, cenc, 16, 256, stride)
+        assert torch.equal(counts, bucket_count_ref(cids, cenc, 16, 256,
+                                                    stride))
+    assert int(counts[0].sum()) > 0 and int(counts[1].sum()) == 0
+    cenc[1] = 300
+    ctab = lane_packed_table(b, G, HG, nsub, 256, card)
+    ctab.copy_(ri(0, 7, (b, G, HG, nsub, 256), torch.uint8))
+    rows1 = row_tables(b, card)
+    got, hist = collision_scores_kernel(cids, ctab, cenc, 16, 6 * nsub)
+    want, want_hist = collision_paged_ref(cids, rows1, ctab, cenc, 16,
+                                          6 * nsub)
+    assert torch.equal(got, want) and torch.equal(hist, want_hist)
     store = torch.randn((2, b, n, G, 128), generator=gen, device=card
                         ).to(torch.bfloat16)
-    hidx = ri(-5, n + 5, (b, G, HG, 37))
-    hk, hv = gather_heads(store[0], store[1], hidx)
-    assert torch.equal(hk, gather_heads_ref(store[0], hidx))
-    assert torch.equal(hv, gather_heads_ref(store[1], hidx))
+    hidx = ri(0, n, (b, G, HG, 37)) + n * torch.arange(
+        b, dtype=torch.int32, device=card)[:, None, None, None]
+    start = torch.tensor([40, n + 7], dtype=torch.int32,
+                         device=card).clamp(0, n - 30)
+    outs = gather_decode_paged(store[0], store[1], rows1, start, 16, 30, hidx)
+    want_g = gather_decode_paged_ref(store[0], store[1], rows1, start, 16, 30,
+                                     hidx)
+    assert all(torch.equal(x, y) for x, y in zip(outs, want_g))
+    assert torch.equal(outs[0][1, -1], store[0][1, n - 1])
     ridx = ri(0, n, (b, 300))
-    assert torch.equal(gather_rows(store[0], None, ridx),
-                       gather_rows_ref(store[0], ridx))
+    assert torch.equal(gather_kv_kernel(store[0].reshape(b, n, -1), ridx),
+                       gather_rows_paged_ref(store[0], rows1, ridx
+                                             ).reshape(b, 300, -1))
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
+from jax import lax  # noqa: E402
 
 from repro.core import cache as JCC  # noqa: E402
 from repro.core import encode as JE  # noqa: E402
@@ -31,12 +32,12 @@ from repro_torch import kernels as TK  # noqa: E402
 from repro_torch.core import retrieval as TR  # noqa: E402
 from repro_torch.core.config import ParisKVConfig as TP  # noqa: E402
 from repro_torch.kernels.bucket_topk import bucket_topk  # noqa: E402
-from repro_torch.kernels.collision import (collision_scores_kernel,  # noqa: E402
+from repro_torch.kernels.collision import (bucket_count,  # noqa: E402
+                                           collision_scores_kernel,
                                            collision_scores_paged_kernel)
-from repro_torch.kernels.collision.ref import collision_ref  # noqa: E402
 from repro_torch.kernels.gather_kv import (gather_decode_paged,  # noqa: E402
-                                           gather_heads, gather_kv_kernel,
-                                           gather_rows, gather_rows_paged)
+                                           gather_kv_kernel,
+                                           gather_rows_paged)
 from repro_torch.kernels.rerank import rerank_topk_paged  # noqa: E402
 from repro_torch.kernels.rerank.ref import rerank_paged_ref  # noqa: E402
 
@@ -82,22 +83,27 @@ def test_collision_plain_matches_pallas_kernel():
 @pytest.mark.parametrize("n", [1000, 1024, 4096])
 @pytest.mark.parametrize("ids_dtype", [np.uint8, np.int32])
 def test_contiguous_collision_plain_matches_pallas_kernel(n, ids_dtype):
-    """collision_ref == the reference's ``collision_scores_kernel`` (the
-    Pallas ``_collision_pallas`` in interpret mode, which pads n to its
-    block) over lead dims (2, 3), and the masked wrapper equals it inside
-    [sink, enc_end) and -1 outside."""
+    """The contiguous Stage-I route (the paged kernel over the store's
+    one-block-per-row table; plain on the CPU) == the reference's
+    ``collision_scores_kernel`` (the Pallas ``_collision_pallas`` in
+    interpret mode, which pads n to its block) over lead dims (2, 3) when
+    the region is the whole store, and equals it inside [sink, enc_end)
+    and -1 outside when masked."""
     rng = np.random.RandomState(n)
     ids = rng.randint(0, 256, size=(2, 3, n, B)).astype(ids_dtype)
     tables = rng.randint(0, 7, size=(2, 3, B, 256)).astype(np.int32)
     want = np.asarray(j_coll_flat(jnp.asarray(ids), jnp.asarray(tables)))
-    got = collision_ref(_t(ids), _t(tables))
-    assert got.dtype == torch.int32 and got.shape == (2, 3, n)
-    np.testing.assert_array_equal(got.numpy(), want)
+    sr = TR.max_collision_score(CFG_T, B)
+    got, _ = collision_scores_kernel(_t(ids), _t(tables[:, :, None]),
+                                     _t(np.full(2, n, np.int32)), 0, sr)
+    assert got.dtype == torch.int32 and got.shape == (2, 3, 1, n)
+    np.testing.assert_array_equal(got[:, :, 0].numpy(), want)
 
     enc_end = np.array([n - 7, 40], np.int32)
     heads = np.stack([tables, tables[:, ::-1]], 2)            # (2, 3, 2, ..)
-    masked = collision_scores_kernel(_t(ids.astype(np.uint8)), _t(heads),
-                                     _t(enc_end), 16).numpy()
+    masked, _ = collision_scores_kernel(_t(ids.astype(np.uint8)), _t(heads),
+                                        _t(enc_end), 16, sr)
+    masked = masked.numpy()
     assert masked.shape == (2, 3, 2, n)
     for i, e in enumerate(enc_end):
         np.testing.assert_array_equal(masked[i, :, 0, 16:e], want[i, :, 16:e])
@@ -109,10 +115,14 @@ def test_contiguous_collision_plain_matches_pallas_kernel(n, ids_dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_contiguous_gather_plain_matches_pallas_kernel(dtype):
-    """gather_kv_kernel (plain on the CPU) == the reference's
-    ``gather_kv_kernel`` (the Pallas ``_gather_rows_pallas``, interpret
-    mode) with duplicate indices and an index broadcast over lead dims;
-    the per-row and per-head helpers equal the reference's jnp gathers."""
+    """gather_kv_kernel (the paged gather's logical mode over one block per
+    store; plain on the CPU) == the reference's ``gather_kv_kernel`` (the
+    Pallas ``_gather_rows_pallas``, interpret mode) with duplicate indices
+    and an index broadcast over lead dims; the contiguous decode gather
+    (sink, window and winners through the one-block-per-row table) equals
+    the reference's jnp gathers: ``gather_kv_heads`` for the winners, the
+    sink slice and ``dynamic_slice`` for the window, whose start past
+    n - W clamps."""
     rng = np.random.RandomState(5)
     store = rng.randn(2, 3, 50, 64).astype(np.float32)
     idx = rng.randint(0, 50, size=(2, 3, 17)).astype(np.int32)
@@ -126,16 +136,22 @@ def test_contiguous_gather_plain_matches_pallas_kernel(dtype):
         np.testing.assert_array_equal(got.float().numpy(), want)
 
     from repro.core.attention import gather_kv_heads as j_heads
-    cache = rng.randn(2, 40, G, D).astype(np.float32)
-    hidx = rng.randint(0, 40, size=(2, G, HG, 9)).astype(np.int32)
-    wk, wv = gather_heads(_t(cache), _t(cache * 2), _t(hidx))
+    n, sink, W = 40, 3, 11
+    cache = rng.randn(2, n, G, D).astype(np.float32)
+    hidx = rng.randint(0, n, size=(2, G, HG, 9)).astype(np.int32)
+    phys = hidx + n * np.arange(2, dtype=np.int32)[:, None, None, None]
+    ws = np.array([5, 33], np.int32)                     # 33 > n - W
+    dk, dv, wk, wv = gather_decode_paged(
+        _t(cache), _t(cache * 2), TK.row_tables(2, "cpu"),
+        _t(np.minimum(ws, n - W)), sink, W, _t(phys))
     want = np.asarray(j_heads(jnp.asarray(cache), jnp.asarray(hidx)))
     np.testing.assert_array_equal(wk.numpy(), want)
     np.testing.assert_array_equal(wv.numpy(), 2 * want)
-    ridx = rng.randint(0, 40, size=(2, 11)).astype(np.int32)
-    rows = gather_rows(_t(cache), None, _t(ridx))
-    np.testing.assert_array_equal(
-        rows.numpy(), cache[np.arange(2)[:, None], ridx])
+    for i in range(2):
+        rows = np.concatenate([cache[i, :sink], np.asarray(
+            lax.dynamic_slice_in_dim(jnp.asarray(cache[i]), ws[i], W))])
+        np.testing.assert_array_equal(dk[i].numpy(), rows)
+        np.testing.assert_array_equal(dv[i].numpy(), 2 * rows)
 
 
 def test_collision_scores_paged_matches_jnp_twin():
@@ -293,12 +309,12 @@ def test_wrappers_never_fall_back_off_the_cpu():
             bt, i32, 2, 3, torch.empty((2, G, HG, 5), dtype=torch.int32, **m)),
         lambda: collision_scores_kernel(
             torch.empty((2, G, 40, 16), dtype=torch.uint8, **m),
-            torch.empty((2, G, HG, 16, 256), dtype=torch.int32, **m), i32, 2),
-        lambda: gather_rows(torch.empty((2, 40, G, D), **m), None,
-                            torch.empty((2, 5), dtype=torch.int32, **m)),
-        lambda: gather_heads(torch.empty((2, 40, G, D), **m), None,
-                             torch.empty((2, G, HG, 5), dtype=torch.int32,
-                                         **m)),
+            torch.empty((2, G, HG, 16, 256), dtype=torch.int32, **m), i32, 2,
+            96),
+        lambda: bucket_count(
+            torch.empty((2, G, 40, 16), dtype=torch.uint8, **m), i32, 2, 256),
+        lambda: gather_kv_kernel(torch.empty((2, 40, D), **m),
+                                 torch.empty((2, 5), dtype=torch.int32, **m)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="no kernel for device meta"):

@@ -24,6 +24,7 @@ from repro_torch.core import encode as TE  # noqa: E402
 from repro_torch.core import retrieval as TR  # noqa: E402
 from repro_torch.core import srht as TS  # noqa: E402
 from repro_torch.core.config import ParisKVConfig as TP  # noqa: E402
+from repro_torch.kernels.rerank.ref import block_relative  # noqa: E402
 
 KW = dict(sink_size=16, local_size=64, update_interval=32, top_k=32,
           min_candidates=64)
@@ -223,6 +224,50 @@ def _contiguous(k, v, lens):
     return c_j, c_t
 
 
+def _select_sorted(scores, num_candidates):
+    """Top-C by a stable descending sort (``lax.top_k``'s order, ties
+    lowest index first): the reference's ``select_candidates``, the cut
+    that the bucket top-C must match as a set."""
+    order = torch.sort(scores, dim=-1, descending=True, stable=True).indices
+    return order[..., :num_candidates].to(torch.int32)
+
+
+def _retrieve(ids, codes, w, qt, enc_end, C, hist_sample, bucket_select):
+    """``TR.retrieve``, or with ``bucket_select`` False the same pipeline
+    cut by ``_select_sorted`` (descending) instead of the bucket top-C."""
+    if bucket_select:
+        return TR.retrieve(ids, codes, w, qt, enc_end, CFG_T, C, CFG_T.top_k,
+                           hist_sample=hist_sample)
+    coarse = TR.collision_scores_hist(ids, qt.q_sub, enc_end, CFG_T,
+                                      hist_sample)[0]
+    cand = _select_sorted(coarse, C)
+    won = TR.rerank_topk(codes, w, qt, cand, enc_end, CFG_T, CFG_T.top_k)
+    return TR.RetrievalResult(won.top_idx, won.top_est, cand, coarse,
+                              won.phys_rows)
+
+
+def _retrieve_paged(view, qt, enc_end, C, bt, hist_sample, bucket_select):
+    """``TR.retrieve_paged`` through ``_retrieve``: the winners translated
+    to physical pool rows through the block table."""
+    if bucket_select:
+        return TR.retrieve_paged(view, qt, enc_end, CFG_T, C, CFG_T.top_k, bt,
+                                 BS, hist_sample=hist_sample)
+    res = _retrieve(*view, qt, enc_end, C, hist_sample, False)
+    blk, phys = block_relative(res.indices, bt, BS)
+    return TR.PagedRetrievalResult(
+        indices=res.indices, block_ids=blk, phys_rows=phys,
+        scores=res.scores, cand_indices=res.cand_indices,
+        coarse_scores=res.coarse_scores)
+
+
+def _promote_block(cache, start, cfg, signs):
+    """Encode keys [start, start + update_interval) of every row (the
+    reference's ``promote_block``) through ``promote_rows``."""
+    b = cache.k.shape[0]
+    return TCC.promote_rows(cache, torch.full((b,), start, dtype=torch.int32),
+                            torch.ones((b,), dtype=torch.bool), cfg, signs)
+
+
 def _assert_same_retrieval(got, want, msg):
     """Integer outputs exact (winners as sets: equal estimates may order
     differently); estimates to float32 reassociation."""
@@ -233,7 +278,7 @@ def _assert_same_retrieval(got, want, msg):
     order_t = np.argsort(got.indices.numpy(), -1)
     order_j = np.argsort(np.asarray(want.indices), -1)
     fields = ["indices", "scores"] + (
-        ["phys_rows"] if hasattr(got, "phys_rows") else [])
+        ["phys_rows"] if hasattr(want, "phys_rows") else [])
     for name in fields:
         a = np.take_along_axis(getattr(got, name).numpy(), order_t, -1)
         b = np.take_along_axis(np.asarray(getattr(want, name)), order_j, -1)
@@ -319,9 +364,13 @@ def test_contiguous_and_meta_view_retrieval_identical_across_drift(
 
         want = retrieve_j(c_j.meta_ids, c_j.meta_codes, c_j.meta_w, qj,
                           valid_j)
-        got = TR.retrieve(c_t.meta_ids, c_t.meta_codes, c_t.meta_w, qt,
-                          reg_t.enc_end, CFG_T, C, CFG_T.top_k, **kw)
+        got = _retrieve(c_t.meta_ids, c_t.meta_codes, c_t.meta_w, qt,
+                        reg_t.enc_end, C, hist_sample, bucket_select)
         _assert_same_retrieval(got, want, "contiguous " + msg)
+        # the winners' rows in the store seen as one block per batch row
+        np.testing.assert_array_equal(
+            got.phys_rows.numpy(),
+            got.indices.numpy() + n * np.arange(b)[:, None, None, None], msg)
         est_j = np.asarray(rerank_j(c_j.meta_ids, c_j.meta_codes, c_j.meta_w,
                                     qj, want.cand_indices, valid_j))
         est_t = TR.rerank(c_t.meta_codes, c_t.meta_w, qt, got.cand_indices,
@@ -337,8 +386,8 @@ def test_contiguous_and_meta_view_retrieval_identical_across_drift(
         np.testing.assert_allclose(view_t[2].numpy(), np.asarray(w_j),
                                    rtol=1e-5)
         want = paged_j(view_j(pool_j, btj), qj, valid_j, btj)
-        got = TR.retrieve_paged(view_t, qt, reg_t.enc_end, CFG_T, C,
-                                CFG_T.top_k, btt, BS, **kw)
+        got = _retrieve_paged(view_t, qt, reg_t.enc_end, C, btt, hist_sample,
+                              bucket_select)
         _assert_same_retrieval(got, want, "meta view " + msg)
     assert promotions >= 2, "test never exercised post-promotion drift"
     np.testing.assert_array_equal(c_t.meta_ids.numpy(),
@@ -385,6 +434,6 @@ def test_contiguous_cache_ops_clamp_like_the_reference():
                                    rtol=1e-6, atol=1e-6)
     c_j = jax.jit(lambda c: JCC.promote_block(c, jnp.int32(n - 3), CFG_J,
                                               SIGNS_J))(c_j)
-    TCC.promote_block(c_t, n - 3, CFG_T, SIGNS_T)
+    _promote_block(c_t, n - 3, CFG_T, SIGNS_T)
     np.testing.assert_array_equal(c_t.meta_ids.numpy(),
                                   np.asarray(c_j.meta_ids))
