@@ -20,9 +20,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launch gap), the plain version's time, a PyTorch yardstick
               where one call computes the same function, and the bound.
               The tiered winner gather reads half its rows from a pinned
-              host pool; its bound prices those bytes at the card's
-              pinned host-to-device rate, measured here with one 256 MiB
-              copy. Stage I and the top-C cut are also checked on an all-tie
+              host pool, each distinct missed (row, kv head) once; its
+              distinct count must equal torch.unique's, it is timed at
+              every grid it can launch (tiered_grid), and its bound
+              prices the distinct missed bytes at the card's pinned
+              host-to-device rate, measured here with one 256 MiB copy.
+              The chunked fill's kernels are held and timed at the
+              12,000-token request's 24th chunk: the prefix read (the
+              paged gather's logical mode, and the tiered gather with
+              half the blocks staged) and the histogram update
+              (bucket_count's block-table mode). Stage I and the top-C cut are also checked on an all-tie
               set and on threshold ties spread over every segment and timed
               back to back as a pair; Stage II with its top-k
               (rerank_topk_paged) is held, at the paged and the contiguous
@@ -61,11 +68,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               every request promoted, token agreement with the engine
               phase printed as a rate (bf16 promises no identity).
 6. metaview — ``PagedServingEngine(fused=False)`` and the fused engine on
-              the first two requests with 64 new tokens: identical tokens
+              the first two requests with 32 new tokens: identical tokens
               asserted, Stage I over the view launched exactly 28 × steps.
 7. baseline — the slot engine with ParisKV and with full attention
               (``use_pariskv=False``), and ``WaveServingEngine``, on
-              requests of 3000/6000 prompt tokens with 64 new each: host-
+              requests of 3000/6000 prompt tokens with 32 new each: host-
               bound smoke throughputs, not a benchmark.
 8. offload  — ``PagedServingEngine(offload=True)``: (a) the engine phase's
               four requests with the K/V pool in pinned host memory and a
@@ -74,16 +81,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the tiered gather launched 28 × steps; tokens/s, TTFT, peak
               device memory, pinned bytes, fetched bytes, miss share and
               prefetch hits printed beside the resident run's, then a
-              profile of one chunk; the first two requests (64 new) with
+              profile of one chunk; the first two requests (32 new) with
               overlap on and off, identical tokens asserted; the same two
-              (32 new) once more, untimed, counting in every tiered-gather
-              launch the missed winner head rows that repeat a row already
-              read in that launch (``offload_duplicates``). (b) one
-              request of 65,536 prompt
-              tokens and 64 new through the offloaded engine (staging
-              pool 1/8 of 1024 blocks) and the resident paged engine:
-              identical tokens asserted, peak memory and TTFT printed.
-9. parity   — 2 layers at full width in float32: one teacher-forced
+              (16 new) once more, untimed, counting in every tiered-gather
+              launch the missed winner head rows, how many repeat a row
+              already read in that launch, and asserting that the kernel
+              read each distinct one once (``offload_duplicates``). (b)
+              one request of 65,536 prompt tokens and 32 new through the
+              offloaded engine (staging pool 1/8 of 1024 blocks) and the
+              resident paged engine: identical tokens asserted, peak
+              memory and TTFT printed.
+9. chunked  — chunked prefill (``prefill_budget=512``) at full width on
+              the engine phase's four requests: (a) the paged engine,
+              (b) the slot engine, (c) the offloaded engine (128 of 512
+              blocks staged, every tiered-gather launch checked as in
+              ``offload_duplicates``): per request TTFT, the longest gap
+              between tokens of the requests already decoding while it
+              was admitted, tokens/s and token agreement with the engine
+              phase printed; the fill's prefix reads and histogram
+              updates counted among the launches; (c)'s tokens asserted
+              equal to (a)'s, fill rows read from host memory, and its
+              distinct rows equal to the kernel's. (d) 2 layers in
+              float32: chunked tokens equal solo tokens on the paged,
+              slot and offloaded engines. (e) a profile of eight mixed
+              steps (a 12,000-token fill beside three decoding rows): the
+              fill's gather_rows_paged and bucket_count launch in every
+              layer of every step.
+10. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -131,7 +155,9 @@ EXACT = ("collision_paged", "bucket_topk", "rerank_topk_paged")
 OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
                    "rerank_topk_paged": 1, "gather_rows_paged": 1,
                    "gather_rows_tiered": 1}
-LONG_PROMPT, LONG_GEN = 65536, 64        # the offload phase's long request
+LONG_PROMPT, LONG_GEN = 65536, 32        # the offload phase's long request
+OVERLAP_GEN = 32                         # the offload overlap on/off runs
+CHUNK_BUDGET = 512                       # the chunked phase's prefill_budget
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -504,8 +530,9 @@ def kernel_phase(dev, cfg, seed: int = 0):
         bound=_bound(moved + phys.numel() * 4 + b * 4 + bt.numel() * 4, 0))
     _ptxas(B, nc, Hg, rng_s + 2, n, C, k_top)
     _contiguous_kernels(dev, cfg, gen, flush, lens, out)
-    _tiered_kernel(dev, pool, won.top_idx, phys, enc_end, sink, gen, flush,
-                   out)
+    tier, link = _tiered_kernel(dev, pool, won.top_idx, phys, enc_end, sink,
+                                gen, flush, out)
+    _fill_kernels(dev, cfg, pool, bt, tier, link, gen, flush, out)
     for name, rec in out.items():
         rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
         print(f"kernel {name} " + json.dumps(rec), flush=True)
@@ -793,12 +820,18 @@ def _link_rate(dev, nbytes: int = 256 << 20) -> float:
 
 
 def _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out):
-    """7. The tiered winner gather at the decode shapes: the paged pool's
-    rows copied to a pinned host pool, about half of its 512 blocks staged
-    (the others -1 in dev_map), and every seventh winner a -1 row."""
+    """7. The deduplicating tiered winner gather at the decode shapes: the
+    paged pool's rows copied to a pinned host pool, about half of its 512
+    blocks staged (the others -1 in dev_map), and every seventh winner a
+    -1 row. Output exact, its distinct count over the launch equal to the
+    plain version's and to torch.unique's; timed at every grid it can
+    launch (tiered_grid). → the tiered setup and link rate, for the fill
+    shapes."""
     import torch
     from repro_torch.kernels.gather_kv import gather_heads_tiered
-    from repro_torch.kernels.gather_kv.ref import gather_heads_tiered_ref
+    from repro_torch.kernels.gather_kv import ops as GO
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref)
 
     nb, bs, G, hd = pool.k.shape
     nd = nb // 2
@@ -811,38 +844,166 @@ def _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out):
     valid = (top_idx >= sink) & (top_idx < enc_end[:, None, None, None])
     valid[..., ::7] = False
     rows = torch.where(valid, phys, -1).to(torch.int32).contiguous()
+    tier = (stag_k, stag_v, host_k, host_v, dev_map)
+    count = torch.zeros((1,), dtype=torch.int64, device=dev)
 
     def kern():
-        return gather_heads_tiered(stag_k, stag_v, host_k, host_v, dev_map,
-                                   rows)
+        return gather_heads_tiered(*tier, rows, count)
 
     def plain():
-        return (gather_heads_tiered_ref(stag_k, host_k, dev_map, rows),
-                gather_heads_tiered_ref(stag_v, host_v, dev_map, rows))
+        return gather_heads_tiered_dedup_ref(*tier, rows)
 
     got, want = kern(), plain()
-    _check(all(torch.equal(g, w) for g, w in zip(got, want)),
+    _check(all(torch.equal(g, w) for g, w in zip(got, want[:2])),
            "gather_rows_tiered differs from its plain version")
     resident = dev_map[rows.clamp_min(0).long() // bs] >= 0
+    missed = ~resident & (rows >= 0)
+    heads = torch.arange(G, device=dev)[None, :, None, None]
+    n_distinct = int(torch.unique((rows.long() * G + heads)[missed]).numel())
     n_hit = int((resident & (rows >= 0)).sum())
-    n_miss = int((~resident & (rows >= 0)).sum())
-    _check(n_hit > 0 and n_miss > 0, f"{n_hit} staged, {n_miss} missed rows")
+    n_miss = int(missed.sum())
+    _check(int(count) == want[2] == n_distinct,
+           f"gather_rows_tiered read {int(count)} distinct missed rows, the "
+           f"plain version {want[2]}, torch.unique {n_distinct}")
+    _check(n_hit > 0 and 0 < n_distinct < n_miss,
+           f"{n_hit} staged, {n_miss} missed, {n_distinct} distinct rows")
+    grid = []
+    for cl in (1, 2, 4, 8, 16):
+        for th in (128, 256, 512):
+            def launch(cl=cl, th=th):
+                return GO.launch_tiered(*tier, rows, None, cl, th)
+            _check(all(torch.equal(g, w) for g, w in zip(launch(), want[:2])),
+                   f"gather_rows_tiered at cluster {cl}, {th} threads "
+                   f"differs")
+            grid.append(dict(cluster=cl, threads=th, blocks=cl * G,
+                             ms=_time_ms(launch, flush)))
+    print("tiered_grid " + json.dumps(grid), flush=True)
     row_b = 2 * hd * pool.k.element_size()          # K and V of a head row
     link = _link_rate(dev)
     hbm_bytes = (n_hit * row_b + rows.numel() * row_b + rows.numel() * 4
                  + nb * 4)
     terms = dict(hbm_ms=hbm_bytes / HBM_BYTES_PER_S * 1e3,
-                 link_ms=n_miss * row_b / link * 1e3)
+                 link_ms=n_distinct * row_b / link * 1e3)
     out["gather_rows_tiered"] = dict(
         route="cuda", source="src/repro_torch/csrc/gather_rows_tiered.cu",
         replaces="src/repro/kernels/gather_kv/ops.py:27",
-        max_abs_err=0, tolerance="exact", staged_rows=n_hit,
-        missed_rows=n_miss, zero_rows=int((rows < 0).sum()),
+        max_abs_err=0, tolerance="exact; distinct count exact",
+        staged_rows=n_hit, missed_rows=n_miss,
+        distinct_missed_rows=n_distinct, zero_rows=int((rows < 0).sum()),
+        cluster=GO.tiered_cluster(rows[:, 0].numel()),
+        threads=GO.TIERED_THREADS,
         pinned_h2d_gb_per_s=link / 1e9, bound_terms=terms,
         ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
         # the plain version gathers the missed rows on the host: unprimed,
         # so its host work counts
         plain_ms=_time_ms(plain, flush, primed=False), library_ms=None,
+        bound=(max(terms.values()), "bytes"))
+    return tier, link
+
+
+def _fill_kernels(dev, cfg, pool, bt, tier, link, gen, flush, out):
+    """The chunked fill's kernels at the shapes of the 12,000-token
+    request's 24th chunk (frontier 11,776, budget 512) over the kernel
+    phase's pool and its table row: the prefix read through the paged
+    gather's logical mode, the histogram update (bucket_count's
+    block-table mode over the region's 512-position growth), and the
+    offloaded engine's prefix read through the tiered gather (about half
+    the blocks staged). Each exact against its plain version."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.kernels.collision import bucket_count_span
+    from repro_torch.kernels.collision.ref import bucket_count_span_ref
+    from repro_torch.kernels.gather_kv import (gather_heads_tiered,
+                                               gather_rows_paged)
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref, gather_rows_paged_ref)
+
+    pcfg = cfg.pariskv
+    nb, bs, G, hd = pool.k.shape
+    B, nc = pool.meta_ids.shape[-1], pcfg.num_centroids()
+    start, P = 23 * 512, 512
+    row = bt[3:4].contiguous()
+    lidx = torch.arange(start, dtype=torch.int32, device=dev)[None]
+
+    def kern():
+        return gather_rows_paged(pool.k, pool.v, row, lidx)
+
+    def plain():
+        return (gather_rows_paged_ref(pool.k, row, lidx),
+                gather_rows_paged_ref(pool.v, row, lidx))
+    _check(all(torch.equal(g, w) for g, w in zip(kern(), plain())),
+           "gather_rows_paged (fill prefix) differs from its plain version")
+    flat_k = pool.k.reshape(nb * bs, G, hd)
+    flat_v = pool.v.reshape(nb * bs, G, hd)
+    phys = (row.long()[0, lidx[0].long() // bs] * bs + lidx[0] % bs)
+    moved = 2 * 2 * start * G * hd * pool.k.element_size()
+    out["gather_rows_paged/fill"] = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows_paged.cu",
+        replaces="src/repro/kernels/gather_kv/gather_kv.py:87",
+        max_abs_err=0, tolerance="exact", rows=start,
+        ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        plain_ms=_time_ms(plain, flush),
+        library_ms=_time_ms(lambda: (flat_k[phys], flat_v[phys]), flush),
+        library="advanced indexing of the flat pool at the physical rows",
+        bound=_bound(moved + start * 4 + row.numel() * 4, 0))
+
+    lo = CC.fill_enc_end(start - P, pcfg)
+    hi = CC.fill_enc_end(start, pcfg)
+    base = torch.randint(0, 9, (1, G, B, nc), generator=gen, device=dev,
+                         dtype=torch.int32)
+    got = bucket_count_span(pool.meta_ids, row, lo, hi, nc, base.clone())
+    _check(torch.equal(got, base + bucket_count_span_ref(
+        pool.meta_ids, row, lo, hi, nc)),
+        "bucket_count (fill span) differs from its plain version")
+    h = base.clone()
+    span_ids = pool.meta_ids.transpose(1, 2).reshape(nb * bs, G, B)[
+        row.long()[0, torch.arange(lo, hi, device=dev) // bs] * bs
+        + torch.arange(lo, hi, device=dev) % bs]
+    ids_t = span_ids.permute(1, 2, 0).reshape(-1, hi - lo).long()
+    ones = torch.ones_like(ids_t, dtype=torch.int32)
+    acc = torch.zeros((ids_t.shape[0], nc), dtype=torch.int32, device=dev)
+    out["bucket_count/fill"] = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_count.cu",
+        replaces="none: the jnp bucket_histogram of "
+                 "src/repro/core/cache.py:290 (no TPU kernel)",
+        max_abs_err=0, tolerance="exact", span=[lo, hi],
+        ms=_time_ms(lambda: bucket_count_span(pool.meta_ids, row, lo, hi, nc,
+                                              h), flush),
+        plain_ms=_time_ms(lambda: bucket_count_span_ref(pool.meta_ids, row,
+                                                        lo, hi, nc), flush),
+        library_ms=_time_ms(lambda: acc.scatter_add_(1, ids_t, ones), flush),
+        library="scatter_add_ alone, on the span's gathered int64 ids",
+        bound=_bound(G * (hi - lo) * B + row.numel() * 4 + 2 * h.numel() * 4,
+                     G * (hi - lo) * B))
+
+    stag_k, stag_v, host_k, host_v, dev_map = tier
+    idx = lidx[0]
+    prow = (row.long()[0, idx.long() // bs] * bs + idx % bs).to(torch.int32)
+    rows = prow.view(1, 1, 1, start).expand(1, G, 1, start).contiguous()
+    count = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+    def tkern():
+        return gather_heads_tiered(*tier, rows, count)
+
+    def tplain():
+        return gather_heads_tiered_dedup_ref(*tier, rows)
+    want = tplain()
+    _check(all(torch.equal(g, w) for g, w in zip(tkern(), want[:2]))
+           and int(count) == want[2],
+           "gather_rows_tiered (fill prefix) differs from its plain version")
+    missed = dev_map[prow.long() // bs] < 0
+    n_miss = int(missed.sum())
+    row_b = 2 * G * hd * pool.k.element_size()
+    terms = dict(hbm_ms=2 * start * row_b / HBM_BYTES_PER_S * 1e3,
+                 link_ms=n_miss * row_b / link * 1e3)
+    out["gather_rows_tiered/fill"] = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows_tiered.cu",
+        replaces="src/repro/kernels/gather_kv/ops.py:27",
+        max_abs_err=0, tolerance="exact; distinct count exact", rows=start,
+        missed_rows=n_miss, distinct_missed_head_rows=want[2],
+        bound_terms=terms,
+        ms=_time_ms(tkern, flush),
+        plain_ms=_time_ms(tplain, flush, primed=False), library_ms=None,
         bound=(max(terms.values()), "bytes"))
 
 
@@ -857,19 +1018,22 @@ def _prompts(cfg, seed: int = 0, lens=None):
 
 
 def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
-               cfg, exact=EXACT) -> int:
+               cfg, exact=EXACT, fill=None) -> int:
     """Fail unless requests 0 .. n_requests-1 each got ``gen`` tokens, no
     logit was non-finite, and every kernel in ``kernels`` launched at least
     its given count per layer and decode step: those in ``exact`` exactly
     that, the paged gather once plus at most one K-only promotion gather
-    per layer and promotion, the histogram pass never. → the count of
+    per layer and promotion, the histogram pass never. ``fill``: each
+    kernel's further launches that a chunked fill needs (its prefix reads
+    and histogram updates), added to the counts. → the count of
     non-finite logits (0)."""
+    fill = fill or {}
     _check(sorted(done) == list(range(n_requests)), f"served {sorted(done)}")
     for uid, r in done.items():
         _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
     steps = eng.decode_steps
     for name, per_step in kernels.items():
-        need = per_step * cfg.num_layers * steps
+        need = per_step * cfg.num_layers * steps + fill.get(name, 0)
         _check(launches[name] >= need,
                f"{name}: {launches[name]} launches < {need} "
                f"({per_step} x {cfg.num_layers} layers x {steps} steps)")
@@ -886,6 +1050,7 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
     if "gather_rows_paged" in kernels:
         most = cfg.num_layers * (steps + sum(r.promotions
                                              for r in done.values()))
+        most += fill.get("gather_rows_paged", 0)
         _check(launches["gather_rows_paged"] <= most,
                f"gather_rows_paged: {launches['gather_rows_paged']} launches "
                f"> {most}: more than one per layer-step and promotion")
@@ -895,7 +1060,7 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
 
 
 def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
-           exact=EXACT):
+           exact=EXACT, fill=None):
     """Serve ``prompts`` (uid = index) submitted before the chunks in
     ``arrivals``, with the launch counters zeroed just before and read just
     after, held to ``_check_run``. → (record, {uid: request})."""
@@ -926,13 +1091,14 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
     done = {r.uid: r for r in eng._done}
     steps = eng.decode_steps
     nonfinite = _check_run(eng, done, len(arrivals), gen, launches, kernels,
-                           cfg, exact)
+                           cfg, exact, fill)
     tokens = sum(len(r.output) for r in done.values())
     rec = dict(
         requests=[dict(uid=u, prompt=len(prompts[u]),
                        new_tokens=len(r.output), ttft_s=r.ttft_s,
                        decode_s=r.decode_s, promotions=r.promotions)
                   for u, r in sorted(done.items())],
+        admission_gaps_s=_admission_gaps(done),
         decode_steps=steps, serve_s=serve_s, tokens=tokens,
         tokens_per_s=tokens / serve_s,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
@@ -940,6 +1106,26 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
     if audit:
         rec["hist_checks"] = audits
     return rec, done
+
+
+def _admission_gaps(done):
+    """For each request but the first (by uid): the longest gap between
+    two consecutive token stamps of the requests already decoding when it
+    was admitted, over the stretch from its admission to its first token.
+    A solo prefill stalls them for its whole length; a chunked fill only
+    slows their steps."""
+    out = []
+    for j in sorted(done)[1:]:
+        lo, hi = done[j]._t_admit, done[j]._t_first
+        gap = 0.0
+        for i, r in done.items():
+            if i == j or r._t_first > lo:
+                continue
+            ts = sorted(set(r.token_times))
+            gap = max([gap] + [b - a for a, b in zip(ts, ts[1:])
+                               if b > lo and a < hi])
+        out.append(gap)
+    return out
 
 
 def _warm(eng, cfg, warm: int = 700):
@@ -992,7 +1178,7 @@ def slot_phase(dev, cfg, params, paged_out, n_max: int = 16384):
     return rec, eng
 
 
-def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
+def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 32):
     """The paged meta-view fallback against the fused engine on the first
     two requests: identical tokens asserted."""
     import numpy as np
@@ -1077,14 +1263,14 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
                                  num_device_blocks=128, chunk_size=8,
                                  offload=True, overlap=overlap, device=dev)
         _warm(eng, cfg)
-        r, done = _serve(eng, _prompts(cfg)[:2], 64, ARRIVALS[:2],
+        r, done = _serve(eng, _prompts(cfg)[:2], OVERLAP_GEN, ARRIVALS[:2],
                          OFFLOAD_KERNELS, cfg)
         ovl[overlap] = (r["tokens_per_s"],
                         {u: q.output for u, q in done.items()})
         del eng
     same_ovl = _same_tokens(ovl[True][1], ovl[False][1])
     short["overlap_on_off"] = dict(
-        requests=2, new_tokens=64, tokens_identical=same_ovl,
+        requests=2, new_tokens=OVERLAP_GEN, tokens_identical=same_ovl,
         tokens_per_s={"overlap": ovl[True][0], "one_stream": ovl[False][0]})
     print("offload_overlap " + json.dumps(short["overlap_on_off"]),
           flush=True)
@@ -1120,51 +1306,94 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
     return short, long_rec
 
 
-def _miss_duplicates(dev, cfg, params, n_max: int, gen: int = 32):
-    """The offload phase's first two requests once more, untimed, with
-    every tiered-gather launch counted on the card before it runs: its
-    winner head rows (row, kv head) that miss the staging pool, and how
-    many of them repeat one already read in that launch (several query
-    heads of a kv head picking the same row). The kernel reads every
-    missed row; a dedup would read each once."""
+class _TieredTally:
+    """While active, every tiered-gather launch (decode winners and fill
+    prefixes) is counted on the card before it returns: the missed (row,
+    kv head) pairs it was given, how many are distinct (torch.unique),
+    and the distinct count the kernel itself reported, which must equal
+    torch.unique's at every launch: the kernel read each distinct missed
+    row over the link once."""
+
+    def __init__(self):
+        self.t = dict(launches=0, fill_launches=0, missed_head_rows=0,
+                      distinct_missed_head_rows=0, fill_missed_head_rows=0,
+                      fill_distinct_missed_head_rows=0)
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import layers as L
+        from repro_torch.models import serve as SV
+        self._mods = (L, SV)
+        real = self._real = L.gather_heads_tiered
+        t = self.t
+
+        def counted(stag_k, stag_v, host_k, host_v, dev_map, rows,
+                    count=None):
+            mine = torch.zeros((1,), dtype=torch.int64, device=rows.device)
+            out = real(stag_k, stag_v, host_k, host_v, dev_map, rows, mine)
+            if count is not None:
+                count += mine
+            bs, G = stag_k.shape[1], stag_k.shape[2]
+            want = rows.long()
+            miss = (want >= 0) & (dev_map.long()[want.clamp_min(0) // bs]
+                                  < 0)
+            heads = torch.arange(G, device=rows.device)[None, :, None, None]
+            key = (want * G + heads)[miss]
+            distinct = int(torch.unique(key).numel())
+            _check(int(mine) == distinct,
+                   f"gather_rows_tiered reported {int(mine)} distinct missed "
+                   f"rows, torch.unique {distinct}")
+            pre = "fill_" if rows.shape[2] == 1 else ""
+            t["launches"] += 1
+            t["fill_launches"] += bool(pre)
+            t[pre + "missed_head_rows"] += int(key.numel())
+            t[pre + "distinct_missed_head_rows"] += distinct
+            return out
+
+        for mod in self._mods:
+            mod.gather_heads_tiered = counted
+        return self
+
+    def __exit__(self, *exc):
+        for mod in self._mods:
+            mod.gather_heads_tiered = self._real
+
+
+def _miss_duplicates(dev, cfg, params, n_max: int, gen: int = 16):
+    """The offload phase's first two requests once more, untimed, under
+    ``_TieredTally``: the missed winner head rows, how many repeat one
+    already read in the same launch (several query heads of a kv head
+    picking the same row), and the check that the kernel read each
+    distinct one once and the engine counted exactly those."""
     import torch
-    from repro_torch.models import layers as L
     from repro_torch.serving import PagedServingEngine
-
-    tally = dict(launches=0, missed_head_rows=0, unique_missed_head_rows=0)
-    real = L.gather_heads_tiered
-
-    def counted(stag_k, stag_v, host_k, host_v, dev_map, rows):
-        bs, G = stag_k.shape[1], stag_k.shape[2]
-        want = rows.long()
-        miss = (want >= 0) & (dev_map.long()[want.clamp_min(0) // bs] < 0)
-        heads = torch.arange(G, device=rows.device)[None, :, None, None]
-        key = (want * G + heads)[miss]
-        tally["launches"] += 1
-        tally["missed_head_rows"] += int(key.numel())
-        tally["unique_missed_head_rows"] += int(torch.unique(key).numel())
-        return real(stag_k, stag_v, host_k, host_v, dev_map, rows)
 
     eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
                              max_batch=4, num_blocks=512,
                              num_device_blocks=128, chunk_size=8,
                              offload=True, device=dev)
-    L.gather_heads_tiered = counted
-    try:
-        _serve(eng, _prompts(cfg)[:2], gen, ARRIVALS[:2], OFFLOAD_KERNELS,
-               cfg)
-    finally:
-        L.gather_heads_tiered = real
+    with _TieredTally() as tally:
+        _, done = _serve(eng, _prompts(cfg)[:2], gen, ARRIVALS[:2],
+                         OFFLOAD_KERNELS, cfg)
+    t = tally.t
+    missed = t["missed_head_rows"]
+    _check(t["launches"] > 0 and missed > 0,
+           f"no missed winner rows counted: {t}")
+    _check(eng.host.fetched_unique_head_rows
+           == t["distinct_missed_head_rows"],
+           f"engine counted {eng.host.fetched_unique_head_rows} distinct "
+           f"rows, the launches {t['distinct_missed_head_rows']}")
+    head_b = eng.host.bytes_per_head_row(eng._names[0])
+    uniq_b = sum(r.fetched_unique_bytes for r in done.values())
     del eng
     torch.cuda.empty_cache()
-    missed = tally["missed_head_rows"]
-    _check(tally["launches"] > 0 and missed > 0,
-           f"no missed winner rows counted: {tally}")
-    return dict(tally, requests=2, new_tokens=gen,
-                duplicate_share=1 - tally["unique_missed_head_rows"] / missed)
+    return dict(t, requests=2, new_tokens=gen,
+                fetched_unique_bytes=uniq_b,
+                distinct_bytes=t["distinct_missed_head_rows"] * head_b,
+                duplicate_share=1 - t["distinct_missed_head_rows"] / missed)
 
 
-def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 64):
+def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 32):
     """ParisKV slots, full-attention slots and ParisKV waves on two
     requests of 3000/6000 prompt tokens submitted together."""
     import numpy as np
@@ -1222,14 +1451,8 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
                   gen: int = 40):
     """Where a decode step's time goes: one chunk of the engine (four
     active rows, same n_max) under torch.profiler, after an unprofiled
-    chunk for the wall time. Device busy = union of the kernels' intervals
-    in the profiled chunk."""
+    chunk for the wall time (``_profile_chunk``)."""
     import numpy as np
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch import kernels as K
     from repro_torch.serving import Request
 
     rng = np.random.RandomState(seed)
@@ -1239,15 +1462,37 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
                                prompt,)).astype(np.int32)))
     eng.start()
     eng.step_serve()                      # admissions + first chunk
+    rec = dict(path=path, rows=4, **_profile_chunk(eng))
+    while eng.pending():
+        eng.step_serve()
+    print("profile " + json.dumps(rec), flush=True)
+    return rec
+
+
+def _profile_chunk(eng):
+    """One unprofiled chunk for the wall time, then one chunk under
+    torch.profiler: wall and device-busy time per step (busy = union of
+    the kernels' intervals), kernel launches and host-device copies per
+    step, the top kernels, the port's kernels' device time per step, and
+    the port's launch counts per step (``LAUNCHES`` over the profiled
+    chunk)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels as K
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     eng.step_serve()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / eng.chunk_size
+    K.reset_launches()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         eng.step_serve()
         torch.cuda.synchronize()
+    ours_n = {k: v / eng.chunk_size for k, v in K.LAUNCHES.items() if v}
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     busy, end = 0.0, float("-inf")
@@ -1267,18 +1512,215 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
                       if f"{name}_kernel" in e.key
                       and e.device_type == DeviceType.CUDA) / eng.chunk_size
             for name in K.KERNELS}
+    return dict(steps=eng.chunk_size, wall_ms_per_step=wall_ms,
+                device_busy_ms_per_step=busy / 1e3 / eng.chunk_size,
+                device_idle_share=1 - busy / 1e3 / eng.chunk_size / wall_ms,
+                launches_per_step=launches / eng.chunk_size,
+                memcpy_per_step=copies / eng.chunk_size,
+                top_kernels_us_per_step=[
+                    (k[:60], v / eng.chunk_size) for k, v in kernels],
+                port_kernels_us_per_step={k: v for k, v in ours.items()
+                                          if v},
+                port_launches_per_step=ours_n)
+
+
+# --------------------------------------------------------------- chunked ---
+def _fill_counts(cfg, prompts, budget: int):
+    """The launches a chunked fill of ``prompts`` adds on a paged pool, all
+    layers: prefix reads (every chunk but the first) and histogram
+    updates (every chunk whose region growth is not empty)."""
+    from repro_torch.core import cache as CC
+    pcfg = cfg.pariskv
+    reads = spans = 0
+    for n in map(len, prompts):
+        for f0 in range(0, n, budget):
+            f1 = min(n, f0 + budget)
+            reads += f0 > 0
+            spans += (CC.fill_enc_end(f1, pcfg)
+                      > max(CC.fill_enc_end(f0, pcfg), pcfg.sink_size))
+    return cfg.num_layers * reads, cfg.num_layers * spans
+
+
+def _per_request(rec, done, paged_out):
+    """TTFT, admission gaps and (when the engine phase ran) token
+    agreement with it, per request."""
+    import numpy as np
+    out = dict(ttft_s=[r["ttft_s"] for r in rec["requests"]],
+               admission_gaps_s=rec["admission_gaps_s"],
+               tokens_per_s=rec["tokens_per_s"])
+    if paged_out:
+        out["token_agreement_with_engine_phase"] = [
+            float(np.mean(done[u].output == paged_out[u]))
+            for u in sorted(done)]
+    return out
+
+
+def chunked_phase(dev, cfg, params, paged_out, paged_rec,
+                  n_max: int = 16384, budget: int = CHUNK_BUDGET):
+    """Chunked prefill (prefill_budget=512) at full width: (a) the paged
+    engine, (b) the slot engine and (c) the offloaded engine on the engine
+    phase's four requests, (d) float32 identity of chunked and solo
+    tokens on every engine at 2 layers, (e) a profile of mixed steps."""
+    import torch
+    from repro_torch.serving import PagedServingEngine, ServingEngine
+
+    prompts = _prompts(cfg)
+    reads, spans = _fill_counts(cfg, prompts, budget)
+    common = dict(n_max=n_max, max_batch=4, chunk_size=8,
+                  prefill_budget=budget, device=dev)
+    paged_kw = dict(block_size=128, num_blocks=512, **common)
+    rec = {}
+    # (a) the paged engine
+    eng = PagedServingEngine(cfg, params, **paged_kw)
+    _warm(eng, cfg)
+    r, done = _serve(eng, prompts, GEN, ARRIVALS, PAGED_KERNELS, cfg,
+                     fill=dict(gather_rows_paged=reads, bucket_count=spans))
+    _check(r["launches"]["bucket_count"] == spans,
+           f"bucket_count: {r['launches']['bucket_count']} launches, the "
+           f"fill's histogram updates need {spans}")
+    paged = {u: q.output for u, q in done.items()}
+    rec["paged"] = dict(r, **_per_request(r, done, paged_out))
+    if paged_rec:
+        rec["paged"]["solo_engine_phase"] = dict(
+            ttft_s=[q["ttft_s"] for q in paged_rec["requests"]],
+            admission_gaps_s=paged_rec["admission_gaps_s"],
+            tokens_per_s=paged_rec["tokens_per_s"])
+    print("chunked_paged " + json.dumps(rec["paged"]), flush=True)
+    rec["profile"] = _mixed_profile(eng, cfg)
+    del eng
+    torch.cuda.empty_cache()
+    # (b) the slot engine
+    eng = ServingEngine(cfg, params, **common)
+    _warm(eng, cfg)
+    r, done = _serve(eng, prompts, GEN, ARRIVALS, SLOT_KERNELS, cfg,
+                     exact=EXACT + ("bucket_count",))
+    rec["slot"] = dict(r, **_per_request(r, done, paged_out))
+    rec["slot"]["tokens_identical_to_chunked_paged"] = _same_tokens(
+        {u: q.output for u, q in done.items()}, paged)
+    print("chunked_slot " + json.dumps(rec["slot"]), flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    # (c) the offloaded engine, every tiered gather checked
+    eng = PagedServingEngine(cfg, params, offload=True, num_device_blocks=128,
+                             **paged_kw)
+    _warm(eng, cfg)
+    with _TieredTally() as tally:
+        r, done = _serve(eng, prompts, GEN, ARRIVALS, OFFLOAD_KERNELS, cfg,
+                         fill=dict(gather_rows_tiered=reads,
+                                   bucket_count=spans))
+    host, t = eng.host, tally.t
+    same = _same_tokens({u: q.output for u, q in done.items()}, paged)
+    G = cfg.num_kv_heads
+    uniq_b = (host.fetched_unique_head_rows
+              * host.bytes_per_head_row(eng._names[0])
+              + host.fetched_unique_fill_rows
+              * host.bytes_per_row(eng._names[0]))
+    rec["offload"] = dict(
+        r, **_tier_stats(eng, done), **_per_request(r, done, paged_out),
+        tokens_identical_to_chunked_paged=same, tally=t,
+        fetched_fill_rows=host.fetched_fill_rows,
+        fetched_unique_fill_rows=host.fetched_unique_fill_rows,
+        fetched_unique_head_rows=host.fetched_unique_head_rows,
+        # the requests' share of the distinct bytes; rows of a free slot
+        # (frozen regions, table row -1) also read, as in the reference,
+        # and their bytes are shared by no request
+        fetched_unique_bytes=sum(q.fetched_unique_bytes
+                                 for q in done.values()),
+        distinct_bytes=uniq_b,
+        note="every tiered gather checked on the card (a sync per "
+             "launch): tokens/s not comparable")
+    print("chunked_offload " + json.dumps(rec["offload"]), flush=True)
+    _check(same, "chunked offloaded tokens differ from the chunked paged "
+           "engine's")
+    _check(host.fetched_fill_rows > 0, "no fill prefix row came from host "
+           "memory")
+    _check(host.fetched_unique_head_rows == t["distinct_missed_head_rows"]
+           and G * host.fetched_unique_fill_rows
+           == t["fill_distinct_missed_head_rows"],
+           f"the engine's distinct rows ({host.fetched_unique_head_rows}, "
+           f"fill {host.fetched_unique_fill_rows}) differ from the "
+           f"kernel's distinct reads {t}")
+    del eng
+    torch.cuda.empty_cache()
+    rec["f32_identity"] = _f32_identity(dev, cfg)
+    return rec
+
+
+def _mixed_profile(eng, cfg, gen: int = 64):
+    """(e) Mixed steps under the profiler: three 2,000-token requests fill
+    and decode, then a 12,000-token request fills; its second chunk of
+    fill after the first (eight mixed steps, each reading a prefix and
+    updating the histogram beside three decoding rows) is timed, the next
+    profiled. Fails unless every layer of every profiled step launched the
+    fill's prefix read (gather_rows_paged beside the decode gather) and
+    its histogram update (bucket_count)."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.RandomState(8)
+    for uid, (n, g) in enumerate(((2000, gen), (2000, gen), (2000, gen),
+                                  (12000, 8))):
+        eng.submit(Request(uid=200 + uid, max_new_tokens=g,
+                           prompt=rng.randint(0, cfg.vocab_size, size=(
+                               n,)).astype(np.int32)))
+    eng.start()
+    while eng.pending() and (eng._filling is None
+                             or eng._slots[eng._filling].uid != 203):
+        eng.step_serve()                  # ends after its first chunk
+    rec = dict(path="chunked paged, mixed steps", rows=4, fill_rows=1,
+               **_profile_chunk(eng))
     while eng.pending():
         eng.step_serve()
-    rec = dict(path=path, rows=4, steps=eng.chunk_size,
-               wall_ms_per_step=wall_ms,
-               device_busy_ms_per_step=busy / 1e3 / eng.chunk_size,
-               device_idle_share=1 - busy / 1e3 / eng.chunk_size / wall_ms,
-               launches_per_step=launches / eng.chunk_size,
-               memcpy_per_step=copies / eng.chunk_size,
-               top_kernels_us_per_step=[
-                   (k[:60], v / eng.chunk_size) for k, v in kernels],
-               port_kernels_us_per_step={k: v for k, v in ours.items() if v})
+    per = rec["port_launches_per_step"]
+    L = cfg.num_layers
     print("profile " + json.dumps(rec), flush=True)
+    _check(per.get("gather_rows_paged", 0) >= 2 * L
+           and per.get("bucket_count", 0) == L,
+           f"mixed steps launched {per} per step: not the fill's prefix "
+           f"read and histogram update in every layer")
+    return rec
+
+
+def _f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
+    """(d) 2 layers at full width in float32 on the card: chunked and solo
+    prefill give identical tokens on the paged, slot and offloaded
+    engines (three staggered requests of 1,500/2,500/3,500 tokens, fills
+    spanning several chunks and completing mid-chunk; the offloaded
+    engine stages 40 of 128 blocks)."""
+    import torch
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import PagedServingEngine, ServingEngine
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
+    params = init_params(cfg, seed=4, device=dev)
+    prompts = _prompts(cfg, seed=6, lens=(1500, 2500, 3500))
+    common = dict(n_max=4096, max_batch=4, chunk_size=4, device=dev)
+    paged = dict(block_size=128, num_blocks=128, **common)
+    engines = (("paged", PagedServingEngine, paged),
+               ("slot", ServingEngine, common),
+               ("offload", PagedServingEngine,
+                dict(offload=True, num_device_blocks=40, **paged)))
+    rec = {}
+    for name, cls, kw in engines:
+        outs = {}
+        for b in (0, budget):
+            eng = cls(cfg, params, prefill_budget=b, **kw)
+            _, done = _serve(eng, prompts, gen, (0, 1, 2), {}, cfg,
+                             audit=name != "slot")
+            outs[b] = {u: q.output for u, q in done.items()}
+            if name == "offload" and b:
+                rec["offload_fetched_fill_rows"] = eng.host.fetched_fill_rows
+            del eng
+        rec[name] = _same_tokens(outs[0], outs[budget])
+    torch.cuda.empty_cache()
+    print("chunked_f32 " + json.dumps(dict(
+        layers=2, dtype="float32", prompts=[1500, 2500, 3500],
+        new_tokens=gen, prefill_budget=budget,
+        chunked_tokens_identical_to_solo=rec)), flush=True)
+    _check(all(rec[n] for n, _, _ in engines),
+           f"float32 chunked tokens differ from solo: {rec}")
+    _check(rec["offload_fetched_fill_rows"] > 0,
+           "float32 offload: no fill prefix row came from host memory")
     return rec
 
 
@@ -1411,7 +1853,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
-              "parity")
+              "chunked", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -1433,11 +1875,12 @@ def main() -> int:
     cfg = configs.get("qwen2-1.5b")
     kern = kernel_phase(dev, cfg) if "kernels" in only else {}
     params = None
-    if {"engine", "slot", "metaview", "baseline", "offload"} & set(only):
+    if {"engine", "slot", "metaview", "baseline", "offload",
+            "chunked"} & set(only):
         from repro_torch.models.model import init_params
         params = init_params(cfg, seed=0, device=dev)
     launches = {}             # kernel → launches on the first path using it
-    paged_out = None
+    paged_out = eng = None
     if "engine" in only or "offload" in only:
         eng, engine, paged_out = engine_phase(dev, cfg, params)
         profile_phase(engine, cfg, "paged")
@@ -1461,6 +1904,17 @@ def main() -> int:
         off, _ = offload_phase(dev, cfg, params, eng, paged_out)
         launches.setdefault("gather_rows_tiered",
                             off["launches"]["gather_rows_tiered"])
+    if "chunked" in only:
+        ch = chunked_phase(dev, cfg, params, paged_out, eng)
+        # the fill's kernels: their launches in the chunked runs (paged:
+        # prefix reads beside the decode gathers, and the histogram updates
+        # alone; offloaded: the tiered gathers, fill and decode)
+        launches["gather_rows_paged/fill"] = ch["paged"]["launches"][
+            "gather_rows_paged"]
+        launches["bucket_count/fill"] = ch["paged"]["launches"][
+            "bucket_count"]
+        launches["gather_rows_tiered/fill"] = ch["offload"]["launches"][
+            "gather_rows_tiered"]
     if "parity" in only:
         parity_phase(dev, cfg)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Decode-step profiles of the port's contiguous slot engine and paged
-meta-view engine on one NVIDIA card, for the port in a given source tree:
-how two commits are compared in one call (parent, change, change, parent).
+"""Decode-step profiles of the port's contiguous slot engine, paged
+meta-view engine and offloaded engine on one NVIDIA card, for the port in
+a given source tree: how two commits are compared in one call (parent,
+change, change, parent).
 
-    python3 scripts/profile_paths.py [SRC]
+    python3 scripts/profile_paths.py [SRC] [PATH ...]
 
-``SRC`` is a tree's ``src/`` directory (default: this checkout's). Each
-path serves qwen2-1.5b at full width (28 layers, bf16, random weights from
+``SRC`` is a tree's ``src/`` directory (default: this checkout's); PATH
+is ``slot``, ``metaview`` or ``offload`` (128 of 512 blocks staged in a
+pinned host pool; default: slot and metaview). Each path serves
+qwen2-1.5b at full width (28 layers, bf16, random weights from
 seed 0) and prints one ``profile {...}`` line from
 ``chip_smoke.profile_phase``: wall and device-busy time per decode step,
 launches and host-device copies per step, the top kernels and the port's
@@ -27,8 +30,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_paths: no CUDA device is available", file=sys.stderr)
         return 2
-    if len(sys.argv) > 1:
-        sys.path.insert(0, os.path.abspath(sys.argv[1]))
+    args = sys.argv[1:]
+    paths = [a for a in args if a in ("slot", "metaview", "offload")]
+    for a in args:
+        if a not in paths:
+            sys.path.insert(0, os.path.abspath(a))
     from repro_torch import configs
     from repro_torch.models.model import init_params
     from repro_torch.serving import PagedServingEngine, ServingEngine
@@ -42,8 +48,13 @@ def main() -> int:
                                       chunk_size=8, device="cuda"),
         "metaview": lambda: PagedServingEngine(
             cfg, params, n_max=16384, block_size=128, max_batch=4,
-            num_blocks=512, chunk_size=8, fused=False, device="cuda")}
-    for path, make in engines.items():
+            num_blocks=512, chunk_size=8, fused=False, device="cuda"),
+        "offload": lambda: PagedServingEngine(
+            cfg, params, n_max=16384, block_size=128, max_batch=4,
+            num_blocks=512, num_device_blocks=128, chunk_size=8,
+            offload=True, device="cuda")}
+    for path in paths or ("slot", "metaview"):
+        make = engines[path]
         eng = make()
         chip_smoke._warm(eng, cfg)
         chip_smoke.profile_phase(eng, cfg, path)

@@ -1,5 +1,5 @@
-"""Attention for prefill and decode (port of ``repro/core/attention.py``
-without the chunked-fill part).
+"""Attention for prefill, decode and chunked fill (port of
+``repro/core/attention.py``).
 
 ``blockwise_causal_attention`` is the prefill attention, a two-level
 online softmax in plain torch ops (the JAX package leaves it to XLA).
@@ -12,6 +12,9 @@ Sink, window and winner rows come through one gather launch
 batch row (``kernels.row_tables``).
 ``dense_decode_attention`` is the full-attention baseline, written as the
 reference writes it (float32 scores, a mask, a softmax).
+``chunk_fill_attention`` is a prefill chunk's attention in a mixed
+prefill+decode step: chunk-causal over the cached prefix and the chunk in
+one joint softmax, masked by position (plain torch, as the reference's jnp).
 """
 from __future__ import annotations
 
@@ -265,3 +268,41 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bghn,bngd->bghd", p, v_cache.float())
     return out.reshape(b, H, hd)
+
+
+def chunk_fill_attention(q: torch.Tensor, k_pref: torch.Tensor,
+                         v_pref: torch.Tensor, pref_pos: torch.Tensor,
+                         k_new: torch.Tensor, v_new: torch.Tensor,
+                         q_pos: torch.Tensor, new_pos: torch.Tensor, *,
+                         sm_scale: float, softcap: float = 0.0
+                         ) -> torch.Tensor:
+    """Prefill-chunk attention: the P prompt tokens of one filling slot
+    attend to that slot's cached prefix plus the chunk under one joint
+    softmax, in float32.
+
+    q (b, P, H, hd); k_pref/v_pref (b, n, G, hd) the prefix as read from
+    any layout, pref_pos (b, n) each prefix key's logical position (< 0
+    invalid); k_new/v_new (b, P, G, hd) the chunk's keys and values;
+    q_pos (b, P) the query positions, new_pos (b, P) the chunk keys'
+    positions (< 0: the last chunk's pad tail) → (b, P, H, hd) float32.
+    Key j is visible to query t iff 0 <= pos_j <= q_pos_t: the key set a
+    solo prefill's causal attention sees. The scores are (b, G, Hg, P,
+    n + P) float32, materialized."""
+    b, P, H, hd = q.shape
+    G = k_pref.shape[2]
+    qg = q.reshape(b, P, G, H // G, hd).float()
+
+    def seg(k, v, pos):
+        s = torch.einsum("bpghd,bngd->bghpn", qg, k.float())
+        ok = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])
+        return torch.where(ok[:, None, None], s, NEG_INF), v.float()
+
+    s_pref, vp = seg(k_pref, v_pref, pref_pos)
+    s_self, vs = seg(k_new, v_new, new_pos)
+    scores = _softcap(torch.cat([s_pref, s_self], dim=-1) * sm_scale,
+                      softcap)
+    p = torch.softmax(scores, dim=-1)
+    p_pref, p_self = p.split([k_pref.shape[1], P], dim=-1)
+    out = torch.einsum("bghpn,bngd->bpghd", p_pref, vp)
+    out = out + torch.einsum("bghpt,btgd->bpghd", p_self, vs)
+    return out.reshape(b, P, H, hd)

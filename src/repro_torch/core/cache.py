@@ -1,7 +1,7 @@
 """ParisKV cache state (port of ``repro/core/cache.py`` without the
-chunked-fill and prefix-sharing parts): Sink / Retrieval / Local / Update
-regions, the contiguous per-slot cache, the paged block pool and its
-tiered (host-offloaded) variant.
+prefix-sharing parts): Sink / Retrieval / Local / Update regions, the
+contiguous per-slot cache, the paged block pool and its tiered
+(host-offloaded) variant, and the writes of a chunked fill.
 
       0 ........ sink | sink ........ enc_end | enc_end ....... pos | ...
       [   Sink     ]   [   Retrieval region ]  [ Local + Update buf ]
@@ -33,12 +33,13 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import encode
 from repro_torch.core.config import ParisKVConfig
 from repro_torch.kernels import row_tables
-from repro_torch.kernels.collision import bucket_count
+from repro_torch.kernels.collision import bucket_count, bucket_count_span
 from repro_torch.kernels.collision.ref import bucket_histogram
 from repro_torch.kernels.gather_kv import gather_rows_paged
 
@@ -170,6 +171,136 @@ def promote_rows(cache: LayerKVCache, starts: torch.Tensor,
         old = dst[rows, :, at]                                  # (b, U, G, B)
         dst[rows, :, at] = torch.where(keep, new.transpose(1, 2), old)
     return cache
+
+
+# ---------------------------------------------------------- chunked fill ----
+# A mixed prefill+decode step (models/serve.py:decode_chunk with
+# prefill_budget > 0) writes one prompt chunk of the filling slot: K/V and
+# metadata at positions [start, start + valid_n) of its row, contiguous or
+# through its block-table row, and — paged — advances its histogram. The
+# host knows every fill's progress, so ``start`` and ``valid_n`` are ints
+# and the last partial chunk's pad tail is simply not written.
+
+def fill_enc_end(fill_pos, cfg: ParisKVConfig):
+    """Retrieval-region end once the first ``fill_pos`` prompt tokens are
+    written (an int, or a tensor elementwise): ``initial_regions``' bound
+    as a function of fill progress, so a completed fill lands on the
+    regions of a solo prefill of the same prompt."""
+    if isinstance(fill_pos, torch.Tensor):
+        f = fill_pos.to(torch.int32)
+        return torch.maximum(f.clamp_max(cfg.sink_size), f - cfg.local_size)
+    f = int(fill_pos)
+    return max(min(cfg.sink_size, f), f - cfg.local_size)
+
+
+def fill_chunk_write(cache: LayerKVCache, row: int, start: int,
+                     k_chunk: torch.Tensor, v_chunk: torch.Tensor,
+                     valid_n: int, meta=None) -> LayerKVCache:
+    """Write the first ``valid_n`` of a chunk's K/V (P, G, hd) into batch
+    row ``row`` at positions [start, start + valid_n), in place; positions
+    past the store are dropped. ``meta``: the chunk's metadata, (1, G, P,
+    B) each."""
+    m = max(0, min(valid_n, cache.k.shape[1] - start))
+    cache.k[row, start:start + m] = k_chunk[:m].to(cache.k.dtype)
+    cache.v[row, start:start + m] = v_chunk[:m].to(cache.v.dtype)
+    if meta is not None:
+        for dst, new in zip(cache[2:], meta):
+            dst[row, :, start:start + m] = new[0, :, :m]
+    return cache
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    """A small host index array on ``device`` with no device
+    synchronization (through pinned memory on a card)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.int64))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def paged_fill_index(bt_row, start: int, valid_n: int, block_size: int,
+                     device) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Host side of a chunk write through a block-table row: ``bt_row``
+    (nblk,) on the host (the engine's table) → (chunk entries, physical
+    blocks, offsets) on ``device`` for the positions [start, start +
+    valid_n) whose block is allocated and inside the table; the others are
+    dropped, as the reference drops them."""
+    row = np.asarray(bt_row).reshape(-1)
+    lidx = start + np.arange(valid_n)
+    blk = lidx // block_size
+    pb = row[np.minimum(blk, row.shape[0] - 1)]
+    sel = np.flatnonzero((blk < row.shape[0]) & (pb >= 0))
+    return (_upload(sel, device), _upload(pb[sel], device),
+            _upload(lidx[sel] % block_size, device))
+
+
+def _write_rows(pool_k, pool_v, index, k_chunk, v_chunk) -> None:
+    sel, pb, off = index
+    pool_k[pb, off] = k_chunk[sel].to(pool_k.dtype)
+    pool_v[pb, off] = v_chunk[sel].to(pool_v.dtype)
+
+
+def _write_meta(pool: PagedLayerKVCache, index, meta) -> None:
+    sel, pb, off = index
+    for dst, new in zip(pool[2:], meta):              # new: (1, G, P, B)
+        dst[pb, :, off] = new[0].transpose(0, 1)[sel]
+
+
+def paged_fill_chunk_write(pool: PagedLayerKVCache, bt_row,
+                           start: int, k_chunk: torch.Tensor,
+                           v_chunk: torch.Tensor, valid_n: int, meta=None,
+                           index=None) -> PagedLayerKVCache:
+    """Paged ``fill_chunk_write``: the chunk goes through the slot's
+    block-table row ``bt_row`` (nblk,) on the host, in place; writes into
+    unallocated blocks or past the table are dropped. ``index`` is a
+    precomputed ``paged_fill_index`` (one per step, shared by every
+    layer)."""
+    if index is None:
+        index = paged_fill_index(bt_row, start, valid_n, pool.k.shape[1],
+                                 pool.k.device)
+    _write_rows(pool.k, pool.v, index, k_chunk, v_chunk)
+    if meta is not None:
+        _write_meta(pool, index, meta)
+    return pool
+
+
+def tiered_fill_chunk_write(pool: PagedLayerKVCache, bt_row, kv_row,
+                            start: int, k_chunk: torch.Tensor,
+                            v_chunk: torch.Tensor, valid_n: int, meta=None,
+                            index=None, kv_index=None) -> PagedLayerKVCache:
+    """Tiered ``paged_fill_chunk_write``: K/V through the composed staging
+    row ``kv_row`` (the fill frontier is pinned staged), metadata through
+    the host row ``bt_row``, both (nblk,) on the host; each side drops
+    what its own row leaves unmapped. ``index`` / ``kv_index``: precomputed
+    ``paged_fill_index`` of the two rows."""
+    bs = pool.k.shape[1]
+    if kv_index is None:
+        kv_index = paged_fill_index(kv_row, start, valid_n, bs,
+                                    pool.k.device)
+    _write_rows(pool.k, pool.v, kv_index, k_chunk, v_chunk)
+    if meta is not None:
+        if index is None:
+            index = paged_fill_index(bt_row, start, valid_n, bs,
+                                     pool.k.device)
+        _write_meta(pool, index, meta)
+    return pool
+
+
+def paged_fill_hist_update(pool: PagedLayerKVCache, hist_row: torch.Tensor,
+                           bt_row: torch.Tensor, f0: int, f1: int,
+                           cfg: ParisKVConfig) -> torch.Tensor:
+    """Advance the filling slot's histogram ``hist_row`` (1, G, B, 2^m) in
+    place by the retrieval region's growth [enc(f0), enc(f1)) as the fill
+    frontier moves f0 → f1: the bucket counts of the positions [max(enc(f0),
+    sink), enc(f1)) under allocated blocks of ``bt_row`` (1, nblk) on the
+    pool's device (kernels/collision ``bucket_count_span``). Runs after
+    the chunk's metadata is written: the counted positions can lie in this
+    very chunk. Keeps ``hist == histogram(ids, [sink, enc_end))`` true at
+    every mixed step of a fill."""
+    lo = max(fill_enc_end(f0, cfg), cfg.sink_size)
+    return bucket_count_span(pool.meta_ids, bt_row, lo, fill_enc_end(f1, cfg),
+                             cfg.num_centroids(), hist_row)
 
 
 def promote_trigger(regions: CacheRegions, cfg: ParisKVConfig) -> torch.Tensor:

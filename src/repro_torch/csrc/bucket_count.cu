@@ -18,6 +18,13 @@
 // stride > 1 is the reference's strided sample (hist_sample), scaled back.
 // The region comes from enc_end here: no mask tensor is built.
 //
+// Block-table mode (bt given; the chunked fill's histogram update,
+// repro/core/cache.py:paged_fill_hist_update): ids is a pool (nb, G, bs,
+// B), bt (b, nblk) maps logical blocks to physical ones, and each row
+// counts the logical positions [sink, hi) whose block is allocated
+// (bt >= 0, inside the table), stride 1; with accumulate the counts are
+// added to the ones in place (the slot's incremental histogram).
+//
 // Bound on the H100: bytes. It must read each sampled valid key's B ids
 // once per kv head and write the counts once (b*G*B*nc*4 bytes); the B
 // increments per key are far below the card's integer rate. At the slot
@@ -49,8 +56,10 @@ template <int B>
 __global__ void __launch_bounds__(kMaxThreads)
 bucket_count_kernel(const uint8_t* __restrict__ ids,
                     const int32_t* __restrict__ enc_end,
+                    const int32_t* __restrict__ bt,
                     int32_t* __restrict__ counts, int G, int n, int nc,
-                    int sink, int stride) {
+                    int sink, int stride, int nblk, int bs,
+                    int accumulate) {
   extern __shared__ int hist[];                        // (B, nc)
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -60,24 +69,39 @@ bucket_count_kernel(const uint8_t* __restrict__ ids,
   const int bins = B * nc;
 
   for (int i = tid; i < bins; i += T) hist[i] = 0;
-  // the sampled positions p0, p0 + stride, ... below hi
-  const int hi = min(enc_end[bg / G], n);
+  // the sampled positions p0, p0 + stride, ... below hi (table mode: n is
+  // the span's end, stride 1)
+  const int hi = bt == nullptr ? min(enc_end[bg / G], n) : n;
   const int p0 = (sink + stride - 1) / stride * stride;
   const int K = hi > p0 ? (hi - p0 + stride - 1) / stride : 0;
   const uint8_t* row = ids + (size_t)bg * n * B;
+  const int32_t* bt_row =
+      bt == nullptr ? nullptr : bt + (size_t)(bg / G) * nblk;
+  const int g = bg % G;
   const int step = csize * T;
   __syncthreads();
 
   for (int k0 = rank * T + tid; k0 < K; k0 += kUnroll * step) {
     repro::KeyIds<B> key[kUnroll];
+    bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int k = k0 + u * step;
-      if (k < K) key[u].load(row + (size_t)(p0 + k * stride) * B);
+      const int p = p0 + k * stride;
+      ok[u] = k < K;
+      if (ok[u] && bt_row != nullptr) {
+        const int blk = p / bs;
+        const int pb = blk < nblk ? bt_row[blk] : -1;
+        ok[u] = pb >= 0;
+        if (ok[u])
+          key[u].load(ids + (((size_t)pb * G + g) * bs + p % bs) * B);
+      } else if (ok[u]) {
+        key[u].load(row + (size_t)p * B);
+      }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (k0 + u * step >= K) break;
+      if (!ok[u]) continue;
 #pragma unroll
       for (int s = 0; s < B; ++s) atomicAdd(&hist[s * nc + key[u][s]], 1);
     }
@@ -88,14 +112,15 @@ bucket_count_kernel(const uint8_t* __restrict__ ids,
   for (int i = rank * T + tid; i < bins; i += step) {
     int sum = 0;
     for (int r = 0; r < csize; ++r) sum += cluster.map_shared_rank(hist, r)[i];
-    out[i] = sum * stride;
+    out[i] = accumulate ? out[i] + sum * stride : sum * stride;
   }
   cluster.sync();   // no block leaves while another still reads its copy
 }
 
 template <int B>
-int launch(const void* ids, const void* enc_end, void* counts, int b, int G,
-           int n, int nc, int sink, int stride, int cluster, int threads,
+int launch(const void* ids, const void* enc_end, const void* bt,
+           void* counts, int b, int G, int n, int nc, int sink, int stride,
+           int nblk, int bs, int accumulate, int cluster, int threads,
            cudaStream_t stream) {
   auto kernel = bucket_count_kernel<B>;
   if (cluster > 8) {
@@ -117,8 +142,9 @@ int launch(const void* ids, const void* enc_end, void* counts, int b, int G,
   cfg.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const uint8_t*>(ids),
-      static_cast<const int32_t*>(enc_end), static_cast<int32_t*>(counts), G,
-      n, nc, sink, stride);
+      static_cast<const int32_t*>(enc_end), static_cast<const int32_t*>(bt),
+      static_cast<int32_t*>(counts), G, n, nc, sink, stride, nblk, bs,
+      accumulate);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -126,21 +152,23 @@ int launch(const void* ids, const void* enc_end, void* counts, int b, int G,
 }  // namespace
 
 REPRO_EXPORT int bucket_count_launch(const void* ids, const void* enc_end,
-                                     void* counts, int b, int G, int n, int B,
-                                     int nc, int sink, int stride,
-                                     int cluster, int threads,
-                                     cudaStream_t stream) {
+                                     const void* bt, void* counts, int b,
+                                     int G, int n, int B, int nc, int sink,
+                                     int stride, int nblk, int bs,
+                                     int accumulate, int cluster,
+                                     int threads, cudaStream_t stream) {
   if (nc < 1 || nc > 256 || sink < 0 || stride < 1 || n < 1 ||
+      (bt != nullptr && (stride != 1 || nblk < 1 || bs < 1)) ||
       (threads != 256 && threads != 512) ||
       (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 &&
        cluster != 16))
     return (int)cudaErrorInvalidValue;
   if (b * G == 0) return (int)cudaGetLastError();
   if (B == 16)
-    return launch<16>(ids, enc_end, counts, b, G, n, nc, sink, stride,
-                      cluster, threads, stream);
+    return launch<16>(ids, enc_end, bt, counts, b, G, n, nc, sink, stride,
+                      nblk, bs, accumulate, cluster, threads, stream);
   if (B == 8)
-    return launch<8>(ids, enc_end, counts, b, G, n, nc, sink, stride,
-                     cluster, threads, stream);
+    return launch<8>(ids, enc_end, bt, counts, b, G, n, nc, sink, stride,
+                     nblk, bs, accumulate, cluster, threads, stream);
   return (int)cudaErrorInvalidValue;
 }

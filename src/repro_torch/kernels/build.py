@@ -45,9 +45,8 @@ SIGNATURES = {
     "bucket_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rerank_topk_paged": [_P] * 13 + [_I] * 14 + [_P],
     "gather_rows_paged": [_P] * 10 + [_L, _L] + [_I] * 9 + [_P],
-    "bucket_count": [_P, _P, _P] + [_I] * 9 + [_P],
-    "gather_rows_tiered": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
-                           _I, _I, _I, _I, _P],
+    "bucket_count": [_P] * 4 + [_I] * 12 + [_P],
+    "gather_rows_tiered": [_P] * 10 + [_I] * 9 + [_P],
 }
 # launcher → the source (csrc/<source>.cu, lib<source>.so) exporting it
 SOURCE_OF = {name: name for name in SIGNATURES}

@@ -1,6 +1,7 @@
 """Wrappers of the Stage-I collision kernel (csrc/collision_paged.cu),
-over a paged pool or a contiguous store, and of the bucket histogram of a
-contiguous store's retrieval region (csrc/bucket_count.cu)."""
+over a paged pool or a contiguous store, and of the bucket histogram
+(csrc/bucket_count.cu) of a contiguous store's retrieval region or of a
+span of logical positions through a block table."""
 from __future__ import annotations
 
 import torch
@@ -8,6 +9,7 @@ import torch
 from repro_torch.kernels import LAUNCHES, SEG_LEN, row_tables
 from repro_torch.kernels import build as K
 from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                              bucket_count_span_ref,
                                               collision_paged_ref)
 
 # bucket_count's launch: threads per block, and at most this many blocks
@@ -131,8 +133,9 @@ def launch_count(ids: torch.Tensor, enc_end: torch.Tensor, sink_size: int,
                          f"{num_buckets} buckets, stride {stride}")
     out = torch.empty((b, G, B, num_buckets), dtype=torch.int32,
                       device=ids.device)
-    K.launch("bucket_count", K.ptr(ids), K.ptr(enc_end), K.ptr(out), b, G,
-             n, B, num_buckets, int(sink_size), int(stride), cluster, threads)
+    K.launch("bucket_count", K.ptr(ids), K.ptr(enc_end), K.ptr(None),
+             K.ptr(out), b, G, n, B, num_buckets, int(sink_size), int(stride),
+             0, 0, 0, cluster, threads)
     return out
 
 
@@ -152,3 +155,40 @@ def bucket_count(ids: torch.Tensor, enc_end: torch.Tensor, sink_size: int,
                        count_cluster(keys), COUNT_THREADS)
     LAUNCHES["bucket_count"] += 1
     return out
+
+
+def bucket_count_span(pool_ids: torch.Tensor, block_tables: torch.Tensor,
+                      lo: int, hi: int, num_buckets: int,
+                      hist: torch.Tensor) -> torch.Tensor:
+    """Add the bucket histogram of the logical positions [lo, hi) of each
+    row of ``block_tables``, under allocated blocks only, to ``hist`` in
+    place (the chunked fill's histogram update).
+
+    pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32, hist (b,
+    G, B, num_buckets) int32 → hist, exact (``bucket_count_span_ref``). An
+    empty span launches nothing. CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    if hi <= lo:
+        return hist
+    if pool_ids.device.type == "cpu":
+        hist += bucket_count_span_ref(pool_ids, block_tables, lo, hi,
+                                      num_buckets)
+        return hist
+    K.check_cuda("bucket_count", pool_ids, block_tables, hist)
+    nb, G, bs, B = pool_ids.shape
+    b, nblk = block_tables.shape
+    if (pool_ids.dtype != torch.uint8 or block_tables.dtype != torch.int32
+            or hist.dtype != torch.int32):
+        raise TypeError("bucket_count: expects uint8 ids, int32 tables and "
+                        "histograms")
+    if (B not in (8, 16) or not 0 < num_buckets <= 256 or lo < 0
+            or hist.shape != (b, G, B, num_buckets)
+            or pool_ids.data_ptr() % 16):
+        raise ValueError(f"bucket_count: unsupported pool "
+                         f"{tuple(pool_ids.shape)}, histograms "
+                         f"{tuple(hist.shape)}")
+    K.launch("bucket_count", K.ptr(pool_ids), K.ptr(None),
+             K.ptr(block_tables), K.ptr(hist), b, G, int(hi), B, num_buckets,
+             int(lo), 1, nblk, bs, 1, count_cluster(hi - lo), COUNT_THREADS)
+    LAUNCHES["bucket_count"] += 1
+    return hist

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the Stage-I collision kernel (over a paged
 pool, or a contiguous store through its one-block-per-row table) and of
-the bucket histogram of a contiguous store's retrieval region."""
+the bucket histogram of a contiguous store's retrieval region or of a span
+of logical positions through a block table."""
 from __future__ import annotations
 
 from typing import Optional
@@ -64,3 +65,20 @@ def bucket_count_ref(ids: torch.Tensor, enc_end: torch.Tensor,
     counts = bucket_histogram(ids[:, :, ::stride], valid[:, None, ::stride],
                               num_buckets)
     return counts * stride if stride > 1 else counts
+
+
+def bucket_count_span_ref(pool_ids: torch.Tensor, block_tables: torch.Tensor,
+                          lo: int, hi: int, num_buckets: int) -> torch.Tensor:
+    """pool_ids (nb, G, bs, B), block_tables (b, nblk) → (b, G, B,
+    num_buckets) int32: the bucket histogram of each row's logical
+    positions [lo, hi) under allocated blocks (the reference's
+    ``core/cache.py:paged_fill_hist_update`` increment)."""
+    nb, G, bs, B = pool_ids.shape
+    nblk = block_tables.shape[1]
+    lidx = torch.arange(lo, hi, device=pool_ids.device)
+    blk = torch.div(lidx, bs, rounding_mode="floor")
+    pb = block_tables.long()[:, blk.clamp_max(nblk - 1)]        # (b, L)
+    inc = (blk < nblk)[None] & (pb >= 0)
+    flat = pool_ids.transpose(1, 2).reshape(nb * bs, G, B)
+    ids = flat[pb.clamp(0, nb - 1) * bs + lidx % bs].transpose(1, 2)
+    return bucket_histogram(ids, inc[:, None, :], num_buckets)

@@ -15,9 +15,9 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, row_tables
 from repro_torch.kernels import build as K
-from repro_torch.kernels.gather_kv.ref import (gather_decode_paged_ref,
-                                               gather_heads_tiered_ref,
-                                               gather_rows_paged_ref)
+from repro_torch.kernels.gather_kv.ref import (
+    gather_decode_paged_ref, gather_heads_tiered_dedup_ref,
+    gather_rows_paged_ref)
 
 
 def _launch(pool_k, pool_v, block_tables, b, L, *, lidx=None, wstart=None,
@@ -116,21 +116,41 @@ def gather_kv_kernel(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------- tiered (gather_rows_tiered.cu) ---
-def gather_heads_tiered(stag_k: torch.Tensor, stag_v: torch.Tensor,
-                        host_k: torch.Tensor, host_v: torch.Tensor,
-                        dev_map: torch.Tensor, rows: torch.Tensor):
-    """Stage-II winners of a tiered pool, K and V in one launch.
+# threads per block of the tiered gather, and at most this many blocks in
+# the cluster of one kv head's group (csrc/gather_rows_tiered.cu)
+TIERED_THREADS = 256
+TIERED_MAX_CLUSTER = 16
 
-    stag_k/v (nd, bs, G, hd) the staging pool; host_k/v (nb·bs, G, hd) the
-    host pool's rows (pinned when the staging pool is on a card); dev_map
-    (nb,) int32; rows (b, G, Q, k) int32 flat host rows, < 0 for a zero
-    row → (k_ret, v_ret) (b, G, Q, k, hd): staged rows from the staging
-    pool, the others from the host pool (``gather_heads_tiered_ref``).
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise (a pageable host pool would fault on the card, so it raises)."""
-    if stag_k.device.type == "cpu":
-        return tuple(gather_heads_tiered_ref(s, h, dev_map, rows)
-                     for s, h in ((stag_k, host_k), (stag_v, host_v)))
+_OWNERS: dict = {}
+
+
+def _owner_table(device: torch.device, n: int) -> torch.Tensor:
+    """The tiered gather's (row, kv head) → leader table: ``n`` int32, all
+    -1 between launches (each launch clears what it claimed). One per
+    device and size; launches that share it must be stream-ordered."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (str(device), n)
+    if key not in _OWNERS:
+        _OWNERS[key] = torch.full((n,), -1, dtype=torch.int32, device=device)
+    return _OWNERS[key]
+
+
+def tiered_cluster(entries: int, threads: int = TIERED_THREADS) -> int:
+    """Blocks in the cluster of one kv head's group of ``entries`` (every
+    batch row's): a power of two giving each thread at most about half an
+    entry, at most ``TIERED_MAX_CLUSTER``."""
+    cluster = 1
+    while cluster < TIERED_MAX_CLUSTER and cluster * threads < 2 * entries:
+        cluster *= 2
+    return cluster
+
+
+def launch_tiered(stag_k, stag_v, host_k, host_v, dev_map, rows, count,
+                  cluster: int, threads: int):
+    """One launch of the tiered gather at a given grid (the wrapper's
+    checks, no launch count: ``gather_heads_tiered`` counts)."""
     K.check_cuda("gather_rows_tiered", stag_k, stag_v, dev_map, rows)
     nd, bs, G, hd = stag_k.shape
     nb = dev_map.shape[0]
@@ -149,6 +169,10 @@ def gather_heads_tiered(stag_k: torch.Tensor, stag_v: torch.Tensor,
         raise ValueError("gather_rows_tiered: K and V staging pools differ")
     if rows.dtype != torch.int32 or dev_map.dtype != torch.int32:
         raise TypeError("gather_rows_tiered: expects int32 rows and dev_map")
+    if count is not None and (count.dtype != torch.int64
+                              or count.device != stag_k.device):
+        raise TypeError("gather_rows_tiered: count must be an int64 tensor "
+                        "on the staging pool's device")
     row_bytes = hd * stag_k.element_size()
     if row_bytes % 16:
         raise ValueError(f"gather_rows_tiered: rows of {row_bytes} bytes are "
@@ -158,7 +182,38 @@ def gather_heads_tiered(stag_k: torch.Tensor, stag_v: torch.Tensor,
                         device=stag_k.device) for _ in range(2)]
     K.launch("gather_rows_tiered", K.ptr(stag_k), K.ptr(stag_v),
              K.ptr(host_k), K.ptr(host_v), K.ptr(outs[0]), K.ptr(outs[1]),
-             K.ptr(rows), K.ptr(dev_map), rows.numel(), nb, nd, bs, G, Q * k,
-             row_bytes // 16, 2)
-    LAUNCHES["gather_rows_tiered"] += 1
+             K.ptr(rows), K.ptr(dev_map),
+             K.ptr(_owner_table(stag_k.device, nb * bs * G)), K.ptr(count),
+             b, nb, nd, bs, G, Q * k, row_bytes // 16, cluster, threads)
     return tuple(outs)
+
+
+def gather_heads_tiered(stag_k: torch.Tensor, stag_v: torch.Tensor,
+                        host_k: torch.Tensor, host_v: torch.Tensor,
+                        dev_map: torch.Tensor, rows: torch.Tensor,
+                        count: Optional[torch.Tensor] = None):
+    """Stage-II winners of a tiered pool, K and V in one launch, each
+    distinct missed (row, kv head) read from the host pool once.
+
+    stag_k/v (nd, bs, G, hd) the staging pool; host_k/v (nb·bs, G, hd) the
+    host pool's rows (pinned when the staging pool is on a card); dev_map
+    (nb,) int32; rows (b, G, Q, k) int32 flat host rows, < 0 for a zero
+    row → (k_ret, v_ret) (b, G, Q, k, hd): staged rows from the staging
+    pool, the others from the host pool (``gather_heads_tiered_dedup_ref``).
+    ``count``, an int64 tensor, grows in its first element by the distinct
+    missed (row, kv head) pairs, with no host synchronization on a card.
+    Rows are deduplicated over the whole call (every batch row), as the
+    reference deduplicates. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise (a pageable host pool
+    would fault on the card, so it raises)."""
+    if stag_k.device.type == "cpu":
+        k_ret, v_ret, distinct = gather_heads_tiered_dedup_ref(
+            stag_k, stag_v, host_k, host_v, dev_map, rows)
+        if count is not None:
+            count.view(-1)[0] += distinct
+        return k_ret, v_ret
+    outs = launch_tiered(stag_k, stag_v, host_k, host_v, dev_map, rows,
+                         count, tiered_cluster(rows[:, 0].numel()),
+                         TIERED_THREADS)
+    LAUNCHES["gather_rows_tiered"] += 1
+    return outs

@@ -3,7 +3,9 @@
 ``gather_heads_physical``, and the decode gather built from the two; a
 contiguous store goes through its one-block-per-row table) and tiered (the
 winner hit/miss blend of
-``repro/models/layers.py:attn_decode_pariskv_tiered``)."""
+``repro/models/layers.py:attn_decode_pariskv_tiered``, and the distinct
+host rows it reads, counted as ``repro/serving/offload.py:
+_dedup_heads_gather`` counts them)."""
 from __future__ import annotations
 
 import torch
@@ -73,3 +75,21 @@ def gather_heads_tiered_ref(staging: torch.Tensor, host: torch.Tensor,
     miss = host[phys.to(host.device), heads.to(host.device)].to(hit.device)
     out = torch.where((s >= 0)[..., None], hit, miss)
     return torch.where((want >= 0)[..., None], out, torch.zeros_like(out))
+
+
+def gather_heads_tiered_dedup_ref(stag_k: torch.Tensor, stag_v: torch.Tensor,
+                                  host_k: torch.Tensor, host_v: torch.Tensor,
+                                  dev_map: torch.Tensor, rows: torch.Tensor):
+    """``gather_heads_tiered_ref`` for K and V, with the host rows a
+    deduplicating gather reads, counted by the reference's rule: the
+    missed (row, kv head) pairs keyed ``row·G + g``, distinct over the
+    whole call. → (k_ret, v_ret, distinct missed pairs)."""
+    bs, G = stag_k.shape[1:3]
+    want = rows.long()
+    phys = want.clamp(0, dev_map.shape[0] * bs - 1)
+    miss = (want >= 0) & (dev_map.long()[
+        torch.div(phys, bs, rounding_mode="floor")] < 0)
+    heads = torch.arange(G, device=rows.device)[None, :, None, None]
+    distinct = int(torch.unique((phys * G + heads)[miss]).numel())
+    return (gather_heads_tiered_ref(stag_k, host_k, dev_map, rows),
+            gather_heads_tiered_ref(stag_v, host_v, dev_map, rows), distinct)

@@ -1,5 +1,5 @@
 """Transformer building blocks for the dense family (port of the main-path
-part of ``repro/models/layers.py``).
+and chunked-fill parts of ``repro/models/layers.py``).
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts: matmul weights are stored (in_dim, out_dim) — wq/wk/wv/wo for
@@ -125,6 +125,25 @@ def attn_prefill(p: dict, x: torch.Tensor, spec: AttnSpec,
         q, k, v, sm_scale=spec.scale(), softcap=spec.softcap,
         q_chunk=min(1024, s), kv_chunk=min(2048, s))
     return out.reshape(b, s, -1) @ p["wo"].float(), k, v
+
+
+def attn_fill_chunk(p: dict, x: torch.Tensor, spec: AttnSpec,
+                    q_pos: torch.Tensor, k_pref: torch.Tensor,
+                    v_pref: torch.Tensor, pref_pos: torch.Tensor,
+                    new_pos: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One layer of one prefill chunk (a mixed prefill+decode step): qkv
+    of x (b, P, d) at the chunk's true positions ``q_pos`` (b, P), then
+    chunk-causal attention over the cached prefix (``k_pref``/``v_pref``
+    at ``pref_pos``) and the chunk itself (``new_pos``, < 0 for the pad
+    tail). → (y (b, P, d) float32, k, v (b, P, G, hd)): the caller writes
+    k/v and the ParisKV metadata into the filling slot's cache."""
+    b, P, _ = x.shape
+    q, k, v = _project_qkv(p, x, spec, q_pos)
+    out = A.chunk_fill_attention(q, k_pref, v_pref, pref_pos, k, v, q_pos,
+                                 new_pos, sm_scale=spec.scale(),
+                                 softcap=spec.softcap)
+    return out.reshape(b, P, -1) @ p["wo"].float(), k, v
 
 
 def _decode_qkv(p: dict, x_t: torch.Tensor, spec: AttnSpec,
@@ -278,7 +297,7 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
                                regions: C.CacheRegions, spec: AttnSpec,
                                pcfg: ParisKVConfig, signs: torch.Tensor,
                                num_candidates: int, fused: bool = True,
-                               append_index=None, side=None
+                               append_index=None, side=None, count=None
                                ) -> Tuple[torch.Tensor,
                                           R.PagedRetrievalResult, dict]:
     """ParisKV decode of one layer over a **tiered** pool: metadata,
@@ -300,7 +319,9 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
     stream gathers the sink and window and scores them
     (``dense_segment_scores``); the main stream waits for the side
     stream's event before the joint softmax. With ``side`` None everything
-    runs in order on one stream; the values are identical.
+    runs in order on one stream; the values are identical. ``count``, an
+    int64 tensor, grows by the gather's distinct missed (row, kv head)
+    pairs: the host rows it read.
 
     → (y (b, d), the retrieval result, fetch-stat increments
     {"touched": (num_blocks,) int32 winner references per host block (the
@@ -339,7 +360,7 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
         side.stream.wait_event(side.ready)
         with torch.cuda.stream(side.stream):
             k_ret, v_ret = gather_heads_tiered(pool.k, pool.v, host_k,
-                                               host_v, dev_map, rows)
+                                               host_v, dev_map, rows, count)
             side.done.record()
         rows.record_stream(side.stream)
         dense = A.paged_decode_rows(pool.k, pool.v, kv_tables, ws,
@@ -352,7 +373,7 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
         v_ret.record_stream(main)
     else:
         k_ret, v_ret = gather_heads_tiered(pool.k, pool.v, host_k, host_v,
-                                           dev_map, rows)
+                                           dev_map, rows, count)
         dense = A.paged_decode_rows(pool.k, pool.v, kv_tables, ws,
                                     sink_size=pcfg.sink_size, window_size=W)
 

@@ -1,5 +1,5 @@
-"""Serving engines (port of ``repro/serving/engine.py`` without chunked
-prefill, prefix sharing, fault handling and mesh sharding).
+"""Serving engines (port of ``repro/serving/engine.py`` without prefix
+sharing, fault handling and mesh sharding).
 
 ``ServingEngine`` is slot-based continuous batching over contiguous
 per-slot caches of ``n_max`` positions: the stepwise loop — cancellations
@@ -12,6 +12,14 @@ A queued request is prefilled solo (batch 1, LEFT-aligned, padded to a
 power-of-two bucket capped at ``n_max``) and copied into its slot.
 ``use_pariskv=False`` serves the full-attention baseline.
 
+With ``prefill_budget=P > 0`` (chunked prefill) admission only copies the
+prompt to the slot's device buffer (at most one slot fills at a time) and
+the decode chunk prefills it: each mixed step runs P prompt tokens of the
+filling slot beside one decode token of every other active slot, so an
+admitted prompt no longer stalls the decoding slots for a whole solo
+prefill. The slot emits its first token the step its fill completes; its
+``ttft_s`` runs from admission to the end of that chunk.
+
 ``PagedServingEngine`` runs the same loop over one global pool of
 ``num_blocks × block_size`` token blocks shared by all ``max_batch``
 slots:
@@ -20,8 +28,9 @@ slots:
   (worst-case reservation, FIFO backpressure: the head of the queue waits);
 * a queued request is prefilled solo (batch 1, LEFT-aligned, padded to a
   power-of-two bucket capped at ``n_max``) and its cache scattered into
-  the pool; the prompt's blocks are taken at admission, later blocks
-  lazily before the chunk whose appends reach them;
+  the pool, or chunk-filled through its block table (``prefill_budget``);
+  the prompt's blocks are taken at admission, later blocks lazily before
+  the chunk whose appends reach them;
 * a finished or cancelled slot's blocks and histogram row are zeroed and
   its blocks return to the free list.
 
@@ -161,8 +170,12 @@ class ServingEngine:
         if not greedy:
             raise ValueError("sampling is on-device argmax; greedy only")
         _not_ported(type(self).__name__, (
-            ("prefill_budget", prefill_budget, 0, "A7 (chunked prefill)"),
-            ("faults", faults, None, "A10 (fault handling)")))
+            ("faults", faults, None, "A10 (fault handling)"),))
+        if prefill_budget and not SV.fill_supported(cfg):
+            raise ValueError(f"chunked prefill (prefill_budget="
+                             f"{prefill_budget}) unavailable — "
+                             f"{SV.fill_support_reason(cfg)}; use "
+                             f"prefill_budget=0")
         self.device = resolve_device(device)
         if param_device(params).type != self.device.type:
             raise ValueError(f"params live on {param_device(params)}, the "
@@ -174,6 +187,7 @@ class ServingEngine:
         self.use_pariskv = use_pariskv
         self.chunk_size = chunk_size
         self.eos_id = eos_id
+        self.prefill_budget = prefill_budget
         self.queue: List[Request] = []
         self.peak_concurrency = 0   # max slots simultaneously decoding
         self.decode_steps = 0       # decode steps run (chunks × chunk_size)
@@ -182,6 +196,7 @@ class ServingEngine:
         self._slots: List[Optional[Request]] = []
         self._done: List[Request] = []
         self._cancelled: set = set()
+        self._filling: Optional[int] = None      # slot chunk-filling now
         self._enc: Dict[int, int] = {}           # slot → host view of enc_end
         self._enc_after = np.zeros((max_batch,), np.int64)
 
@@ -204,6 +219,7 @@ class ServingEngine:
                                             device=self.device)
         self._slots = [None] * self.max_batch
         self._done = []
+        self._filling = None
         # uids are per run: keep only cancels aimed at the current queue
         self._cancelled &= {r.uid for r in self.queue}
 
@@ -213,7 +229,8 @@ class ServingEngine:
     # -- device state and hooks (the paged engine overrides) ----------------
     def _init_state(self) -> SV.SlotState:
         return SV.init_slot_state(self.cfg, self.max_batch, self.n_max,
-                                  device=self.device)
+                                  device=self.device,
+                                  prefill_budget=self.prefill_budget)
 
     def _can_admit(self) -> bool:
         return True
@@ -243,7 +260,8 @@ class ServingEngine:
             self.params, self.cfg, self._state, self.chunk_size,
             block_tables, eos_id=self.eos_id, device=self.device,
             nonfinite=self.nonfinite_logits, use_pariskv=self.use_pariskv,
-            paged_fused=paged_fused, **tier)
+            paged_fused=paged_fused, prefill_budget=self.prefill_budget,
+            **tier)
         self._enc_after = self._state.regions.enc_end.cpu().numpy()
         return tokens.cpu().numpy(), self._state.remaining.cpu().numpy()
 
@@ -258,8 +276,15 @@ class ServingEngine:
         self._state = SV.cancel_slot(self._state, slot)
         self._enc.pop(slot, None)
 
+    def _fill_complete(self, slot: int, req: Request) -> None:
+        """A chunked fill just finished: the slot's prompt is fully
+        written (prefix sharing, ROADMAP A8, would register its blocks)."""
+
     def _after_collect(self, slot: int, req: Request) -> None:
-        """Count the slot's sliding-window promotions from its enc_end."""
+        """Count the slot's sliding-window promotions from its enc_end (a
+        fill moves enc_end without promoting: not while filling)."""
+        if slot == self._filling:
+            return
         enc = int(self._enc_after[slot])
         req.promotions += (enc - self._enc[slot]) // \
             self.cfg.pariskv.update_interval
@@ -287,6 +312,8 @@ class ServingEngine:
             self._evict_device(slot)
             self._finish_request(req, t_now)
             self._slots[slot] = None
+            if self._filling == slot:
+                self._filling = None
         self._cancelled.clear()
 
     def _admit(self) -> None:
@@ -295,6 +322,13 @@ class ServingEngine:
                 continue
             if not self._can_admit():
                 break                        # backpressure: head waits
+            if self.prefill_budget:
+                if self._filling is not None:
+                    break                    # at most one filling slot
+                req = self.queue.pop(0)
+                self._pre_admit(slot, req)
+                self._admit_chunked(slot, req)
+                continue
             req = self.queue.pop(0)
             t_admit = time.perf_counter()
             self._pre_admit(slot, req)
@@ -314,17 +348,39 @@ class ServingEngine:
             self._install_solo(slot, req, state1, tok0)
             self._slots[slot] = req
 
+    def _admit_chunked(self, slot: int, req: Request) -> None:
+        """Chunked-prefill admission: copy the prompt to the slot's device
+        buffer and arm its fill; the decode chunks do the work."""
+        req._t_admit = time.perf_counter()
+        req._tokens, req.token_times = [], []
+        prow = np.zeros((self.n_max + self.prefill_budget,), np.int32)
+        prow[:len(req.prompt)] = req.prompt
+        self._state = SV.admit_fill(self._state, slot, prow, len(req.prompt),
+                                    req.max_new_tokens)
+        self._enc[slot] = CC.fill_enc_end(len(req.prompt), self.cfg.pariskv)
+        self._slots[slot] = req
+        self._filling = slot
+
     def _collect(self, tokens: np.ndarray, rem_after: np.ndarray) -> None:
         t_now = time.perf_counter()
         for slot, req in enumerate(self._slots):
             if req is None:
                 continue
-            _collect_chunk_row(req, tokens[slot], t_now)
+            had = len(req._tokens)
+            n_emit = _collect_chunk_row(req, tokens[slot], t_now)
+            if had == 0 and n_emit > 0:          # a chunked fill completed
+                req.ttft_s = t_now - req._t_admit
+                req._t_first = t_now
+                if self._filling == slot:
+                    self._filling = None
+                    self._fill_complete(slot, req)
             self._after_collect(slot, req)
             if rem_after[slot] <= 0:
                 self._finish_request(req, t_now)
                 self._slots[slot] = None
                 self._release_slot(slot)
+                if self._filling == slot:        # eos on the first token
+                    self._filling = None
 
     def step_serve(self) -> None:
         """One serving round: cancellations → admission → one decode chunk
@@ -382,7 +438,6 @@ class PagedServingEngine(ServingEngine):
                  share_prefixes: bool = False, mesh_shards: int = 1,
                  faults=None, device=None):
         _not_ported("PagedServingEngine", (
-            ("prefill_budget", prefill_budget, 0, "A7 (chunked prefill)"),
             ("share_prefixes", share_prefixes, False, "A8 (prefix sharing)"),
             ("faults", faults, None, "A10 (fault handling)"),
             ("mesh_shards", mesh_shards, 1,
@@ -394,7 +449,8 @@ class PagedServingEngine(ServingEngine):
                              f"block_size={block_size}")
         super().__init__(cfg, params, n_max=n_max, max_batch=max_batch,
                          greedy=greedy, chunk_size=chunk_size,
-                         eos_id=eos_id, device=device)
+                         eos_id=eos_id, prefill_budget=prefill_budget,
+                         device=device)
         self.fused = fused
         self.block_size = block_size
         self.nblk = n_max // block_size
@@ -449,7 +505,9 @@ class PagedServingEngine(ServingEngine):
 
     def _reserve_blocks(self, slot: int, req: Request) -> None:
         """Worst-case reservation plus the prompt's blocks up front (the
-        solo prefill writes the whole prompt in one scatter)."""
+        solo prefill writes the whole prompt in one scatter, a chunked
+        fill writes through the table from its first step). While a slot
+        fills, its host ``_pos`` stays at the prompt's end."""
         self._alloc[slot] = []
         self._resv[slot] = self.blocks_needed(req)
         self._pos[slot] = len(req.prompt) - 1
@@ -476,7 +534,8 @@ class PagedServingEngine(ServingEngine):
     def _init_state(self) -> SV.SlotState:
         return SV.init_paged_slot_state(self.cfg, self.max_batch,
                                         self.num_blocks, self.block_size,
-                                        device=self.device)
+                                        device=self.device, n_max=self.n_max,
+                                        prefill_budget=self.prefill_budget)
 
     def _evict_device(self, slot: int) -> None:
         self._state = SV.cancel_slot(self._state, slot)
@@ -554,8 +613,8 @@ class OffloadedPagedServingEngine(PagedServingEngine):
     Residency changes only at chunk boundaries:
 
     * every block a chunk writes or reads densely (sink, local window,
-      append frontier) is pinned staged; a required block not staged is
-      copied in before the chunk;
+      append or fill frontier) is pinned staged; a required block not
+      staged is copied in before the chunk;
     * ``prefetch=True`` also stages the previous chunks' most-touched
       winner blocks (exponential decay 0.5); ``prefetch_hook(touched, k)``
       overrides the predictor (a wrong hook costs bytes, not tokens);
@@ -564,7 +623,11 @@ class OffloadedPagedServingEngine(PagedServingEngine):
 
     Admission prefills solo at the prompt's bucketed capacity
     (``_solo_cap``, not ``n_max``), writes the prompt's K/V to the host
-    pool and scatters only metadata and the histogram to the device.
+    pool and scatters only metadata and the histogram to the device. A
+    chunked fill (``prefill_budget``) writes K/V into the pinned staging
+    blocks of its frontier and metadata into the pool, and reads its
+    prefix through the tiered gather: staged blocks from staging, the
+    others from host memory (written back there when they left staging).
     Eviction and ``cancel(uid)`` reclaim both tiers: host blocks zeroed,
     staging slots freed without write-back.
 
@@ -576,12 +639,16 @@ class OffloadedPagedServingEngine(PagedServingEngine):
 
     * ``staging_hits`` / ``staging_misses``: winner head rows (inside the
       retrieval region) served from staging / from host memory;
-      ``fetched_bytes``: the misses' K+V bytes; ``prefetched_blocks`` /
+      ``fetched_bytes``: the misses' K+V bytes plus the K+V bytes of the
+      fill prefix rows read from host memory; ``prefetched_blocks`` /
       ``prefetch_hits``: blocks staged by the predictor for the request,
       and those a winner then touched. These equal the reference's.
-    * ``fetched_unique_bytes``: the host bytes the kernel read for the
-      request. It reads every missed head row (no deduplication), so this
-      equals ``fetched_bytes``.
+    * ``fetched_unique_bytes``: the host bytes the tiered gathers read: a
+      gather reads each distinct missed (row, kv head) once, so repeated
+      winners count once (distinct head rows times their K+V bytes, and
+      distinct fill rows times a full row's). Counted per chunk and shared
+      among the requests in proportion to their host fetches, as the
+      reference shares its deduplicated bytes; equal to the reference's.
     * ``fetch_callbacks``: the tiered gathers (kernel launches on a card)
       of the chunks the request decoded in, shared among the requests in
       proportion to their host fetches (evenly when none fetched), as the
@@ -687,14 +754,24 @@ class OffloadedPagedServingEngine(PagedServingEngine):
                     seen.add(hb)
                     required.append((hb, slot))
 
+        st = self._state
+        P = self.prefill_budget
         for slot, req in enumerate(self._slots):
             if req is None:
                 continue
-            # decode appends [pos+1, pos+1+chunk); window + promotion
-            # reads reach down to min(enc_end, pos+1-W)
-            p1 = int(pos[slot]) + 1
-            lo = max(0, min(int(enc[slot]), p1 - W))
-            hi = p1 + self.chunk_size
+            if P and st.fill_pos[slot] < st.fill_len[slot]:
+                # the fill writes [start, start + chunk·P); the window of
+                # wherever its frontier lands (and the decode appends after
+                # it completes) stays in [start - W, start + chunk·(P+1))
+                start = int(st.fill_pos[slot])
+                lo = max(0, start - W)
+                hi = start + self.chunk_size * (P + 1)
+            else:
+                # decode appends [pos+1, pos+1+chunk); window + promotion
+                # reads reach down to min(enc_end, pos+1-W)
+                p1 = int(pos[slot]) + 1
+                lo = max(0, min(int(enc[slot]), p1 - W))
+                hi = p1 + self.chunk_size
             if sink > 0:
                 want(slot, 0, -(-sink // bs))
             want(slot, lo // bs, -(-(hi + 1) // bs))
@@ -766,23 +843,37 @@ class OffloadedPagedServingEngine(PagedServingEngine):
                               ).sum(0).cpu().numpy()
         rows = torch.stack([lc["fetch"]["rows"] for lc in caches]
                            ).sum(0).cpu().numpy().astype(np.int64)
+        uniq = torch.stack([lc["fetch"]["uniq"] for lc in caches]
+                           ).sum(0).cpu().numpy()
         calls = sum(lc["fetch"]["calls"] for lc in caches)
-        # every entry shares (G, hd, dtype): one price per head row
-        miss_b = rows[:, 2] * self.host.bytes_per_head_row(self._names[0])
+        # every entry shares (G, hd, dtype): one price per head row and
+        # per row; a fill gather reads every kv head of each prefix row
+        head_b = self.host.bytes_per_head_row(self._names[0])
+        row_b = self.host.bytes_per_row(self._names[0])
+        miss_b = rows[:, 2] * head_b + rows[:, 3] * row_b
+        uniq_head = int(uniq[0])
+        uniq_fill = int(uniq[1]) // self.cfg.num_kv_heads
+        uniq_b = uniq_head * head_b + uniq_fill * row_b
         self.fetch_callbacks += calls
         self.host.fetch_callbacks += calls
         self.host.fetched_head_rows += int(rows[:, 2].sum())
+        self.host.fetched_fill_rows += int(rows[:, 3].sum())
+        self.host.fetched_unique_head_rows += uniq_head
+        self.host.fetched_unique_fill_rows += uniq_fill
+        # gathers and distinct bytes are chunk-global: shared per request
+        # in proportion to its host fetches, evenly when none fetched
         active = [s for s, rq in enumerate(self._slots) if rq is not None]
-        tot = int(rows[:, 2].sum())
+        fetch_rows = rows[:, 2] + rows[:, 3]
+        tot = int(fetch_rows.sum())
         for slot, req in enumerate(self._slots):
             if req is None:
                 continue
             req.staging_hits += int(rows[slot, 1])
             req.staging_misses += int(rows[slot, 2])
             req.fetched_bytes += int(miss_b[slot])
-            req.fetched_unique_bytes += int(miss_b[slot])
-            share = (rows[slot, 2] / tot if tot
+            share = (fetch_rows[slot] / tot if tot
                      else 1.0 / max(len(active), 1))
+            req.fetched_unique_bytes += int(round(uniq_b * share))
             req.fetch_callbacks += int(round(calls * share))
         owner = {b: sl for sl, blks in self._alloc.items() for b in blks}
         for hb in self._last_prefetch:
@@ -797,7 +888,8 @@ class OffloadedPagedServingEngine(PagedServingEngine):
     def _init_state(self) -> SV.SlotState:
         return SV.init_paged_slot_state(
             self.cfg, self.max_batch, self.num_blocks, self.block_size,
-            device=self.device, num_device_blocks=self.num_device_blocks)
+            device=self.device, num_device_blocks=self.num_device_blocks,
+            n_max=self.n_max, prefill_budget=self.prefill_budget)
 
     def start(self) -> None:
         super().start()

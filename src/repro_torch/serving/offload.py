@@ -75,11 +75,12 @@ class HostKVPool:
     ordinary CPU tensors, which the CPU engine reads with the plain
     version of the tiered gather.
 
-    Row counters (``fetched_head_rows``: missed winner head rows read
-    from the pool; ``fetch_callbacks``: tiered gathers issued) are
-    advanced by the engine from each chunk's fetch statistics. The kernel
-    reads every missed head row without deduplicating, so the reference's
-    separate unique-row count would equal ``fetched_head_rows``."""
+    Row counters, advanced by the engine from each chunk's fetch
+    statistics: ``fetched_head_rows`` missed winner head rows,
+    ``fetched_fill_rows`` fill prefix rows read from the pool, their
+    distinct counts ``fetched_unique_head_rows`` /
+    ``fetched_unique_fill_rows`` (what the deduplicating gather read),
+    and ``fetch_callbacks`` the tiered gathers issued."""
 
     def __init__(self, shapes: Dict[str, tuple], num_blocks: int,
                  block_size: int, dtype: torch.dtype, pinned: bool = False):
@@ -99,6 +100,9 @@ class HostKVPool:
 
     def reset_counters(self) -> None:
         self.fetched_head_rows = 0
+        self.fetched_fill_rows = 0
+        self.fetched_unique_head_rows = 0
+        self.fetched_unique_fill_rows = 0
         self.fetch_callbacks = 0
 
     @property

@@ -226,3 +226,72 @@ def test_tiered_gather_matches_plain_on_card(card):
     with pytest.raises(ValueError, match="pinned"):
         gather_heads_tiered(stag[0], stag[1], host[0].clone(), host[1], dm,
                             rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qk,threads", [(37 * HG, 256), (3000, 64)])
+def test_dedup_tiered_gather_matches_plain_on_card(card, qk, threads):
+    """The deduplicating tiered gather on constructed duplicates, at every
+    cluster size it can launch (3000 entries at 64 threads: followers in
+    later tiles than their leaders): output byte-identical to its plain
+    version, the distinct missed (row, head) count over the whole launch
+    (the batch rows pick from the same host rows) equal to the plain
+    version's and to ``torch.unique``'s, the leader table back to all -1
+    after each launch."""
+    from repro_torch.kernels.gather_kv import ops as GO
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref)
+
+    gen = torch.Generator().manual_seed(qk)
+    nb, nd, bs, b = 40, 12, 32, 2
+    host = torch.randn((2, nb * bs, G, 128), generator=gen).to(
+        torch.bfloat16).pin_memory()
+    stag = torch.randn((2, nd, bs, G, 128), generator=gen).to(
+        torch.bfloat16).to(card)
+    dev_map = torch.full((nb,), -1, dtype=torch.int32)
+    dev_map[torch.randperm(nb, generator=gen)[:nd]] = torch.arange(
+        nd, dtype=torch.int32)
+    pick = torch.randint(0, nb * bs, (1, G, 50), generator=gen,
+                         dtype=torch.int32).expand(b, G, 50)
+    rows = pick.gather(2, torch.randint(0, 50, (b, G, qk), generator=gen))
+    rows = rows.reshape(b, G, 1, qk).to(torch.int32).contiguous()
+    rows[..., ::7] = -1
+    dm, rw = dev_map.to(card), rows.to(card)
+    want_k, want_v, distinct = gather_heads_tiered_dedup_ref(
+        stag[0].cpu(), stag[1].cpu(), host[0], host[1], dev_map, rows)
+    missed = (rows >= 0) & (dev_map[rows.clamp_min(0).long() // bs] < 0)
+    keys = (rows.long() * G + torch.arange(G)[None, :, None, None])[missed]
+    assert distinct == torch.unique(keys).numel() < int(missed.sum())
+    owner = GO._owner_table(card, nb * bs * G)
+    for cluster in (1, 2, 4, 8, 16):
+        count = torch.zeros((1,), dtype=torch.int64, device=card)
+        got = GO.launch_tiered(stag[0], stag[1], host[0], host[1], dm, rw,
+                               count, cluster, threads)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want_k), cluster
+        assert torch.equal(got[1].cpu(), want_v), cluster
+        assert int(count) == distinct, cluster
+        assert bool((owner == -1).all()), cluster
+
+
+@pytest.mark.cuda
+def test_bucket_count_span_matches_plain_on_card(card):
+    """The chunked fill's histogram update (bucket_count's block-table
+    mode) adds exactly its plain version's counts, through a table row with
+    an unallocated block and past the table, at B = 8 and 16."""
+    from repro_torch.kernels.collision import bucket_count_span
+    from repro_torch.kernels.collision.ref import bucket_count_span_ref
+
+    gen = torch.Generator(device=card).manual_seed(3)
+    nb, bs = 10, 32
+    bt = torch.tensor([[7, 2, 9, -1, 0]], dtype=torch.int32, device=card)
+    for nsub in (8, 16):
+        ids = torch.randint(0, 256, (nb, G, bs, nsub), generator=gen,
+                            device=card, dtype=torch.int32).to(torch.uint8)
+        for lo, hi in ((8, 40), (30, 120), (100, 200), (0, 1)):
+            base = torch.randint(0, 9, (1, G, nsub, 256), generator=gen,
+                                 device=card, dtype=torch.int32)
+            got = bucket_count_span(ids, bt, lo, hi, 256, base.clone())
+            want = base.cpu() + bucket_count_span_ref(ids.cpu(), bt.cpu(),
+                                                      lo, hi, 256)
+            assert torch.equal(got.cpu(), want), (nsub, lo, hi)

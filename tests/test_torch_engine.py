@@ -186,7 +186,7 @@ def test_cancel_mid_flight_reclaims_blocks_and_hist(workload):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(prefill_budget=16), "A7"),
+    (dict(share_prefixes=True, prefill_budget=16), "A8"),
     (dict(share_prefixes=True), "A8"),
     (dict(offload=True, fetch_timeout_s=1.0), "A10"),
     (dict(faults=object()), "A10"), (dict(mesh_shards=2), "A11")])
@@ -195,8 +195,7 @@ def test_options_not_ported_raise_with_roadmap_item(workload, option, item):
     params = convert.params_from_jax(jax.device_get(pj), CFG_T, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         PagedServingEngine(CFG_T, params, device="cpu", **option, **ENGINE)
-    slot_option = {k: v for k, v in option.items()
-                   if k in ("prefill_budget", "faults")}
+    slot_option = {k: v for k, v in option.items() if k == "faults"}
     if slot_option:
         with pytest.raises(NotImplementedError, match=item):
             ServingEngine(CFG_T, params, device="cpu", **slot_option)

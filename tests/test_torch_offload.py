@@ -1,8 +1,10 @@
 """The port's host-offloaded tier, module by module, against the JAX
 reference on the same numpy inputs in float32: the tiered winner gather's
 plain version (against the Pallas ``gather_kv_tiered_kernel`` in interpret
-mode on staged rows, and against the reference layer's hit/miss blend with
-its numpy host gather), the tiered cache operations, ``StagingMap`` and
+mode on staged rows, against the reference layer's hit/miss blend with its
+numpy host gather, and its host reads and distinct count against the
+reference's deduplicating ``_dedup_heads_gather``), the tiered cache
+operations, ``StagingMap`` and
 ``HostKVPool``, and one tiered decode layer (fused and meta view). Integer
 outputs, gathered rows and pool contents must be identical; encoded
 weights (rtol 1e-5, atol 1e-6) and the layer's output (rtol 1e-4, atol
@@ -119,6 +121,46 @@ def test_tiered_gather_plain_matches_reference_blend():
     assert (~resident & ~valid).any() and (resident & ~valid).any()
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w)
+
+
+def test_dedup_tiered_gather_plain_matches_reference_dedup():
+    """The plain deduplicating gather on constructed duplicates (query
+    heads of one kv head picking the same rows, -1 rows, repeats across
+    query heads and winners): with nothing staged its output and distinct
+    count equal ``_dedup_heads_gather``'s; with a staging pool its output
+    equals the undeduplicated blend and its count the distinct missed
+    (row, head) pairs. The wrapper adds that count to ``count``."""
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref, gather_heads_tiered_ref)
+    host, _, dev_map, staging, rng = _tier(4)
+    flat = host.reshape(2, NB * BS, G, D)
+    pick = rng.randint(0, NB * BS, size=(2, G, 12))
+    rows = pick[..., rng.randint(0, 12, size=(HG, 30))].astype(np.int32)
+    rows[:, :, 0, :5] = -1
+    rows[0, 1, 1, :] = rows[0, 1, 0, :]                # a whole head repeated
+    none_staged = np.full((NB,), -1, np.int32)
+    want_k = np.zeros((2, G, HG, 30, D), np.float32)
+    want_v = np.zeros_like(want_k)
+    req, uniq = JO._dedup_heads_gather(flat[0], flat[1], rows, want_k,
+                                       want_v)
+    k, v, distinct = gather_heads_tiered_dedup_ref(
+        _t(staging[0]), _t(staging[1]), _t(flat[0]), _t(flat[1]),
+        _t(none_staged), _t(rows))
+    assert distinct == uniq and uniq < req
+    np.testing.assert_array_equal(k.numpy(), want_k)
+    np.testing.assert_array_equal(v.numpy(), want_v)
+
+    count = torch.zeros((2,), dtype=torch.int64)
+    got = gather_heads_tiered(_t(staging[0]), _t(staging[1]), _t(flat[0]),
+                              _t(flat[1]), _t(dev_map), _t(rows), count[1:])
+    blend = [gather_heads_tiered_ref(_t(staging[i]), _t(flat[i]),
+                                     _t(dev_map), _t(rows)) for i in (0, 1)]
+    for g, w in zip(got, blend):
+        assert torch.equal(g, w)
+    missed = (rows >= 0) & (dev_map[np.maximum(rows, 0) // BS] < 0)
+    keys = (rows * G + np.arange(G)[None, :, None, None])[missed]
+    assert 0 < len(np.unique(keys)) < missed.sum()
+    assert count.tolist() == [0, len(np.unique(keys))]
 
 
 def test_tiered_table_and_winner_maps_match_reference():

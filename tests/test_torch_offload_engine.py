@@ -3,11 +3,12 @@ reference's ``OffloadedPagedServingEngine`` on the qwen2 smoke config in
 float32, at the geometry of ``tests/test_offload_pool.py`` (a staging pool
 of 16 of 64 host blocks, so eviction and write-back cycle). Weights are
 scaled ×8 so that greedy outputs vary. Per uid the greedy tokens and the
-five exact staging statistics (``staging_hits``, ``staging_misses``,
-``fetched_bytes``, ``prefetched_blocks``, ``prefetch_hits``) must be
-identical: the drift run with and without overlap, the meta view,
-evict/readmit, cancel, a mispredicting prefetch hook and no prefetch.
-Each reference run happens once per module."""
+exact staging statistics (``staging_hits``, ``staging_misses``,
+``fetched_bytes``, ``prefetched_blocks``, ``prefetch_hits``, and the
+deduplicated ``fetched_unique_bytes``) must be identical: the drift run
+with and without overlap, the meta view, evict/readmit, cancel, a
+mispredicting prefetch hook, no prefetch, and chunked prefill. Each
+reference run happens once per module."""
 import dataclasses
 
 import numpy as np
@@ -32,7 +33,7 @@ NUM_BLOCKS, NUM_DEVICE = 64, 16
 GEOM = dict(n_max=512, max_batch=2, block_size=16, num_blocks=NUM_BLOCKS,
             chunk_size=4)
 EXACT = ("staging_hits", "staging_misses", "fetched_bytes",
-         "prefetched_blocks", "prefetch_hits")
+         "prefetched_blocks", "prefetch_hits", "fetched_unique_bytes")
 DRIFT = ((300, 80), (260, 10))
 SHORT = ((300, 12), (260, 10))
 THREE = ((300, 8), (260, 12), (140, 6))
@@ -125,9 +126,11 @@ def test_drift_run_matches_reference(setup, reference, overlap):
     _assert_same(got, want, f"drift overlap={overlap}")
     assert got[0].staging_misses > 0 and got[0].staging_hits > 0
     assert got[0].prefetch_hits > 0
-    assert got[0].fetched_unique_bytes == got[0].fetched_bytes
+    # winners repeated across query heads are read from host memory once
+    assert 0 < got[0].fetched_unique_bytes < got[0].fetched_bytes
     assert eng.host.fetched_head_rows == sum(r.staging_misses
                                             for r in got.values())
+    assert 0 < eng.host.fetched_unique_head_rows < eng.host.fetched_head_rows
     # one tiered gather per layer and step
     assert eng.fetch_callbacks == CFG_T.num_layers * eng.decode_steps
     assert sum(r.fetch_callbacks for r in got.values()) > 0
@@ -184,6 +187,22 @@ def test_prefetch_policy_moves_bytes_not_tokens(setup, reference, case, kw):
         assert all(r.prefetched_blocks == 0 for r in got.values())
 
 
+def test_chunked_prefill_matches_reference(setup, reference):
+    """Mixed prefill+decode chunks (prefill_budget=8): the filling slot
+    reads its prefix through the tiered gather, staged blocks from staging
+    and the others from host memory, while its frontier stays pinned
+    staged. Tokens and statistics (fill rows priced as full rows) equal
+    the reference's, and so do the host pool's fill-row counts."""
+    specs = ((300, 12), (260, 10))
+    want = reference("chunked", specs, prefill_budget=8)
+    got, eng = _port(setup, specs, prefill_budget=8)
+    _assert_same(got, want, "chunked")
+    assert eng.host.fetched_fill_rows > 0
+    assert eng.host.fetched_unique_fill_rows == eng.host.fetched_fill_rows
+    assert len(eng._free) == eng.num_blocks
+    assert eng.staging.resident_count() == 0
+
+
 def test_undersized_staging_pool_raises(setup):
     _, pt, prompts = setup
     eng = PagedServingEngine(CFG_T, pt, **GEOM, offload=True,
@@ -194,7 +213,8 @@ def test_undersized_staging_pool_raises(setup):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(prefill_budget=16), "A7"), (dict(share_prefixes=True), "A8"),
+    (dict(share_prefixes=True, prefill_budget=16), "A8"),
+    (dict(share_prefixes=True), "A8"),
     (dict(faults=object()), "A10"), (dict(fetch_timeout_s=0.5), "A10")])
 def test_options_not_ported_raise_with_roadmap_item(setup, option, item):
     _, pt, _ = setup
