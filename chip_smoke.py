@@ -29,7 +29,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               12,000-token request's 24th chunk: the prefix read (the
               paged gather's logical mode, and the tiered gather with
               half the blocks staged) and the histogram update
-              (bucket_count's block-table mode). Stage I and the top-C cut are also checked on an all-tie
+              (bucket_count's block-table mode), and a shared-prefix
+              admission's histogram rebuild at the share phase's shape
+              (the same mode over [sink, 7,680) through a table row of
+              64 blocks, -1 past them). Stage I and the top-C cut are also checked on an all-tie
               set and on threshold ties spread over every segment and timed
               back to back as a pair; Stage II with its top-k
               (rerank_topk_paged) is held, at the paged and the contiguous
@@ -107,7 +110,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
               steps (a 12,000-token fill beside three decoding rows): the
               fill's gather_rows_paged and bucket_count launch in every
               layer of every step.
-10. parity  — 2 layers at full width in float32: one teacher-forced
+10. share   — prefix sharing (``share_prefixes=True``, budget 512) at full
+              width on six requests with one 8,192-token system prompt
+              and suffixes of 256/384/512/200/448/320 tokens, 64 new each,
+              all submitted at chunk 0: (a) the paged engine with sharing
+              on, then off: per request TTFT and mapped blocks, the
+              sharers' mean TTFT, blocks drawn from the pool, tokens/s and
+              peak memory; each sharer maps 64 blocks (320 hits), sharing
+              draws fewer blocks, ``verify_invariants()`` holds at every
+              chunk boundary, the pool drains, each shared admission
+              launches bucket_count once per layer and the first one's
+              rebuilt histograms equal the plain version's in all 28
+              layers. (b) the meta view on the first two requests (16
+              new). (c) the offloaded engine with sharing on, then off
+              (128 of 512 staged, every tiered gather checked): tokens
+              identical to (a)'s run with the same sharing, staging
+              drained, miss share and link bytes printed. (d) 2 layers
+              in float32 (prefix 2,048, four requests): sharing, chunked
+              and solo tokens identical on the fused, meta-view and
+              offloaded engines.
+11. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -158,6 +180,11 @@ OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
 LONG_PROMPT, LONG_GEN = 65536, 32        # the offload phase's long request
 OVERLAP_GEN = 32                         # the offload overlap on/off runs
 CHUNK_BUDGET = 512                       # the chunked phase's prefill_budget
+# the share phase's fleet: one system prompt of 64 blocks of 128, then
+# distinct suffixes, 64 new tokens each, all submitted at chunk 0
+SHARE_PREFIX = 8192
+SHARE_SUFFIXES = (256, 384, 512, 200, 448, 320)
+SHARE_GEN = 64
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -533,6 +560,7 @@ def kernel_phase(dev, cfg, seed: int = 0):
     tier, link = _tiered_kernel(dev, pool, won.top_idx, phys, enc_end, sink,
                                 gen, flush, out)
     _fill_kernels(dev, cfg, pool, bt, tier, link, gen, flush, out)
+    _share_kernel(dev, cfg, pool, gen, flush, out)
     for name, rec in out.items():
         rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
         print(f"kernel {name} " + json.dumps(rec), flush=True)
@@ -1007,6 +1035,62 @@ def _fill_kernels(dev, cfg, pool, bt, tier, link, gen, flush, out):
         bound=(max(terms.values()), "bytes"))
 
 
+def _share_kernel(dev, cfg, pool, gen, flush, out):
+    """8s. A shared-prefix admission's histogram rebuild, one layer
+    (``core/cache.py:bucket_hist_from_paged_meta``: bucket_count's
+    block-table mode into a zeroed row) at the share phase's shape: the
+    8,192-token prefix's region [sink, fill_enc_end(8192)) through a
+    128-entry table row of 64 random pool blocks, -1 past them. Exact
+    against its plain version; timed beside it, beside the span launch
+    alone and beside ``scatter_add_`` on the span's gathered ids."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.kernels.collision import bucket_count_span
+    from repro_torch.kernels.collision.ref import bucket_count_span_ref
+
+    pcfg = cfg.pariskv
+    nb, bs, G, _ = pool.k.shape
+    B, nc = pool.meta_ids.shape[-1], pcfg.num_centroids()
+    nblk, nshared = 16384 // bs, SHARE_PREFIX // bs
+    row = torch.full((nblk,), -1, dtype=torch.int32, device=dev)
+    row[:nshared] = torch.randperm(nb, generator=gen, device=dev)[
+        :nshared].to(torch.int32)
+    lo, hi = pcfg.sink_size, CC.fill_enc_end(SHARE_PREFIX, pcfg)
+
+    def kern():
+        return CC.bucket_hist_from_paged_meta(pool, row, hi, pcfg)
+
+    def plain():
+        return bucket_count_span_ref(pool.meta_ids, row[None], lo, hi, nc)
+    got, want = kern(), plain()[0]
+    _check(torch.equal(got, want), "bucket_count (shared-prefix rebuild) "
+           "differs from its plain version")
+    _check(int(want.sum()) == G * B * (hi - lo), "the rebuild did not count "
+           "every position of the shared region")
+    h = torch.zeros((1, G, B, nc), dtype=torch.int32, device=dev)
+    lidx = torch.arange(lo, hi, device=dev)
+    ids_t = pool.meta_ids.transpose(1, 2).reshape(nb * bs, G, B)[
+        row.long()[lidx // bs] * bs + lidx % bs].permute(1, 2, 0).reshape(
+        -1, hi - lo).long()
+    ones = torch.ones_like(ids_t, dtype=torch.int32)
+    acc = torch.zeros((ids_t.shape[0], nc), dtype=torch.int32, device=dev)
+    out["bucket_count/share"] = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_count.cu",
+        replaces="none: the jnp bucket_histogram of "
+                 "src/repro/core/cache.py:656 (bucket_hist_from_paged_meta; "
+                 "no TPU kernel)",
+        max_abs_err=0, tolerance="exact", span=[lo, hi],
+        table_entries=nblk, shared_blocks=nshared,
+        ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        span_launch_ms=_time_ms(lambda: bucket_count_span(
+            pool.meta_ids, row[None], lo, hi, nc, h), flush),
+        plain_ms=_time_ms(plain, flush),
+        library_ms=_time_ms(lambda: acc.scatter_add_(1, ids_t, ones), flush),
+        library="scatter_add_ alone, on the span's gathered int64 ids",
+        bound=_bound(G * (hi - lo) * B + row.numel() * 4 + want.numel() * 4,
+                     G * (hi - lo) * B))
+
+
 # ---------------------------------------------------------------- engine ---
 def _prompts(cfg, seed: int = 0, lens=None):
     """The engines' prompts: random tokens from ``seed``, one per length
@@ -1063,7 +1147,10 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
            exact=EXACT, fill=None):
     """Serve ``prompts`` (uid = index) submitted before the chunks in
     ``arrivals``, with the launch counters zeroed just before and read just
-    after, held to ``_check_run``. → (record, {uid: request})."""
+    after, held to ``_check_run``. ``audit``: the engine's
+    ``verify_invariants()`` (allocator, refcounts, tables, prefix index,
+    staging, histograms == recompute) at every chunk boundary; the
+    audit's own launches are not counted. → (record, {uid: request})."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.serving import Request
@@ -1084,7 +1171,9 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
         torch.cuda.synchronize()
         serve_s += time.perf_counter() - t0
         if audit:
-            eng.verify_hist()
+            before = dict(K.LAUNCHES)
+            eng.verify_invariants()
+            K.LAUNCHES.update(before)
             audits += 1
         chunk += 1
     launches = dict(K.LAUNCHES)
@@ -1525,15 +1614,16 @@ def _profile_chunk(eng):
 
 
 # --------------------------------------------------------------- chunked ---
-def _fill_counts(cfg, prompts, budget: int):
+def _fill_counts(cfg, prompts, budget: int, starts=None):
     """The launches a chunked fill of ``prompts`` adds on a paged pool, all
-    layers: prefix reads (every chunk but the first) and histogram
-    updates (every chunk whose region growth is not empty)."""
+    layers: prefix reads (every chunk that starts past 0) and histogram
+    updates (every chunk whose region growth is not empty). ``starts``:
+    each fill's first frontier (a sharer's mapped prefix; default 0)."""
     from repro_torch.core import cache as CC
     pcfg = cfg.pariskv
     reads = spans = 0
-    for n in map(len, prompts):
-        for f0 in range(0, n, budget):
+    for n, s0 in zip(map(len, prompts), starts or [0] * len(prompts)):
+        for f0 in range(s0, n, budget):
             f1 = min(n, f0 + budget)
             reads += f0 > 0
             spans += (CC.fill_enc_end(f1, pcfg)
@@ -1724,6 +1814,276 @@ def _f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
     return rec
 
 
+# ----------------------------------------------------------------- share ---
+def _share_prompts(cfg, seed: int = 9, prefix=None, suffixes=None):
+    """A fleet with one system prompt: a seeded ``prefix``-token head
+    (default ``SHARE_PREFIX``) followed by distinct seeded suffixes of the
+    given lengths (default ``SHARE_SUFFIXES``)."""
+    import numpy as np
+    prefix = SHARE_PREFIX if prefix is None else prefix
+    suffixes = SHARE_SUFFIXES if suffixes is None else suffixes
+    rng = np.random.RandomState(seed)
+    head = rng.randint(0, cfg.vocab_size, size=(prefix,))
+    return [np.concatenate([head, rng.randint(0, cfg.vocab_size, size=(n,))]
+                           ).astype(np.int32) for n in suffixes]
+
+
+class _RebuildCheck:
+    """While active, every shared admission (``admit_fill`` with a mapped
+    prefix) is counted with the bucket_count launches it made, and the
+    first one's rebuilt histogram is held, in every layer, exactly to
+    bucket_count_span's plain version on the same pool and table row."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch import kernels as K
+        from repro_torch.core import cache as CC
+        from repro_torch.kernels.collision.ref import bucket_count_span_ref
+        from repro_torch.models import serve as SV
+        self._sv = SV
+        real = self._real = SV.admit_fill
+        self.launches, self.checked_layers = [], 0
+
+        def checked(state, slot, prompt_row, length, max_new, fill_start=None,
+                    bt_row=None, pcfg=None):
+            before = K.LAUNCHES["bucket_count"]
+            out = real(state, slot, prompt_row, length, max_new,
+                       fill_start=fill_start, bt_row=bt_row, pcfg=pcfg)
+            if not fill_start:
+                return out
+            self.launches.append(K.LAUNCHES["bucket_count"] - before)
+            if not self.checked_layers:
+                row = bt_row.to(out.prompt.device)[None]
+                hi = CC.fill_enc_end(fill_start, pcfg)
+                for li, lc in enumerate(out.caches):
+                    want = bucket_count_span_ref(
+                        lc["kv"].meta_ids, row, pcfg.sink_size, hi,
+                        pcfg.num_centroids())[0]
+                    _check(torch.equal(lc["hist"][slot], want),
+                           f"layer {li}: the shared admission's rebuilt "
+                           f"histogram differs from its plain version")
+                self.checked_layers = len(out.caches)
+            return out
+        SV.admit_fill = checked
+        return self
+
+    def __exit__(self, *exc):
+        self._sv.admit_fill = self._real
+
+
+def _drained(eng) -> bool:
+    """Every block back on the free list, no refcount, no index entry."""
+    return (len(eng._free) == eng.num_blocks and not eng._refcnt
+            and not eng._prefix_index and not eng._block_hash)
+
+
+def _share_run(eng, cfg, prompts, gen: int, kernels, budget: int, share):
+    """Serve ``prompts`` (all at chunk 0) through ``eng`` after a warm-up,
+    audited at every chunk boundary, with the fill's and (``share``) the
+    rebuilds' launches held exactly and every tiered gather checked
+    (``_TieredTally``); → (record, outputs by uid)."""
+    L, n = cfg.num_layers, len(prompts)
+    starts = ([0] + [SHARE_PREFIX] * (n - 1)) if share else None
+    reads, spans = _fill_counts(cfg, prompts, budget, starts)
+    gather = ("gather_rows_tiered" if "gather_rows_tiered" in kernels
+              else "gather_rows_paged")
+    _warm(eng, cfg)
+    consumed0, hits0 = eng.blocks_consumed, eng.shared_block_hits
+    with _RebuildCheck() as rb, _TieredTally() as tt:
+        r, done = _serve(eng, prompts, gen, (0,) * n, kernels, cfg,
+                         audit=True, fill={gather: reads})
+    rebuild = sum(rb.launches)
+    _check(rb.launches == ([L] * (n - 1) if share else []),
+           f"rebuild launches per shared admission {rb.launches}, not {L}")
+    got, need = r["launches"]["bucket_count"], spans + rebuild
+    if "bucket_count" in kernels:         # the meta view counts every step
+        need += L * eng.decode_steps
+    _check(got == need or ("bucket_count" in kernels and got > need),
+           f"bucket_count: {got} launches; the fill's updates need {spans}, "
+           f"the rebuilds {rebuild}")
+    _check(_drained(eng), "blocks, refcounts or index entries outlived the "
+           "run")
+    ttft = [q.ttft_s for _, q in sorted(done.items())]
+    rec = dict(r, share_prefixes=bool(share),
+               blocks_consumed=eng.blocks_consumed - consumed0,
+               shared_block_hits=eng.shared_block_hits - hits0,
+               shared_prefix_blocks=[q.shared_prefix_blocks
+                                     for _, q in sorted(done.items())],
+               ttft_s=ttft, sharers_mean_ttft_s=sum(ttft[1:]) / (n - 1),
+               rebuild_launches=rebuild,
+               rebuild_launches_per_admission=rb.launches,
+               rebuild_layers_checked=rb.checked_layers)
+    if tt.t["launches"]:
+        rec["tally"] = tt.t
+    return rec, {u: q.output for u, q in done.items()}
+
+
+def share_phase(dev, cfg, params, n_max: int = 16384,
+                budget: int = CHUNK_BUDGET):
+    """Prefix sharing at full width on a fleet of six requests with one
+    8,192-token system prompt (``SHARE_SUFFIXES`` after it, 64 new tokens
+    each, all submitted at chunk 0, admissions serialized through the one
+    filling slot): (a) the fused paged engine with sharing on, then off;
+    (b) the meta view on the first two; (c) the offloaded engine with
+    sharing on, then off (128 of 512 blocks staged, every tiered gather
+    checked);
+    (d) float32 at 2 layers: sharing, chunked and solo tokens identical on
+    the fused, meta-view and offloaded engines."""
+    import numpy as np
+    import torch
+    from repro_torch.serving import PagedServingEngine
+
+    prompts = _share_prompts(cfg)
+    n, nshared = len(prompts), SHARE_PREFIX // 128
+    kw = dict(n_max=n_max, block_size=128, num_blocks=512, max_batch=4,
+              chunk_size=8, prefill_budget=budget, device=dev)
+    rec, outs = {}, {}
+    # (a) sharing on, then off
+    for share in (True, False):
+        eng = PagedServingEngine(cfg, params, share_prefixes=share, **kw)
+        rec[share], outs[share] = _share_run(eng, cfg, prompts, SHARE_GEN,
+                                             PAGED_KERNELS, budget, share)
+        print(f"share_{'on' if share else 'off'} " + json.dumps(rec[share]),
+              flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    on, off = rec[True], rec[False]
+    agree = [float(np.mean(outs[True][u] == outs[False][u]))
+             for u in sorted(outs[True])]
+    summary = dict(
+        prefix=SHARE_PREFIX, suffixes=list(SHARE_SUFFIXES),
+        new_tokens=SHARE_GEN, prefill_budget=budget,
+        blocks_consumed={"on": on["blocks_consumed"],
+                         "off": off["blocks_consumed"]},
+        block_cost_ratio=on["blocks_consumed"] / off["blocks_consumed"],
+        shared_block_hits=on["shared_block_hits"],
+        sharers_mean_ttft_s={"on": on["sharers_mean_ttft_s"],
+                             "off": off["sharers_mean_ttft_s"]},
+        sharers_ttft_ratio=on["sharers_mean_ttft_s"]
+        / off["sharers_mean_ttft_s"],
+        tokens_per_s={"on": on["tokens_per_s"], "off": off["tokens_per_s"]},
+        peak_mem_gb={"on": on["peak_mem_gb"], "off": off["peak_mem_gb"]},
+        token_agreement_on_vs_off=dict(per_request=agree,
+                                       overall=float(np.mean(agree))),
+        note="bf16: the runs put their fills at different steps, so a "
+             "mixed and a pure-decode step may round differently")
+    print("share " + json.dumps(summary), flush=True)
+    _check(on["shared_prefix_blocks"] == [0] + [nshared] * (n - 1),
+           f"shared_prefix_blocks {on['shared_prefix_blocks']}")
+    _check(on["shared_block_hits"] == nshared * (n - 1),
+           f"shared_block_hits {on['shared_block_hits']}")
+    _check(off["shared_block_hits"] == 0, "the unshared run mapped blocks")
+    _check(on["blocks_consumed"] < off["blocks_consumed"],
+           f"sharing drew {on['blocks_consumed']} blocks, not fewer than "
+           f"{off['blocks_consumed']}")
+    _check(on["rebuild_layers_checked"] == cfg.num_layers,
+           "the rebuilt histogram was not checked in every layer")
+    # (b) the meta view, first two requests
+    eng = PagedServingEngine(cfg, params, share_prefixes=True, fused=False,
+                             **kw)
+    mv, mv_out = _share_run(eng, cfg, prompts[:2], 16, METAVIEW_KERNELS,
+                            budget, True)
+    del eng
+    torch.cuda.empty_cache()
+    mv["token_agreement_with_share_on"] = [
+        float(np.mean(mv_out[u] == outs[True][u][:16])) for u in sorted(mv_out)]
+    print("share_metaview " + json.dumps(mv), flush=True)
+    _check(mv["shared_prefix_blocks"] == [0, nshared],
+           f"meta view shared_prefix_blocks {mv['shared_prefix_blocks']}")
+    # (c) the offloaded engine, sharing on, then off
+    tiered = {}
+    for share in (True, False):
+        eng = PagedServingEngine(cfg, params, share_prefixes=share,
+                                 offload=True, num_device_blocks=128, **kw)
+        r, off_out = _share_run(eng, cfg, prompts, SHARE_GEN,
+                                OFFLOAD_KERNELS, budget, share)
+        done = {q.uid: q for q in eng._done}
+        host, t = eng.host, r.get("tally", {})
+        r.update(_tier_stats(eng, done),
+                 tokens_identical_to_resident=_same_tokens(off_out,
+                                                           outs[share]),
+                 fetched_fill_rows=host.fetched_fill_rows,
+                 fetched_unique_head_rows=host.fetched_unique_head_rows,
+                 fetched_unique_fill_rows=host.fetched_unique_fill_rows,
+                 fetched_unique_bytes=sum(q.fetched_unique_bytes
+                                          for q in done.values()),
+                 # every host row the launches read, the free slots' too
+                 # (their frozen regions and -1 rows reach block 0)
+                 distinct_bytes=host.fetched_unique_head_rows
+                 * host.bytes_per_head_row(eng._names[0])
+                 + host.fetched_unique_fill_rows
+                 * host.bytes_per_row(eng._names[0]),
+                 staging_resident_after=eng.staging.resident_count(),
+                 note="every tiered gather checked on the card (a sync per "
+                      "launch): tokens/s not comparable")
+        print(f"share_offload_{'on' if share else 'off'} " + json.dumps(r),
+              flush=True)
+        _check(r["tokens_identical_to_resident"], "offloaded tokens differ "
+               "from the resident run's with the same sharing")
+        _check(r["shared_block_hits"] == rec[share]["shared_block_hits"]
+               and r["blocks_consumed"] == rec[share]["blocks_consumed"],
+               "offloaded block counters differ from the resident run's")
+        _check(eng.staging.resident_count() == 0, "staging retained blocks")
+        _check(host.fetched_unique_head_rows
+               == t.get("distinct_missed_head_rows", 0)
+               and cfg.num_kv_heads * host.fetched_unique_fill_rows
+               == t.get("fill_distinct_missed_head_rows", 0),
+               f"the engine's distinct rows differ from the kernel's "
+               f"distinct reads {t}")
+        tiered[share] = r
+        del eng
+        torch.cuda.empty_cache()
+    return dict(a=summary, on=on, off=off, metaview=mv, offload=tiered,
+                f32_identity=_share_f32_identity(dev, cfg))
+
+
+def _share_f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
+    """(d) 2 layers at full width in float32: four requests with one
+    2,048-token prefix (16 blocks) through the fused, meta-view and
+    offloaded engines (48 of 128 blocks staged), each with sharing, with
+    chunked prefill alone, and with solo prefill: identical tokens."""
+    import torch
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import PagedServingEngine
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
+    params = init_params(cfg, seed=4, device=dev)
+    prompts = _share_prompts(cfg, seed=10, prefix=2048,
+                             suffixes=(96, 160, 224, 288))
+    common = dict(n_max=4096, max_batch=4, chunk_size=4, block_size=128,
+                  num_blocks=128, device=dev)
+    engines = (("fused", {}), ("metaview", dict(fused=False)),
+               ("offload", dict(offload=True, num_device_blocks=48)))
+    modes = (("solo", dict(prefill_budget=0)),
+             ("chunked", dict(prefill_budget=budget)),
+             ("shared", dict(prefill_budget=budget, share_prefixes=True)))
+    rec = {}
+    for name, kw in engines:
+        outs = {}
+        for mode, extra in modes:
+            eng = PagedServingEngine(cfg, params, **common, **kw, **extra)
+            _, done = _serve(eng, prompts, gen, (0,) * len(prompts), {}, cfg,
+                             audit=True)
+            outs[mode] = {u: q.output for u, q in done.items()}
+            if mode == "shared":
+                rec[f"{name}_shared_block_hits"] = eng.shared_block_hits
+                _check(_drained(eng), f"{name}: blocks outlived the run")
+            del eng
+        rec[name] = dict(shared_eq_chunked=_same_tokens(outs["shared"],
+                                                        outs["chunked"]),
+                         chunked_eq_solo=_same_tokens(outs["chunked"],
+                                                      outs["solo"]))
+    torch.cuda.empty_cache()
+    print("share_f32 " + json.dumps(dict(
+        layers=2, dtype="float32", prefix=2048, suffixes=[96, 160, 224, 288],
+        new_tokens=gen, prefill_budget=budget, identical=rec)), flush=True)
+    _check(all(rec[n]["shared_eq_chunked"] and rec[n]["chunked_eq_solo"]
+               for n, _ in engines), f"float32 sharing tokens differ: {rec}")
+    _check(all(rec[f"{n}_shared_block_hits"] == 3 * 16 for n, _ in engines),
+           f"float32 sharing mapped other than 3 x 16 blocks: {rec}")
+    return rec
+
+
 # ---------------------------------------------------------------- parity ---
 def _teacher_forced(params, cfg, prompt, forced, device, paged: bool):
     """Prefill + ``len(forced)`` decode steps fed the given tokens, through
@@ -1853,7 +2213,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
-              "chunked", "parity")
+              "chunked", "share", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -1875,8 +2235,8 @@ def main() -> int:
     cfg = configs.get("qwen2-1.5b")
     kern = kernel_phase(dev, cfg) if "kernels" in only else {}
     params = None
-    if {"engine", "slot", "metaview", "baseline", "offload",
-            "chunked"} & set(only):
+    if {"engine", "slot", "metaview", "baseline", "offload", "chunked",
+            "share"} & set(only):
         from repro_torch.models.model import init_params
         params = init_params(cfg, seed=0, device=dev)
     launches = {}             # kernel → launches on the first path using it
@@ -1915,6 +2275,10 @@ def main() -> int:
             "bucket_count"]
         launches["gather_rows_tiered/fill"] = ch["offload"]["launches"][
             "gather_rows_tiered"]
+    if "share" in only:
+        # the shared admissions' histogram rebuilds in the sharing run (a)
+        sh = share_phase(dev, cfg, params)
+        launches["bucket_count/share"] = sh["on"]["rebuild_launches"]
     if "parity" in only:
         parity_phase(dev, cfg)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -1,7 +1,7 @@
-"""ParisKV cache state (port of ``repro/core/cache.py`` without the
-prefix-sharing parts): Sink / Retrieval / Local / Update regions, the
-contiguous per-slot cache, the paged block pool and its tiered
-(host-offloaded) variant, and the writes of a chunked fill.
+"""ParisKV cache state (port of ``repro/core/cache.py``): Sink / Retrieval /
+Local / Update regions, the contiguous per-slot cache, the paged block
+pool and its tiered (host-offloaded) variant, the writes of a chunked
+fill, and the histogram rebuild of a shared-prefix admission.
 
       0 ........ sink | sink ........ enc_end | enc_end ....... pos | ...
       [   Sink     ]   [   Retrieval region ]  [ Local + Update buf ]
@@ -418,6 +418,24 @@ def bucket_hist_from_meta(meta_ids: torch.Tensor, regions: CacheRegions,
     ``bucket_count``)."""
     return bucket_count(meta_ids, regions.enc_end, cfg.sink_size,
                         cfg.num_centroids())
+
+
+def bucket_hist_from_paged_meta(pool: PagedLayerKVCache,
+                                bt_row: torch.Tensor, enc_end: int,
+                                cfg: ParisKVConfig) -> torch.Tensor:
+    """One slot's bucket histogram rebuilt from pool metadata over [sink,
+    enc_end), through its block-table row ``bt_row`` (nblk,) int32 (< 0 =
+    unallocated, excluded) → (G, B, 2^m) int32: the paged twin of
+    ``bucket_hist_from_meta`` for a shared-prefix admission, whose mapped
+    blocks never pass through a fill of its own (kernels/collision
+    ``bucket_count_span`` into a zeroed row; an empty region launches
+    nothing)."""
+    ids = pool.meta_ids
+    hist = torch.zeros((1, ids.shape[1], ids.shape[3], cfg.num_centroids()),
+                       dtype=torch.int32, device=ids.device)
+    row = torch.as_tensor(bt_row, dtype=torch.int32).to(ids.device)
+    return bucket_count_span(ids, row.reshape(1, -1), cfg.sink_size,
+                             int(enc_end), cfg.num_centroids(), hist)[0]
 
 
 def paged_promote_rows_hist(pool: PagedLayerKVCache, hist: torch.Tensor,

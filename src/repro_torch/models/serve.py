@@ -16,7 +16,9 @@ paths of ``repro/models/serve.py``).
   ``dev_map`` the paged pool is tiered (staging K/V on the device, the
   full K/V in host memory).
 * With ``prefill_budget`` P > 0 (chunked prefill), ``admit_fill`` copies a
-  prompt to the slot's device buffer and ``decode_chunk``'s steps become
+  prompt to the slot's device buffer (a shared-prefix admission starts
+  the fill past the mapped prefix and rebuilds the slot's histogram from
+  its blocks' metadata) and ``decode_chunk``'s steps become
   mixed prefill+decode steps: each also runs one P-token chunk of the (at
   most one) filling slot through every layer (``decode_fill_step``),
   after that layer's decode, and the slot emits its first token the step
@@ -180,6 +182,28 @@ def fill_support_reason(cfg: ModelConfig) -> Optional[str]:
 
 def fill_supported(cfg: ModelConfig) -> bool:
     return fill_support_reason(cfg) is None
+
+
+def share_support_reason(cfg: ModelConfig) -> Optional[str]:
+    """Why block-granular prefix sharing cannot serve this architecture,
+    or None when it can. A sharer maps cached pool blocks into its table
+    and skips their fill, so every layer's prompt state must live in the
+    shared pool: chunked prefill must be supported, and every attention
+    layer must be a ParisKV layer (a sliding-window layer's ring buffer is
+    slot-local, and a slot that skipped the prefix would find it empty)."""
+    reason = fill_support_reason(cfg)
+    if reason is not None:
+        return reason
+    for i, ld in enumerate(layer_defs(cfg)):
+        if not ld.use_pariskv:
+            return (f"config {cfg.name!r}: layer {i} caches its window in a "
+                    f"slot-local ring buffer, which a shared prefix cannot "
+                    f"populate (ParisKV-attention layers only)")
+    return None
+
+
+def share_supported(cfg: ModelConfig) -> bool:
+    return share_support_reason(cfg) is None
 
 
 def regions_init(batch: int, device) -> CC.CacheRegions:
@@ -729,21 +753,43 @@ def admit_slot(state: SlotState, slot: int, caches1: List[dict],
 
 @torch.no_grad()
 def admit_fill(state: SlotState, slot: int, prompt_row, length: int,
-               max_new: int) -> SlotState:
+               max_new: int, fill_start: Optional[int] = None,
+               bt_row=None, pcfg=None) -> SlotState:
     """Admit a request for chunked prefill, in place: copy its prompt
     (``prompt_row``, padded to the buffer's width) to the slot's device
     buffer and arm its fill; no forward pass runs here, the mixed steps of
     ``decode_chunk`` consume the prompt. The slot opens at ``pos = -1``,
     ``enc_end = 0`` with a zero histogram on a paged pool (a re-admitted
-    slot counts from an empty retrieval region)."""
+    slot counts from an empty retrieval region).
+
+    A shared-prefix admission passes ``fill_start`` f0, the end of the
+    block-granular prefix the engine mapped into the slot's table row
+    ``bt_row`` (nblk,) (-1 where unallocated), and ``pcfg``: the fill then
+    writes only [f0, length), and the slot opens where a fill that had
+    written the prefix itself would stand (``pos = f0 - 1``, ``enc_end =
+    fill_enc_end(f0)``), its histogram rebuilt from the mapped blocks'
+    metadata (``bucket_hist_from_paged_meta``, one launch per layer).
+    ``fill_start=0`` is the unshared admission. f0 stays a host int, so
+    the mixed steps still add no host synchronization."""
+    f0 = enc0 = 0
+    if fill_start is not None:
+        if bt_row is None or pcfg is None:
+            raise ValueError("a shared-prefix admission needs the slot's "
+                             "block-table row and pcfg")
+        f0 = int(fill_start)
+        enc0 = CC.fill_enc_end(f0, pcfg)
+        bt_row = torch.as_tensor(bt_row, dtype=torch.int32).to(
+            state.prompt.device)               # one upload for every layer
     for lc in state.caches:
         if "hist" in lc:
-            lc["hist"][slot] = 0
-    state.regions.pos[slot] = -1
-    state.regions.enc_end[slot] = 0
+            lc["hist"][slot] = (0 if fill_start is None else
+                                CC.bucket_hist_from_paged_meta(
+                                    lc["kv"], bt_row, enc0, pcfg))
+    state.regions.pos[slot] = f0 - 1
+    state.regions.enc_end[slot] = enc0
     state.cur_tok[slot] = 0
     state.remaining[slot] = max_new
-    state.fill_pos[slot] = 0
+    state.fill_pos[slot] = f0
     state.fill_len[slot] = length
     state.prompt[slot] = torch.as_tensor(prompt_row, dtype=torch.int32).to(
         state.prompt.device)

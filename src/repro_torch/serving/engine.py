@@ -1,5 +1,5 @@
-"""Serving engines (port of ``repro/serving/engine.py`` without prefix
-sharing, fault handling and mesh sharding).
+"""Serving engines (port of ``repro/serving/engine.py`` without fault
+handling and mesh sharding).
 
 ``ServingEngine`` is slot-based continuous batching over contiguous
 per-slot caches of ``n_max`` positions: the stepwise loop — cancellations
@@ -34,6 +34,17 @@ slots:
 * a finished or cancelled slot's blocks and histogram row are zeroed and
   its blocks return to the free list.
 
+``share_prefixes=True`` (paged engines, with ``prefill_budget > 0``) adds
+block-granular prefix sharing with copy-on-write: every full prompt block
+but the one holding the last prompt token gets a chained SHA-256 content
+hash and, once its fill completes, an entry in a pool-level
+``prefix_index``. A later admission maps the longest indexed prefix into
+its table (one more reference per block, no pool draw), rebuilds its
+histogram from those blocks' metadata and fills only the suffix; every
+write it makes lands in private blocks. Reclamation is refcounted: a
+block is zeroed, freed and dropped from the index only when its last
+holder leaves.
+
 Its decode runs the fused retrieval path, or with ``fused=False`` the
 meta-view fallback (token-identical). ``offload=True`` returns an
 ``OffloadedPagedServingEngine``: the K/V pool lives in (pinned) host
@@ -52,6 +63,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import hashlib
 import time
 from typing import Deque, Dict, List, Optional
 
@@ -88,6 +100,8 @@ class Request:
     prefetch_hits: int = 0
     fetch_stall_s: float = 0.0
     fetch_callbacks: int = 0
+    # prefix sharing only: cached blocks mapped into its table, not filled
+    shared_prefix_blocks: int = 0
     # engine-internal:
     _tokens: Optional[list] = None
     _t_admit: float = 0.0
@@ -141,6 +155,12 @@ def _finalize_output(req: Request, eos_id: Optional[int],
     req.output = out
     req.token_times = req.token_times[:len(out)]
     req.decode_s = t_now - req._t_first
+
+
+class InvariantViolation(AssertionError):
+    """``verify_invariants()`` found engine state that breaks a structural
+    invariant (allocator accounting, block-table and refcount agreement,
+    staging residency, or the incremental histogram)."""
 
 
 def _not_ported(engine: str, options) -> None:
@@ -278,7 +298,7 @@ class ServingEngine:
 
     def _fill_complete(self, slot: int, req: Request) -> None:
         """A chunked fill just finished: the slot's prompt is fully
-        written (prefix sharing, ROADMAP A8, would register its blocks)."""
+        written (a sharing engine registers its blocks)."""
 
     def _after_collect(self, slot: int, req: Request) -> None:
         """Count the slot's sliding-window promotions from its enc_end (a
@@ -356,10 +376,15 @@ class ServingEngine:
         prow = np.zeros((self.n_max + self.prefill_budget,), np.int32)
         prow[:len(req.prompt)] = req.prompt
         self._state = SV.admit_fill(self._state, slot, prow, len(req.prompt),
-                                    req.max_new_tokens)
+                                    req.max_new_tokens,
+                                    **self._fill_args(slot))
         self._enc[slot] = CC.fill_enc_end(len(req.prompt), self.cfg.pariskv)
         self._slots[slot] = req
         self._filling = slot
+
+    def _fill_args(self, slot: int) -> dict:
+        """admit_fill's shared-prefix arguments (paged sharing engines)."""
+        return {}
 
     def _collect(self, tokens: np.ndarray, rem_after: np.ndarray) -> None:
         t_now = time.perf_counter()
@@ -422,7 +447,15 @@ class PagedServingEngine(ServingEngine):
     ``num_blocks`` defaults to ``max_batch * n_max // block_size``, the
     contiguous engine's footprint. Runs on the first CUDA card unless
     ``device="cpu"``; ``params`` must live there. ``offload=True``
-    constructs an ``OffloadedPagedServingEngine``."""
+    constructs an ``OffloadedPagedServingEngine``.
+
+    ``share_prefixes=True`` (needs ``prefill_budget > 0`` and an
+    architecture ``models.serve.share_supported`` accepts) maps indexed
+    prompt blocks into later admissions' tables (module docstring).
+    Admission backpressure then counts only the blocks a request will
+    draw from the pool. ``blocks_consumed`` counts the blocks ever drawn
+    from the pool, ``shared_block_hits`` the blocks ever mapped, and
+    ``Request.shared_prefix_blocks`` each request's mapped blocks."""
 
     def __new__(cls, *args, **kwargs):
         if cls is PagedServingEngine and kwargs.get("offload"):
@@ -438,7 +471,6 @@ class PagedServingEngine(ServingEngine):
                  share_prefixes: bool = False, mesh_shards: int = 1,
                  faults=None, device=None):
         _not_ported("PagedServingEngine", (
-            ("share_prefixes", share_prefixes, False, "A8 (prefix sharing)"),
             ("faults", faults, None, "A10 (fault handling)"),
             ("mesh_shards", mesh_shards, 1,
              "A11 (head-sharded multi-GPU serving)")))
@@ -447,11 +479,21 @@ class PagedServingEngine(ServingEngine):
         if n_max % block_size != 0:
             raise ValueError(f"n_max={n_max} must be a multiple of "
                              f"block_size={block_size}")
+        if share_prefixes:
+            if prefill_budget <= 0:
+                raise ValueError(
+                    "share_prefixes=True requires prefill_budget > 0: the "
+                    "chunked fill skips the shared prefix, and a solo "
+                    "prefill cannot resume past it")
+            reason = SV.share_support_reason(cfg)
+            if reason is not None:
+                raise ValueError(f"prefix sharing unavailable — {reason}")
         super().__init__(cfg, params, n_max=n_max, max_batch=max_batch,
                          greedy=greedy, chunk_size=chunk_size,
                          eos_id=eos_id, prefill_budget=prefill_budget,
                          device=device)
         self.fused = fused
+        self.share_prefixes = share_prefixes
         self.block_size = block_size
         self.nblk = n_max // block_size
         self.num_blocks = (max_batch * self.nblk if num_blocks is None
@@ -462,6 +504,14 @@ class PagedServingEngine(ServingEngine):
         self._pos: Dict[int, int] = {}           # slot → host view of pos
         self._need: Dict[int, int] = {}          # slot → total token budget
         self._bt = np.full((max_batch, self.nblk), -1, np.int32)
+        # refcounts are kept with sharing off too (one holder per block),
+        # so there is one reclamation path
+        self._refcnt: Dict[int, int] = {}        # block → live holders
+        self._prefix_index: Dict[bytes, int] = {}  # chained hash → block
+        self._block_hash: Dict[int, bytes] = {}  # block → its index key
+        self._fill_start: Dict[int, int] = {}    # slot → shared-prefix end
+        self.blocks_consumed = 0    # blocks drawn from the pool (ever)
+        self.shared_block_hits = 0  # blocks mapped from the index (ever)
 
     # ------------------------------------------------------------ helpers --
     def blocks_needed(self, req: Request) -> int:
@@ -485,6 +535,8 @@ class PagedServingEngine(ServingEngine):
         self._bt[slot, len(self._alloc[slot])] = blk
         self._alloc[slot].append(blk)
         self._resv[slot] -= 1
+        self._refcnt[blk] = 1
+        self.blocks_consumed += 1
 
     def _ensure_blocks(self, slot: int) -> None:
         """Lazy allocation: before a chunk, give ``slot`` every block its
@@ -503,32 +555,127 @@ class PagedServingEngine(ServingEngine):
         phys[:len(blocks)] = blocks
         return torch.from_numpy(phys)
 
+    # ------------------------------------------------------ prefix sharing --
+    def _chain_hashes(self, prompt) -> List[bytes]:
+        """One chained SHA-256 digest per shareable full prompt block:
+        block i hashes its token ids with block i-1's digest, so equal
+        digests mean equal tokens and equal context before them. The block
+        holding the last prompt token is left out: it stays private (the
+        fill needs at least one token for the first-token logits, and the
+        decode appends land there)."""
+        toks = np.ascontiguousarray(np.asarray(prompt, np.int32))
+        bs = self.block_size
+        out: List[bytes] = []
+        h = b""
+        for i in range((len(toks) - 1) // bs):
+            h = hashlib.sha256(h + toks[i * bs:(i + 1) * bs].tobytes()
+                               ).digest()
+            out.append(h)
+        return out
+
+    def _lookup_shared(self, req: Request) -> List[int]:
+        """The longest indexed prefix of the request's shareable blocks,
+        as physical block ids (possibly none)."""
+        blocks: List[int] = []
+        for hh in self._chain_hashes(req.prompt):
+            blk = self._prefix_index.get(hh)
+            if blk is None:
+                break
+            blocks.append(blk)
+        return blocks
+
+    def _map_shared(self, slot: int, blk: int) -> None:
+        """Map an indexed block into the slot's table: one more reference,
+        no pool draw (its reservation is released)."""
+        self._bt[slot, len(self._alloc[slot])] = blk
+        self._alloc[slot].append(blk)
+        self._resv[slot] -= 1
+        self._refcnt[blk] += 1
+        self.shared_block_hits += 1
+
+    def _decref_blocks(self, slot: int) -> List[int]:
+        """Drop the slot's references; → the blocks whose last holder left
+        (only these may be zeroed, freed and dropped from the index)."""
+        dead: List[int] = []
+        for blk in self._alloc.get(slot, ()):
+            self._refcnt[blk] -= 1
+            if self._refcnt[blk] == 0:
+                del self._refcnt[blk]
+                hh = self._block_hash.pop(blk, None)
+                if hh is not None:
+                    self._prefix_index.pop(hh, None)
+                dead.append(blk)
+        return dead
+
+    def _fill_complete(self, slot: int, req: Request) -> None:
+        """Index the finished fill's shareable blocks (the first writer of
+        a digest wins; a sharer's mapped prefix is already there). Only now
+        are they fully written, so a concurrent identical prompt never
+        maps a half-filled block."""
+        if not self.share_prefixes:
+            return
+        for i, hh in enumerate(self._chain_hashes(req.prompt)):
+            blk = int(self._bt[slot, i])
+            if hh not in self._prefix_index:
+                self._prefix_index[hh] = blk
+                self._block_hash[blk] = hh
+
+    def _fill_args(self, slot: int) -> dict:
+        if not self.share_prefixes:
+            return {}
+        return dict(fill_start=self._fill_start.get(slot, 0),
+                    bt_row=torch.from_numpy(self._bt[slot].copy()),
+                    pcfg=self.cfg.pariskv)
+
+    # ----------------------------------------------------------- allocator --
     def _reserve_blocks(self, slot: int, req: Request) -> None:
         """Worst-case reservation plus the prompt's blocks up front (the
         solo prefill writes the whole prompt in one scatter, a chunked
         fill writes through the table from its first step). While a slot
-        fills, its host ``_pos`` stays at the prompt's end."""
+        fills, its host ``_pos`` stays at the prompt's end. With sharing,
+        the indexed prefix is mapped first and only the rest of the
+        prompt's blocks are drawn; ``_fill_start`` records where the fill
+        resumes."""
         self._alloc[slot] = []
         self._resv[slot] = self.blocks_needed(req)
         self._pos[slot] = len(req.prompt) - 1
         self._need[slot] = len(req.prompt) + req.max_new_tokens
-        for _ in range(-(-len(req.prompt) // self.block_size)):
+        shared = self._lookup_shared(req) if self.share_prefixes else []
+        for blk in shared:
+            self._map_shared(slot, blk)
+        self._fill_start[slot] = len(shared) * self.block_size
+        req.shared_prefix_blocks = len(shared)
+        for _ in range(-(-len(req.prompt) // self.block_size) - len(shared)):
             self._take_block(slot)
 
-    def _release_host(self, slot: int) -> None:
-        self._free.extend(self._alloc.pop(slot, ()))
-        for d in (self._resv, self._pos, self._need, self._enc):
+    def _release_host(self, slot: int,
+                      dead: Optional[List[int]] = None) -> None:
+        """Drop the slot's references (unless ``dead``, the blocks that
+        died, is given) and free the dead blocks; a block another slot
+        still maps stays in place, index entry and all."""
+        if dead is None:
+            dead = self._decref_blocks(slot)
+        self._alloc.pop(slot, None)
+        self._free.extend(dead)
+        for d in (self._resv, self._pos, self._need, self._enc,
+                  self._fill_start):
             d.pop(slot, None)
         self._bt[slot] = -1
 
-    def _clear_device(self, slot: int) -> None:
-        """Zero the slot's pool blocks and histogram row (reclaimed blocks
-        must not leak a tenant's K/V; a free slot's histogram is zero
-        until the next admission computes it)."""
-        phys = self._phys_row(self._alloc.get(slot, ())).to(self.device)
+    def _clear_device(self, slot: int, dead: List[int]) -> None:
+        """Zero the dead blocks and the slot's histogram row (reclaimed
+        blocks must not leak a tenant's K/V; a free slot's histogram is
+        zero until the next admission computes it). Blocks another slot
+        still maps are left as they are."""
+        phys = self._phys_row(dead).to(self.device)
         for lc in self._state.caches:
             CC.paged_clear_blocks(lc["kv"], phys)
             lc["hist"][slot] = 0
+
+    def _reclaim(self, slot: int) -> None:
+        dead = self._decref_blocks(slot)
+        self._clear_device(slot, dead)
+        self._release_host(slot, dead)
 
     # ------------------------------------------- loop phases (overrides) ----
     def _init_state(self) -> SV.SlotState:
@@ -539,11 +686,14 @@ class PagedServingEngine(ServingEngine):
 
     def _evict_device(self, slot: int) -> None:
         self._state = SV.cancel_slot(self._state, slot)
-        self._clear_device(slot)
-        self._release_host(slot)
+        self._reclaim(slot)
 
     def _can_admit(self) -> bool:
-        return self.blocks_needed(self.queue[0]) <= self.free_blocks
+        need = self.blocks_needed(self.queue[0])
+        if self.share_prefixes:
+            # mapped prefix blocks are never drawn from the pool
+            need -= len(self._lookup_shared(self.queue[0]))
+        return need <= self.free_blocks
 
     def _pre_admit(self, slot: int, req: Request) -> None:
         self._reserve_blocks(slot, req)
@@ -571,14 +721,80 @@ class PagedServingEngine(ServingEngine):
         super()._after_collect(slot, req)
 
     def _release_slot(self, slot: int) -> None:
-        self._clear_device(slot)
-        self._release_host(slot)
+        self._reclaim(slot)
+
+    def run(self) -> List[Request]:
+        done = super().run()
+        if len(self._free) != self.num_blocks:
+            raise RuntimeError("block leak: the allocator did not reclaim "
+                               "every block")
+        if self._refcnt or self._prefix_index or self._block_hash:
+            raise RuntimeError("refcount leak: blocks still referenced or "
+                               "indexed after the run")
+        return done
 
     # -------------------------------------------------------------- audit --
+    @staticmethod
+    def _check(cond: bool, msg: str) -> None:
+        if not cond:
+            raise InvariantViolation(msg)
+
+    def verify_invariants(self, check_hist: bool = True) -> None:
+        """Raise ``InvariantViolation`` on the first inconsistency of the
+        engine's redundant state, at a chunk boundary:
+
+        * the free list: no duplicates, disjoint from the allocated
+          blocks, and free + allocated == num_blocks;
+        * refcounts: each allocated block's count equals its holders, and
+          no other block has one; reservations are not negative;
+        * block tables: each row's allocated entries are the allocator's
+          list for the slot, in order;
+        * the prefix index and its reverse map are a bijection over
+          allocated blocks;
+        * with ``check_hist``, ``verify_hist``."""
+        allocated: Dict[int, int] = {}
+        for s, blks in self._alloc.items():
+            self._check(len(set(blks)) == len(blks),
+                        f"slot {s} holds a duplicate block: {blks}")
+            for b in blks:
+                allocated[b] = allocated.get(b, 0) + 1
+        free = list(self._free)
+        self._check(len(set(free)) == len(free),
+                    "free list holds duplicate blocks")
+        both = sorted(set(free) & set(allocated))
+        self._check(not both, f"free list intersects allocated blocks: "
+                              f"{both}")
+        self._check(len(free) + len(allocated) == self.num_blocks,
+                    f"block accounting leak: {len(free)} free + "
+                    f"{len(allocated)} allocated != {self.num_blocks}")
+        self._check(set(self._refcnt) == set(allocated),
+                    "refcount keys drifted from the allocated blocks")
+        for b, n in allocated.items():
+            self._check(self._refcnt[b] == n, f"block {b}: refcount "
+                        f"{self._refcnt[b]} != {n} live holders")
+        for s, n in self._resv.items():
+            self._check(n >= 0, f"slot {s}: negative reservation {n}")
+        for slot in range(self.max_batch):
+            row = self._bt[slot]
+            got = row[row >= 0].tolist()
+            want = self._alloc.get(slot, [])
+            self._check(got == want, f"slot {slot}: block-table row {got} "
+                        f"!= allocator view {want}")
+        self._check(set(self._prefix_index.values()) == set(self._block_hash)
+                    and len(self._prefix_index) == len(self._block_hash),
+                    "prefix index and block-hash map are not a bijection")
+        for hh, b in self._prefix_index.items():
+            self._check(self._block_hash.get(b) == hh,
+                        f"block {b}: hash map disagrees with the index")
+            self._check(b in self._refcnt,
+                        f"prefix index retains unallocated block {b}")
+        if check_hist and self._state is not None:
+            self.verify_hist()
+
     def verify_hist(self) -> None:
-        """Raise AssertionError unless every active slot's incremental
-        histogram equals a recompute from the pool's centroid ids over
-        [sink, enc_end), in every layer."""
+        """Raise ``InvariantViolation`` unless every active slot's
+        incremental histogram equals a recompute from the pool's centroid
+        ids over [sink, enc_end), in every layer."""
         pcfg = self.cfg.pariskv
         slots = [s for s, r in enumerate(self._slots) if r is not None]
         if not slots:
@@ -590,10 +806,9 @@ class PagedServingEngine(ServingEngine):
         for li, lc in enumerate(self._state.caches):
             ids = CC.paged_ids_view(lc["kv"], bt)
             want = CC.bucket_hist_from_meta(ids, regions, pcfg)
-            if not torch.equal(lc["hist"][sel], want):
-                raise AssertionError(
-                    f"layer {li}: incremental histogram != recompute for "
-                    f"slots {slots}")
+            self._check(torch.equal(lc["hist"][sel], want),
+                        f"layer {li}: incremental histogram != recompute for "
+                        f"slots {slots}")
 
 
 class OffloadedPagedServingEngine(PagedServingEngine):
@@ -628,8 +843,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
     blocks of its frontier and metadata into the pool, and reads its
     prefix through the tiered gather: staged blocks from staging, the
     others from host memory (written back there when they left staging).
-    Eviction and ``cancel(uid)`` reclaim both tiers: host blocks zeroed,
-    staging slots freed without write-back.
+    Eviction and ``cancel(uid)`` reclaim both tiers of the blocks whose
+    last holder left: host blocks zeroed, staging slots freed without
+    write-back. With ``share_prefixes`` a sharer's first chunk reads the
+    mapped prefix through the tiered gather like any other prefix.
 
     ``overlap=True`` (on a card) runs each layer's winner gather on a side
     stream while the main stream gathers and scores the sink and window;
@@ -910,12 +1127,14 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         self._harvest_fetch_stats()
         return out
 
-    def _clear_device(self, slot: int) -> None:
-        """Reclaim both tiers of the slot's blocks: free their staging
-        slots (no write-back: the data is dead), zero the slot's metadata
-        blocks, freed staging blocks and histogram row on the device, and
-        its host blocks."""
-        blocks = np.asarray(self._alloc.get(slot, ()), np.int64)
+    def _clear_device(self, slot: int, dead: List[int]) -> None:
+        """Reclaim both tiers of the dead blocks (their last holder left):
+        free their staging slots (no write-back: the data is dead), zero
+        their metadata, the freed staging blocks and the slot's histogram
+        row on the device, and their host copies. A block another slot
+        still maps keeps all three: its staging residency, its host bytes
+        and the metadata its holders' retrieval reads."""
+        blocks = np.asarray(dead, np.int64)
         freed = self.staging.release_host_blocks(blocks)
         meta = torch.from_numpy(blocks).to(self.device)
         stag = torch.tensor(freed, dtype=torch.int64, device=self.device)
@@ -925,28 +1144,34 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         if blocks.size:
             self.host.zero_blocks(blocks)
 
+    def _abort_admit(self, slot: int) -> None:
+        """Only a solo admission aborts, before it writes anything; its
+        dead blocks still leave staging and get zeroed host copies, so
+        neither tier can hand a stale block to its next tenant."""
+        dead = self._decref_blocks(slot)
+        if dead:
+            blocks = np.asarray(dead, np.int64)
+            self.staging.release_host_blocks(blocks)
+            self.host.zero_blocks(blocks)
+        self._release_host(slot, dead)
+
     # -------------------------------------------------------------- audit --
     def verify_invariants(self, check_hist: bool = True) -> None:
-        """Raise AssertionError unless the staging map mirrors ownership
-        (``dev_map[hb] == s`` ⟺ ``owner[s] == hb``), free staging slots are
-        unique and unowned, free + resident == num_device_blocks, and every
-        staged host block is allocated to some slot; with ``check_hist``
-        also ``verify_hist``."""
-        if check_hist:
-            self.verify_hist()
+        """The resident engine's audit, then the staging map: it mirrors
+        ownership (``dev_map[hb] == s`` ⟺ ``owner[s] == hb``), free staging
+        slots are unique and unowned, free + resident ==
+        num_device_blocks, and every staged host block is held by some
+        slot (has a refcount)."""
+        super().verify_invariants(check_hist=check_hist)
         sm = self.staging
-        allocated = {b for blks in self._alloc.values() for b in blks}
-
-        def check(cond, msg):
-            if not cond:
-                raise AssertionError(msg)
+        check = self._check
         for hb in np.flatnonzero(sm.dev_map >= 0):
             s = int(sm.dev_map[hb])
             check(int(sm.owner[s]) == int(hb),
                   f"staging slot {s}: owner {int(sm.owner[s])} != dev_map "
                   f"inverse {int(hb)}")
-            check(int(hb) in allocated, f"host block {int(hb)} staged but "
-                  f"not allocated to any slot")
+            check(int(hb) in self._refcnt, f"host block {int(hb)} staged "
+                  f"but not allocated to any slot")
         for s in np.flatnonzero(sm.owner >= 0):
             hb = int(sm.owner[s])
             check(int(sm.dev_map[hb]) == int(s),

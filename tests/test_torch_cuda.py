@@ -295,3 +295,39 @@ def test_bucket_count_span_matches_plain_on_card(card):
             want = base.cpu() + bucket_count_span_ref(ids.cpu(), bt.cpu(),
                                                       lo, hi, 256)
             assert torch.equal(got.cpu(), want), (nsub, lo, hi)
+
+
+@pytest.mark.cuda
+def test_bucket_count_span_long_rebuild_exact_on_card(card):
+    """A shared-prefix admission's histogram rebuild (``core/cache.py:
+    bucket_hist_from_paged_meta``): bucket_count's block-table mode over
+    [sink, enc_end) of an 8,192-token prefix, about 8,000 positions (the
+    widest cluster), through a 128-entry table row that is -1 past the
+    prefix and at two blocks inside it, is exact against its plain
+    version."""
+    from repro_torch.core import cache as CC
+    from repro_torch.core.config import ParisKVConfig
+    from repro_torch.kernels.collision.ops import count_cluster
+    from repro_torch.kernels.collision.ref import bucket_count_span_ref
+
+    gen = torch.Generator(device=card).manual_seed(18)
+    pcfg = ParisKVConfig()
+    nb, bs, nblk, prefix = 512, 128, 128, 8192
+    ids = torch.randint(0, 256, (nb, G, bs, 16), generator=gen, device=card,
+                        dtype=torch.int32).to(torch.uint8)
+    row = torch.full((nblk,), -1, dtype=torch.int32, device=card)
+    row[:prefix // bs] = torch.randperm(nb, generator=gen, device=card)[
+        :prefix // bs].to(torch.int32)
+    for holes in ((), (5, 40)):
+        for h in holes:
+            row[h] = -1
+        enc = CC.fill_enc_end(prefix, pcfg)
+        assert count_cluster(enc - pcfg.sink_size) == 8
+        got = CC.bucket_hist_from_paged_meta(
+            CC.PagedLayerKVCache(None, None, ids, None, None), row, enc,
+            pcfg)
+        want = bucket_count_span_ref(ids.cpu(), row.cpu()[None],
+                                     pcfg.sink_size, enc, 256)[0]
+        assert torch.equal(got.cpu(), want), holes
+        assert int(want.sum()) == G * 16 * (enc - pcfg.sink_size
+                                            - len(holes) * bs)

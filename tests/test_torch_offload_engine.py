@@ -213,8 +213,6 @@ def test_undersized_staging_pool_raises(setup):
 
 
 @pytest.mark.parametrize("option,item", [
-    (dict(share_prefixes=True, prefill_budget=16), "A8"),
-    (dict(share_prefixes=True), "A8"),
     (dict(faults=object()), "A10"), (dict(fetch_timeout_s=0.5), "A10")])
 def test_options_not_ported_raise_with_roadmap_item(setup, option, item):
     _, pt, _ = setup
