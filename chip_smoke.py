@@ -129,7 +129,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
               in float32 (prefix 2,048, four requests): sharing, chunked
               and solo tokens identical on the fused, meta-view and
               offloaded engines.
-11. parity  — 2 layers at full width in float32: one teacher-forced
+11. faults  — fault handling at full width (bf16) on the offloaded engine
+              (128 of 512 blocks staged) with the first two requests, 32
+              new each: a clean run, then fetch delays, transient
+              failures retried, a hung fetch past a 0.25 s deadline with
+              the overlap on and off, every fetch failing from the second
+              chunk on (degraded attention), ``engine.slot`` failing uid 0
+              (quarantine) and staging storms, each audited with
+              ``verify_invariants()`` at every chunk; and a chunked run
+              (budget 512, four requests, 16 new) whose fill prefix reads
+              all exhaust their retries. Tokens equal the clean run's
+              where the contract says so (the survivor's under
+              quarantine); the degraded runs complete, and every degraded
+              tiered launch reads zero host rows; no ``kv-fetch*`` thread
+              survives ``close()``. Prints tokens/s against the clean run,
+              stall, retries, timeouts, degraded steps and storm
+              evictions, and the degraded run's token agreement.
+12. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -185,6 +201,8 @@ CHUNK_BUDGET = 512                       # the chunked phase's prefill_budget
 SHARE_PREFIX = 8192
 SHARE_SUFFIXES = (256, 384, 512, 200, 448, 320)
 SHARE_GEN = 64
+FAULT_GEN = 32                           # the faults phase's new tokens
+FAULT_CHUNKED_GEN = 16                   # and in its chunked run (g)
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -1102,8 +1120,9 @@ def _prompts(cfg, seed: int = 0, lens=None):
 
 
 def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
-               cfg, exact=EXACT, fill=None) -> int:
-    """Fail unless requests 0 .. n_requests-1 each got ``gen`` tokens, no
+               cfg, exact=EXACT, fill=None, failed=()) -> int:
+    """Fail unless requests 0 .. n_requests-1 each got ``gen`` tokens (those
+    in ``failed`` instead were quarantined), no
     logit was non-finite, and every kernel in ``kernels`` launched at least
     its given count per layer and decode step: those in ``exact`` exactly
     that, the paged gather once plus at most one K-only promotion gather
@@ -1114,7 +1133,11 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
     fill = fill or {}
     _check(sorted(done) == list(range(n_requests)), f"served {sorted(done)}")
     for uid, r in done.items():
-        _check(len(r.output) == gen, f"request {uid}: {len(r.output)} tokens")
+        if uid in failed:
+            _check(r.failed, f"request {uid} was not quarantined")
+            continue
+        _check(len(r.output) == gen and not r.failed,
+               f"request {uid}: {len(r.output)} tokens, failed={r.failed}")
     steps = eng.decode_steps
     for name, per_step in kernels.items():
         need = per_step * cfg.num_layers * steps + fill.get(name, 0)
@@ -1144,7 +1167,7 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
 
 
 def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
-           exact=EXACT, fill=None):
+           exact=EXACT, fill=None, failed=()):
     """Serve ``prompts`` (uid = index) submitted before the chunks in
     ``arrivals``, with the launch counters zeroed just before and read just
     after, held to ``_check_run``. ``audit``: the engine's
@@ -1180,7 +1203,7 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
     done = {r.uid: r for r in eng._done}
     steps = eng.decode_steps
     nonfinite = _check_run(eng, done, len(arrivals), gen, launches, kernels,
-                           cfg, exact, fill)
+                           cfg, exact, fill, failed)
     tokens = sum(len(r.output) for r in done.values())
     rec = dict(
         requests=[dict(uid=u, prompt=len(prompts[u]),
@@ -1401,12 +1424,22 @@ class _TieredTally:
     kv head) pairs it was given, how many are distinct (torch.unique),
     and the distinct count the kernel itself reported, which must equal
     torch.unique's at every launch: the kernel read each distinct missed
-    row over the link once."""
+    row over the link once.
 
-    def __init__(self):
+    With ``host`` (an offloaded engine's ``HostKVPool``) its fetch policy
+    is watched too: a launch after a fetch that gave up is a degraded
+    launch, and its distinct missed rows (those it read from host memory)
+    are summed apart; they must be 0."""
+
+    def __init__(self, host=None):
         self.t = dict(launches=0, fill_launches=0, missed_head_rows=0,
                       distinct_missed_head_rows=0, fill_missed_head_rows=0,
                       fill_distinct_missed_head_rows=0)
+        self._host = host
+        self._gave_up = False
+        if host is not None:
+            self.t.update(failed_fetches=0, degraded_launches=0,
+                          degraded_distinct_missed_head_rows=0)
 
     def __enter__(self):
         import torch
@@ -1415,6 +1448,17 @@ class _TieredTally:
         self._mods = (L, SV)
         real = self._real = L.gather_heads_tiered
         t = self.t
+        if self._host is not None:
+            attempt = self._host.fetch_attempt
+
+            def watched(name, kind):
+                out = attempt(name, kind)
+                # a fill's first chunk reads no prefix: its fetch has no
+                # launch, and the next fetch overwrites the flag
+                self._gave_up = not out[0]
+                t["failed_fetches"] += not out[0]
+                return out
+            self._host.fetch_attempt = watched
 
         def counted(stag_k, stag_v, host_k, host_v, dev_map, rows,
                     count=None):
@@ -1433,6 +1477,10 @@ class _TieredTally:
                    f"gather_rows_tiered reported {int(mine)} distinct missed "
                    f"rows, torch.unique {distinct}")
             pre = "fill_" if rows.shape[2] == 1 else ""
+            if self._gave_up:
+                t["degraded_launches"] += 1
+                t["degraded_distinct_missed_head_rows"] += distinct
+                self._gave_up = False
             t["launches"] += 1
             t["fill_launches"] += bool(pre)
             t[pre + "missed_head_rows"] += int(key.numel())
@@ -1446,6 +1494,8 @@ class _TieredTally:
     def __exit__(self, *exc):
         for mod in self._mods:
             mod.gather_heads_tiered = self._real
+        if self._host is not None:
+            del self._host.fetch_attempt
 
 
 def _miss_duplicates(dev, cfg, params, n_max: int, gen: int = 16):
@@ -2085,6 +2135,147 @@ def _share_f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
 
 
 # ---------------------------------------------------------------- parity ---
+def faults_phase(dev, cfg, params, n_max: int = 16384, gen: int = FAULT_GEN):
+    """Fault handling at full width (bf16, seed 0) on the offloaded engine
+    (128 of 512 blocks staged, chunks of 8) with the engine phase's first
+    two requests, 32 new tokens each: a clean run, then (a) fetch delays,
+    (b) transient failures, (c) a hung fetch past its deadline with the
+    overlap on and off, (d) every fetch failing from the second chunk on
+    (degraded attention), (e) ``engine.slot`` failing uid 0 (quarantine),
+    (f) staging storms, each audited with ``verify_invariants()`` at every
+    chunk, and (g) a chunked run (budget 512) whose fill prefix reads all
+    exhaust their retries, on the engine phase's four requests: two fit
+    the staging pool, so their fills would read no host row. In (d) and
+    (g) every degraded tiered launch must read zero host rows."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.serving import FaultPlan, FaultSpec, PagedServingEngine
+
+    before = set(threading.enumerate())
+    prompts = _prompts(cfg)
+    geom = dict(n_max=n_max, block_size=128, max_batch=4, num_blocks=512,
+                num_device_blocks=128, chunk_size=8, offload=True,
+                device=dev)
+    first_chunk = cfg.num_layers * geom["chunk_size"]   # heads fetches
+    runs = {
+        "clean": ({}, ()),
+        "a_delay": (dict(faults=[FaultSpec("fetch.gather", "delay",
+                                           delay_s=0.01, count=4)]), ()),
+        "b_fail": (dict(faults=[FaultSpec("fetch.gather", "fail", after=2,
+                                          count=2)],
+                        fetch_max_retries=2), ()),
+        "c_hang_overlap": (dict(faults=[FaultSpec("fetch.gather", "hang",
+                                                  after=4, count=1)],
+                                fetch_timeout_s=0.25), ()),
+        "c_hang_one_stream": (dict(faults=[FaultSpec("fetch.gather", "hang",
+                                                     after=4, count=1)],
+                                   fetch_timeout_s=0.25, overlap=False), ()),
+        "d_degraded": (dict(faults=[FaultSpec("fetch.gather", "fail",
+                                              after=first_chunk,
+                                              count=None)],
+                            fetch_max_retries=1), ()),
+        "e_quarantine": (dict(faults=[FaultSpec("engine.slot", "fail",
+                                                match={"uid": 0})]), (0,)),
+        "f_storm": (dict(faults=[FaultSpec("staging.storm", "storm",
+                                           after=1, count=2)]), ()),
+    }
+    out, toks = {}, {}
+    for name, (kw, failed) in runs.items():
+        plan = FaultPlan(kw.pop("faults", []))
+        eng = PagedServingEngine(cfg, params, faults=plan, **geom, **kw)
+        if name == "clean":
+            _warm(eng, cfg)
+        with _TieredTally(eng.host) as tally:
+            rec, done = _serve(eng, prompts[:2], gen, ARRIVALS[:2],
+                               OFFLOAD_KERNELS, cfg, audit=True,
+                               failed=failed)
+        toks[name] = {u: r.output for u, r in done.items()}
+        out[name] = dict(
+            tokens_per_s=rec["tokens_per_s"], decode_steps=rec[
+                "decode_steps"], hist_checks=rec["hist_checks"],
+            fetch_stall_s=eng.fetch_stall_s, fetch_retries=eng.fetch_retries,
+            fetch_timeouts=eng.fetch_timeouts,
+            degraded_steps=eng.degraded_steps,
+            storm_evictions=eng.storm_evictions,
+            abandoned_attempts=eng.host.abandoned_attempts,
+            fired=len(plan.fired()), tally=tally.t,
+            quarantined=[r.uid for r in eng.quarantined],
+            per_request={u: dict(fetch_retries=r.fetch_retries,
+                                 fetch_timeouts=r.fetch_timeouts,
+                                 degraded_steps=r.degraded_steps,
+                                 fetch_stall_s=r.fetch_stall_s,
+                                 failed=r.failed, error=r.error)
+                         for u, r in done.items()})
+        eng.close()
+        del eng
+        torch.cuda.empty_cache()
+    clean = toks["clean"]
+    for name, rec in out.items():
+        rec["tokens_per_s_vs_clean"] = (rec["tokens_per_s"]
+                                        / out["clean"]["tokens_per_s"])
+    # (g) the chunked run on four requests, every fill read failing
+    plan = FaultPlan([FaultSpec("fetch.gather", "fail", count=None,
+                                match={"kind": "rows"})])
+    eng = PagedServingEngine(cfg, params, faults=plan, fetch_max_retries=1,
+                             fetch_backoff_s=0.0, prefill_budget=CHUNK_BUDGET,
+                             **geom)
+    reads, spans = _fill_counts(cfg, prompts, CHUNK_BUDGET)
+    with _TieredTally(eng.host) as tally:
+        rec, done = _serve(eng, prompts, FAULT_CHUNKED_GEN, ARRIVALS,
+                           OFFLOAD_KERNELS, cfg, audit=True,
+                           fill=dict(gather_rows_tiered=reads,
+                                     bucket_count=spans))
+    out["g_chunked_rows"] = dict(
+        requests=len(prompts), new_tokens=FAULT_CHUNKED_GEN,
+        tokens_per_s=rec["tokens_per_s"], decode_steps=rec["decode_steps"],
+        hist_checks=rec["hist_checks"], fetch_stall_s=eng.fetch_stall_s,
+        fetch_retries=eng.fetch_retries, degraded_steps=eng.degraded_steps,
+        fetched_fill_rows=eng.host.fetched_fill_rows,
+        fetched_unique_fill_rows=eng.host.fetched_unique_fill_rows,
+        fired=len(plan.fired()), tally=tally.t,
+        degraded_per_request=[done[u].degraded_steps for u in sorted(done)])
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    agree = [float(np.mean(toks["d_degraded"][u] == clean[u]))
+             for u in sorted(clean)]
+    out["d_degraded"]["token_agreement_with_clean"] = agree
+    time.sleep(0.1)
+    leaked = [t.name for t in set(threading.enumerate()) - before
+              if t.name.startswith("kv-fetch") and t.is_alive()]
+    out["leaked_fetch_threads"] = leaked
+    print("faults " + json.dumps(out), flush=True)
+    for name in ("a_delay", "b_fail", "c_hang_overlap", "c_hang_one_stream",
+                 "f_storm"):
+        _check(_same_tokens(toks[name], clean),
+               f"faults {name}: tokens differ from the clean run's")
+    _check(out["a_delay"]["fired"] == 4 and out["b_fail"]["fetch_retries"]
+           >= 2, f"faults: delay fired {out['a_delay']['fired']}, retries "
+           f"{out['b_fail']['fetch_retries']}")
+    for name in ("c_hang_overlap", "c_hang_one_stream"):
+        r = out[name]
+        _check(r["fetch_timeouts"] == 1 and r["fetch_retries"] >= 1
+               and r["degraded_steps"] == 0 and r["fetch_stall_s"] < 10,
+               f"faults {name}: {r}")
+    _check(out["f_storm"]["storm_evictions"] > 0, "faults: no storm eviction")
+    _check(out["e_quarantine"]["quarantined"] == [0]
+           and _same_tokens({1: toks["e_quarantine"][1]}, {1: clean[1]}),
+           "faults: quarantine did not fail exactly uid 0 with the survivor "
+           "on the clean run's tokens")
+    for name in ("d_degraded", "g_chunked_rows"):
+        r = out[name]
+        t = r["tally"]
+        _check(r["degraded_steps"] > 0 and t["degraded_launches"] > 0,
+               f"faults {name}: nothing degraded: {r}")
+        _check(t["degraded_distinct_missed_head_rows"] == 0,
+               f"faults {name}: degraded launches read "
+               f"{t['degraded_distinct_missed_head_rows']} host rows")
+    _check(not leaked, f"fetch threads survived close(): {leaked}")
+    return out
+
+
 def _teacher_forced(params, cfg, prompt, forced, device, paged: bool):
     """Prefill + ``len(forced)`` decode steps fed the given tokens, through
     the paged pool (a reversed block table) or a contiguous slot. →
@@ -2213,7 +2404,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
-              "chunked", "share", "parity")
+              "chunked", "share", "faults", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -2236,7 +2427,7 @@ def main() -> int:
     kern = kernel_phase(dev, cfg) if "kernels" in only else {}
     params = None
     if {"engine", "slot", "metaview", "baseline", "offload", "chunked",
-            "share"} & set(only):
+            "share", "faults"} & set(only):
         from repro_torch.models.model import init_params
         params = init_params(cfg, seed=0, device=dev)
     launches = {}             # kernel → launches on the first path using it
@@ -2279,6 +2470,8 @@ def main() -> int:
         # the shared admissions' histogram rebuilds in the sharing run (a)
         sh = share_phase(dev, cfg, params)
         launches["bucket_count/share"] = sh["on"]["rebuild_launches"]
+    if "faults" in only:
+        faults_phase(dev, cfg, params)
     if "parity" in only:
         parity_phase(dev, cfg)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -143,7 +143,9 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
                        enc_end: torch.Tensor, *, sink_size: int,
                        window_size: int, sm_scale: float,
                        softcap: float, s_sink: Optional[torch.Tensor] = None,
-                       s_loc: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       s_loc: Optional[torch.Tensor] = None,
+                       ret_keep: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
     """Joint softmax over the three gathered segments (Eq. 2-3 core).
 
     qg (b, G, Hg, hd) float32; k/v_sink (b, sink, G, hd); k/v_ret
@@ -152,13 +154,19 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
     the raw sink and window scores when the caller computed them already
     (``dense_segment_scores``: the overlapped tiered schedule). Masked
     slots get exactly zero probability (pools hold zeros or real
-    activations, never NaN)."""
+    activations, never NaN). ``ret_keep`` (b, G, Hg, k) bool, optional:
+    extra validity of the retrieved segment, the tiered degraded mode's
+    mask (winners whose host fetch exhausted its retries drop out, so the
+    step attends to sink, window and the staged winners); None changes
+    nothing."""
     dev = qg.device
     s_ret = torch.einsum("bghd,bghkd->bghk", qg, k_ret.float())
     # only positions inside the retrieval region count: with an empty
     # region (early decode) Stage II returns arbitrary indices
     ret_valid = ((top_idx >= sink_size)
                  & (top_idx < enc_end[:, None, None, None]))
+    if ret_keep is not None:
+        ret_valid = ret_valid & ret_keep
     s_ret = torch.where(ret_valid, s_ret, NEG_INF)
 
     if s_sink is None:
@@ -222,7 +230,8 @@ def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
                                   sm_scale: float, softcap: float = 0.0,
                                   rows: Optional[DecodeRows] = None,
                                   s_sink: Optional[torch.Tensor] = None,
-                                  s_loc: Optional[torch.Tensor] = None
+                                  s_loc: Optional[torch.Tensor] = None,
+                                  ret_keep: Optional[torch.Tensor] = None
                                   ) -> torch.Tensor:
     """Decode attention over the paged pool. q (b, H, hd); pool_k/v
     (num_blocks, block_size, G, hd); block_tables (b, nblk) int32;
@@ -235,7 +244,7 @@ def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
     sink and window scores ``s_sink``/``s_loc``: the tiered path gathers
     its winners with its own kernel, and its overlapped schedule scores
     the sink and window while that gather is in flight); placement never
-    changes the values."""
+    changes the values. ``ret_keep`` as in ``_segment_attention``."""
     b, H, hd = q.shape
     G = pool_k.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
@@ -247,7 +256,7 @@ def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
         qg, rows.k_sink, rows.v_sink, rows.k_ret, rows.v_ret, rows.k_loc,
         rows.v_loc, top_idx, window_start, pos, enc_end, sink_size=sink_size,
         window_size=window_size, sm_scale=sm_scale, softcap=softcap,
-        s_sink=s_sink, s_loc=s_loc).reshape(b, H, hd)
+        s_sink=s_sink, s_loc=s_loc, ret_keep=ret_keep).reshape(b, H, hd)
 
 
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -13,6 +13,10 @@ root, keyed by a hash of every source and header, so an edited kernel
 rebuilds and an unchanged one loads in milliseconds. ``nvcc``'s register
 and spill report (``-Xptxas -v``) is kept beside each library as
 ``<name>.log``. Nothing here runs at import time.
+
+A kernel that cannot be built, loaded or launched raises
+:class:`KernelError`: a device fault, which the serving engines' quarantine
+boundaries re-raise instead of failing one request for it.
 """
 from __future__ import annotations
 
@@ -31,6 +35,11 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernel
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
+
+class KernelError(RuntimeError):
+    """A CUDA kernel did not build, load or launch. Never attributable to
+    one request: the engines propagate it out of ``step_serve()``."""
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, object] = {}
@@ -60,8 +69,8 @@ def _nvcc() -> str:
     default = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(default):
         return default
-    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
-                       "machine with the CUDA toolkit")
+    raise KernelError("nvcc not found: the CUDA kernels build only on a "
+                      "machine with the CUDA toolkit")
 
 
 def _source_hash() -> str:
@@ -75,7 +84,8 @@ def _source_hash() -> str:
 
 def build_all() -> Path:
     """Compile every kernel whose library is missing (in parallel) and
-    return the build directory. Raises with nvcc's output on failure."""
+    return the build directory. Raises ``KernelError`` with nvcc's output
+    on failure."""
     out_dir = BUILD_ROOT / _source_hash()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -100,7 +110,7 @@ def build_all() -> Path:
             failed.append(name)
     if failed:
         logs = "\n".join((out_dir / f"{n}.log").read_text() for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+        raise KernelError(f"nvcc failed for {failed}:\n{logs}")
     return out_dir
 
 
@@ -109,9 +119,13 @@ def launcher(name: str):
     every library on first use)."""
     if name not in _FNS:
         src = SOURCE_OF[name]
-        if src not in _LIBS:
-            _LIBS[src] = ctypes.CDLL(str(build_all() / f"lib{src}.so"))
-        fn = getattr(_LIBS[src], f"{name}_launch")
+        try:
+            if src not in _LIBS:
+                _LIBS[src] = ctypes.CDLL(str(build_all() / f"lib{src}.so"))
+            fn = getattr(_LIBS[src], f"{name}_launch")
+        except (OSError, AttributeError) as exc:
+            raise KernelError(f"CUDA kernel {name}: cannot load "
+                              f"lib{src}.so: {exc}") from exc
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -148,12 +162,13 @@ def ptxas_report(source: str) -> Dict[str, Dict[str, int]]:
 
 def launch(name: str, *args) -> None:
     """Call ``<name>_launch(*args, stream)`` on the current CUDA stream and
-    raise if the launch was refused (``cudaGetLastError`` != 0)."""
+    raise ``KernelError`` if the launch was refused (``cudaGetLastError``
+    != 0)."""
     stream = torch.cuda.current_stream().cuda_stream
     err = launcher(name)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"cudaError {err}")
+        raise KernelError(f"CUDA kernel {name} failed to launch: "
+                          f"cudaError {err}")
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

@@ -297,8 +297,8 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
                                regions: C.CacheRegions, spec: AttnSpec,
                                pcfg: ParisKVConfig, signs: torch.Tensor,
                                num_candidates: int, fused: bool = True,
-                               append_index=None, side=None, count=None
-                               ) -> Tuple[torch.Tensor,
+                               append_index=None, side=None, count=None,
+                               fetch=None) -> Tuple[torch.Tensor,
                                           R.PagedRetrievalResult, dict]:
     """ParisKV decode of one layer over a **tiered** pool: metadata,
     Stage I/II and promotion as on the paged paths (host block tables;
@@ -323,10 +323,22 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
     int64 tensor, grows by the gather's distinct missed (row, kv head)
     pairs: the host rows it read.
 
+    ``fetch``, when given, runs the step's host fetch under the fetch
+    policy before the gather is launched (``HostKVPool.fetch_attempt``
+    bound to this layer's entry and ``kind="heads"``) → (ok, retries,
+    timeouts, stall seconds). When it gives up (``ok`` False) the step
+    **degrades**: the same gather is launched with every missed winner
+    at -1, so it reads no host row and writes zeros there, and those
+    winners are masked out of the attention (``ret_keep = resident``): the
+    step attends to sink, window and the staged winners.
+
     → (y (b, d), the retrieval result, fetch-stat increments
     {"touched": (num_blocks,) int32 winner references per host block (the
     prefetch predictor's signal), "rows": (b, 3) int32 [winner rows,
-    staging hits, host fetches], "calls": tiered gathers issued (1)})."""
+    staging hits, host fetches], "calls": tiered gathers issued (1),
+    "retries"/"timeouts"/"stall": the fetch policy's host numbers,
+    "degraded": None, or on a degraded step (b,) bool rows whose misses
+    were dropped})."""
     b = x_t.shape[0]
     H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     bs = pool.k.shape[1]
@@ -347,10 +359,12 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
     resident, _ = R.tiered_winner_rows(res.phys_rows, dev_map, bs)
     ret_valid = ((res.indices >= pcfg.sink_size)
                  & (res.indices < regions.enc_end[:, None, None, None]))
+    ok, retries, timeouts, stall = ((True, 0, 0, 0.0) if fetch is None
+                                    else fetch())
     # the reference's blend: staged rows whatever their validity, host
-    # rows for valid misses, zeros for invalid misses
-    rows = torch.where(ret_valid | resident, res.phys_rows,
-                       -1).to(torch.int32).contiguous()
+    # rows for valid misses (none on a degraded step), zeros for the rest
+    rows = torch.where((ret_valid | resident) if ok else resident,
+                       res.phys_rows, -1).to(torch.int32).contiguous()
     W = C.window_size(pcfg)
     ws = (pos + 1 - W).clamp_min(0)
     scores = {}
@@ -384,10 +398,13 @@ def attn_decode_pariskv_tiered(p: dict, x_t: torch.Tensor,
     stats = {"touched": touched, "calls": 1,
              "rows": torch.stack([ret_valid, ret_valid & resident,
                                   ret_valid & ~resident], -1).sum(
-                                      (1, 2, 3), dtype=torch.int32)}
+                                      (1, 2, 3), dtype=torch.int32),
+             "retries": retries, "timeouts": timeouts, "stall": stall,
+             "degraded": None if ok else (ret_valid & ~resident).flatten(
+                 1).any(1)}
     out = A.sparse_decode_attention_paged(
         q, pool.k, pool.v, kv_tables, res.indices, ws, pos, regions.enc_end,
         sink_size=pcfg.sink_size, window_size=W, sm_scale=spec.scale(),
         softcap=spec.softcap, rows=dense._replace(k_ret=k_ret, v_ret=v_ret),
-        **scores)
+        ret_keep=None if ok else resident, **scores)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res, stats

@@ -49,7 +49,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.gather_kv import gather_heads_tiered
 from repro_torch.models import layers as L
 from repro_torch.models.model import (LayerDef, _embed, _unembed, layer_defs,
-                                      param_device, torch_dtype)
+                                      layer_plan, param_device, torch_dtype)
 
 
 class ServeState(NamedTuple):
@@ -62,11 +62,32 @@ class TierView(NamedTuple):
     map (frozen for the chunk), the host block tables composed with it,
     each layer's host K/V rows (k, v) (num_blocks·block_size, G, hd), and
     the ``layers.SideStream`` of the overlapped winner gather (None: one
-    stream)."""
+    stream), and the fetch policy ``fetch(name, kind) → (ok, retries,
+    timeouts, stall seconds)`` (``HostKVPool.fetch_attempt``; None: every
+    fetch succeeds) with each layer's entry name for it (``entry_names``).
+    """
     dev_map: torch.Tensor
     kv_tables: torch.Tensor
     host_kv: list
     side: Any
+    fetch: Any = None
+    names: Optional[List[str]] = None
+
+    def fetch_of(self, li: int, kind: str):
+        """Layer ``li``'s fetch of ``kind`` as a zero-argument call, or
+        None without a policy."""
+        if self.fetch is None:
+            return None
+        return functools.partial(self.fetch, self.names[li], kind)
+
+
+def entry_names(cfg: ModelConfig) -> List[str]:
+    """Each layer's cache-entry name as the reference gives it,
+    ``s<stage>.l<layer in stage>`` (a stage's repeats share one): the
+    ``name`` a ``fetch.gather`` fault sees, so one ``FaultPlan`` matches
+    and logs the same visits on both sides."""
+    return [f"s{si}.l{i}" for si, st in enumerate(layer_plan(cfg))
+            for _ in range(st.repeat) for i in range(len(st.layers))]
 
 
 class SlotState(NamedTuple):
@@ -115,6 +136,10 @@ def make_caches(cfg: ModelConfig, batch: int, n_max: int,
             for _ in layer_defs(cfg)]
 
 
+# a tiered cache's host-side fetch statistics, reset with every chunk
+_FETCH_HOST_ZERO = {"calls": 0, "retries": 0, "timeouts": 0, "stall": 0.0}
+
+
 def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                       block_size: int, device,
                       num_device_blocks: Optional[int] = None) -> List[dict]:
@@ -125,12 +150,14 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     ``num_blocks`` blocks, K/V for a staging pool of ``num_device_blocks``
     (the full K/V lives in ``serving.offload.HostKVPool``), plus the
     ``fetch`` statistics of a chunk: ``touched`` (num_blocks,) int32
-    winner references per host block, ``rows`` (batch, 4) int32 [winner
+    winner references per host block, ``rows`` (batch, 5) int32 [winner
     rows, staging hits, host fetches, fill prefix rows read from host
-    memory], ``uniq`` (2,) int64 distinct (row, kv head) pairs the tiered
-    gathers read from host memory [winners, fill prefix], ``calls`` the
-    tiered gathers issued (a host count) — zeroed at each ``decode_chunk``
-    entry."""
+    memory, degraded fetches (layer-steps whose misses were dropped)],
+    ``uniq`` (2,) int64 distinct (row, kv head) pairs the tiered gathers
+    read from host memory [winners, fill prefix], and host numbers:
+    ``calls`` the tiered gathers issued, ``retries`` / ``timeouts`` /
+    ``stall`` the fetch policy's re-issues, deadlines and seconds — all
+    zeroed at each ``decode_chunk`` entry."""
     pcfg = cfg.pariskv
     dt = torch_dtype(cfg)
     hist_shape = (batch, cfg.num_kv_heads,
@@ -151,10 +178,10 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
             entry["fetch"] = {
                 "touched": torch.zeros((num_blocks,), dtype=torch.int32,
                                        device=device),
-                "rows": torch.zeros((batch, 4), dtype=torch.int32,
+                "rows": torch.zeros((batch, 5), dtype=torch.int32,
                                     device=device),
                 "uniq": torch.zeros((2,), dtype=torch.int64, device=device),
-                "calls": 0}
+                **_FETCH_HOST_ZERO}
         out.append(entry)
     return out
 
@@ -262,12 +289,13 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                   any_promote: bool, block_tables: Optional[torch.Tensor],
                   append_index, record: Optional[list], use_pariskv: bool,
                   paged_fused: bool, tier: Optional[TierView] = None,
-                  host_kv=None) -> torch.Tensor:
+                  host_kv=None, fetch=None) -> torch.Tensor:
     """One layer of one decode step. ParisKV layers run the contiguous
     path (``block_tables`` None), the fused paged path, or the paged
     meta-view fallback (``paged_fused=False``) — over a tiered pool when
-    ``tier`` is given, with this layer's host rows ``host_kv`` and the
-    step's fetch statistics added to the cache's ``fetch`` entry — then
+    ``tier`` is given, with this layer's host rows ``host_kv``, its
+    winner fetch under the policy ``fetch`` (``TierView.fetch_of``) and
+    the step's fetch statistics added to the cache's ``fetch`` entry — then
     (when ``any_promote``) promote every triggered row's oldest
     ``update_interval`` window tokens — on the paged paths with the
     histogram maintained (a tiered pool gathers the keys through the
@@ -291,14 +319,17 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
             p["attn"], h, kv, cache["hist"], block_tables, tier.kv_tables,
             tier.dev_map, *host_kv, regions, ld.attn, pcfg, signs,
             num_candidates, fused=paged_fused, append_index=append_index,
-            side=tier.side, count=f["uniq"][0:1])
+            side=tier.side, count=f["uniq"][0:1], fetch=fetch)
         if any_promote:
             CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
                                        regions.enc_end, will_promote, pcfg,
                                        signs, kv_tables=tier.kv_tables)
         f["touched"] += delta["touched"]
         f["rows"][:, :3] += delta["rows"]
-        f["calls"] += delta["calls"]
+        if delta["degraded"] is not None:
+            f["rows"][:, 4] += delta["degraded"].to(torch.int32)
+        for key in ("calls", "retries", "timeouts", "stall"):
+            f[key] += delta[key]
     else:
         if paged_fused:
             y, res = L.attn_decode_pariskv_paged_fused(
@@ -337,6 +368,16 @@ class FillCtx(NamedTuple):
     kv_index: Any = None     # tiered: of the composed staging row
     pref_rows: Optional[torch.Tensor] = None  # tiered: (1, G, 1, n) rows
     host_rows: int = 0       # tiered: prefix rows read from host memory
+    pref_staged: Optional[np.ndarray] = None  # tiered: (n,) block staged
+
+    def staged_only(self):
+        """A degraded chunk's prefix read (the host fetch gave up): the
+        rows of unstaged blocks at -1 in both ``pref_rows`` (the gather
+        reads no host row) and ``pref_pos`` (attention skips them).
+        → (pref_rows, pref_pos)."""
+        keep = torch.from_numpy(self.pref_staged).to(self.pref_pos.device)
+        return (torch.where(keep, self.pref_rows, -1),
+                torch.where(keep, self.pref_pos, -1))
 
 
 def filling_slot(state: SlotState) -> Optional[int]:
@@ -390,26 +431,42 @@ def fill_ctx(state: SlotState, slot: int, budget: int, device,
     return FillCtx(slot, start, valid_n, q_pos, new_pos, pref_pos, bt_row,
                    None, index,
                    CC.paged_fill_index(kv_row, start, valid_n, bs, device),
-                   pref_rows, host_rows)
+                   pref_rows, host_rows,
+                   np.repeat(kv_row[:n // bs] >= 0, bs))
 
 
 def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                 cache: dict, fctx: FillCtx, signs: torch.Tensor,
                 use_pariskv: bool, tier: Optional[TierView] = None,
-                host_kv=None) -> torch.Tensor:
+                host_kv=None, fetch=None) -> torch.Tensor:
     """One layer of one prefill chunk of the filling slot: the prefix read
     (the slot's contiguous row, the paged gather's logical mode through
     its table row, or the tiered gather), chunk-causal attention over the
     prefix and the chunk, the chunk's K/V and metadata written, and on a
     paged pool the slot's histogram advanced (``paged_fill_hist_update``),
     so it stays exact mid-fill. A tiered pool adds the prefix's host rows
-    to the chunk's ``fetch`` statistics. Runs after the layer's decode:
+    to the chunk's ``fetch`` statistics and runs the prefix read under the
+    fetch policy ``fetch`` first — in every chunk, the first one (no
+    prefix yet) included, as the reference visits it; when the policy
+    gives up, no host row is read and the host rows leave the prefix
+    (``fill_keep``), and the slot's degraded count grows by one if the
+    chunk needed any. Runs after the layer's decode:
     the filling row's dead decode append lands at the fill frontier, which
     the chunk overwrites."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_f, p["norm_attn"], cfg.norm_eps)
     kv = cache["kv"]
     slot, start, n = fctx.slot, fctx.start, fctx.valid_n
+    pref_pos = fctx.pref_pos
+    ok = True
+    if fetch is not None:                # tiered, under a fault plan
+        f = cache["fetch"]
+        ok, retries, timeouts, stall = fetch()
+        f["retries"] += retries
+        f["timeouts"] += timeouts
+        f["stall"] += stall
+        if not ok and fctx.host_rows:
+            f["rows"][slot, 4] += 1
     if fctx.bt_row is None:
         k_pref, v_pref = kv.k[slot:slot + 1, :start], kv.v[slot:slot + 1,
                                                            :start]
@@ -420,14 +477,17 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                                               fctx.pref_lidx)
     else:
         f = cache["fetch"]
+        rows = fctx.pref_rows
+        if not ok and fctx.host_rows:
+            rows, pref_pos = fctx.staged_only()
         k_h, v_h = gather_heads_tiered(kv.k, kv.v, *host_kv, tier.dev_map,
-                                       fctx.pref_rows, f["uniq"][1:2])
+                                       rows, f["uniq"][1:2])
         k_pref, v_pref = (t[:, :, 0].transpose(1, 2) for t in (k_h, v_h))
         f["calls"] += 1
         if fctx.host_rows:
             f["rows"][slot, 3] += fctx.host_rows
     y, k_new, v_new = L.attn_fill_chunk(p["attn"], h, ld.attn, fctx.q_pos,
-                                        k_pref, v_pref, fctx.pref_pos,
+                                        k_pref, v_pref, pref_pos,
                                         fctx.new_pos)
     meta = (CC._encode_block(k_new, pcfg, signs)
             if use_pariskv and ld.use_pariskv else None)
@@ -486,10 +546,14 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         x_t = _layer_decode(p, x_t, ld, cfg, cache, regions, signs,
                             num_candidates, will_promote, any_promote,
                             block_tables, append_index, record, use_pariskv,
-                            paged_fused, tier, host_kv)
+                            paged_fused, tier, host_kv,
+                            None if tier is None else
+                            tier.fetch_of(li, "heads"))
         if x_f is not None:
             x_f = _layer_fill(p, x_f, ld, cfg, cache, fill[1], signs,
-                              use_pariskv, tier, host_kv)
+                              use_pariskv, tier, host_kv,
+                              None if tier is None else
+                              tier.fetch_of(li, "rows"))
     x_t = L.rms_norm(x_t, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x_t)
     fill_logits = None
@@ -602,7 +666,7 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                  eos_id: Optional[int] = None, device=None,
                  nonfinite: Optional[torch.Tensor] = None,
                  use_pariskv: bool = True, paged_fused: bool = True,
-                 dev_map=None, host_kv=None, side=None,
+                 dev_map=None, host_kv=None, side=None, fetch=None,
                  prefill_budget: int = 0):
     """``num_steps`` greedy decode steps with per-slot active masking.
     Returns (tokens (b, num_steps) int32 with -1 at inactive steps, state).
@@ -619,7 +683,9 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
     num_device_blocks=)``) with the per-layer host rows ``host_kv`` and,
     on a card, the overlap's ``side`` stream: the map is uploaded and
     composed with the tables once, frozen for the chunk, and the chunk's
-    ``fetch`` statistics restart at zero.
+    ``fetch`` statistics restart at zero. ``fetch(name, kind)``, the host
+    pool's ``fetch_attempt``, runs every host fetch under the fetch policy
+    (``TierView``); None means every fetch succeeds.
 
     ``prefill_budget`` P > 0 (a state built with the same budget) makes a
     step with a filling slot a mixed step (``decode_fill_step``): the slot
@@ -649,11 +715,12 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
             dm_host = dev_map.cpu().numpy()
         dev_map = dev_map.to(dev)
         tier = TierView(dev_map, CC.tiered_kv_tables(block_tables, dev_map),
-                        host_kv, side)
+                        host_kv, side, fetch,
+                        None if fetch is None else entry_names(cfg))
         for lc in state.caches:
             for key in ("touched", "rows", "uniq"):
                 lc["fetch"][key].zero_()
-            lc["fetch"]["calls"] = 0
+            lc["fetch"].update(_FETCH_HOST_ZERO)
     kv0 = state.caches[0]["kv"]
     emitted = []
     for _ in range(num_steps):

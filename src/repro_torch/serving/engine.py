@@ -1,5 +1,5 @@
-"""Serving engines (port of ``repro/serving/engine.py`` without fault
-handling and mesh sharding).
+"""Serving engines (port of ``repro/serving/engine.py`` without mesh
+sharding).
 
 ``ServingEngine`` is slot-based continuous batching over contiguous
 per-slot caches of ``n_max`` positions: the stepwise loop — cancellations
@@ -55,6 +55,18 @@ memory and the device keeps the metadata and a bounded staging pool.
 zeros are real tokens to attention, as in the reference) and decoded
 together to the wave's longest generation.
 
+Fault handling (``faults=`` a ``serving.faults.FaultPlan``; the
+reference's contract): an exception attributable to one request — in its
+solo prefill or install, its pre-chunk host work (the ``engine.slot``
+fault site) or its collection — **quarantines** it: its slot, blocks,
+staging residency and histogram row are reclaimed as a cancel would, it
+finishes with ``failed=True`` and ``error`` set, and lands in
+``quarantined``; the batch carries on. A ``KernelError`` (a CUDA kernel
+that did not build or launch) or ``torch.AcceleratorError`` is a device
+fault, never one request's: the boundaries re-raise them. The offloaded
+engine adds the fetch policy and degraded attention
+(``OffloadedPagedServingEngine``).
+
 Every stage that was a Pallas kernel on the TPU runs a Hopper kernel on
 the card. Options that are not ported yet raise ``NotImplementedError``
 naming the ROADMAP item that will port them.
@@ -73,10 +85,18 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import cache as CC
 from repro_torch.core.config import ModelConfig
+from repro_torch.kernels.build import KernelError
 from repro_torch.models import serve as SV
 from repro_torch.models.layers import SideStream
 from repro_torch.models.model import param_device, torch_dtype
 from repro_torch.serving import offload as offload_lib
+from repro_torch.serving.faults import FaultPlan
+
+# device faults: never attributable to one request, so no quarantine
+# boundary may turn them into a failed request
+_DEVICE_FAULTS = tuple(t for t in (KernelError,
+                                   getattr(torch, "AcceleratorError", None))
+                       if t is not None)
 
 
 @dataclasses.dataclass
@@ -100,8 +120,14 @@ class Request:
     prefetch_hits: int = 0
     fetch_stall_s: float = 0.0
     fetch_callbacks: int = 0
+    fetch_retries: int = 0
+    fetch_timeouts: int = 0
+    degraded_steps: int = 0
     # prefix sharing only: cached blocks mapped into its table, not filled
     shared_prefix_blocks: int = 0
+    # fault handling: quarantined by an engine fault, and why
+    failed: bool = False
+    error: Optional[str] = None
     # engine-internal:
     _tokens: Optional[list] = None
     _t_admit: float = 0.0
@@ -163,14 +189,6 @@ class InvariantViolation(AssertionError):
     staging residency, or the incremental histogram)."""
 
 
-def _not_ported(engine: str, options) -> None:
-    for flag, value, default, item in options:
-        if value != default:
-            raise NotImplementedError(
-                f"{engine}({flag}={value!r}) is not ported yet: ROADMAP "
-                f"{item}")
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -186,11 +204,9 @@ class ServingEngine:
                  max_batch: int = 8, greedy: bool = True,
                  use_pariskv: bool = True, chunk_size: int = 8,
                  eos_id: Optional[int] = None, prefill_budget: int = 0,
-                 faults=None, device=None):
+                 faults: Optional[FaultPlan] = None, device=None):
         if not greedy:
             raise ValueError("sampling is on-device argmax; greedy only")
-        _not_ported(type(self).__name__, (
-            ("faults", faults, None, "A10 (fault handling)"),))
         if prefill_budget and not SV.fill_supported(cfg):
             raise ValueError(f"chunked prefill (prefill_budget="
                              f"{prefill_budget}) unavailable — "
@@ -208,6 +224,8 @@ class ServingEngine:
         self.chunk_size = chunk_size
         self.eos_id = eos_id
         self.prefill_budget = prefill_budget
+        self.faults = faults
+        self.quarantined: List[Request] = []
         self.queue: List[Request] = []
         self.peak_concurrency = 0   # max slots simultaneously decoding
         self.decode_steps = 0       # decode steps run (chunks × chunk_size)
@@ -239,6 +257,7 @@ class ServingEngine:
                                             device=self.device)
         self._slots = [None] * self.max_batch
         self._done = []
+        self.quarantined = []
         self._filling = None
         # uids are per run: keep only cancels aimed at the current queue
         self._cancelled &= {r.uid for r in self.queue}
@@ -261,6 +280,12 @@ class ServingEngine:
     def _abort_admit(self, slot: int) -> None:
         """Undo _pre_admit for a request that finished at prefill."""
 
+    def _undo_failed_admit(self, slot: int) -> None:
+        """Undo an admission that raised part-way (paged: its blocks and
+        histogram row may be partly written, so they are reclaimed and
+        zeroed as a finished slot's)."""
+        self._abort_admit(slot)
+
     def _install_solo(self, slot: int, req: Request, state1, tok0) -> None:
         self._state = SV.admit_slot(
             self._state, slot, state1.caches, state1.regions, tok0,
@@ -268,7 +293,11 @@ class ServingEngine:
         self._enc[slot] = int(state1.regions.enc_end[0])
 
     def _pre_chunk_slot(self, slot: int, req: Request) -> None:
-        """Per-slot host work before a chunk (paged: lazy allocation)."""
+        """Per-slot host work before a chunk (paged: lazy allocation). The
+        ``engine.slot`` fault fires here; whatever this raises belongs to
+        exactly one request and quarantines it."""
+        if self.faults is not None:
+            self.faults.apply("engine.slot", slot=slot, uid=req.uid)
 
     def _solo_cap(self, plen: int) -> int:
         """Capacity of a solo prefill (the offloaded engine buckets it)."""
@@ -336,6 +365,43 @@ class ServingEngine:
                 self._filling = None
         self._cancelled.clear()
 
+    # -- quarantine -----------------------------------------------------------
+    def _quarantine(self, slot: int, req: Request, exc: Exception) -> None:
+        """Evict and fail exactly one request after an exception that
+        belongs to its slot: its device state reclaimed by the path
+        ``cancel()`` takes (blocks, staging residency, histogram row), its
+        output finalized from the tokens it already emitted, and the
+        request recorded in ``quarantined`` and the done list."""
+        t_now = time.perf_counter()
+        req.failed = True
+        req.error = f"{type(exc).__name__}: {exc}"
+        self._evict_device(slot)
+        if req._tokens is None:
+            req._tokens, req.token_times = [], []
+        if not req._t_first:
+            req._t_first = t_now
+        self._finish_request(req, t_now)
+        self._slots[slot] = None
+        if self._filling == slot:
+            self._filling = None
+        self.quarantined.append(req)
+
+    def _quarantine_admission(self, slot: int, req: Request,
+                              exc: Exception) -> None:
+        """Admission-path quarantine: the request never went live in its
+        slot, so only what its admission took is undone
+        (``_undo_failed_admit``), and it finishes failed with an empty
+        output."""
+        t_now = time.perf_counter()
+        req.failed = True
+        req.error = f"{type(exc).__name__}: {exc}"
+        if req._tokens is None:
+            req._tokens, req.token_times = [], []
+        req._t_first = t_now
+        self._finish_request(req, t_now)
+        self._undo_failed_admit(slot)
+        self.quarantined.append(req)
+
     def _admit(self) -> None:
         for slot in range(self.max_batch):
             if self._slots[slot] is not None or not self.queue:
@@ -351,10 +417,16 @@ class ServingEngine:
                 continue
             req = self.queue.pop(0)
             t_admit = time.perf_counter()
-            self._pre_admit(slot, req)
-            state1, tok0 = _solo_prefill(self.params, self.cfg, req,
-                                         self._solo_cap(len(req.prompt)),
-                                         self.device)
+            try:
+                self._pre_admit(slot, req)
+                state1, tok0 = _solo_prefill(self.params, self.cfg, req,
+                                             self._solo_cap(len(req.prompt)),
+                                             self.device)
+            except _DEVICE_FAULTS:
+                raise
+            except Exception as exc:  # noqa: BLE001 — quarantine boundary
+                self._quarantine_admission(slot, req, exc)
+                continue
             t_first = time.perf_counter()
             req.ttft_s = t_first - t_admit
             req._t_admit, req._t_first = t_admit, t_first
@@ -365,7 +437,13 @@ class ServingEngine:
                 self._done.append(req)
                 self._abort_admit(slot)
                 continue
-            self._install_solo(slot, req, state1, tok0)
+            try:
+                self._install_solo(slot, req, state1, tok0)
+            except _DEVICE_FAULTS:
+                raise
+            except Exception as exc:  # noqa: BLE001 — quarantine boundary
+                self._quarantine_admission(slot, req, exc)
+                continue
             self._slots[slot] = req
 
     def _admit_chunked(self, slot: int, req: Request) -> None:
@@ -386,26 +464,53 @@ class ServingEngine:
         """admit_fill's shared-prefix arguments (paged sharing engines)."""
         return {}
 
+    def _collect_slot(self, slot: int, req: Request, tokens: np.ndarray,
+                      rem_after: np.ndarray, t_now: float) -> None:
+        had = len(req._tokens)
+        n_emit = _collect_chunk_row(req, tokens[slot], t_now)
+        if had == 0 and n_emit > 0:          # a chunked fill completed
+            req.ttft_s = t_now - req._t_admit
+            req._t_first = t_now
+            if self._filling == slot:
+                self._filling = None
+                self._fill_complete(slot, req)
+        self._after_collect(slot, req)
+        if rem_after[slot] <= 0:
+            self._finish_request(req, t_now)
+            self._slots[slot] = None
+            self._release_slot(slot)
+            if self._filling == slot:        # eos on the first token
+                self._filling = None
+
     def _collect(self, tokens: np.ndarray, rem_after: np.ndarray) -> None:
         t_now = time.perf_counter()
         for slot, req in enumerate(self._slots):
             if req is None:
                 continue
-            had = len(req._tokens)
-            n_emit = _collect_chunk_row(req, tokens[slot], t_now)
-            if had == 0 and n_emit > 0:          # a chunked fill completed
-                req.ttft_s = t_now - req._t_admit
-                req._t_first = t_now
-                if self._filling == slot:
-                    self._filling = None
-                    self._fill_complete(slot, req)
-            self._after_collect(slot, req)
-            if rem_after[slot] <= 0:
-                self._finish_request(req, t_now)
-                self._slots[slot] = None
-                self._release_slot(slot)
-                if self._filling == slot:        # eos on the first token
-                    self._filling = None
+            try:
+                self._collect_slot(slot, req, tokens, rem_after, t_now)
+            except _DEVICE_FAULTS:
+                raise
+            except Exception as exc:  # noqa: BLE001 — quarantine boundary
+                if self._slots[slot] is None:
+                    # released already (a failure mid-reclamation): no
+                    # longer one request's fault
+                    raise
+                self._quarantine(slot, req, exc)
+
+    def _pre_chunk(self) -> None:
+        """Per-slot host work before a chunk, one slot at a time behind a
+        quarantine boundary: a failure of one slot fails that request
+        while the rest of the batch goes on."""
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            try:
+                self._pre_chunk_slot(slot, req)
+            except _DEVICE_FAULTS:
+                raise
+            except Exception as exc:  # noqa: BLE001 — quarantine boundary
+                self._quarantine(slot, req, exc)
 
     def step_serve(self) -> None:
         """One serving round: cancellations → admission → one decode chunk
@@ -416,9 +521,7 @@ class ServingEngine:
             self.peak_concurrency, sum(r is not None for r in self._slots))
         if all(r is None for r in self._slots):
             return      # everything finished at prefill; maybe more queued
-        for slot, req in enumerate(self._slots):
-            if req is not None:
-                self._pre_chunk_slot(slot, req)
+        self._pre_chunk()
         tokens, rem_after = self._run_chunk()
         self.decode_steps += self.chunk_size
         self._collect(tokens, rem_after)
@@ -469,11 +572,11 @@ class PagedServingEngine(ServingEngine):
                  eos_id: Optional[int] = None, fused: bool = True,
                  prefill_budget: int = 0, offload: bool = False,
                  share_prefixes: bool = False, mesh_shards: int = 1,
-                 faults=None, device=None):
-        _not_ported("PagedServingEngine", (
-            ("faults", faults, None, "A10 (fault handling)"),
-            ("mesh_shards", mesh_shards, 1,
-             "A11 (head-sharded multi-GPU serving)")))
+                 faults: Optional[FaultPlan] = None, device=None):
+        if mesh_shards != 1:
+            raise NotImplementedError(
+                f"PagedServingEngine(mesh_shards={mesh_shards!r}) is not "
+                f"ported yet: ROADMAP A11 (head-sharded multi-GPU serving)")
         if not use_pariskv:
             raise ValueError("the paged engine serves the ParisKV path only")
         if n_max % block_size != 0:
@@ -491,7 +594,7 @@ class PagedServingEngine(ServingEngine):
         super().__init__(cfg, params, n_max=n_max, max_batch=max_batch,
                          greedy=greedy, chunk_size=chunk_size,
                          eos_id=eos_id, prefill_budget=prefill_budget,
-                         device=device)
+                         faults=faults, device=device)
         self.fused = fused
         self.share_prefixes = share_prefixes
         self.block_size = block_size
@@ -701,6 +804,9 @@ class PagedServingEngine(ServingEngine):
     def _abort_admit(self, slot: int) -> None:
         self._release_host(slot)       # pool untouched: host-only
 
+    def _undo_failed_admit(self, slot: int) -> None:
+        self._reclaim(slot)
+
     def _install_solo(self, slot: int, req: Request, state1, tok0) -> None:
         self._state = SV.admit_paged(
             self._state, slot, self._phys_row(self._alloc[slot]),
@@ -709,6 +815,7 @@ class PagedServingEngine(ServingEngine):
         self._enc[slot] = int(state1.regions.enc_end[0])
 
     def _pre_chunk_slot(self, slot: int, req: Request) -> None:
+        super()._pre_chunk_slot(slot, req)     # engine.slot fault hook
         self._ensure_blocks(slot)
 
     def _run_chunk(self):
@@ -751,6 +858,9 @@ class PagedServingEngine(ServingEngine):
           list for the slot, in order;
         * the prefix index and its reverse map are a bijection over
           allocated blocks;
+        * fault handling: no quarantined request holds a slot, and a free
+          slot holds no block or reservation (nor, with ``check_hist``, a
+          nonzero histogram row), so a quarantined request holds nothing;
         * with ``check_hist``, ``verify_hist``."""
         allocated: Dict[int, int] = {}
         for s, blks in self._alloc.items():
@@ -788,7 +898,22 @@ class PagedServingEngine(ServingEngine):
                         f"block {b}: hash map disagrees with the index")
             self._check(b in self._refcnt,
                         f"prefix index retains unallocated block {b}")
+        live = {id(r) for r in self._slots if r is not None}
+        for req in self.quarantined:
+            self._check(id(req) not in live,
+                        f"quarantined request {req.uid} still holds a slot")
+        idle = [s for s, r in enumerate(self._slots) if r is None]
+        for s in idle:
+            self._check(s not in self._alloc and s not in self._resv,
+                        f"free slot {s} still holds blocks "
+                        f"{self._alloc.get(s)} or a reservation")
         if check_hist and self._state is not None:
+            if idle:
+                sel = torch.tensor(idle, device=self.device)
+                for li, lc in enumerate(self._state.caches):
+                    self._check(not bool(lc["hist"][sel].any()),
+                                f"layer {li}: a free slot of {idle} holds "
+                                f"a histogram row")
             self.verify_hist()
 
     def verify_hist(self) -> None:
@@ -870,9 +995,30 @@ class OffloadedPagedServingEngine(PagedServingEngine):
       of the chunks the request decoded in, shared among the requests in
       proportion to their host fetches (evenly when none fetched), as the
       reference shares its host callbacks.
-    * ``fetch_stall_s``: host seconds spent waiting for a fetch: always 0,
-      since the misses are read by the device inside the decode step and
-      the host never waits for one (their time is the kernel's).
+    * ``fetch_stall_s``: host seconds the fetch policy spent before its
+      gathers were launched (injected delays and hangs, backoff), shared
+      in proportion to host fetches; 0 without a fault plan, since the
+      misses are read by the device inside the decode step and the host
+      never waits for one (their time is the kernel's).
+    * ``fetch_retries`` / ``fetch_timeouts``: the policy's re-issues and
+      fired deadlines, shared the same way; ``degraded_steps``: the
+      request's (layer, step) fetches that gave up. These, and the engine
+      totals of the same names (with ``storm_evictions``), equal the
+      reference's under the same ``FaultPlan``.
+
+    Fault handling (the reference's policy, ``HostKVPool.fetch_attempt``):
+    ``fetch_timeout_s`` (None: no deadline), ``fetch_max_retries`` (2) and
+    ``fetch_backoff_s`` (0.005, doubling per retry) govern every host
+    fetch, the winner rows of each layer and step (``kind="heads"``) and a
+    fill's prefix rows (``"rows"``). A launched kernel cannot be
+    abandoned, so an attempt is the host work before the launch (the
+    ``fetch.gather`` fault hook) and the deadline bounds that; no worker
+    thread exists (``host.abandoned_attempts`` counts the attempts a
+    deadline ended). A fetch that gives up **degrades** its layer-step:
+    the same gather is launched with its host rows at -1 (it reads none)
+    and attention drops them, attending to sink, window and the staged
+    winners. A ``staging.storm`` fault flushes every staged block at a
+    chunk boundary (written back first: bytes move, tokens do not).
     """
 
     def __init__(self, cfg: ModelConfig, params, n_max: int = 4096,
@@ -885,17 +1031,15 @@ class OffloadedPagedServingEngine(PagedServingEngine):
                  prefetch: bool = True, prefetch_hook=None,
                  overlap: bool = True, share_prefixes: bool = False,
                  mesh_shards: int = 1,
-                 fetch_timeout_s: Optional[float] = None, faults=None,
-                 device=None):
+                 fetch_timeout_s: Optional[float] = None,
+                 fetch_max_retries: int = 2, fetch_backoff_s: float = 0.005,
+                 faults: Optional[FaultPlan] = None, device=None):
         if mesh_shards > 1:
             raise NotImplementedError(
                 f"config {cfg.name!r}: offload=True with mesh_shards="
                 f"{mesh_shards} cannot run on several devices — the tiered "
                 f"host pool is read by single-device kernels; shard the "
                 f"resident engine (offload=False) instead")
-        _not_ported("PagedServingEngine", (
-            ("fetch_timeout_s", fetch_timeout_s, None,
-             "A10 (fault handling)"),))
         reason = SV.offload_support_reason(cfg)
         if reason is not None:
             raise ValueError(f"offloaded paged serving unavailable — "
@@ -918,6 +1062,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
             {n: (cfg.num_kv_heads, cfg.head_dim) for n in self._names},
             self.num_blocks, block_size, torch_dtype(cfg),
             pinned=self.device.type == "cuda")
+        self.host.fetch_timeout_s = fetch_timeout_s
+        self.host.fetch_max_retries = fetch_max_retries
+        self.host.fetch_backoff_s = fetch_backoff_s
+        self.host.faults = faults
         self._host_kv = [self.host.flat(n) for n in self._names]
         self._side = (SideStream.create(self.device)
                       if self.overlap and self.device.type == "cuda"
@@ -927,7 +1075,15 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         self._touched_last = np.zeros((self.num_blocks,), np.float64)
         self._touch_decay = 0.5
         self._last_prefetch: List[int] = []
+        self._zero_fetch_totals()
+
+    def _zero_fetch_totals(self) -> None:
         self.fetch_callbacks = 0          # tiered gathers, all chunks
+        self.fetch_retries = 0
+        self.fetch_timeouts = 0
+        self.fetch_stall_s = 0.0
+        self.degraded_steps = 0           # degraded (layer, step) fetches
+        self.storm_evictions = 0          # staging blocks flushed by storms
 
     # ------------------------------------------------------------ admission --
     def _solo_cap(self, plen: int) -> int:
@@ -995,6 +1151,22 @@ class OffloadedPagedServingEngine(PagedServingEngine):
 
         writebacks: List[tuple] = []      # (evicted host block, staging slot)
         installs: List[tuple] = []        # (host block, staging slot)
+        if self.faults is not None and self.faults.should("staging.storm"):
+            # injected eviction storm: flush every staged block (the worst
+            # cold start). The evicted blocks ride the write-back list,
+            # written before any install reads the host pool, so tokens
+            # hold; the required set below stages what the chunk needs.
+            for s in range(self.num_device_blocks):
+                hb = int(sm.owner[s])
+                if hb < 0:
+                    continue
+                writebacks.append((hb, s))
+                sm.dev_map[hb] = -1
+                sm.owner[s] = -1
+                sm.pinned[s] = False
+                sm.ref[s] = False
+                sm.free.append(s)
+                self.storm_evictions += 1
         for hb, _ in required:
             if sm.resident(hb):
                 sm.pin(hb)
@@ -1052,9 +1224,9 @@ class OffloadedPagedServingEngine(PagedServingEngine):
     def _harvest_fetch_stats(self) -> None:
         """Read the chunk's fetch statistics back (one copy each for the
         summed touch counts and rows): per-request staging hit/miss/byte
-        counters, gather attribution, prefetch-hit accounting, and the
-        exponential-decay touch scores that seed the next chunk's
-        prefetch."""
+        and degraded counters, gather, stall, retry and timeout
+        attribution, prefetch-hit accounting, and the exponential-decay
+        touch scores that seed the next chunk's prefetch."""
         caches = self._state.caches
         touched = torch.stack([lc["fetch"]["touched"] for lc in caches]
                               ).sum(0).cpu().numpy()
@@ -1062,7 +1234,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
                            ).sum(0).cpu().numpy().astype(np.int64)
         uniq = torch.stack([lc["fetch"]["uniq"] for lc in caches]
                            ).sum(0).cpu().numpy()
-        calls = sum(lc["fetch"]["calls"] for lc in caches)
+        calls, retries, timeouts, stall = (
+            sum(lc["fetch"][k] for lc in caches)
+            for k in ("calls", "retries", "timeouts", "stall"))
+        degraded = rows[:, 4]
         # every entry shares (G, hd, dtype): one price per head row and
         # per row; a fill gather reads every kv head of each prefix row
         head_b = self.host.bytes_per_head_row(self._names[0])
@@ -1072,6 +1247,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         uniq_fill = int(uniq[1]) // self.cfg.num_kv_heads
         uniq_b = uniq_head * head_b + uniq_fill * row_b
         self.fetch_callbacks += calls
+        self.fetch_retries += retries
+        self.fetch_timeouts += timeouts
+        self.fetch_stall_s += stall
+        self.degraded_steps += int(degraded.sum())
         self.host.fetch_callbacks += calls
         self.host.fetched_head_rows += int(rows[:, 2].sum())
         self.host.fetched_fill_rows += int(rows[:, 3].sum())
@@ -1091,7 +1270,11 @@ class OffloadedPagedServingEngine(PagedServingEngine):
             share = (fetch_rows[slot] / tot if tot
                      else 1.0 / max(len(active), 1))
             req.fetched_unique_bytes += int(round(uniq_b * share))
+            req.fetch_stall_s += stall * share
             req.fetch_callbacks += int(round(calls * share))
+            req.fetch_retries += int(round(retries * share))
+            req.fetch_timeouts += int(round(timeouts * share))
+            req.degraded_steps += int(degraded[slot])
         owner = {b: sl for sl, blks in self._alloc.items() for b in blks}
         for hb in self._last_prefetch:
             if touched[hb] > 0:
@@ -1116,14 +1299,16 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         self.host.reset_counters()
         self._touched_last = np.zeros((self.num_blocks,), np.float64)
         self._last_prefetch = []
-        self.fetch_callbacks = 0
+        self._zero_fetch_totals()
 
     def _run_chunk(self):
         self._update_staging()
         out = self._decode_chunk(
             torch.from_numpy(self._bt), paged_fused=self.fused,
             dev_map=torch.from_numpy(self.staging.dev_map.copy()),
-            host_kv=self._host_kv, side=self._side)
+            host_kv=self._host_kv, side=self._side,
+            fetch=None if self.host.faults is None
+            else self.host.fetch_attempt)
         self._harvest_fetch_stats()
         return out
 
@@ -1187,6 +1372,12 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         check(len(free) + sm.resident_count() == self.num_device_blocks,
               f"staging accounting leak: free + resident != "
               f"{self.num_device_blocks}")
+
+    def close(self) -> None:
+        """Release what the fetch policy holds (``HostKVPool.close``: wake
+        a fault hook asleep in an attempt). No fetch thread exists, so none
+        can outlive the engine. Idempotent."""
+        self.host.close()
 
     def run(self) -> List[Request]:
         done = super().run()

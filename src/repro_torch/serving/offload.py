@@ -23,17 +23,27 @@ memory only through host callbacks. Here the kernel reads it, and the
 overlap of that read with the dense attention work is a CUDA side stream
 (``models/layers.py:attn_decode_pariskv_tiered``).
 
+The pool also owns the reference's **fetch policy**
+(:meth:`HostKVPool.fetch_attempt`). A launched kernel cannot be abandoned,
+so on the port a fetch *attempt* is the host work before the launch — the
+``fetch.gather`` fault hook — and the deadline bounds that work; there is
+no fetch worker thread.
+
 The pool is mutated only between decode chunks (admission, write-back,
 eviction). On a card every mutating method first synchronizes the device,
 so no kernel of an earlier chunk can still be reading the rows it writes.
 """
 from __future__ import annotations
 
+import threading
+import time
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.serving.faults import FetchTimeout, InjectedFault
 
 
 class HostIndexError(IndexError):
@@ -80,7 +90,16 @@ class HostKVPool:
     ``fetched_fill_rows`` fill prefix rows read from the pool, their
     distinct counts ``fetched_unique_head_rows`` /
     ``fetched_unique_fill_rows`` (what the deduplicating gather read),
-    and ``fetch_callbacks`` the tiered gathers issued."""
+    and ``fetch_callbacks`` the tiered gathers issued.
+
+    Fetch policy (the reference's defaults): ``fetch_timeout_s`` (per
+    attempt deadline; None or 0 disables it), ``fetch_max_retries`` and
+    ``fetch_backoff_s`` (bounded exponential backoff), ``faults`` (a
+    ``FaultPlan`` consulted once per attempt). Its counters:
+    ``fetch_retries``, ``fetch_timeouts``, ``degraded_fetches`` (fetches
+    that exhausted their retries), ``abandoned_attempts`` (attempts a
+    deadline ended: the reference's worker respawns) and ``fetch_stall_s``
+    (host seconds spent in the policy)."""
 
     def __init__(self, shapes: Dict[str, tuple], num_blocks: int,
                  block_size: int, dtype: torch.dtype, pinned: bool = False):
@@ -96,6 +115,13 @@ class HostKVPool:
             self.k[name] = torch.zeros(shape, dtype=dtype, pin_memory=pinned)
             self.v[name] = torch.zeros(shape, dtype=dtype, pin_memory=pinned)
             self._heads[name] = (G, hd)
+        self.fetch_timeout_s: Optional[float] = None
+        self.fetch_max_retries = 2
+        self.fetch_backoff_s = 0.005
+        self.faults = None
+        self.abandoned_attempts = 0
+        # wakes a sleeping fault hook when the pool is closed
+        self._abort = threading.Event()
         self.reset_counters()
 
     def reset_counters(self) -> None:
@@ -104,6 +130,64 @@ class HostKVPool:
         self.fetched_unique_head_rows = 0
         self.fetched_unique_fill_rows = 0
         self.fetch_callbacks = 0
+        self.fetch_retries = 0
+        self.fetch_timeouts = 0
+        self.degraded_fetches = 0
+        self.fetch_stall_s = 0.0
+
+    @property
+    def closed(self) -> bool:
+        return self._abort.is_set()
+
+    def close(self) -> None:
+        """Release what the fetch policy holds: wake any fault hook asleep
+        in an attempt (a hang then ends at once, and so does any later
+        one). No thread is ever started, so nothing is joined.
+        Idempotent."""
+        self._abort.set()
+
+    # -- fetch policy ---------------------------------------------------
+    def fetch_attempt(self, name: str, kind: str
+                      ) -> Tuple[bool, int, int, float]:
+        """One host fetch under the policy, run before its gather is
+        launched (``FetchPipeline._collect_np`` / ``gather_guarded`` of
+        the reference). An attempt is the ``fetch.gather`` hook with
+        ``name`` and ``kind``; ``fail`` is retried after
+        ``fetch_backoff_s · 2^(attempt-1)``, a sleep that reaches the
+        ``fetch_timeout_s`` deadline counts a timeout and is retried, and
+        after ``fetch_max_retries`` re-issues the fetch gives up.
+        → (ok, retries, timeouts, stall seconds); with no fault plan
+        (nothing can fail before the launch) (True, 0, 0, 0.0)."""
+        if self.faults is None:
+            return True, 0, 0, 0.0
+        t0 = time.perf_counter()
+        retries = timeouts = attempt = 0
+        ok = True
+        while True:
+            deadline = (time.monotonic() + self.fetch_timeout_s
+                        if self.fetch_timeout_s else None)
+            try:
+                self.faults.apply("fetch.gather", abort=self._abort,
+                                  deadline=deadline, name=name, kind=kind)
+                break
+            except FetchTimeout:
+                timeouts += 1
+                self.abandoned_attempts += 1
+            except InjectedFault:
+                pass                     # transient: retry below
+            if attempt >= self.fetch_max_retries:
+                ok = False
+                self.degraded_fetches += 1
+                break
+            attempt += 1
+            retries += 1
+            if self.fetch_backoff_s:
+                time.sleep(self.fetch_backoff_s * (2 ** (attempt - 1)))
+        stall = time.perf_counter() - t0
+        self.fetch_retries += retries
+        self.fetch_timeouts += timeouts
+        self.fetch_stall_s += stall
+        return ok, retries, timeouts, stall
 
     @property
     def nbytes(self) -> int:

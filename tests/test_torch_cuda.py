@@ -331,3 +331,77 @@ def test_bucket_count_span_long_rebuild_exact_on_card(card):
         assert torch.equal(got.cpu(), want), holes
         assert int(want.sum()) == G * 16 * (enc - pcfg.sink_size
                                             - len(holes) * bs)
+
+
+@pytest.mark.cuda
+def test_degraded_tiered_gather_reads_no_host_row_on_card(card):
+    """A degraded step's tiered gather (every missed winner at -1, the
+    staged ones kept) equals its plain version, zeros at the misses, and
+    counts zero distinct host rows: it read nothing over the link."""
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref)
+
+    gen = torch.Generator().manual_seed(19)
+    nb, nd, bs, b, k = 40, 12, 32, 2, 37
+    host = torch.randn((2, nb * bs, G, 128), generator=gen).to(
+        torch.bfloat16).pin_memory()
+    stag = torch.randn((2, nd, bs, G, 128), generator=gen).to(
+        torch.bfloat16).to(card)
+    dev_map = torch.full((nb,), -1, dtype=torch.int32)
+    dev_map[torch.randperm(nb, generator=gen)[:nd]] = torch.arange(
+        nd, dtype=torch.int32)
+    rows = torch.randint(0, nb * bs, (b, G, HG, k), generator=gen,
+                         dtype=torch.int32)
+    staged = dev_map[rows.long() // bs] >= 0
+    assert staged.any() and (~staged).any()
+    rows = torch.where(staged, rows, -1).contiguous()
+    count = torch.zeros((1,), dtype=torch.int64, device=card)
+    got = gather_heads_tiered(stag[0], stag[1], host[0], host[1],
+                              dev_map.to(card), rows.to(card), count)
+    torch.cuda.synchronize()
+    want_k, want_v, distinct = gather_heads_tiered_dedup_ref(
+        stag[0].cpu(), stag[1].cpu(), host[0], host[1], dev_map, rows)
+    assert torch.equal(got[0].cpu(), want_k)
+    assert torch.equal(got[1].cpu(), want_v)
+    assert int(count) == distinct == 0
+    assert not got[0].cpu()[~staged].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["gather_rows_tiered", "bucket_count"])
+def test_kernel_error_propagates_on_card(card, monkeypatch, kernel):
+    """A real launch whose status comes back as an error (the launcher
+    runs, then reports cudaErrorLaunchFailure) raises ``KernelError`` out
+    of ``step_serve()``, from inside a decode chunk (the tiered gather) or
+    inside an admission's quarantine boundary (the histogram of the
+    admitted prompt), and quarantines nobody."""
+    import numpy as np
+
+    from repro_torch import configs
+    from repro_torch.kernels import build
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import PagedServingEngine, Request
+
+    real = build.launcher
+
+    def failing(name):
+        fn = real(name)
+        if name != kernel:
+            return fn
+        return lambda *args: (fn(*args), 719)[1]
+
+    cfg = configs.smoke("qwen2-1.5b")
+    params = init_params(cfg, seed=0, device=card)
+    eng = PagedServingEngine(cfg, params, n_max=512, max_batch=2,
+                             block_size=16, num_blocks=64, chunk_size=4,
+                             offload=True, num_device_blocks=16, device=card)
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (300,))
+    eng.submit(Request(uid=0, prompt=prompt.astype(np.int32),
+                       max_new_tokens=8))
+    monkeypatch.setattr(build, "launcher", failing)
+    eng.start()
+    with pytest.raises(build.KernelError, match=kernel):
+        eng.step_serve()
+    assert eng.quarantined == [] and not any(r.failed for r in eng._done)
+    torch.cuda.synchronize()
+    eng.close()

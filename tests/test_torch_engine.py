@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: several test workers share few cores, and torch's
+# spinning OpenMP pool would otherwise slow each of them many times over
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
@@ -185,18 +188,12 @@ def test_cancel_mid_flight_reclaims_blocks_and_hist(workload):
     assert all(int(lc["hist"].abs().sum()) == 0 for lc in eng._state.caches)
 
 
-@pytest.mark.parametrize("option,item", [
-    (dict(offload=True, fetch_timeout_s=1.0), "A10"),
-    (dict(faults=object()), "A10"), (dict(mesh_shards=2), "A11")])
+@pytest.mark.parametrize("option,item", [(dict(mesh_shards=2), "A11")])
 def test_options_not_ported_raise_with_roadmap_item(workload, option, item):
     pj, _ = workload
     params = convert.params_from_jax(jax.device_get(pj), CFG_T, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         PagedServingEngine(CFG_T, params, device="cpu", **option, **ENGINE)
-    slot_option = {k: v for k, v in option.items() if k == "faults"}
-    if slot_option:
-        with pytest.raises(NotImplementedError, match=item):
-            ServingEngine(CFG_T, params, device="cpu", **slot_option)
 
 
 def test_engine_needs_a_card_or_an_explicit_cpu(workload):

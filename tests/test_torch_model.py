@@ -10,6 +10,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: several test workers share few cores, and torch's
+# spinning OpenMP pool would otherwise slow each of them many times over
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402

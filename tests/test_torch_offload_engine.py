@@ -15,6 +15,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: several test workers share few cores, and torch's
+# spinning OpenMP pool would otherwise slow each of them many times over
+torch.set_num_threads(1)
 
 import jax  # noqa: E402
 
@@ -210,15 +213,6 @@ def test_undersized_staging_pool_raises(setup):
     eng.submit(Request(uid=0, prompt=prompts[300], max_new_tokens=4))
     with pytest.raises(RuntimeError, match="staging pool exhausted"):
         eng.run()
-
-
-@pytest.mark.parametrize("option,item", [
-    (dict(faults=object()), "A10"), (dict(fetch_timeout_s=0.5), "A10")])
-def test_options_not_ported_raise_with_roadmap_item(setup, option, item):
-    _, pt, _ = setup
-    with pytest.raises(NotImplementedError, match=item):
-        PagedServingEngine(CFG_T, pt, **GEOM, offload=True, device="cpu",
-                           **option)
 
 
 def test_mesh_shards_with_offload_raise(setup):
