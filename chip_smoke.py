@@ -54,7 +54,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
               serving qwen2-1.5b at full width (28 layers, bf16, random
               weights from a seed) to four staggered requests of
-              ~3k/6k/9k/12k prompt tokens and 300 new tokens each. Launch
+              ~3k/6k/9k/12k prompt tokens and 264 new tokens each. Launch
               counters are zeroed just before and read just after; each
               kernel of the path must have launched at least 28 × decode
               steps times (Stage II exactly that, the paged gather at most
@@ -84,18 +84,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the tiered gather launched 28 × steps; tokens/s, TTFT, peak
               device memory, pinned bytes, fetched bytes, miss share and
               prefetch hits printed beside the resident run's, then a
-              profile of one chunk; the first two requests (32 new) with
+              profile of one chunk; the first two requests (16 new) with
               overlap on and off, identical tokens asserted; the same two
               (16 new) once more, untimed, counting in every tiered-gather
               launch the missed winner head rows, how many repeat a row
               already read in that launch, and asserting that the kernel
               read each distinct one once (``offload_duplicates``). (b)
-              one request of 65,536 prompt tokens and 32 new through the
+              one request of 32,768 prompt tokens and 16 new through the
               offloaded engine (staging pool 1/8 of 1024 blocks) and the
               resident paged engine: identical tokens asserted, peak
               memory and TTFT printed.
 9. chunked  — chunked prefill (``prefill_budget=512``) at full width on
-              the engine phase's four requests: (a) the paged engine,
+              the engine phase's four requests with 128 new tokens each
+              (token agreement with the engine phase over those): (a)
+              the paged engine,
               (b) the slot engine, (c) the offloaded engine (128 of 512
               blocks staged, every tiered-gather launch checked as in
               ``offload_duplicates``): per request TTFT, the longest gap
@@ -112,7 +114,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               layer of every step.
 10. share   — prefix sharing (``share_prefixes=True``, budget 512) at full
               width on six requests with one 8,192-token system prompt
-              and suffixes of 256/384/512/200/448/320 tokens, 64 new each,
+              and suffixes of 256/384/512/200/448/320 tokens, 32 new each,
               all submitted at chunk 0: (a) the paged engine with sharing
               on, then off: per request TTFT and mapped blocks, the
               sharers' mean TTFT, blocks drawn from the pool, tokens/s and
@@ -130,7 +132,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and solo tokens identical on the fused, meta-view and
               offloaded engines.
 11. faults  — fault handling at full width (bf16) on the offloaded engine
-              (128 of 512 blocks staged) with the first two requests, 32
+              (128 of 512 blocks staged) with the first two requests, 16
               new each: a clean run, then fetch delays, transient
               failures retried, a hung fetch past a 0.25 s deadline with
               the overlap on and off, every fetch failing from the second
@@ -145,7 +147,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
               survives ``close()``. Prints tokens/s against the clean run,
               stall, retries, timeouts, degraded steps and storm
               evictions, and the degraded run's token agreement.
-12. parity  — 2 layers at full width in float32: one teacher-forced
+12. sharded — head-sharded paged serving: stablelm-1.6b (32 KV heads of
+              64) over two ranks on the one card (``launch_local``, gloo:
+              NCCL refuses two ranks on one device). First its four
+              kernels at a rank's shapes (16 KV heads, Hg 1, B 8), held to
+              their plain versions and timed. (a) 24 layers, bf16, seed 0:
+              ``PagedServingEngine(mesh_shards=2)`` and the same engine on
+              one device (this process) on the engine phase's four
+              requests with 64 new tokens each: each side's tokens/s, each
+              rank's pool bytes (asserted half the one-device pool's) and
+              the bf16 token agreement; every rank's launches held as the
+              engine phase's; at one decode step each rank's Stage I
+              scores, top-C set, Stage II winners, estimates and rows and
+              its decode gather's K/V rows equal the one-device outputs'
+              slice of its heads exactly (SHA-256 per layer and field).
+              (b) 2 layers in float32: tokens identical to one device's
+              with the fused engine, the meta view, chunked prefill
+              (budget 256) and prefix sharing (a 2,048-token prefix).
+13. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -153,7 +172,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               within 5 % of the largest logit after a near-tie winner flip.
 
 Pass phase names to run a subset (``python3 chip_smoke.py kernels slot``).
-The last two lines are the kernels' JSON summary and the result line.
+Before them, ``phase_seconds`` gives each phase's wall seconds. The last
+two lines are the kernels' JSON summary and the result line.
 """
 import dataclasses
 import json
@@ -172,9 +192,14 @@ SPIN_CYCLES = 20_000_000       # ~10 ms of device spin: longer than any
 #                                call's host-side enqueue in this script
 RERANK_RTOL, RERANK_ATOL = 1e-4, 1e-3
 PROMPTS = (3000, 6000, 9000, 12000)      # the four requests of the engines
-GEN = 300
+# their new tokens: every request must promote, and its first promotion
+# comes at decode step 257 (update_interval + 1)
+GEN = 264
 ARRIVALS = (0, 2, 4, 6)                  # chunk before each submission
-LENS_AFTER = [p + GEN for p in PROMPTS]  # their lengths at the end
+# the kernel phase's rows: the four requests after 300 new tokens, fixed
+# so that its shapes stay comparable between runs
+KERNEL_NEW = 300
+LENS_AFTER = [p + KERNEL_NEW for p in PROMPTS]
 # each path's kernels → their launches per layer and decode step (the
 # paged gather moves sink, window and winner rows in one launch; the tiered
 # path reads its winners with gather_rows_tiered, so its paged gather moves
@@ -193,16 +218,25 @@ EXACT = ("collision_paged", "bucket_topk", "rerank_topk_paged")
 OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
                    "rerank_topk_paged": 1, "gather_rows_paged": 1,
                    "gather_rows_tiered": 1}
-LONG_PROMPT, LONG_GEN = 65536, 32        # the offload phase's long request
-OVERLAP_GEN = 32                         # the offload overlap on/off runs
+LONG_PROMPT, LONG_GEN = 32768, 16        # the offload phase's long request
+OVERLAP_GEN = 16                         # the offload overlap runs
 CHUNK_BUDGET = 512                       # the chunked phase's prefill_budget
+CHUNK_GEN = 128                          # and its new tokens
 # the share phase's fleet: one system prompt of 64 blocks of 128, then
-# distinct suffixes, 64 new tokens each, all submitted at chunk 0
+# distinct suffixes, SHARE_GEN new tokens each, all submitted at chunk 0
 SHARE_PREFIX = 8192
 SHARE_SUFFIXES = (256, 384, 512, 200, 448, 320)
-SHARE_GEN = 64
-FAULT_GEN = 32                           # the faults phase's new tokens
+SHARE_GEN = 32
+FAULT_GEN = 16                           # the faults phase's new tokens
 FAULT_CHUNKED_GEN = 16                   # and in its chunked run (g)
+# the sharded phase: stablelm-1.6b (32 KV heads) over two ranks of one
+# card, the engine phase's requests with 64 new tokens; its float32 part
+SHARDS = 2
+SHARD_ARCH = "stablelm-1.6b"
+SHARD_GEN = 64
+SHARD_F32_LENS = (1500, 2500, 3500)
+SHARD_F32_GEN = 16
+SHARD_F32_BUDGET = 256
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -294,7 +328,8 @@ def kernel_phase(dev, cfg, seed: int = 0):
     pool.meta_ids.copy_(meta.centroid_ids)
     pool.meta_codes.copy_(meta.codes)
     pool.meta_w.copy_(meta.weights)
-    # four rows of ~3k..12k prompt + 300 tokens; unallocated tails are -1
+    # four rows of ~3k..12k prompt + KERNEL_NEW tokens; unallocated tails
+    # are -1
     lens = LENS_AFTER
     perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
     bt = torch.full((b, nblk), -1, dtype=torch.int32, device=dev)
@@ -303,7 +338,7 @@ def kernel_phase(dev, cfg, seed: int = 0):
         need = -(-ln // bs)
         bt[i, :need] = perm[used:used + need]
         used += need
-    enc_end = torch.tensor([ln - 300 - pcfg.local_size for ln in lens],
+    enc_end = torch.tensor([ln - KERNEL_NEW - pcfg.local_size for ln in lens],
                            dtype=torch.int32, device=dev)
     pos = enc_end + pcfg.local_size + 150
     regions = CC.CacheRegions(pos=pos, enc_end=enc_end)
@@ -705,7 +740,7 @@ def _contiguous_kernels(dev, cfg, gen, flush, lens, out):
     for dst, src in zip(cache[2:], meta):
         dst.copy_(src)
     del keys, meta
-    enc_end = torch.tensor([ln - 300 - pcfg.local_size for ln in lens],
+    enc_end = torch.tensor([ln - KERNEL_NEW - pcfg.local_size for ln in lens],
                            dtype=torch.int32, device=dev)
     pos = enc_end + pcfg.local_size + 150
     q = torch.randn((b, G, Hg, hd), generator=gen, device=dev)
@@ -1391,7 +1426,7 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
     print("offload_duplicates " + json.dumps(short["miss_duplicates"]),
           flush=True)
 
-    # (b): one request past 64k tokens, staging pool 1/8 of the blocks
+    # (b): one request past 32k tokens, staging pool 1/8 of the blocks
     n_long = -(-(LONG_PROMPT + LONG_GEN) // 128) * 128
     prompt = _prompts(cfg, seed=5, lens=(LONG_PROMPT,))
     outs, recs = {}, {}
@@ -1688,9 +1723,10 @@ def _per_request(rec, done, paged_out):
     out = dict(ttft_s=[r["ttft_s"] for r in rec["requests"]],
                admission_gaps_s=rec["admission_gaps_s"],
                tokens_per_s=rec["tokens_per_s"])
-    if paged_out:
+    if paged_out:      # over the tokens both runs emitted
         out["token_agreement_with_engine_phase"] = [
-            float(np.mean(done[u].output == paged_out[u]))
+            float(np.mean(done[u].output
+                          == paged_out[u][:len(done[u].output)]))
             for u in sorted(done)]
     return out
 
@@ -1713,7 +1749,7 @@ def chunked_phase(dev, cfg, params, paged_out, paged_rec,
     # (a) the paged engine
     eng = PagedServingEngine(cfg, params, **paged_kw)
     _warm(eng, cfg)
-    r, done = _serve(eng, prompts, GEN, ARRIVALS, PAGED_KERNELS, cfg,
+    r, done = _serve(eng, prompts, CHUNK_GEN, ARRIVALS, PAGED_KERNELS, cfg,
                      fill=dict(gather_rows_paged=reads, bucket_count=spans))
     _check(r["launches"]["bucket_count"] == spans,
            f"bucket_count: {r['launches']['bucket_count']} launches, the "
@@ -1732,7 +1768,7 @@ def chunked_phase(dev, cfg, params, paged_out, paged_rec,
     # (b) the slot engine
     eng = ServingEngine(cfg, params, **common)
     _warm(eng, cfg)
-    r, done = _serve(eng, prompts, GEN, ARRIVALS, SLOT_KERNELS, cfg,
+    r, done = _serve(eng, prompts, CHUNK_GEN, ARRIVALS, SLOT_KERNELS, cfg,
                      exact=EXACT + ("bucket_count",))
     rec["slot"] = dict(r, **_per_request(r, done, paged_out))
     rec["slot"]["tokens_identical_to_chunked_paged"] = _same_tokens(
@@ -1745,7 +1781,8 @@ def chunked_phase(dev, cfg, params, paged_out, paged_rec,
                              **paged_kw)
     _warm(eng, cfg)
     with _TieredTally() as tally:
-        r, done = _serve(eng, prompts, GEN, ARRIVALS, OFFLOAD_KERNELS, cfg,
+        r, done = _serve(eng, prompts, CHUNK_GEN, ARRIVALS, OFFLOAD_KERNELS,
+                         cfg,
                          fill=dict(gather_rows_tiered=reads,
                                    bucket_count=spans))
     host, t = eng.host, tally.t
@@ -2134,13 +2171,448 @@ def _share_f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
     return rec
 
 
+# --------------------------------------------------------------- sharded ---
+def _shard_kernels(dev, cfg, seed: int = 0):
+    """Stage I, the top-C cut, Stage II with its top-k and the decode gather
+    at one rank's shapes in the sharded phase: stablelm-1.6b split two
+    ways (G_loc = 16 KV heads, Hg = 1, hd = 64, B = 8, 2^m = 256, bf16),
+    512 blocks of 128, four rows at the kernel phase's lengths. Each is
+    held to its plain version as the kernel phase holds it (exact; Stage
+    II's estimates to its tolerance and its selection exact) and timed."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.core import centroids
+    from repro_torch.core import encode as E
+    from repro_torch.core import retrieval as R
+    from repro_torch.kernels import SEG_LEN
+    from repro_torch.kernels.bucket_topk import bucket_topk
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision import (collision_scores_paged_kernel,
+                                               lane_packed_table)
+    from repro_torch.kernels.collision.ref import collision_paged_ref
+    from repro_torch.kernels.gather_kv import gather_decode_paged
+    from repro_torch.kernels.gather_kv.ref import gather_decode_paged_ref
+    from repro_torch.kernels.rerank import rerank_topk_paged
+    from repro_torch.kernels.rerank.ref import rerank_topk_paged_ref
+    from repro_torch.models.serve import rotation_signs
+
+    pcfg = cfg.pariskv
+    b, G, hd = 4, cfg.num_kv_heads // SHARDS, cfg.head_dim
+    Hg = cfg.num_heads // cfg.num_kv_heads
+    B, m = pcfg.num_subspaces(hd), pcfg.m
+    bs, n, nb = 128, 16384, 512
+    nblk = n // bs
+    C, sink = pcfg.candidate_count(n), pcfg.sink_size
+    W, k_top = CC.window_size(pcfg), pcfg.top_k
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    signs = rotation_signs(cfg, dev)
+    pool = CC.init_paged_cache(nb, bs, G, hd, pcfg, torch.bfloat16, dev)
+    keys = torch.randn((nb, bs, G, hd), generator=gen, device=dev)
+    pool.k.copy_(keys)
+    pool.v.copy_(torch.randn((nb, bs, G, hd), generator=gen, device=dev))
+    meta = E.encode_keys(keys.transpose(1, 2), pcfg, signs)
+    for dst, src in zip(pool[2:], meta):
+        dst.copy_(src)
+    del keys, meta
+    perm = torch.randperm(nb, generator=gen, device=dev).to(torch.int32)
+    bt = torch.full((b, nblk), -1, dtype=torch.int32, device=dev)
+    used = 0
+    for i, ln in enumerate(LENS_AFTER):
+        need = -(-ln // bs)
+        bt[i, :need] = perm[used:used + need]
+        used += need
+    enc_end = torch.tensor([ln - KERNEL_NEW - pcfg.local_size
+                            for ln in LENS_AFTER], dtype=torch.int32,
+                           device=dev)
+    pos = enc_end + pcfg.local_size + 150
+    hist = CC.bucket_hist_from_meta(
+        CC.paged_ids_view(pool, bt), CC.CacheRegions(pos, enc_end), pcfg)
+    qt = E.encode_query(torch.randn((b, G, Hg, hd), generator=gen,
+                                    device=dev), pcfg, signs)
+    cs = centroids.centroid_scores(qt.q_sub, m)
+    n_valid = (enc_end - sink).clamp_min(0)
+    tables = R.tier_weight_table(cs, hist[:, :, None], n_valid[:, None, None],
+                                 pcfg, out=lane_packed_table(*cs.shape,
+                                                             device=dev))
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rng_s = R.max_collision_score(pcfg, B)
+    nval = int(n_valid.sum())
+    shape = dict(G_loc=G, Hg=Hg, hd=hd, B=B, rows=b, block_size=bs,
+                 num_blocks=nb, n=n, C=C, top_k=k_top)
+    out = {}
+
+    def stage1():
+        return collision_scores_paged_kernel(pool.meta_ids, bt, tables,
+                                             enc_end, sink, rng_s)
+    coarse, seg_hist = stage1()
+    want, want_hist = collision_paged_ref(pool.meta_ids, bt, tables, enc_end,
+                                          sink, rng_s)
+    _check(torch.equal(coarse, want) and torch.equal(seg_hist, want_hist),
+           "collision_paged differs from its plain version (shard shapes)")
+    out["collision_paged/shard"] = dict(
+        route="cuda", source="src/repro_torch/csrc/collision_paged.cu",
+        replaces="src/repro/kernels/collision/collision.py:146",
+        max_abs_err=0, tolerance="exact (scores and seg_hist)", **shape,
+        ms=_time_ms(stage1, flush),
+        plain_ms=_time_ms(lambda: collision_paged_ref(
+            pool.meta_ids, bt, tables, enc_end, sink, rng_s), flush),
+        library_ms=None,
+        bound=_bound(G * nval * B + tables.numel() + bt.numel() * 4 + b * 4
+                     + coarse.numel() * 4 + seg_hist.numel() * 4,
+                     G * nval * B))
+
+    cand = bucket_topk(coarse, C, rng_s, seg_hist=seg_hist)
+    _check(torch.equal(cand, bucket_topk_ref(coarse, C, rng_s)),
+           "bucket_topk differs from its plain version (shard shapes)")
+    seg_read = int(torch.zeros(coarse.shape[:-1] + (n // SEG_LEN,),
+                               dtype=torch.int32, device=dev).scatter_(
+        -1, (cand // SEG_LEN).long(), 1).sum())
+    out["bucket_topk/shard"] = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_topk.cu",
+        replaces="src/repro/kernels/bucket_topk/bucket_topk.py:50",
+        max_abs_err=0, tolerance="exact", **shape,
+        ms=_time_ms(lambda: bucket_topk(coarse, C, rng_s, seg_hist=seg_hist),
+                    flush),
+        plain_ms=_time_ms(lambda: bucket_topk_ref(coarse, C, rng_s), flush),
+        library_ms=_time_ms(lambda: torch.topk(coarse, C, -1, sorted=False),
+                            flush),
+        bound=_bound(seg_hist.numel() * 4 + seg_read * SEG_LEN * 4
+                     + cand.numel() * 4, 0))
+
+    q_sub = qt.q_sub.float().contiguous()
+    q_norm = qt.q_norm.float().contiguous()
+    args = (pool.meta_codes, pool.meta_w, bt, cand, q_sub, q_norm, enc_end,
+            sink, k_top, m, pcfg.magnitude_bits)
+    won, err = _stage2_checks(args, bs, "shard shapes")
+    n_cand = int(((cand >= sink) & (cand < enc_end[:, None, None, None]))
+                 .sum())
+    out["rerank_topk_paged/shard"] = dict(
+        route="cuda", source="src/repro_torch/csrc/rerank_topk_paged.cu",
+        replaces="src/repro/kernels/rerank/rerank.py:78",
+        max_abs_err=err,
+        tolerance=f"estimates rtol {RERANK_RTOL}, atol {RERANK_ATOL}; the "
+                  f"selection exact against the plain top-k of the "
+                  f"kernel's own estimates", **shape,
+        ms=_time_ms(lambda: rerank_topk_paged(*args), flush),
+        plain_ms=_time_ms(lambda: rerank_topk_paged_ref(*args), flush),
+        library_ms=None,
+        bound=_bound(n_cand * B * 8 + cand.numel() * 8 + bt.numel() * 4
+                     + b * 4 + b * G * Hg * k_top * 16 + q_sub.numel() * 4
+                     + q_norm.numel() * 4, n_cand * (2 * B * m + 2 * B)))
+
+    ws = (pos + 2 - W).clamp_min(0).to(torch.int32)
+    phys = won.phys_rows
+
+    def kern():
+        return gather_decode_paged(pool.k, pool.v, bt, ws, sink, W, phys)
+    got = kern()
+    _check(all(torch.equal(x, y) for x, y in zip(
+        got, gather_decode_paged_ref(pool.k, pool.v, bt, ws, sink, W, phys))),
+        "gather_rows_paged differs from its plain version (shard shapes)")
+    flat_k = pool.k.reshape(nb * bs, G, hd)
+    flat_v = pool.v.reshape(nb * bs, G, hd)
+    heads = torch.arange(G, device=dev)[None, :, None, None]
+    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                      ws[:, None] + torch.arange(W, device=dev)], 1)
+    rows_l = (bt.long().gather(1, (lidx // bs).long()).clamp_min(0) * bs
+              + lidx % bs)
+    rows_p = phys.long()
+    out["gather_rows_paged/shard"] = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows_paged.cu",
+        replaces="src/repro/kernels/gather_kv/gather_kv.py:87",
+        max_abs_err=0, tolerance="exact", **shape,
+        ms=_time_ms(kern, flush),
+        plain_ms=_time_ms(lambda: gather_decode_paged_ref(
+            pool.k, pool.v, bt, ws, sink, W, phys), flush),
+        library_ms=_time_ms(lambda: (flat_k[rows_l], flat_v[rows_l],
+                                     flat_k[rows_p, heads],
+                                     flat_v[rows_p, heads]), flush),
+        bound=_bound(2 * sum(t.numel() for t in got) * 2 + phys.numel() * 4
+                     + b * 4 + bt.numel() * 4, 0))
+    for name, rec in out.items():
+        rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
+        print(f"kernel {name} " + json.dumps(rec), flush=True)
+    return out
+
+
+def _head_invariance(dev, seed: int = 0):
+    """Whether a head slice of the decode and fill attention has the same
+    bits as the full call (a rank's heads against one device's), at the
+    shard shapes of stablelm-1.6b (G 32 → 16, Hg 1, hd 64) and qwen2-1.5b
+    (G 2 → 1, Hg 6, hd 128): four decode rows over sink, 100 winners and
+    the window; one 256-token fill chunk over a 3,500-token prefix. →
+    {shape: (decode max |diff|, fill max |diff|)}; the decode's must be 0
+    (its contractions are products and sums), the fill's GEMMs are
+    cuBLAS's, batched over heads."""
+    import torch
+    from repro_torch.core import attention as A
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    out = {}
+    for name, G, Hg, hd in (("stablelm", 32, 1, 64), ("qwen2", 2, 6, 128)):
+        b, sink, k, W, P, n = 4, 128, 100, 768, 256, 3500
+        h = slice(G // 2, G)
+        args = (r(b, G, Hg, hd), r(b, sink, G, hd), r(b, sink, G, hd),
+                r(b, G, Hg, k, hd), r(b, G, Hg, k, hd), r(b, W, G, hd),
+                r(b, W, G, hd))
+        axes = (1, 2, 2, 1, 1, 2, 2)
+        ints = [torch.full(s, v, dtype=torch.int32, device=dev) for s, v in
+                (((b, G, Hg, k), 500), ((b,), 2000), ((b,), 2767),
+                 ((b,), 1800))]
+        kw = dict(sink_size=sink, window_size=W, sm_scale=hd ** -0.5,
+                  softcap=0.0)
+        full = A._segment_attention(*args, ints[0], *ints[1:], **kw)
+        part = A._segment_attention(
+            *(a.narrow(ax, G // 2, G // 2).contiguous()
+              for a, ax in zip(args, axes)), ints[0][:, h].contiguous(),
+            *ints[1:], **kw)
+        q = r(1, P, G * Hg, hd)
+        kv = (r(1, n, G, hd), r(1, n, G, hd), r(1, P, G, hd), r(1, P, G, hd))
+        pos = (torch.arange(n, device=dev)[None],
+               n + torch.arange(P, device=dev)[None])
+        fill = A.chunk_fill_attention(q, kv[0], kv[1], pos[0], kv[2], kv[3],
+                                      pos[1], pos[1], sm_scale=hd ** -0.5)
+        fill_part = A.chunk_fill_attention(
+            q[:, :, G // 2 * Hg:].contiguous(),
+            *(t[:, :, h].contiguous() for t in kv[:2]), pos[0],
+            *(t[:, :, h].contiguous() for t in kv[2:]), pos[1], pos[1],
+            sm_scale=hd ** -0.5)
+        out[name] = (float((full[:, h] - part).abs().max()),
+                     float((fill[:, :, G // 2 * Hg:] - fill_part).abs()
+                           .max()))
+    return out
+
+
+def _shard_engine(cfg, params, dev, shards: int, **kw):
+    """The sharded phase's engine: the engine phase's geometry."""
+    from repro_torch.serving import PagedServingEngine
+    return PagedServingEngine(cfg, params, n_max=16384, block_size=128,
+                              num_blocks=512, max_batch=4, chunk_size=8,
+                              mesh_shards=shards, device=dev, **kw)
+
+
+def _pool_bytes(eng) -> int:
+    """Device bytes of the pool: K/V, metadata and histograms, all layers."""
+    return sum(t.nbytes for lc in eng._state.caches
+               for t in (*lc["kv"], lc["hist"]))
+
+
+def _digest(t) -> str:
+    """SHA-256 of a tensor's bytes."""
+    import hashlib
+    import torch
+    raw = t.contiguous().view(-1).view(torch.uint8)
+    return hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+
+
+def _probe(eng, cfg, prompts, head_ranges):
+    """One decode step's retrieval and gather outputs in every layer, once
+    the four requests are admitted together and one chunk has run: for
+    each KV-head range (g0, g1) of ``head_ranges`` (None: every head of
+    the engine's pool), a digest per layer of each retrieval field (Stage
+    I scores, the top-C set, Stage II's winners, estimates and rows) and
+    of the decode gather's K/V rows on those heads."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.kernels.gather_kv import gather_decode_paged
+    from repro_torch.models import serve as SV
+    from repro_torch.serving import Request
+
+    pcfg = cfg.pariskv
+    W = CC.window_size(pcfg)
+    eng.start()
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=SHARD_GEN))
+    eng.step_serve()
+    st = eng._state
+    bt = torch.from_numpy(eng._bt).to(eng.device)
+    ws = (st.regions.pos + 2 - W).clamp_min(0).to(torch.int32)
+    rec = []
+    SV.decode_step(eng.params, cfg, st.cur_tok,
+                   SV.ServeState(st.caches, st.regions), bt,
+                   active=st.remaining > 0, record=rec, dist=eng.dist)
+    out = [[] for _ in head_ranges]
+    for lc, res in zip(st.caches, rec):
+        dk, dv, wk, wv = gather_decode_paged(lc["kv"].k, lc["kv"].v, bt, ws,
+                                             pcfg.sink_size, W, res.phys_rows)
+        for row, hr in zip(out, head_ranges):
+            g = slice(None) if hr is None else slice(*hr)
+            row.append(dict(
+                {f: _digest(getattr(res, f)[:, g]) for f in res._fields},
+                dense_k=_digest(dk[:, :, g]), dense_v=_digest(dv[:, :, g]),
+                ret_k=_digest(wk[:, g]), ret_v=_digest(wv[:, g])))
+    eng.start()                          # drop the probe's requests
+    return out
+
+
+def _shard_f32(dev, cfg_full, shards: int):
+    """(b) 2 layers in float32, the engine phase's geometry at n_max 4096:
+    three staggered requests of 1,500/2,500/3,500 tokens (16 new) through
+    the fused engine, the meta view and chunked prefill (budget 256), and
+    three behind one 2,048-token prefix with sharing, every chunk
+    audited. → per mode the tokens, the bucket_count launches and the
+    shared block hits."""
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import PagedServingEngine
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
+    params = init_params(cfg, seed=4, device=dev)
+    lens = _prompts(cfg, seed=6, lens=SHARD_F32_LENS)
+    shared = _share_prompts(cfg, seed=10, prefix=2048,
+                            suffixes=(96, 160, 224))
+    budget = dict(prefill_budget=SHARD_F32_BUDGET)
+    modes = (("fused", {}, lens), ("metaview", dict(fused=False), lens),
+             ("chunked", budget, lens),
+             ("shared", dict(share_prefixes=True, **budget), shared))
+    out = {}
+    for name, kw, prompts in modes:
+        eng = PagedServingEngine(cfg, params, n_max=4096, block_size=128,
+                                 num_blocks=128, max_batch=4, chunk_size=4,
+                                 mesh_shards=shards, device=dev, **kw)
+        rec, done = _serve(eng, prompts, SHARD_F32_GEN, (0, 1, 2), {}, cfg,
+                           audit=True)
+        out[name] = dict(
+            tokens={u: r.output.tolist() for u, r in done.items()},
+            bucket_count=rec["launches"]["bucket_count"],
+            shared_block_hits=eng.shared_block_hits)
+        del eng
+    return out
+
+
+def _shard_rank(rank: int, shards: int, backend: str, device_type: str):
+    """One rank of the sharded phase: (a) at full width, the engine phase's
+    requests with 64 new tokens each, its launches counted and checked
+    (``_serve``), and the retrieval probe; (b) the float32 modes. A rank
+    serves on its own card under NCCL, on card 0 under gloo."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type)
+    if device_type == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
+        torch.cuda.set_device(dev)
+    from repro_torch import configs
+    from repro_torch.models.model import init_params
+
+    cfg = configs.get(SHARD_ARCH)
+    params = init_params(cfg, seed=0, device=dev)
+    eng = _shard_engine(cfg, params, dev, shards)
+    _warm(eng, cfg)
+    pool = _pool_bytes(eng)
+    rec, done = _serve(eng, _prompts(cfg), SHARD_GEN, ARRIVALS,
+                       PAGED_KERNELS, cfg)
+    probe = _probe(eng, cfg, _prompts(cfg), [None])[0]
+    del eng, params
+    torch.cuda.empty_cache()
+    return dict(rec=rec, pool_bytes=pool, probe=probe,
+                tokens={u: r.output.tolist() for u, r in done.items()},
+                f32=_shard_f32(dev, cfg, shards))
+
+
+def sharded_phase(dev):
+    """Head-sharded paged serving (``mesh_shards=2``) of stablelm-1.6b,
+    against the same engine on one device in this process."""
+    import numpy as np
+    import torch
+    from repro_torch import configs
+    from repro_torch.distributed import backend_for, launch_local
+    from repro_torch.models.model import init_params, param_count
+
+    cfg = configs.get(SHARD_ARCH)
+    kern = _shard_kernels(dev, cfg)
+    invariance = _head_invariance(dev)
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = param_count(params)
+    eng = _shard_engine(cfg, params, dev, 1)
+    _warm(eng, cfg)
+    pool = _pool_bytes(eng)
+    one, done = _serve(eng, _prompts(cfg), SHARD_GEN, ARRIVALS,
+                       PAGED_KERNELS, cfg)
+    one_tokens = {u: r.output.tolist() for u, r in done.items()}
+    per = cfg.num_kv_heads // SHARDS
+    probes = _probe(eng, cfg, _prompts(cfg),
+                    [(r * per, (r + 1) * per) for r in range(SHARDS)])
+    del eng, params
+    torch.cuda.empty_cache()
+    f32_one = _shard_f32(dev, cfg, 1)
+    torch.cuda.empty_cache()
+    backend = backend_for(SHARDS, dev)
+    t0 = time.perf_counter()
+    ranks = launch_local(_shard_rank, SHARDS, backend, timeout_s=600.0,
+                         args=(SHARDS, backend, dev.type))
+    ranks_s = time.perf_counter() - t0
+    mismatched = [(r, li, f) for r, rk in enumerate(ranks)
+                  for li, (got, want) in enumerate(zip(rk["probe"],
+                                                       probes[r]))
+                  for f in want if got[f] != want[f]]
+    f32_same = {name: all(rk["f32"][name]["tokens"] == want["tokens"]
+                          for rk in ranks)
+                for name, want in f32_one.items()}
+    agree = [float(np.mean(np.asarray(ranks[0]["tokens"][u])
+                           == np.asarray(one_tokens[u])))
+             for u in sorted(one_tokens)]
+    rec = dict(
+        arch=SHARD_ARCH, layers=cfg.num_layers, dtype=cfg.dtype,
+        params=n_params, shards=SHARDS, backend=backend,
+        device=torch.cuda.get_device_name(0), ranks_wall_s=ranks_s,
+        head_slice_max_abs_diff=dict(
+            note="a head slice of the attention against the full call: "
+                 "(decode, fill)", **invariance),
+        unsharded=dict(tokens_per_s=one["tokens_per_s"],
+                       serve_s=one["serve_s"],
+                       decode_steps=one["decode_steps"],
+                       peak_mem_gb=one["peak_mem_gb"], pool_bytes=pool,
+                       launches=one["launches"]),
+        sharded=[dict(rank=r, tokens_per_s=rk["rec"]["tokens_per_s"],
+                      serve_s=rk["rec"]["serve_s"],
+                      decode_steps=rk["rec"]["decode_steps"],
+                      peak_mem_gb=rk["rec"]["peak_mem_gb"],
+                      pool_bytes=rk["pool_bytes"],
+                      launches=rk["rec"]["launches"])
+                 for r, rk in enumerate(ranks)],
+        ranks_tokens_identical=all(rk["tokens"] == ranks[0]["tokens"]
+                                   for rk in ranks),
+        bf16_token_agreement_with_unsharded=dict(
+            per_request=agree, overall=float(np.mean(agree))),
+        probe_layers=len(probes[0]), probe_fields=sorted(probes[0][0]),
+        probe_mismatches=mismatched[:8], probe_mismatch_count=len(mismatched),
+        f32=dict(layers=2, prompts=list(SHARD_F32_LENS), shared_prefix=2048,
+                 new_tokens=SHARD_F32_GEN, prefill_budget=SHARD_F32_BUDGET,
+                 tokens_identical=f32_same,
+                 bucket_count_launches=[{n: rk["f32"][n]["bucket_count"]
+                                         for n in f32_one} for rk in ranks],
+                 shared_block_hits=[f32_one["shared"]["shared_block_hits"]]
+                 + [rk["f32"]["shared"]["shared_block_hits"]
+                    for rk in ranks]))
+    print("sharded " + json.dumps(rec), flush=True)
+    _check(all(d == 0 for d, _ in invariance.values()),
+           f"the decode attention of a head slice differs: {invariance}")
+    _check(rec["ranks_tokens_identical"], "the ranks emitted other tokens")
+    _check(all(rk["pool_bytes"] * SHARDS == pool for rk in ranks),
+           f"a rank's pool is not 1/{SHARDS} of the unsharded pool's "
+           f"{pool} bytes: {[rk['pool_bytes'] for rk in ranks]}")
+    _check(not mismatched, f"{len(mismatched)} probe outputs differ from the "
+                           f"unsharded head slice, first {mismatched[:8]}")
+    _check(all(f32_same.values()), f"float32 sharded tokens differ from the "
+                                   f"unsharded engine's: {f32_same}")
+    _check(all(rk["f32"][n]["bucket_count"] > 0 for rk in ranks
+               for n in ("chunked", "shared")),
+           "a chunked or sharing rank never launched bucket_count")
+    _check(all(rk["f32"]["shared"]["shared_block_hits"]
+               == f32_one["shared"]["shared_block_hits"] > 0 for rk in ranks),
+           "the ranks mapped other shared blocks than one device")
+    return rec, kern
+
+
 # ---------------------------------------------------------------- parity ---
 def faults_phase(dev, cfg, params, n_max: int = 16384, gen: int = FAULT_GEN):
     """Fault handling at full width (bf16, seed 0) on the offloaded engine
     (128 of 512 blocks staged, chunks of 8) with the engine phase's first
-    two requests, 32 new tokens each: a clean run, then (a) fetch delays,
-    (b) transient failures, (c) a hung fetch past its deadline with the
-    overlap on and off, (d) every fetch failing from the second chunk on
+    two requests, FAULT_GEN new tokens each: a clean run, then (a) fetch
+    delays, (b) transient failures, (c) a hung fetch past its deadline with
+    the overlap on and off, (d) every fetch failing from the second chunk on
     (degraded attention), (e) ``engine.slot`` failing uid 0 (quarantine),
     (f) staging storms, each audited with ``verify_invariants()`` at every
     chunk, and (g) a chunked run (budget 512) whose fill prefix reads all
@@ -2404,7 +2876,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
-              "chunked", "share", "faults", "parity")
+              "chunked", "share", "faults", "sharded", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -2424,7 +2896,18 @@ def main() -> int:
     print("kernels " + " ".join(K.KERNELS), flush=True)
 
     cfg = configs.get("qwen2-1.5b")
+    seconds = {}                  # wall seconds per phase
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        seconds[name] = now - t_phase
+        t_phase = now
+        print(f"phase {name} " + json.dumps({"seconds": seconds[name]}),
+              flush=True)
     kern = kernel_phase(dev, cfg) if "kernels" in only else {}
+    lap("kernels")
     params = None
     if {"engine", "slot", "metaview", "baseline", "offload", "chunked",
             "share", "faults"} & set(only):
@@ -2438,6 +2921,7 @@ def main() -> int:
         del engine
         launches.update({k: eng["launches"][k]
                          for k in (*PAGED_KERNELS, "bucket_hist")})
+        lap("engine")
     if "slot" in only:
         slot, engine = slot_phase(dev, cfg, params, paged_out)
         profile_phase(engine, cfg, "slot")
@@ -2447,14 +2931,18 @@ def main() -> int:
         # the contiguous routes of the TPU kernels #5 and #6
         for k in ("collision_paged", "gather_rows_paged"):
             launches[f"{k}/contiguous"] = slot["launches"][k]
+        lap("slot")
     if "metaview" in only:
         metaview_phase(dev, cfg, params)
+        lap("metaview")
     if "baseline" in only:
         baseline_phase(dev, cfg, params)
+        lap("baseline")
     if "offload" in only:
         off, _ = offload_phase(dev, cfg, params, eng, paged_out)
         launches.setdefault("gather_rows_tiered",
                             off["launches"]["gather_rows_tiered"])
+        lap("offload")
     if "chunked" in only:
         ch = chunked_phase(dev, cfg, params, paged_out, eng)
         # the fill's kernels: their launches in the chunked runs (paged:
@@ -2466,14 +2954,30 @@ def main() -> int:
             "bucket_count"]
         launches["gather_rows_tiered/fill"] = ch["offload"]["launches"][
             "gather_rows_tiered"]
+        lap("chunked")
     if "share" in only:
         # the shared admissions' histogram rebuilds in the sharing run (a)
         sh = share_phase(dev, cfg, params)
         launches["bucket_count/share"] = sh["on"]["rebuild_launches"]
+        lap("share")
     if "faults" in only:
         faults_phase(dev, cfg, params)
+        lap("faults")
+    if "sharded" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        sharded, shard_kern = sharded_phase(dev)
+        kern.update(shard_kern)
+        # rank 0's launches in (a), the sharded main path
+        for name in shard_kern:
+            launches[name] = sharded["sharded"][0]["launches"][
+                name.split("/")[0]]
+        lap("sharded")
     if "parity" in only:
         parity_phase(dev, cfg)
+        lap("parity")
+    print("phase_seconds " + json.dumps(seconds), flush=True)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     summary = [dict(name=name, **{k: ({**rec, "launches": launches.get(

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCHS = ("qwen2-1.5b",)
+ARCHS = ("qwen2-1.5b", "stablelm-1.6b")
 
 
 def _module(name: str):

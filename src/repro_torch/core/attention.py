@@ -125,14 +125,29 @@ def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         softcap=softcap).reshape(b, H, hd)
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Σ over the last axis of ``a * b`` (broadcast): a decode step's
+    contractions, written so that each head's result has the same bits
+    whatever the number of heads in the call. A batched GEMM would not:
+    cuBLAS picks its algorithm by the batch count, so a head-sharded rank
+    (``ShardDist``), holding part of the heads, would round differently
+    from one device."""
+    return (a * b).sum(-1)
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """(b, n, G, hd) rows → (b, G, 1, n, hd) float32, to broadcast against
+    (b, G, Hg, ...) queries."""
+    return x.float().permute(0, 2, 1, 3)[:, :, None]
+
+
 def dense_segment_scores(qg: torch.Tensor, k_sink: torch.Tensor,
                          k_loc: torch.Tensor
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Raw (unmasked, unscaled) sink and window scores.
     qg (b, G, Hg, hd) float32 → (b, G, Hg, sink), (b, G, Hg, W)."""
-    s_sink = torch.einsum("bghd,bsgd->bghs", qg, k_sink.float())
-    s_loc = torch.einsum("bghd,bwgd->bghw", qg, k_loc.float())
-    return s_sink, s_loc
+    q = qg[..., None, :]
+    return _dot(q, _heads_first(k_sink)), _dot(q, _heads_first(k_loc))
 
 
 def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
@@ -160,7 +175,7 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
     step attends to sink, window and the staged winners); None changes
     nothing."""
     dev = qg.device
-    s_ret = torch.einsum("bghd,bghkd->bghk", qg, k_ret.float())
+    s_ret = _dot(qg[..., None, :], k_ret.float())
     # only positions inside the retrieval region count: with an empty
     # region (early decode) Stage II returns arbitrary indices
     ret_valid = ((top_idx >= sink_size)
@@ -184,9 +199,10 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
     k_sz = top_idx.shape[-1]
     p_sink, p_ret, p_loc = torch.split(p, [sink_size, k_sz, window_size],
                                        dim=-1)
-    out = torch.einsum("bghs,bsgd->bghd", p_sink, v_sink.float())
-    out = out + torch.einsum("bghk,bghkd->bghd", p_ret, v_ret.float())
-    out = out + torch.einsum("bghw,bwgd->bghd", p_loc, v_loc.float())
+    out = _dot(p_sink[..., None, :], _heads_first(v_sink).transpose(-1, -2))
+    out = out + _dot(p_ret[..., None, :], v_ret.float().transpose(-1, -2))
+    out = out + _dot(p_loc[..., None, :],
+                     _heads_first(v_loc).transpose(-1, -2))
     return out
 
 

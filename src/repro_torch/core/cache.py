@@ -509,6 +509,16 @@ def paged_scatter_prefill(pool: PagedLayerKVCache, cache1: LayerKVCache,
     return tiered_scatter_prefill_meta(pool, cache1, phys_blocks)
 
 
+def head_slice(cache1: LayerKVCache, g0: int, g1: int) -> LayerKVCache:
+    """KV heads [g0, g1) of a contiguous store (K/V (b, n, G, hd),
+    metadata (b, G, n, B)), contiguous: a head-sharded rank's part of a
+    replicated solo prefill."""
+    k, v, ids, codes, w = cache1
+    return LayerKVCache(*(t.contiguous() for t in (
+        k[:, :, g0:g1], v[:, :, g0:g1], ids[:, g0:g1], codes[:, g0:g1],
+        w[:, g0:g1])))
+
+
 def paged_clear_blocks(pool: PagedLayerKVCache,
                        phys_blocks: torch.Tensor) -> PagedLayerKVCache:
     """Zero the given physical blocks in place (eviction hygiene); entries

@@ -2,8 +2,8 @@
 ``repro/core/centroids.py``).
 
 Assignment is sign-bit packing: the nearest centroid of a unit direction u
-has bit j set ⇔ u_j ≥ 0. A query's scores against all 2^m centroids are an
-(m × 2^m) product.
+has bit j set ⇔ u_j ≥ 0. A query's scores against all 2^m centroids are
+its products with the (2^m × m) codebook.
 """
 from __future__ import annotations
 
@@ -37,11 +37,15 @@ def assign(u: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=8)
-def _codebook_t(m: int, device: str) -> torch.Tensor:
-    """Transposed codebook (m, 2^m), copied to ``device`` once."""
-    return torch.from_numpy(codebook(m)).to(device).T.contiguous()
+def _codebook_on(m: int, device: str) -> torch.Tensor:
+    """The codebook (2^m, m), copied to ``device`` once."""
+    return torch.from_numpy(codebook(m)).to(device)
 
 
 def centroid_scores(q_sub: torch.Tensor, m: int) -> torch.Tensor:
-    """q_sub (..., B, m) → (..., B, 2^m) with entry [b, c] = ⟨q_b, ω_c⟩."""
-    return q_sub.float() @ _codebook_t(m, str(q_sub.device))
+    """q_sub (..., B, m) → (..., B, 2^m) with entry [b, c] = ⟨q_b, ω_c⟩,
+    as products and sums rather than a matmul: a GEMM's rounding depends
+    on its row count, and a head-sharded rank's rows must score as one
+    device's (their ranks set the tier weights)."""
+    return (q_sub.float()[..., None, :]
+            * _codebook_on(m, str(q_sub.device))).sum(-1)

@@ -271,6 +271,25 @@ def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
         coarse_scores=coarse)
 
 
+def retrieve_paged_fused_sharded(pool, block_tables: torch.Tensor,
+                                 qt: QueryTransform, counts: torch.Tensor,
+                                 enc_end: torch.Tensor, cfg: ParisKVConfig,
+                                 num_candidates: int, top_k: int,
+                                 dist) -> PagedRetrievalResult:
+    """``retrieve_paged_fused`` on one rank's KV heads, then every result
+    field gathered from all ranks on the head axis, in rank order
+    (``distributed.ShardDist.all_gather_heads``).
+
+    ``pool``, ``counts`` and ``qt`` hold the rank's heads; block tables
+    and block numbering are replicated, so the rank's physical rows
+    already address the one global block space. Every stage is per head
+    and the merge concatenates without arithmetic, so the result is the
+    one-device call's on the full pool."""
+    res = retrieve_paged_fused(pool, block_tables, qt, counts, enc_end, cfg,
+                               num_candidates, top_k)
+    return PagedRetrievalResult(*(dist.all_gather_heads(f, 1) for f in res))
+
+
 def tiered_winner_rows(phys_rows: torch.Tensor, dev_map: torch.Tensor,
                        block_size: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Winner → staging-row translation for a tiered pool. Stage II's

@@ -37,7 +37,10 @@ def rerank_paged_ref(pool_codes: torch.Tensor, pool_w: torch.Tensor,
     codes = pool_codes[blk, heads, off]                   # (b, G, Hg, C, B)
     w = pool_w[blk, heads, off]
     v = quantizer.decode_directions(codes, m, bits)       # (..., C, B, m)
-    dots = torch.einsum("...cbm,...bm->...cb", v, q_sub.float())
+    # products and sums, not einsum: a batched matmul's rounding depends on
+    # the batch count, and a head-sharded rank's rows must come out as the
+    # one-device call's
+    dots = (v * q_sub.float()[..., None, :, :]).sum(-1)
     est = q_norm[..., None] * (w * dots).sum(-1)
     valid = ((cand_idx >= sink_size)
              & (cand_idx < enc_end[:, None, None, None]))

@@ -5,17 +5,48 @@ Runs the slot-based continuous-batching ``ServingEngine`` (or the lockstep
 weights from seed 0, and reports per-request TTFT and TPOT and the
 aggregate throughput, for ParisKV or the full-attention baseline
 (``--baseline``). Runs on the first CUDA card unless ``--device cpu``.
+
+``--mesh-shards N`` serves the paged engine head-sharded over N ranks
+(``PagedServingEngine(mesh_shards=N)``), one process per rank:
+
+    torchrun --nproc-per-node N -m repro_torch.launch.serve \\
+        --arch stablelm-1.6b --mesh-shards N [--device cpu]
+
+Each rank joins the process group torchrun describes (NCCL with a card per
+rank, else gloo: ``distributed.backend_for``) and serves the same
+requests; rank 0 prints the per-request lines.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
+
+import torch
 
 from repro_torch import configs, resolve_device
 from repro_torch.data import SyntheticLMStream
+from repro_torch.distributed import backend_for
 from repro_torch.models import model as M
-from repro_torch.serving import Request, ServingEngine, WaveServingEngine
+from repro_torch.serving import (PagedServingEngine, Request, ServingEngine,
+                                 WaveServingEngine)
 from repro_torch.serving.engine import _sync
+
+
+def _join_group(shards: int, device: torch.device) -> torch.device:
+    """Join torchrun's process group of ``shards`` ranks → this rank's
+    device (its own card under NCCL)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) != shards:
+        raise SystemExit(f"--mesh-shards {shards} runs under torchrun "
+                         f"--nproc-per-node {shards}")
+    backend = backend_for(shards, device)
+    print(f"rank {os.environ['RANK']}: backend {backend}", flush=True)
+    if backend == "nccl":
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    torch.distributed.init_process_group(backend)
+    return device
 
 
 def main(argv=None) -> None:
@@ -33,14 +64,28 @@ def main(argv=None) -> None:
                     help="legacy lockstep wave engine instead of slots")
     ap.add_argument("--baseline", action="store_true",
                     help="full attention instead of ParisKV")
+    ap.add_argument("--mesh-shards", type=int, default=1,
+                    help="serve the paged engine head-sharded over this "
+                         "many ranks (run under torchrun)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the first CUDA card)")
     args = ap.parse_args(argv)
 
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
     device = resolve_device(args.device)
+    rank0 = True
+    if args.mesh_shards > 1:
+        device = _join_group(args.mesh_shards, device)
+        rank0 = torch.distributed.get_rank() == 0
     params = M.init_params(cfg, seed=0, device=device)
-    if args.wave:
+    if args.mesh_shards > 1:
+        engine = PagedServingEngine(cfg, params, n_max=args.n_max,
+                                    max_batch=args.batch,
+                                    chunk_size=args.chunk,
+                                    block_size=min(128, args.n_max),
+                                    mesh_shards=args.mesh_shards,
+                                    device=device)
+    elif args.wave:
         engine = WaveServingEngine(cfg, params, n_max=args.n_max,
                                    max_batch=args.batch,
                                    use_pariskv=not args.baseline,
@@ -57,12 +102,17 @@ def main(argv=None) -> None:
     done = engine.run()
     _sync(device)
     wall = time.perf_counter() - t0
+    if args.mesh_shards > 1:
+        torch.distributed.destroy_process_group()
+    if not rank0:
+        return
     for r in done:
         tpot = r.decode_s / max(r.max_new_tokens - 1, 1) * 1000
         print(f"req {r.uid}: ttft {r.ttft_s*1000:.1f}ms  "
               f"tpot {tpot:.1f}ms/tok  out[:8]={r.output[:8].tolist()}")
     mode = "full-attention" if args.baseline else "ParisKV"
-    sched = "wave" if args.wave else "slots"
+    sched = (f"paged, {args.mesh_shards} head shards" if args.mesh_shards > 1
+             else "wave" if args.wave else "slots")
     agg = sum(len(r.output) for r in done) / max(wall, 1e-9)
     print(f"[{mode}/{sched}] end-to-end throughput ≈ {agg:.1f} tok/s "
           f"({len(done)} requests in {wall:.2f}s on {device})")

@@ -138,12 +138,43 @@ def attn_fill_chunk(p: dict, x: torch.Tensor, spec: AttnSpec,
     at ``pref_pos``) and the chunk itself (``new_pos``, < 0 for the pad
     tail). → (y (b, P, d) float32, k, v (b, P, G, hd)): the caller writes
     k/v and the ParisKV metadata into the filling slot's cache."""
+    return attn_fill_chunk_sharded(p, x, spec, q_pos, k_pref, v_pref,
+                                   pref_pos, new_pos, None)
+
+
+def attn_fill_chunk_sharded(p: dict, x: torch.Tensor, spec: AttnSpec,
+                            q_pos: torch.Tensor, k_pref: torch.Tensor,
+                            v_pref: torch.Tensor, pref_pos: torch.Tensor,
+                            new_pos: torch.Tensor, dist
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """``attn_fill_chunk`` on the KV-head shard of ``dist``
+    (``distributed.ShardDist``; None: every head): the prefix k/v are this
+    rank's heads (read from its pool), the replicated chunk projection is
+    sliced to them, chunk attention runs on them, and the output heads of
+    every rank are gathered before the replicated output projection.
+    → (y (b, P, d) float32, the local k, v (b, P, G_loc, hd))."""
     b, P, _ = x.shape
     q, k, v = _project_qkv(p, x, spec, q_pos)
+    g0, g1 = _heads(dist, spec)
+    Hg = spec.num_heads // spec.num_kv_heads
+    q = q[:, :, g0 * Hg:g1 * Hg]
+    k, v = k[:, :, g0:g1], v[:, :, g0:g1]
     out = A.chunk_fill_attention(q, k_pref, v_pref, pref_pos, k, v, q_pos,
                                  new_pos, sm_scale=spec.scale(),
                                  softcap=spec.softcap)
+    if dist is not None:
+        out = dist.all_gather_heads(out, 2)
     return out.reshape(b, P, -1) @ p["wo"].float(), k, v
+
+
+def _heads(dist, spec: AttnSpec) -> Tuple[int, int]:
+    """[g0, g1): the KV heads a call computes (every head without
+    ``dist``). Query head h = g·Hg + j, so its query heads are
+    [g0·Hg, g1·Hg)."""
+    if dist is None:
+        return 0, spec.num_kv_heads
+    return dist.head_range(spec.num_kv_heads)
 
 
 def _decode_qkv(p: dict, x_t: torch.Tensor, spec: AttnSpec,
@@ -199,78 +230,69 @@ def attn_decode_pariskv(p: dict, x_t: torch.Tensor, cache: C.LayerKVCache,
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
 
 
-def attn_decode_pariskv_paged(p: dict, x_t: torch.Tensor,
-                              pool: C.PagedLayerKVCache,
-                              block_tables: torch.Tensor,
-                              regions: C.CacheRegions, spec: AttnSpec,
-                              pcfg: ParisKVConfig, signs: torch.Tensor,
-                              num_candidates: int, append_index=None
-                              ) -> Tuple[torch.Tensor,
-                                         R.PagedRetrievalResult]:
-    """The meta-view fallback (``PagedServingEngine(fused=False)``): the
-    same math as ``attn_decode_pariskv`` over the block pool. The token is
-    appended through the block table, retrieval runs over the materialized
-    logical metadata view (Stage I over the view, a per-query histogram),
-    the winners come back block-relative, and the three attention segments
-    are gathered from the pool. Token-identical to the fused path."""
+def attn_decode_pariskv_paged_sharded(p: dict, x_t: torch.Tensor,
+                                      pool: C.PagedLayerKVCache,
+                                      hist: Optional[torch.Tensor],
+                                      block_tables: torch.Tensor,
+                                      regions: C.CacheRegions,
+                                      spec: AttnSpec, pcfg: ParisKVConfig,
+                                      signs: torch.Tensor,
+                                      num_candidates: int, dist,
+                                      fused: bool = True, append_index=None
+                                      ) -> Tuple[torch.Tensor,
+                                                 R.PagedRetrievalResult]:
+    """Paged ParisKV decode of one layer on the KV-head shard of ``dist``
+    (``distributed.ShardDist``; None: one device, every head): the
+    counterpart of the reference's ``attn_decode_pariskv_paged_fused``
+    (``fused=True``, the default paged path), ``attn_decode_pariskv_paged``
+    (``fused=False``, the meta-view fallback, token-identical) and
+    ``attn_decode_pariskv_paged_sharded``.
+
+    ``pool`` and ``hist`` hold this rank's heads; params, ``x_t``, block
+    tables and regions are replicated. The replicated qkv projection is
+    sliced to the rank's heads, whose token is appended through the block
+    table (in place). Retrieval runs on those heads: fused (Stage I over
+    the pool with tier weights from ``hist``, the top-C cut, Stage II with
+    its top-k reading codes through the table), or with ``fused=False``
+    over the materialized metadata view. Attention over sink ∪ winners ∪
+    window follows. Every one of these ops is per head, and none rounds
+    by the number of heads in the call (``core/centroids.py:
+    centroid_scores``, ``core/attention.py:_dot``), so each rank computes
+    exactly its heads' slice of the one-device result, on the card too;
+    the output heads of all ranks are gathered in rank order before the
+    replicated output projection. Every stage that was a Pallas kernel on the TPU is
+    a Hopper kernel on a CUDA pool (Stage I, top-C, Stage II, the K/V
+    gathers). ``append_index`` is the step's shared
+    ``cache.paged_append_index``.
+    → (y (b, d), this rank's retrieval result)."""
     b = x_t.shape[0]
     H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
+    Hg = H // G
+    g0, g1 = _heads(dist, spec)
     pos = regions.pos + 1
     q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
-    C.paged_decode_append(pool, block_tables, k_t, v_t, pos,
-                          index=append_index)
+    q = q[:, g0 * Hg:g1 * Hg].contiguous()
+    C.paged_decode_append(pool, block_tables, k_t[:, g0:g1], v_t[:, g0:g1],
+                          pos, index=append_index)
 
-    qt = E.encode_query(q.reshape(b, G, H // G, hd), pcfg, signs)
-    view = C.paged_meta_view(pool, block_tables)
-    res = R.retrieve_paged(view, qt, regions.enc_end, pcfg, num_candidates,
-                           pcfg.top_k, block_tables, pool.k.shape[1],
-                           hist_sample=pcfg.hist_sample)
+    qt = E.encode_query(q.reshape(b, g1 - g0, Hg, hd), pcfg, signs)
+    if fused:
+        res = R.retrieve_paged_fused(pool, block_tables, qt, hist,
+                                     regions.enc_end, pcfg, num_candidates,
+                                     pcfg.top_k)
+    else:
+        view = C.paged_meta_view(pool, block_tables)
+        res = R.retrieve_paged(view, qt, regions.enc_end, pcfg,
+                               num_candidates, pcfg.top_k, block_tables,
+                               pool.k.shape[1], hist_sample=pcfg.hist_sample)
     W = C.window_size(pcfg)
     ws = (pos + 1 - W).clamp_min(0)
     out = A.sparse_decode_attention_paged(
         q, pool.k, pool.v, block_tables, res.indices, ws, pos,
         regions.enc_end, res.phys_rows, sink_size=pcfg.sink_size,
         window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
-    return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
-
-
-def attn_decode_pariskv_paged_fused(p: dict, x_t: torch.Tensor,
-                                    pool: C.PagedLayerKVCache,
-                                    hist: torch.Tensor,
-                                    block_tables: torch.Tensor,
-                                    regions: C.CacheRegions, spec: AttnSpec,
-                                    pcfg: ParisKVConfig, signs: torch.Tensor,
-                                    num_candidates: int, append_index=None
-                                    ) -> Tuple[torch.Tensor,
-                                               R.PagedRetrievalResult]:
-    """Fused paged ParisKV decode of one layer (the default paged path).
-
-    Appends the token through the block table (in place), scores the
-    pool's centroid ids against tier weights from the incremental bucket
-    histogram ``hist`` (b, G, B, 2^m) — read only here; promotion updates
-    it — reranks the top-C candidates from their codes read by physical
-    row, and attends over sink ∪ winners ∪ window. Every stage that was a
-    Pallas kernel on the TPU is a Hopper kernel on a CUDA pool (Stage I,
-    top-C, Stage II, the K/V gathers). ``append_index`` is the step's
-    shared ``cache.paged_append_index``.
-    → (y (b, d), the retrieval result)."""
-    b = x_t.shape[0]
-    H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
-    pos = regions.pos + 1
-    q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
-    C.paged_decode_append(pool, block_tables, k_t, v_t, pos,
-                          index=append_index)
-
-    qt = E.encode_query(q.reshape(b, G, H // G, hd), pcfg, signs)
-    res = R.retrieve_paged_fused(pool, block_tables, qt, hist,
-                                 regions.enc_end, pcfg, num_candidates,
-                                 pcfg.top_k)
-    W = C.window_size(pcfg)
-    ws = (pos + 1 - W).clamp_min(0)
-    out = A.sparse_decode_attention_paged(
-        q, pool.k, pool.v, block_tables, res.indices, ws, pos,
-        regions.enc_end, res.phys_rows, sink_size=pcfg.sink_size,
-        window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
+    if dist is not None:
+        out = dist.all_gather_heads(out, 1)               # (b, H, hd)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
 
 

@@ -15,6 +15,13 @@ paths of ``repro/models/serve.py``).
   full-attention baseline (``use_pariskv=False``, contiguous only); with
   ``dev_map`` the paged pool is tiered (staging K/V on the device, the
   full K/V in host memory).
+* ``dist`` (a ``distributed.ShardDist``) runs the paged paths on one
+  rank's KV heads of a head-sharded group: the pool, its metadata and the
+  histograms hold ``G / N`` heads (``make_paged_caches``), the replicated
+  solo prefill is sliced to them at admission (``admit_paged``), and each
+  layer's decode and fill chunk run on them and gather the attention
+  output heads of every rank (``layers.attn_decode_pariskv_paged_sharded``,
+  ``attn_fill_chunk_sharded``); the rest of the model runs replicated.
 * With ``prefill_budget`` P > 0 (chunked prefill), ``admit_fill`` copies a
   prompt to the slot's device buffer (a shared-prefix admission starts
   the fill past the mapped prefix and rebuilds the slot's histogram from
@@ -142,9 +149,13 @@ _FETCH_HOST_ZERO = {"calls": 0, "retries": 0, "timeouts": 0, "stall": 0.0}
 
 def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                       block_size: int, device,
-                      num_device_blocks: Optional[int] = None) -> List[dict]:
+                      num_device_blocks: Optional[int] = None,
+                      dist=None) -> List[dict]:
     """Per layer: the shared block pool ``kv`` and the slot-local
-    (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``.
+    (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``. With
+    ``dist`` (a ``distributed.ShardDist``) both hold that rank's G / N KV
+    heads: the counterpart of the reference's ``sharded_state_specs``,
+    which partitions exactly these leaves and replicates the rest.
 
     ``num_device_blocks`` makes the pool tiered: metadata for all
     ``num_blocks`` blocks, K/V for a staging pool of ``num_device_blocks``
@@ -154,14 +165,17 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     rows, staging hits, host fetches, fill prefix rows read from host
     memory, degraded fetches (layer-steps whose misses were dropped)],
     ``uniq`` (2,) int64 distinct (row, kv head) pairs the tiered gathers
-    read from host memory [winners, fill prefix], and host numbers:
+    read from host memory [winners, fill prefix], ``dropped`` (2,) int64
+    the host rows that degraded fetches gave up [winner head rows, fill
+    prefix rows] (counted in ``rows`` too), and host numbers:
     ``calls`` the tiered gathers issued, ``retries`` / ``timeouts`` /
     ``stall`` the fetch policy's re-issues, deadlines and seconds — all
     zeroed at each ``decode_chunk`` entry."""
     pcfg = cfg.pariskv
     dt = torch_dtype(cfg)
-    hist_shape = (batch, cfg.num_kv_heads,
-                  pcfg.num_subspaces(cfg.head_dim), pcfg.num_centroids())
+    G = cfg.num_kv_heads // (1 if dist is None else dist.shards)
+    hist_shape = (batch, G, pcfg.num_subspaces(cfg.head_dim),
+                  pcfg.num_centroids())
     nd = num_blocks if num_device_blocks is None else num_device_blocks
     out = []
     for ld in layer_defs(cfg):
@@ -169,9 +183,8 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
             raise NotImplementedError("only ParisKV layers are paged "
                                       "(ROADMAP A13)")
         entry = {
-            "kv": CC.init_tiered_cache(num_blocks, nd, block_size,
-                                       cfg.num_kv_heads, cfg.head_dim, pcfg,
-                                       dt, device),
+            "kv": CC.init_tiered_cache(num_blocks, nd, block_size, G,
+                                       cfg.head_dim, pcfg, dt, device),
             "hist": torch.zeros(hist_shape, dtype=torch.int32,
                                 device=device)}
         if num_device_blocks is not None:
@@ -181,6 +194,8 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                 "rows": torch.zeros((batch, 5), dtype=torch.int32,
                                     device=device),
                 "uniq": torch.zeros((2,), dtype=torch.int64, device=device),
+                "dropped": torch.zeros((2,), dtype=torch.int64,
+                                       device=device),
                 **_FETCH_HOST_ZERO}
         out.append(entry)
     return out
@@ -231,6 +246,35 @@ def share_support_reason(cfg: ModelConfig) -> Optional[str]:
 
 def share_supported(cfg: ModelConfig) -> bool:
     return share_support_reason(cfg) is None
+
+
+class UnsupportedShardedConfig(NotImplementedError):
+    """A config or option that head-sharded serving cannot run, with the
+    config's name and the offending ``feature``, raised instead of falling
+    back to one device."""
+
+    def __init__(self, cfg: ModelConfig, feature: str, hint: str):
+        self.config_name = cfg.name
+        self.feature = feature
+        super().__init__(f"config {cfg.name!r}: {feature} cannot run "
+                         f"head-sharded — {hint}")
+
+
+def sharded_support_reason(cfg: ModelConfig) -> Optional[str]:
+    """Why head-sharded paged serving cannot serve this architecture, or
+    None when it can: the shards split the paged ParisKV pool on the KV
+    head axis, so only a cache the pool cannot hold (MLA's latent caches,
+    whose configs wait for ROADMAP A13) is out."""
+    for i, ld in enumerate(layer_defs(cfg)):
+        if ld.mixer == "mla":
+            return (f"config {cfg.name!r}: layer {i} mixer 'mla' keeps "
+                    f"latent caches contiguous; the shards split the paged "
+                    f"block pool only")
+    return None
+
+
+def sharded_supported(cfg: ModelConfig) -> bool:
+    return sharded_support_reason(cfg) is None
 
 
 def regions_init(batch: int, device) -> CC.CacheRegions:
@@ -289,10 +333,11 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                   any_promote: bool, block_tables: Optional[torch.Tensor],
                   append_index, record: Optional[list], use_pariskv: bool,
                   paged_fused: bool, tier: Optional[TierView] = None,
-                  host_kv=None, fetch=None) -> torch.Tensor:
+                  host_kv=None, fetch=None, dist=None) -> torch.Tensor:
     """One layer of one decode step. ParisKV layers run the contiguous
     path (``block_tables`` None), the fused paged path, or the paged
-    meta-view fallback (``paged_fused=False``) — over a tiered pool when
+    meta-view fallback (``paged_fused=False``) — on one rank's KV heads
+    with ``dist``, or over a tiered pool when
     ``tier`` is given, with this layer's host rows ``host_kv``, its
     winner fetch under the policy ``fetch`` (``TierView.fetch_of``) and
     the step's fetch statistics added to the cache's ``fetch`` entry — then
@@ -328,18 +373,14 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
         f["rows"][:, :3] += delta["rows"]
         if delta["degraded"] is not None:
             f["rows"][:, 4] += delta["degraded"].to(torch.int32)
+            f["dropped"][0] += delta["rows"][:, 2].sum()
         for key in ("calls", "retries", "timeouts", "stall"):
             f[key] += delta[key]
     else:
-        if paged_fused:
-            y, res = L.attn_decode_pariskv_paged_fused(
-                p["attn"], h, kv, cache["hist"], block_tables, regions,
-                ld.attn, pcfg, signs, num_candidates,
-                append_index=append_index)
-        else:
-            y, res = L.attn_decode_pariskv_paged(
-                p["attn"], h, kv, block_tables, regions, ld.attn, pcfg,
-                signs, num_candidates, append_index=append_index)
+        y, res = L.attn_decode_pariskv_paged_sharded(
+            p["attn"], h, kv, cache["hist"], block_tables, regions, ld.attn,
+            pcfg, signs, num_candidates, dist, fused=paged_fused,
+            append_index=append_index)
         if any_promote:
             CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
                                        regions.enc_end, will_promote, pcfg,
@@ -438,7 +479,7 @@ def fill_ctx(state: SlotState, slot: int, budget: int, device,
 def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                 cache: dict, fctx: FillCtx, signs: torch.Tensor,
                 use_pariskv: bool, tier: Optional[TierView] = None,
-                host_kv=None, fetch=None) -> torch.Tensor:
+                host_kv=None, fetch=None, dist=None) -> torch.Tensor:
     """One layer of one prefill chunk of the filling slot: the prefix read
     (the slot's contiguous row, the paged gather's logical mode through
     its table row, or the tiered gather), chunk-causal attention over the
@@ -450,7 +491,9 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     prefix yet) included, as the reference visits it; when the policy
     gives up, no host row is read and the host rows leave the prefix
     (``fill_keep``), and the slot's degraded count grows by one if the
-    chunk needed any. Runs after the layer's decode:
+    chunk needed any. With ``dist`` the chunk runs on the rank's KV heads
+    (its pool's prefix, its heads' K/V and metadata written; the output
+    heads gathered). Runs after the layer's decode:
     the filling row's dead decode append lands at the fill frontier, which
     the chunk overwrites."""
     pcfg = cfg.pariskv
@@ -467,6 +510,7 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
         f["stall"] += stall
         if not ok and fctx.host_rows:
             f["rows"][slot, 4] += 1
+            f["dropped"][1] += fctx.host_rows
     if fctx.bt_row is None:
         k_pref, v_pref = kv.k[slot:slot + 1, :start], kv.v[slot:slot + 1,
                                                            :start]
@@ -486,9 +530,9 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
         f["calls"] += 1
         if fctx.host_rows:
             f["rows"][slot, 3] += fctx.host_rows
-    y, k_new, v_new = L.attn_fill_chunk(p["attn"], h, ld.attn, fctx.q_pos,
-                                        k_pref, v_pref, pref_pos,
-                                        fctx.new_pos)
+    y, k_new, v_new = L.attn_fill_chunk_sharded(
+        p["attn"], h, ld.attn, fctx.q_pos, k_pref, v_pref, pref_pos,
+        fctx.new_pos, dist)
     meta = (CC._encode_block(k_new, pcfg, signs)
             if use_pariskv and ld.use_pariskv else None)
     if fctx.bt_row is None:
@@ -513,7 +557,7 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
           state: ServeState, block_tables: Optional[torch.Tensor],
           active: Optional[torch.Tensor], record: Optional[list],
           use_pariskv: bool, paged_fused: bool, tier: Optional[TierView],
-          fill=None):
+          fill=None, dist=None):
     """One decode step, with ``fill`` = (fill tokens (1, P), FillCtx) one
     prefill chunk of the filling slot after each layer's decode. →
     (logits (b, vocab), fill logits (1, vocab) or None, new state)."""
@@ -548,12 +592,12 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                             block_tables, append_index, record, use_pariskv,
                             paged_fused, tier, host_kv,
                             None if tier is None else
-                            tier.fetch_of(li, "heads"))
+                            tier.fetch_of(li, "heads"), dist)
         if x_f is not None:
             x_f = _layer_fill(p, x_f, ld, cfg, cache, fill[1], signs,
                               use_pariskv, tier, host_kv,
                               None if tier is None else
-                              tier.fetch_of(li, "rows"))
+                              tier.fetch_of(li, "rows"), dist)
     x_t = L.rms_norm(x_t, params["final_norm"], cfg.norm_eps)
     logits = _unembed(params, cfg, x_t)
     fill_logits = None
@@ -574,7 +618,8 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 state: ServeState, block_tables: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
                 record: Optional[list] = None, use_pariskv: bool = True,
-                paged_fused: bool = True, tier: Optional[TierView] = None):
+                paged_fused: bool = True, tier: Optional[TierView] = None,
+                dist=None):
     """One decode step: token (b,) int32 → (logits (b, vocab), new state).
     The caches update in place.
 
@@ -588,13 +633,15 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     their append lands at the dead position pos + 1 (clamped to the store,
     or dropped through an unallocated table entry). ``record``, when a
     list, receives each layer's retrieval result (audits and parity
-    tests). ``tier`` serves a tiered pool (``decode_chunk`` builds it).
+    tests; with ``dist``, the rank's heads). ``tier`` serves a tiered pool
+    (``decode_chunk`` builds it); ``dist`` one rank's KV heads of a
+    head-sharded paged pool.
 
     Deciding "any row promotes" reads one bool back from the device; the
     paged paths also select the rows whose append block is allocated, once
     per step for all layers."""
     logits, _, new = _step(params, cfg, token, state, block_tables, active,
-                           record, use_pariskv, paged_fused, tier)
+                           record, use_pariskv, paged_fused, tier, dist=dist)
     return logits, new
 
 
@@ -605,7 +652,7 @@ def decode_fill_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                      block_tables: Optional[torch.Tensor] = None,
                      active: Optional[torch.Tensor] = None,
                      use_pariskv: bool = True, paged_fused: bool = True,
-                     tier: Optional[TierView] = None):
+                     tier: Optional[TierView] = None, dist=None):
     """One mixed prefill+decode step: ``decode_step``'s math for every row
     plus the chunk ``fill_tokens`` (1, P) of the filling slot ``fctx``,
     layer by layer after each layer's decode (the slot must be inactive in
@@ -613,7 +660,8 @@ def decode_fill_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     its last valid chunk token (1, vocab), new state). The caller advances
     the fill and emits the first token when it completes."""
     return _step(params, cfg, token, state, block_tables, active, None,
-                 use_pariskv, paged_fused, tier, fill=(fill_tokens, fctx))
+                 use_pariskv, paged_fused, tier, fill=(fill_tokens, fctx),
+                 dist=dist)
 
 
 # ------------------------------------------------------- slot state ---------
@@ -645,18 +693,19 @@ def init_slot_state(cfg: ModelConfig, batch: int, n_max: int,
 def init_paged_slot_state(cfg: ModelConfig, batch: int, num_blocks: int,
                           block_size: int, device=None,
                           num_device_blocks: Optional[int] = None,
-                          n_max: int = 0, prefill_budget: int = 0
-                          ) -> SlotState:
+                          n_max: int = 0, prefill_budget: int = 0,
+                          dist=None) -> SlotState:
     """Empty slot state over a shared block pool on ``device`` (the first
     CUDA card unless ``device="cpu"``); ``num_device_blocks`` makes the
-    pool tiered (``make_paged_caches``). Block tables are host-managed by
+    pool tiered and ``dist`` holds one rank's KV heads
+    (``make_paged_caches``). Block tables are host-managed by
     the engine and passed to ``decode_chunk`` per call. ``prefill_budget``
     > 0 adds the chunked-fill state, its prompt buffer ``n_max + P``
     wide."""
     dev = resolve_device(device)
     return _zeros_slot_state(
         make_paged_caches(cfg, batch, num_blocks, block_size, dev,
-                          num_device_blocks), batch, dev, n_max,
+                          num_device_blocks, dist), batch, dev, n_max,
         prefill_budget)
 
 
@@ -667,7 +716,7 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                  nonfinite: Optional[torch.Tensor] = None,
                  use_pariskv: bool = True, paged_fused: bool = True,
                  dev_map=None, host_kv=None, side=None, fetch=None,
-                 prefill_budget: int = 0):
+                 prefill_budget: int = 0, dist=None):
     """``num_steps`` greedy decode steps with per-slot active masking.
     Returns (tokens (b, num_steps) int32 with -1 at inactive steps, state).
     ``block_tables`` None means contiguous caches (``init_slot_state``);
@@ -693,13 +742,20 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
     its fill completes emits its first token, the argmax of the fill's
     logits, in that step's column. Its regions then stand at ``pos = f1 -
     1``, ``enc_end = fill_enc_end(f1)`` for frontier f1, so a completed
-    fill lands on a solo prefill's ``initial_regions``."""
+    fill lands on a solo prefill's ``initial_regions``.
+
+    ``dist`` (a ``distributed.ShardDist``) runs the chunk on one rank of a
+    head-sharded group over a resident paged state built with the same
+    ``dist``; every rank runs the same chunk."""
     dev = resolve_device(device)
     _check_params(params, dev)
     if state.cur_tok.device.type != dev.type:
         raise ValueError(f"state lives on {state.cur_tok.device}, the call "
                          f"runs on {dev}")
     P = int(prefill_budget)
+    if dist is not None and (block_tables is None or dev_map is not None):
+        raise ValueError("a head-sharded chunk runs over a resident paged "
+                         "pool only")
     if P > 0 and state.prompt is None:
         raise ValueError("prefill_budget > 0 needs a state built with the "
                          "same budget")
@@ -718,7 +774,7 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                         host_kv, side, fetch,
                         None if fetch is None else entry_names(cfg))
         for lc in state.caches:
-            for key in ("touched", "rows", "uniq"):
+            for key in ("touched", "rows", "uniq", "dropped"):
                 lc["fetch"][key].zero_()
             lc["fetch"].update(_FETCH_HOST_ZERO)
     kv0 = state.caches[0]["kv"]
@@ -731,7 +787,8 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                                       ServeState(state.caches, state.regions),
                                       block_tables, active=active,
                                       use_pariskv=use_pariskv,
-                                      paged_fused=paged_fused, tier=tier)
+                                      paged_fused=paged_fused, tier=tier,
+                                      dist=dist)
         else:
             active[fs] = False
             fctx = fill_ctx(state, fs, P, dev, bt_host, block_tables,
@@ -740,7 +797,7 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
                 params, cfg, state.cur_tok,
                 ServeState(state.caches, state.regions),
                 state.prompt[fs:fs + 1, fctx.start:fctx.start + P], fctx,
-                block_tables, active, use_pariskv, paged_fused, tier)
+                block_tables, active, use_pariskv, paged_fused, tier, dist)
         if nonfinite is not None:
             nonfinite += (~torch.isfinite(logits)).sum()
         nxt = logits.argmax(-1).to(torch.int32)
@@ -771,18 +828,23 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
 @torch.no_grad()
 def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
                 caches1: List[dict], regions1: CC.CacheRegions, tok0: int,
-                rem: int, pcfg, scatter=CC.paged_scatter_prefill
-                ) -> SlotState:
+                rem: int, pcfg, scatter=CC.paged_scatter_prefill,
+                dist=None) -> SlotState:
     """Install a solo (batch=1) prefill result into slot ``slot``, in
     place: pool blocks scatter to ``phys_blocks`` (n_max // block_size
     entries, sentinels >= num_blocks for unallocated ones) and the slot's
     histogram is computed from the prefilled metadata. ``scatter`` writes
-    one layer's blocks (``admit_tiered`` passes the metadata-only one)."""
+    one layer's blocks (``admit_tiered`` passes the metadata-only one).
+    With ``dist`` the prefill ran replicated, every head, while the pool
+    holds the rank's heads: the rank scatters, and counts its histogram
+    from, its heads' slice only."""
     phys_blocks = phys_blocks.to(state.cur_tok.device)
     for lc, lc1 in zip(state.caches, caches1):
-        scatter(lc["kv"], lc1["kv"], phys_blocks)
-        lc["hist"][slot] = CC.bucket_hist_from_meta(lc1["kv"].meta_ids,
-                                                    regions1, pcfg)[0]
+        kv1 = lc1["kv"] if dist is None else CC.head_slice(
+            lc1["kv"], *dist.head_range(lc1["kv"].k.shape[2]))
+        scatter(lc["kv"], kv1, phys_blocks)
+        lc["hist"][slot] = CC.bucket_hist_from_meta(kv1.meta_ids, regions1,
+                                                    pcfg)[0]
     state.regions.pos[slot] = regions1.pos[0]
     state.regions.enc_end[slot] = regions1.enc_end[0]
     state.cur_tok[slot] = tok0

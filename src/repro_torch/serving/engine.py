@@ -1,5 +1,4 @@
-"""Serving engines (port of ``repro/serving/engine.py`` without mesh
-sharding).
+"""Serving engines (port of ``repro/serving/engine.py``).
 
 ``ServingEngine`` is slot-based continuous batching over contiguous
 per-slot caches of ``n_max`` positions: the stepwise loop — cancellations
@@ -50,6 +49,15 @@ meta-view fallback (token-identical). ``offload=True`` returns an
 ``OffloadedPagedServingEngine``: the K/V pool lives in (pinned) host
 memory and the device keeps the metadata and a bounded staging pool.
 
+``mesh_shards=N`` splits the paged engine over the N ranks of a
+``torch.distributed`` process group on the KV-head axis (the reference's
+device mesh): every rank gets the same ``submit``s and runs the same host
+scheduler and allocator (block numbering stays global), holds its G / N
+heads of the pool, its metadata and the histograms, and runs retrieval and
+sparse attention on them; the attention output heads are gathered once
+per layer (``distributed.ShardDist.all_gather_heads``), so every rank
+emits one device's tokens. The rest of the model runs replicated.
+
 ``WaveServingEngine`` is the legacy lockstep baseline: each wave of up to
 ``max_batch`` requests is prefilled as one right-aligned batch (the pad
 zeros are real tokens to attention, as in the reference) and decoded
@@ -85,6 +93,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import cache as CC
 from repro_torch.core.config import ModelConfig
+from repro_torch.distributed import ShardDist
 from repro_torch.kernels.build import KernelError
 from repro_torch.models import serve as SV
 from repro_torch.models.layers import SideStream
@@ -558,7 +567,18 @@ class PagedServingEngine(ServingEngine):
     Admission backpressure then counts only the blocks a request will
     draw from the pool. ``blocks_consumed`` counts the blocks ever drawn
     from the pool, ``shared_block_hits`` the blocks ever mapped, and
-    ``Request.shared_prefix_blocks`` each request's mapped blocks."""
+    ``Request.shared_prefix_blocks`` each request's mapped blocks.
+
+    ``mesh_shards=N`` > 1 (module docstring) runs in each rank of a process
+    group of N ranks (``torchrun``, or ``distributed.launch_local``) on
+    that rank's device: on a card, the rank's current CUDA device. It
+    refuses, in the reference's order, an N that does not divide
+    ``num_kv_heads`` (``ValueError``), a missing group or one of another
+    size (``ValueError``), and an architecture
+    ``models.serve.sharded_support_reason`` rejects
+    (``UnsupportedShardedConfig``); ``offload=True`` with it raises
+    ``UnsupportedShardedConfig``. ``verify_invariants()`` and the end of
+    ``run()`` also check that every rank holds the same host state."""
 
     def __new__(cls, *args, **kwargs):
         if cls is PagedServingEngine and kwargs.get("offload"):
@@ -573,10 +593,7 @@ class PagedServingEngine(ServingEngine):
                  prefill_budget: int = 0, offload: bool = False,
                  share_prefixes: bool = False, mesh_shards: int = 1,
                  faults: Optional[FaultPlan] = None, device=None):
-        if mesh_shards != 1:
-            raise NotImplementedError(
-                f"PagedServingEngine(mesh_shards={mesh_shards!r}) is not "
-                f"ported yet: ROADMAP A11 (head-sharded multi-GPU serving)")
+        self.dist = _shard_dist(cfg, mesh_shards)
         if not use_pariskv:
             raise ValueError("the paged engine serves the ParisKV path only")
         if n_max % block_size != 0:
@@ -595,6 +612,8 @@ class PagedServingEngine(ServingEngine):
                          greedy=greedy, chunk_size=chunk_size,
                          eos_id=eos_id, prefill_budget=prefill_budget,
                          faults=faults, device=device)
+        if self.dist is not None:
+            _check_shard_device(self.dist, self.device)
         self.fused = fused
         self.share_prefixes = share_prefixes
         self.block_size = block_size
@@ -785,7 +804,8 @@ class PagedServingEngine(ServingEngine):
         return SV.init_paged_slot_state(self.cfg, self.max_batch,
                                         self.num_blocks, self.block_size,
                                         device=self.device, n_max=self.n_max,
-                                        prefill_budget=self.prefill_budget)
+                                        prefill_budget=self.prefill_budget,
+                                        dist=self.dist)
 
     def _evict_device(self, slot: int) -> None:
         self._state = SV.cancel_slot(self._state, slot)
@@ -811,7 +831,7 @@ class PagedServingEngine(ServingEngine):
         self._state = SV.admit_paged(
             self._state, slot, self._phys_row(self._alloc[slot]),
             state1.caches, state1.regions, tok0, req.max_new_tokens - 1,
-            self.cfg.pariskv)
+            self.cfg.pariskv, dist=self.dist)
         self._enc[slot] = int(state1.regions.enc_end[0])
 
     def _pre_chunk_slot(self, slot: int, req: Request) -> None:
@@ -820,7 +840,7 @@ class PagedServingEngine(ServingEngine):
 
     def _run_chunk(self):
         return self._decode_chunk(torch.from_numpy(self._bt),
-                                  paged_fused=self.fused)
+                                  paged_fused=self.fused, dist=self.dist)
 
     def _after_collect(self, slot: int, req: Request) -> None:
         # host view of the device pos: last prompt token + decoded tokens
@@ -832,6 +852,8 @@ class PagedServingEngine(ServingEngine):
 
     def run(self) -> List[Request]:
         done = super().run()
+        self._audit_ranks(repr([(r.uid, r.failed, r.output.tolist())
+                                for r in done]).encode())
         if len(self._free) != self.num_blocks:
             raise RuntimeError("block leak: the allocator did not reclaim "
                                "every block")
@@ -845,6 +867,22 @@ class PagedServingEngine(ServingEngine):
     def _check(cond: bool, msg: str) -> None:
         if not cond:
             raise InvariantViolation(msg)
+
+    def _audit_ranks(self, extra: bytes = b"") -> None:
+        """Raise ``InvariantViolation`` unless every rank of a head-sharded
+        engine holds the same host state (block tables, refcounts, free
+        list, slot owners, counters, and ``extra``). A rank that drifted
+        would deadlock at its next collective or serve other tokens.
+        Every rank must call it at the same point (one all-gather)."""
+        if self.dist is None:
+            return
+        state = repr((sorted(self._refcnt.items()), list(self._free),
+                      [None if r is None else r.uid for r in self._slots],
+                      self.blocks_consumed, self.shared_block_hits,
+                      sorted(self._prefix_index.values()))).encode()
+        bad = self.dist.ranks_differing(self._bt.tobytes() + state + extra)
+        self._check(not bad, f"host state of ranks {bad} differs from rank "
+                             f"0's: the head-sharded ranks drifted apart")
 
     def verify_invariants(self, check_hist: bool = True) -> None:
         """Raise ``InvariantViolation`` on the first inconsistency of the
@@ -861,7 +899,10 @@ class PagedServingEngine(ServingEngine):
         * fault handling: no quarantined request holds a slot, and a free
           slot holds no block or reservation (nor, with ``check_hist``, a
           nonzero histogram row), so a quarantined request holds nothing;
-        * with ``check_hist``, ``verify_hist``."""
+        * with ``check_hist``, ``verify_hist``;
+        * head-sharded: every rank holds the same host state (checked
+          first, so that every rank reaches the all-gather)."""
+        self._audit_ranks()
         allocated: Dict[int, int] = {}
         for s, blks in self._alloc.items():
             self._check(len(set(blks)) == len(blks),
@@ -1035,11 +1076,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
                  fetch_max_retries: int = 2, fetch_backoff_s: float = 0.005,
                  faults: Optional[FaultPlan] = None, device=None):
         if mesh_shards > 1:
-            raise NotImplementedError(
-                f"config {cfg.name!r}: offload=True with mesh_shards="
-                f"{mesh_shards} cannot run on several devices — the tiered "
-                f"host pool is read by single-device kernels; shard the "
-                f"resident engine (offload=False) instead")
+            raise SV.UnsupportedShardedConfig(
+                cfg, f"offload=True with mesh_shards={mesh_shards}",
+                "the tiered host pool is read by single-device kernels; "
+                "shard the resident engine (offload=False) instead")
         reason = SV.offload_support_reason(cfg)
         if reason is not None:
             raise ValueError(f"offloaded paged serving unavailable — "
@@ -1238,6 +1278,8 @@ class OffloadedPagedServingEngine(PagedServingEngine):
             sum(lc["fetch"][k] for lc in caches)
             for k in ("calls", "retries", "timeouts", "stall"))
         degraded = rows[:, 4]
+        dropped = torch.stack([lc["fetch"]["dropped"] for lc in caches]
+                              ).sum(0).cpu().numpy()
         # every entry shares (G, hd, dtype): one price per head row and
         # per row; a fill gather reads every kv head of each prefix row
         head_b = self.host.bytes_per_head_row(self._names[0])
@@ -1252,8 +1294,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         self.fetch_stall_s += stall
         self.degraded_steps += int(degraded.sum())
         self.host.fetch_callbacks += calls
-        self.host.fetched_head_rows += int(rows[:, 2].sum())
-        self.host.fetched_fill_rows += int(rows[:, 3].sum())
+        # a degraded fetch read no host row: the pool counts none for it
+        # (the requests' fetched_bytes still count them, as the reference's)
+        self.host.fetched_head_rows += int(rows[:, 2].sum() - dropped[0])
+        self.host.fetched_fill_rows += int(rows[:, 3].sum() - dropped[1])
         self.host.fetched_unique_head_rows += uniq_head
         self.host.fetched_unique_fill_rows += uniq_fill
         # gathers and distinct bytes are chunk-global: shared per request
@@ -1385,6 +1429,40 @@ class OffloadedPagedServingEngine(PagedServingEngine):
             raise RuntimeError("staging leak: the residency map retained "
                                "blocks after the run")
         return done
+
+
+def _shard_dist(cfg: ModelConfig, shards: int) -> Optional[ShardDist]:
+    """This rank's ``ShardDist`` for ``mesh_shards=shards`` (None for one
+    device), after the reference's checks in its order: whole heads per
+    rank, a process group of ``shards`` ranks, a supported architecture."""
+    if shards == 1:
+        return None
+    if shards < 1 or cfg.num_kv_heads % shards:
+        raise ValueError(
+            f"mesh_shards={shards} must divide num_kv_heads="
+            f"{cfg.num_kv_heads}: the ranks split whole KV heads, and an "
+            f"uneven split would give them different pool shapes")
+    dist = ShardDist.from_process_group(shards)
+    reason = SV.sharded_support_reason(cfg)
+    if reason is not None:
+        raise SV.UnsupportedShardedConfig(cfg, f"mesh_shards={shards}",
+                                          reason)
+    return dist
+
+
+def _check_shard_device(dist: ShardDist, device: torch.device) -> None:
+    """A rank serves on its current CUDA device (the kernels launch on the
+    current device's stream), and an NCCL group on cards only."""
+    if device.type == "cuda":
+        cur = torch.cuda.current_device()
+        if device.index is not None and device.index != cur:
+            raise ValueError(
+                f"rank {dist.rank} serves on {device} but its current CUDA "
+                f"device is cuda:{cur}: call torch.cuda.set_device"
+                f"({device.index}) first")
+    elif dist.backend == "nccl":
+        raise ValueError(f"an NCCL process group gathers CUDA tensors only; "
+                         f"rank {dist.rank} serves on {device}: use gloo")
 
 
 class WaveServingEngine:

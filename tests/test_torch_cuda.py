@@ -405,3 +405,97 @@ def test_kernel_error_propagates_on_card(card, monkeypatch, kernel):
     assert eng.quarantined == [] and not any(r.failed for r in eng._done)
     torch.cuda.synchronize()
     eng.close()
+
+
+# three staggered prompts at stablelm-1.6b's full width, 2 layers, float32
+SHARD_SPECS = ((700, 12), (1100, 9), (1500, 7))
+
+
+def _shard_outputs(cfg, params, device, shards):
+    """Tokens of ``SHARD_SPECS`` through ``PagedServingEngine(mesh_shards=
+    shards)``, then the same prompts admitted together, one chunk, and one
+    more decode step's retrieval result and decode gather in every layer
+    (this rank's heads) as numpy."""
+    import numpy as np
+
+    from repro_torch.core import cache as CC
+    from repro_torch.kernels.gather_kv import gather_decode_paged
+    from repro_torch.models import serve as SV
+    from repro_torch.serving import PagedServingEngine, Request
+
+    rng = np.random.RandomState(3)
+    prompts = [rng.randint(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n, _ in SHARD_SPECS]
+    eng = PagedServingEngine(cfg, params, n_max=2048, max_batch=4,
+                             block_size=128, chunk_size=4,
+                             mesh_shards=shards, device=device)
+    for uid, (p, (_, gen)) in enumerate(zip(prompts, SHARD_SPECS)):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=gen))
+    tokens = {r.uid: r.output.tolist() for r in eng.run()}
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=16))
+    eng.start()
+    eng.step_serve()
+    st, pcfg = eng._state, cfg.pariskv
+    W = CC.window_size(pcfg)
+    bt = torch.from_numpy(eng._bt).to(device)
+    ws = (st.regions.pos + 2 - W).clamp_min(0).to(torch.int32)
+    rec = []
+    SV.decode_step(eng.params, cfg, st.cur_tok,
+                   SV.ServeState(st.caches, st.regions), bt,
+                   active=st.remaining > 0, record=rec, dist=eng.dist)
+    layers = []
+    for lc, res in zip(st.caches, rec):
+        dk, dv, wk, wv = gather_decode_paged(lc["kv"].k, lc["kv"].v, bt, ws,
+                                             pcfg.sink_size, W, res.phys_rows)
+        layers.append(dict({f: getattr(res, f).cpu().numpy()
+                            for f in res._fields},
+                           dense_k=dk.cpu().numpy(), dense_v=dv.cpu().numpy(),
+                           ret_k=wk.cpu().numpy(), ret_v=wv.cpu().numpy()))
+    return tokens, layers
+
+
+def _shard_config():
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("stablelm-1.6b"), num_layers=2,
+                               dtype="float32")
+
+
+def _shard_rank_on_card(rank):
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = _shard_config()
+    return _shard_outputs(cfg, init_params(cfg, seed=0, device=dev), dev, 2)
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_on_one_card_match_one_device(card):
+    """Two gloo ranks share the card (stablelm-1.6b at full width, 2
+    layers, float32): each rank's tokens equal the one-device engine's,
+    and at one decode step each rank's Stage I scores, top-C set, Stage
+    II winners, estimates and rows, and the decode gather's K/V rows equal
+    the one-device outputs' slice of its KV heads exactly."""
+    import numpy as np
+
+    from repro_torch.distributed import launch_local
+    from repro_torch.models.model import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _shard_config()
+    tokens, layers = _shard_outputs(
+        cfg, init_params(cfg, seed=0, device=card), card, 1)
+    torch.cuda.empty_cache()
+    ranks = launch_local(_shard_rank_on_card, 2, "gloo", timeout_s=300.0)
+    per = cfg.num_kv_heads // 2
+    for rank, (got_tokens, got_layers) in enumerate(ranks):
+        assert got_tokens == tokens, rank
+        g = slice(rank * per, (rank + 1) * per)
+        for li, (got, want) in enumerate(zip(got_layers, layers)):
+            for name, arr in want.items():
+                head = arr[:, :, g] if name.startswith("dense") else arr[:, g]
+                np.testing.assert_array_equal(
+                    got[name], head, err_msg=f"rank {rank} layer {li} {name}")

@@ -188,11 +188,19 @@ def test_cancel_mid_flight_reclaims_blocks_and_hist(workload):
     assert all(int(lc["hist"].abs().sum()) == 0 for lc in eng._state.caches)
 
 
-@pytest.mark.parametrize("option,item", [(dict(mesh_shards=2), "A11")])
-def test_options_not_ported_raise_with_roadmap_item(workload, option, item):
+@pytest.mark.parametrize("option,exc,item", [
+    (dict(mesh_shards=2), ValueError, "torchrun"),
+    (dict(mesh_shards=2, offload=True), NotImplementedError,
+     "resident engine")])
+def test_options_not_ported_raise_with_roadmap_item(workload, option, exc,
+                                                    item):
+    """Every engine option is ported; those this process cannot run raise
+    naming what to do instead: head sharding (ROADMAP A11, ported) without
+    a process group names torchrun, and with offload the resident
+    engine."""
     pj, _ = workload
     params = convert.params_from_jax(jax.device_get(pj), CFG_T, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(exc, match=item):
         PagedServingEngine(CFG_T, params, device="cpu", **option, **ENGINE)
 
 

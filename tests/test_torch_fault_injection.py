@@ -475,6 +475,14 @@ def _assert_matches_reference(got, want, label, counters=COUNTERS):
                 (label, uid, name)
 
 
+def _assert_host_counters(eng, jeng):
+    """The host pool's row counters equal the reference pool's (a degraded
+    fetch adds nothing to them)."""
+    for name in ("fetched_head_rows", "fetched_fill_rows",
+                 "fetched_unique_head_rows", "fetched_unique_fill_rows"):
+        assert getattr(eng.host, name) == getattr(jeng.host, name), name
+
+
 CLEAN_PLAN = [dict(site="fetch.gather", kind="delay", delay_s=0.0,
                    count=None, match={"kind": k}) for k in ("heads", "rows")]
 
@@ -510,6 +518,7 @@ def test_degraded_run_matches_reference(setup, reference):
     assert eng.degraded_steps == jeng.degraded_steps > 0
     assert eng.fetch_retries == jeng.fetch_retries > 0
     assert eng.host.degraded_fetches == jeng.host.degraded_fetches
+    _assert_host_counters(eng, jeng)
     assert _log(fired_t) == _log(fired_j)
 
 
@@ -525,8 +534,10 @@ def test_rows_degraded_chunked_matches_reference(setup, reference):
     got, eng, fired_t = _port_run(setup, specs, **kw)
     _assert_matches_reference(got, want, "rows degraded")
     assert eng.degraded_steps == jeng.degraded_steps > 0
-    assert eng.host.fetched_fill_rows > 0
-    assert eng.host.fetched_unique_fill_rows < eng.host.fetched_fill_rows
+    # the fills needed host rows (the requests' fetched_bytes count them),
+    # but a degraded fetch reads none: the host pool counts none for it
+    assert sum(r.fetched_bytes for r in got.values()) > 0
+    _assert_host_counters(eng, jeng)
     assert _log(fired_t, "rows") == _log(fired_j, "rows")
 
 
