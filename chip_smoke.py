@@ -95,7 +95,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               resident paged engine: identical tokens asserted, peak
               memory and TTFT printed.
 9. chunked  — chunked prefill (``prefill_budget=512``) at full width on
-              the engine phase's four requests with 128 new tokens each
+              the engine phase's four requests with 48 new tokens each
               (token agreement with the engine phase over those): (a)
               the paged engine,
               (b) the slot engine, (c) the offloaded engine (128 of 512
@@ -114,7 +114,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               layer of every step.
 10. share   — prefix sharing (``share_prefixes=True``, budget 512) at full
               width on six requests with one 8,192-token system prompt
-              and suffixes of 256/384/512/200/448/320 tokens, 32 new each,
+              and suffixes of 256/384/512/200/448/320 tokens, 16 new each,
               all submitted at chunk 0: (a) the paged engine with sharing
               on, then off: per request TTFT and mapped blocks, the
               sharers' mean TTFT, blocks drawn from the pool, tokens/s and
@@ -164,7 +164,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (b) 2 layers in float32: tokens identical to one device's
               with the fused engine, the meta view, chunked prefill
               (budget 256) and prefix sharing (a 2,048-token prefix).
-13. parity  — 2 layers at full width in float32: one teacher-forced
+13. arch    — the architectures beyond qwen2 and stablelm, at full width:
+              (d) the four main-path kernels at grok-1's shapes (G 8, Hg
+              6, hd 128, B 16), held and timed as in the sharded phase;
+              (c) one grok-1 MoE layer in float32 (8 experts of 6144 ×
+              32768), card against CPU: a 64-token moe_fwd and a 4-row
+              moe_decode, routing equal wherever the top-2 gap exceeds
+              1e-5 (flips printed with their gaps), outputs within 1e-4
+              + 1e-4 · |out| where routing agrees; (a) grok-1 (bf16, seed
+              0) cut to 4 of its 64 layers, what one card holds (~41 GB
+              of weights), through the fused paged engine on the engine
+              phase's four requests with 264 new tokens: every request
+              promotes, launches held as the engine phase's, tokens/s,
+              TTFT, pool bytes and peak memory printed; (b) llama3.1-8b
+              at full width and depth (32 layers, ~16 GB) on requests of
+              6,000 and 12,000 tokens with 64 new, the same reports.
+14. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -221,12 +236,12 @@ OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
 LONG_PROMPT, LONG_GEN = 32768, 16        # the offload phase's long request
 OVERLAP_GEN = 16                         # the offload overlap runs
 CHUNK_BUDGET = 512                       # the chunked phase's prefill_budget
-CHUNK_GEN = 128                          # and its new tokens
+CHUNK_GEN = 48                           # and its new tokens
 # the share phase's fleet: one system prompt of 64 blocks of 128, then
 # distinct suffixes, SHARE_GEN new tokens each, all submitted at chunk 0
 SHARE_PREFIX = 8192
 SHARE_SUFFIXES = (256, 384, 512, 200, 448, 320)
-SHARE_GEN = 32
+SHARE_GEN = 16
 FAULT_GEN = 16                           # the faults phase's new tokens
 FAULT_CHUNKED_GEN = 16                   # and in its chunked run (g)
 # the sharded phase: stablelm-1.6b (32 KV heads) over two ranks of one
@@ -237,6 +252,20 @@ SHARD_GEN = 64
 SHARD_F32_LENS = (1500, 2500, 3500)
 SHARD_F32_GEN = 16
 SHARD_F32_BUDGET = 256
+# the arch phase: grok-1 at full width cut to the depth one card holds (4 of
+# 64 layers, ~41 GB of bf16 weights) on the engine phase's requests, and
+# llama3.1-8b at full width and depth on two of them
+GROK_ARCH = "grok-1-314b"
+GROK_LAYERS = 4
+LLAMA_ARCH = "llama3.1-8b"
+LLAMA_LENS = (6000, 12000)
+LLAMA_GEN = 64
+# its MoE layer in float32, card against CPU: a 64-token moe_fwd and a
+# 4-row moe_decode. Sums over d_ff = 32,768 reassociate (~1e-5 at outputs
+# of ~5); routing may differ only at a top-2 gap within float32 rounding
+MOE_TOKENS, MOE_ROWS = 64, 4
+MOE_ATOL = MOE_RTOL = 1e-4
+MOE_GAP = 1e-5
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -2008,8 +2037,8 @@ def _share_run(eng, cfg, prompts, gen: int, kernels, budget: int, share):
 def share_phase(dev, cfg, params, n_max: int = 16384,
                 budget: int = CHUNK_BUDGET):
     """Prefix sharing at full width on a fleet of six requests with one
-    8,192-token system prompt (``SHARE_SUFFIXES`` after it, 64 new tokens
-    each, all submitted at chunk 0, admissions serialized through the one
+    8,192-token system prompt (``SHARE_SUFFIXES`` after it, ``SHARE_GEN``
+    new tokens each, all submitted at chunk 0, admissions serialized through the one
     filling slot): (a) the fused paged engine with sharing on, then off;
     (b) the meta view on the first two; (c) the offloaded engine with
     sharing on, then off (128 of 512 blocks staged, every tiered gather
@@ -2172,13 +2201,16 @@ def _share_f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
 
 
 # --------------------------------------------------------------- sharded ---
-def _shard_kernels(dev, cfg, seed: int = 0):
+def _path_kernels(dev, cfg, G: int, tag: str, seed: int = 0):
     """Stage I, the top-C cut, Stage II with its top-k and the decode gather
-    at one rank's shapes in the sharded phase: stablelm-1.6b split two
-    ways (G_loc = 16 KV heads, Hg = 1, hd = 64, B = 8, 2^m = 256, bf16),
-    512 blocks of 128, four rows at the kernel phase's lengths. Each is
-    held to its plain version as the kernel phase holds it (exact; Stage
-    II's estimates to its tolerance and its selection exact) and timed."""
+    at another model's shapes: ``G`` KV heads of ``cfg`` (Hg, hd, B and
+    2^m from it, bf16), 512 blocks of 128, four rows at the kernel phase's
+    lengths — "shard": one rank's heads in the sharded phase
+    (stablelm-1.6b split two ways: G 16, Hg 1, hd 64, B 8); "grok": grok-1
+    in the arch phase (G 8, Hg 6, hd 128, B 16). Each is held to its plain
+    version as the kernel phase holds it (exact; Stage II's estimates to
+    its tolerance and its selection exact) and timed; the records are
+    named ``<kernel>/<tag>``."""
     import torch
     from repro_torch.core import cache as CC
     from repro_torch.core import centroids
@@ -2197,7 +2229,7 @@ def _shard_kernels(dev, cfg, seed: int = 0):
     from repro_torch.models.serve import rotation_signs
 
     pcfg = cfg.pariskv
-    b, G, hd = 4, cfg.num_kv_heads // SHARDS, cfg.head_dim
+    b, hd = 4, cfg.head_dim
     Hg = cfg.num_heads // cfg.num_kv_heads
     B, m = pcfg.num_subspaces(hd), pcfg.m
     bs, n, nb = 128, 16384, 512
@@ -2237,7 +2269,7 @@ def _shard_kernels(dev, cfg, seed: int = 0):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     rng_s = R.max_collision_score(pcfg, B)
     nval = int(n_valid.sum())
-    shape = dict(G_loc=G, Hg=Hg, hd=hd, B=B, rows=b, block_size=bs,
+    shape = dict(G=G, Hg=Hg, hd=hd, B=B, rows=b, block_size=bs,
                  num_blocks=nb, n=n, C=C, top_k=k_top)
     out = {}
 
@@ -2248,8 +2280,8 @@ def _shard_kernels(dev, cfg, seed: int = 0):
     want, want_hist = collision_paged_ref(pool.meta_ids, bt, tables, enc_end,
                                           sink, rng_s)
     _check(torch.equal(coarse, want) and torch.equal(seg_hist, want_hist),
-           "collision_paged differs from its plain version (shard shapes)")
-    out["collision_paged/shard"] = dict(
+           f"collision_paged differs from its plain version ({tag} shapes)")
+    out[f"collision_paged/{tag}"] = dict(
         route="cuda", source="src/repro_torch/csrc/collision_paged.cu",
         replaces="src/repro/kernels/collision/collision.py:146",
         max_abs_err=0, tolerance="exact (scores and seg_hist)", **shape,
@@ -2263,11 +2295,11 @@ def _shard_kernels(dev, cfg, seed: int = 0):
 
     cand = bucket_topk(coarse, C, rng_s, seg_hist=seg_hist)
     _check(torch.equal(cand, bucket_topk_ref(coarse, C, rng_s)),
-           "bucket_topk differs from its plain version (shard shapes)")
+           f"bucket_topk differs from its plain version ({tag} shapes)")
     seg_read = int(torch.zeros(coarse.shape[:-1] + (n // SEG_LEN,),
                                dtype=torch.int32, device=dev).scatter_(
         -1, (cand // SEG_LEN).long(), 1).sum())
-    out["bucket_topk/shard"] = dict(
+    out[f"bucket_topk/{tag}"] = dict(
         route="cuda", source="src/repro_torch/csrc/bucket_topk.cu",
         replaces="src/repro/kernels/bucket_topk/bucket_topk.py:50",
         max_abs_err=0, tolerance="exact", **shape,
@@ -2283,10 +2315,10 @@ def _shard_kernels(dev, cfg, seed: int = 0):
     q_norm = qt.q_norm.float().contiguous()
     args = (pool.meta_codes, pool.meta_w, bt, cand, q_sub, q_norm, enc_end,
             sink, k_top, m, pcfg.magnitude_bits)
-    won, err = _stage2_checks(args, bs, "shard shapes")
+    won, err = _stage2_checks(args, bs, f"{tag} shapes")
     n_cand = int(((cand >= sink) & (cand < enc_end[:, None, None, None]))
                  .sum())
-    out["rerank_topk_paged/shard"] = dict(
+    out[f"rerank_topk_paged/{tag}"] = dict(
         route="cuda", source="src/repro_torch/csrc/rerank_topk_paged.cu",
         replaces="src/repro/kernels/rerank/rerank.py:78",
         max_abs_err=err,
@@ -2308,7 +2340,7 @@ def _shard_kernels(dev, cfg, seed: int = 0):
     got = kern()
     _check(all(torch.equal(x, y) for x, y in zip(
         got, gather_decode_paged_ref(pool.k, pool.v, bt, ws, sink, W, phys))),
-        "gather_rows_paged differs from its plain version (shard shapes)")
+        f"gather_rows_paged differs from its plain version ({tag} shapes)")
     flat_k = pool.k.reshape(nb * bs, G, hd)
     flat_v = pool.v.reshape(nb * bs, G, hd)
     heads = torch.arange(G, device=dev)[None, :, None, None]
@@ -2317,7 +2349,7 @@ def _shard_kernels(dev, cfg, seed: int = 0):
     rows_l = (bt.long().gather(1, (lidx // bs).long()).clamp_min(0) * bs
               + lidx % bs)
     rows_p = phys.long()
-    out["gather_rows_paged/shard"] = dict(
+    out[f"gather_rows_paged/{tag}"] = dict(
         route="cuda", source="src/repro_torch/csrc/gather_rows_paged.cu",
         replaces="src/repro/kernels/gather_kv/gather_kv.py:87",
         max_abs_err=0, tolerance="exact", **shape,
@@ -2386,7 +2418,8 @@ def _head_invariance(dev, seed: int = 0):
 
 
 def _shard_engine(cfg, params, dev, shards: int, **kw):
-    """The sharded phase's engine: the engine phase's geometry."""
+    """The engine phase's geometry over ``shards`` ranks (the sharded and
+    arch phases' engine)."""
     from repro_torch.serving import PagedServingEngine
     return PagedServingEngine(cfg, params, n_max=16384, block_size=128,
                               num_blocks=512, max_batch=4, chunk_size=8,
@@ -2521,7 +2554,7 @@ def sharded_phase(dev):
     from repro_torch.models.model import init_params, param_count
 
     cfg = configs.get(SHARD_ARCH)
-    kern = _shard_kernels(dev, cfg)
+    kern = _path_kernels(dev, cfg, cfg.num_kv_heads // SHARDS, "shard")
     invariance = _head_invariance(dev)
     params = init_params(cfg, seed=0, device=dev)
     n_params = param_count(params)
@@ -2603,6 +2636,135 @@ def sharded_phase(dev):
     _check(all(rk["f32"]["shared"]["shared_block_hits"]
                == f32_one["shared"]["shared_block_hits"] > 0 for rk in ranks),
            "the ranks mapped other shared blocks than one device")
+    return rec, kern
+
+
+# ------------------------------------------------------------------ arch ---
+def _moe_compare(p_dev, p_cpu, x, top_k: int):
+    """One MoE call on the card and on the CPU (the same torch code on
+    copies of the same float32 weights and inputs): ``x`` (1, n, d) runs
+    ``moe_fwd``, (b, d) ``moe_decode``. Routing is a float32 product and
+    a softmax, so a near tie can fall the other way on one side. → the
+    tokens whose expert ids (or their order) differ, with each one's top-2
+    gap (the least gap between neighbours among its top k + 1 CPU
+    probabilities), the least gap of any token, and the largest output
+    difference over the tokens whose expert ids and capacity positions
+    agree on both sides (elsewhere a flip moves whom capacity drops)."""
+    import torch
+    from repro_torch.models import moe as MOE
+
+    E = p_dev["router"].shape[1]
+    if x.dim() == 3:
+        y_dev = MOE.moe_fwd(p_dev, x, top_k)[0]
+        y_cpu = MOE.moe_fwd(p_cpu, x.cpu(), top_k)[0]
+    else:
+        y_dev = MOE.moe_decode(p_dev, x, top_k)
+        y_cpu = MOE.moe_decode(p_cpu, x.cpu(), top_k)
+    xt = x.reshape(-1, x.shape[-1])
+    _, _, idx_d = MOE._route(p_dev, xt, top_k)
+    probs, _, idx_c = MOE._route(p_cpu, xt.cpu(), top_k)
+    idx_d = idx_d.cpu()
+    top = probs.sort(-1, descending=True).values[:, :top_k + 1]
+    gaps = (top[:, :-1] - top[:, 1:]).min(-1).values
+    flipped = (idx_d != idx_c).any(-1)
+    same = ~flipped & (MOE._positions(idx_d, E)
+                       == MOE._positions(idx_c, E)).all(-1)
+    y_dev = y_dev.reshape(xt.shape).cpu()
+    y_cpu = y_cpu.reshape(xt.shape)
+    err = (y_dev - y_cpu)[same].abs()
+    bound = MOE_ATOL + MOE_RTOL * y_cpu[same].abs()
+    return dict(
+        tokens=xt.shape[0], routing_flips=int(flipped.sum()),
+        flip_gaps=[float(g) for g in gaps[flipped]],
+        least_top2_gap=float(gaps.min()), compared=int(same.sum()),
+        max_abs_err=float(err.max()) if err.numel() else 0.0,
+        within_tolerance=bool((err <= bound).all()),
+        max_abs_out=float(y_cpu.abs().max()))
+
+
+def _moe_card_vs_cpu(dev, cfg, seed: int = 0):
+    """(c) One MoE layer of ``cfg`` at full width in float32 (grok-1: 8
+    experts of 6144 × 32768, 19.3 GB), card against CPU: a
+    ``MOE_TOKENS``-token ``moe_fwd`` and a ``MOE_ROWS``-row
+    ``moe_decode``, held by ``_moe_compare``: routing equal wherever the
+    top-2 gap exceeds ``MOE_GAP``, outputs within ``MOE_ATOL`` +
+    ``MOE_RTOL`` · |out| where routing agrees."""
+    import torch
+    from repro_torch.models import moe as MOE
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p_dev = MOE.init_moe(cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
+                         cfg.num_shared_experts, torch.float32, dev, gen)
+    p_cpu = {k: v.cpu() for k, v in p_dev.items()}
+    out = {}
+    for name, shape in (("moe_fwd", (1, MOE_TOKENS, cfg.d_model)),
+                        ("moe_decode", (MOE_ROWS, cfg.d_model))):
+        x = torch.randn(shape, generator=gen, device=dev)
+        out[name] = _moe_compare(p_dev, p_cpu, x, cfg.experts_per_token)
+    del p_dev, p_cpu
+    torch.cuda.empty_cache()
+    for name, rec in out.items():
+        _check(all(g <= MOE_GAP for g in rec["flip_gaps"]),
+               f"{name}: routing differs from the CPU's at top-2 gaps "
+               f"{rec['flip_gaps']} (above {MOE_GAP})")
+        _check(rec["within_tolerance"],
+               f"{name}: card and CPU outputs differ by "
+               f"{rec['max_abs_err']} where routing agrees")
+    return dict(dtype="float32", experts=cfg.num_experts,
+                top_k=cfg.experts_per_token, d_model=cfg.d_model,
+                d_ff=cfg.moe_d_ff, tolerance=dict(
+                    atol=MOE_ATOL, rtol=MOE_RTOL, routing_gap=MOE_GAP),
+                **out)
+
+
+def _arch_serve(dev, cfg, full_layers: int, lens, gen: int, arrivals):
+    """``cfg`` (random bf16 weights, seed 0) through the fused paged engine
+    at the engine phase's geometry: the requests ``lens`` submitted before
+    the chunks ``arrivals``, ``gen`` new tokens each, launches counted and
+    checked and every chunk audited (``_serve``)."""
+    import torch
+    from repro_torch.models.model import init_params, param_count
+
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=dev)
+    param_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    n_params = param_count(params)
+    eng = _shard_engine(cfg, params, dev, 1)
+    _warm(eng, cfg)
+    rec, done = _serve(eng, _prompts(cfg, lens=lens), gen, arrivals,
+                       PAGED_KERNELS, cfg, audit=True)
+    rec = dict(arch=cfg.name, layers=cfg.num_layers,
+               full_layers=full_layers, dtype=cfg.dtype, params=n_params,
+               param_gb=param_gb, pool_bytes=_pool_bytes(eng), **rec)
+    del eng, params
+    torch.cuda.empty_cache()
+    return rec, done
+
+
+def arch_phase(dev):
+    """The architectures of this slice: grok-1's kernel rows (d), its MoE
+    layer card against CPU (c), grok-1 at full width and ``GROK_LAYERS``
+    layers (a), and llama3.1-8b at full width and depth (b)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch import configs
+
+    grok_full = configs.get(GROK_ARCH)
+    kern = _path_kernels(dev, grok_full, grok_full.num_kv_heads, "grok")
+    moe = _moe_card_vs_cpu(dev, grok_full)
+    grok_cfg = dc.replace(grok_full, num_layers=GROK_LAYERS)
+    grok, done = _arch_serve(dev, grok_cfg, grok_full.num_layers, PROMPTS,
+                             GEN, ARRIVALS)
+    for uid, r in done.items():
+        _check(r.promotions >= 1, f"grok request {uid} never promoted")
+    llama_cfg = configs.get(LLAMA_ARCH)
+    llama, _ = _arch_serve(dev, llama_cfg, llama_cfg.num_layers, LLAMA_LENS,
+                           LLAMA_GEN, ARRIVALS[:len(LLAMA_LENS)])
+    rec = dict(device=torch.cuda.get_device_name(0), grok=grok,
+               llama=llama, moe_card_vs_cpu=moe,
+               cut=f"{GROK_ARCH}: {GROK_LAYERS} of {grok_full.num_layers} "
+                   f"layers (what one card holds)")
+    print("arch " + json.dumps(rec), flush=True)
     return rec, kern
 
 
@@ -2876,7 +3038,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
-              "chunked", "share", "faults", "sharded", "parity")
+              "chunked", "share", "faults", "sharded", "arch", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -2974,6 +3136,16 @@ def main() -> int:
             launches[name] = sharded["sharded"][0]["launches"][
                 name.split("/")[0]]
         lap("sharded")
+    if "arch" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        arch, arch_kern = arch_phase(dev)
+        kern.update(arch_kern)
+        # grok-1's launches in (a)
+        for name in arch_kern:
+            launches[name] = arch["grok"]["launches"][name.split("/")[0]]
+        lap("arch")
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")

@@ -109,7 +109,7 @@ def backend_for(world_size: int, device) -> str:
 
 
 class RankError(RuntimeError):
-    """A rank of ``launch_local`` raised, died or outlived the timeout."""
+    """A rank of ``launch_local`` raised, died or outlived its bound."""
 
 
 def _rank_main(fn, rank: int, world_size: int, backend: str, store: str,
@@ -119,15 +119,16 @@ def _rank_main(fn, rank: int, world_size: int, backend: str, store: str,
             backend, init_method=f"file://{store}", rank=rank,
             world_size=world_size,
             timeout=datetime.timedelta(seconds=timeout_s))
+        results.put((rank, "joined", None))
         try:
             out = fn(rank, *args)
         finally:
             dist.destroy_process_group()
         # by value: a tensor sent through the queue as shared memory would
         # die with this process before the parent maps it
-        results.put((rank, True, pickle.dumps(out)))
+        results.put((rank, "done", pickle.dumps(out)))
     except BaseException:  # noqa: BLE001 — the parent raises it
-        results.put((rank, False, traceback.format_exc()))
+        results.put((rank, "raised", traceback.format_exc()))
 
 
 def _failures(results, failed: dict, grace_s: float = 2.0) -> str:
@@ -137,11 +138,11 @@ def _failures(results, failed: dict, grace_s: float = 2.0) -> str:
     end = time.monotonic() + grace_s
     while time.monotonic() < end:
         try:
-            rank, ok, payload = results.get(
+            rank, kind, payload = results.get(
                 timeout=max(end - time.monotonic(), 0.01))
         except queue_lib.Empty:
             break
-        if not ok:
+        if kind == "raised":
             failed[rank] = payload
     return "\n".join(f"rank {r} raised:\n{failed[r]}" for r in sorted(failed))
 
@@ -150,38 +151,48 @@ def launch_local(fn: Callable, world_size: int, backend: str,
                  timeout_s: float = 120.0, args: tuple = ()) -> list:
     """Run ``fn(rank, *args)`` in ``world_size`` spawned processes of this
     host, each a rank of one ``backend`` process group (a file store in a
-    fresh temporary directory, the collective timeout ``timeout_s``).
-    ``fn`` must be importable by name (a module-level function) and
-    return something picklable (tensors travel by value); it sets its own
-    CUDA device.
+    fresh temporary directory). ``fn`` must be importable by name (a
+    module-level function) and return something picklable (tensors travel
+    by value); it sets its own CUDA device.
+
+    Two bounds: the start — spawning, each rank's import of ``fn``'s
+    module and the rendezvous — must end within ``max(60, timeout_s)``
+    seconds (also the group's collective timeout), and the ranks must all
+    return within ``timeout_s`` of the moment the last of them joined the
+    group.
 
     → the ranks' results in rank order. Raises ``RankError`` with the
-    tracebacks of the ranks that raised as soon as one rank raises (and
-    its peers' within two seconds) or dies, and when the
-    ranks have not all returned within ``timeout_s``; every rank still
-    running is killed first, so no rank outlives the call."""
+    tracebacks of the ranks that raised as soon as one rank raises, at the
+    start or in ``fn`` (and its peers' within two seconds), or dies, and
+    when either bound passes; every rank still running is killed first, so
+    no rank outlives the call."""
+    start_s = max(60.0, timeout_s)
     print(f"launch_local: {world_size} ranks, backend {backend}", flush=True)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     tmp = tempfile.mkdtemp(prefix="repro_torch_pg_")
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(fn, r, world_size, backend,
-                               os.path.join(tmp, "store"), timeout_s, args,
+                               os.path.join(tmp, "store"), start_s, args,
                                results))
              for r in range(world_size)]
-    out = {}
+    joined, out = set(), {}
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout_s
+        deadline = time.monotonic() + start_s
         while len(out) < world_size:
             left = deadline - time.monotonic()
             if left <= 0:
+                if len(joined) < world_size:
+                    late = sorted(set(range(world_size)) - joined)
+                    raise RankError(f"ranks {late} did not join the group "
+                                    f"within {start_s} s")
                 late = sorted(set(range(world_size)) - set(out))
                 raise RankError(f"ranks {late} did not finish within "
                                 f"{timeout_s} s")
             try:
-                rank, ok, payload = results.get(timeout=min(left, 0.5))
+                rank, kind, payload = results.get(timeout=min(left, 0.5))
             except queue_lib.Empty:
                 dead = [r for r, p in enumerate(procs)
                         if r not in out and p.exitcode not in (None, 0)]
@@ -190,8 +201,13 @@ def launch_local(fn: Callable, world_size: int, backend: str,
                                     f"{procs[dead[0]].exitcode}) without a "
                                     f"result")
                 continue
-            if not ok:
+            if kind == "raised":
                 raise RankError(_failures(results, {rank: payload}))
+            if kind == "joined":
+                joined.add(rank)
+                if len(joined) == world_size:  # fn's clock starts here
+                    deadline = time.monotonic() + timeout_s
+                continue
             out[rank] = pickle.loads(payload)
         for p in procs:
             p.join(max(deadline - time.monotonic(), 1.0))

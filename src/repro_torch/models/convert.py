@@ -11,6 +11,10 @@ reference arrive here as numpy arrays:
 * ``load_npz`` reads the reference's ``ckpt/npz.py`` format: tree paths
   joined with ``::``, bfloat16 stored as a uint16 view under a
   ``__bf16__`` suffix.
+
+Every leaf keeps the dtype the reference's tree gives it: the config's,
+but for the mixture of experts' router, which the reference holds in
+float32 in every config (a bfloat16 cast would round its logits).
 """
 from __future__ import annotations
 
@@ -21,15 +25,15 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.model import layer_plan, torch_dtype
+from repro_torch.models.model import layer_plan
 
 _SEP = "::"
 _BF16_TAG = "__bf16__"
 
 
-def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """numpy (or an npz bfloat16 tensor) → torch on ``device`` in
-    ``dtype``. A bfloat16 numpy array (the ml_dtypes type JAX hands out)
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """numpy (or an npz bfloat16 tensor) → torch on ``device`` in its own
+    dtype. A bfloat16 numpy array (the ml_dtypes type JAX hands out)
     travels as its 16-bit pattern."""
     if not isinstance(a, torch.Tensor):
         a = np.array(a, copy=True, order="C")    # torch wants writable
@@ -37,7 +41,7 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
             a = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
         else:
             a = torch.from_numpy(a)
-    return a.to(device=device, dtype=dtype)
+    return a.to(device=device)
 
 
 def _map(tree, fn):
@@ -49,18 +53,17 @@ def _map(tree, fn):
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> dict:
     """The reference's parameter tree (numpy leaves) → the port's params
-    on ``device`` (the first CUDA card unless ``device="cpu"``), in the
-    config's dtype."""
+    on ``device`` (the first CUDA card unless ``device="cpu"``), each leaf
+    in the tree's dtype."""
     dev = resolve_device(device)
-    dt = torch_dtype(cfg)
-    out = {k: _tensor(tree[k], dt, dev)
+    out = {k: _tensor(tree[k], dev)
            for k in ("embed", "final_norm", "unembed") if k in tree}
     layers = []
     for stage, stacked in zip(layer_plan(cfg), tree["stages"]):
         for r in range(stage.repeat):
             for i in range(len(stage.layers)):
                 layers.append(_map(stacked[f"l{i}"],
-                                   lambda a: _tensor(a[r], dt, dev)))
+                                   lambda a: _tensor(a[r], dev)))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name!r} has {cfg.num_layers}")

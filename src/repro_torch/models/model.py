@@ -1,5 +1,6 @@
-"""Model assembly for the dense family (port of the main-path part of
-``repro/models/model.py``): layer plan, parameter init, embed / unembed.
+"""Model assembly for the plain dense family and grok-1's mixture of
+experts (port of the serving part of ``repro/models/model.py``): layer
+plan, parameter init, embed / unembed.
 
 The reference stacks each stage's layers on a leading axis for
 ``lax.scan``; the port keeps one parameter dict per layer in
@@ -17,6 +18,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.layers import AttnSpec
 
 
@@ -24,7 +26,7 @@ from repro_torch.models.layers import AttnSpec
 class LayerDef:
     mixer: str                 # 'attn' (the only mixer ported so far)
     attn: Optional[AttnSpec] = None
-    ffn: str = "mlp"
+    ffn: str = "mlp"           # 'mlp' | 'moe'
     d_ff: int = 0
     use_pariskv: bool = True
 
@@ -46,13 +48,22 @@ def _attn_spec(cfg: ModelConfig) -> AttnSpec:
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
-    """The stage/period structure of a dense model: one stage of
-    ``num_layers`` global-attention layers. Other families and
+    """The stage/period structure: one stage of ``num_layers``
+    global-attention layers, with an MLP (the plain dense family) or a
+    mixture of experts of width ``moe_d_ff`` (grok-1). Other families and
     local/global patterns are not ported yet (ROADMAP A13)."""
+    if cfg.family == "moe" and cfg.kv_lora_rank:
+        raise NotImplementedError(
+            f"config {cfg.name!r}: MLA with a mixture of experts "
+            f"(deepseek-v2) is not ported yet (ROADMAP A13.6)")
+    if cfg.family == "moe":                     # grok-1
+        ld = LayerDef("attn", _attn_spec(cfg), ffn="moe",
+                      d_ff=cfg.moe_d_ff or cfg.d_ff)
+        return (StageDef((ld,), cfg.num_layers),)
     if cfg.family != "dense" or cfg.local_global_period:
         raise NotImplementedError(
-            f"config {cfg.name!r}: only the plain dense family is ported "
-            f"(ROADMAP A13)")
+            f"config {cfg.name!r}: only the plain dense family and grok-1's "
+            f"mixture of experts are ported (ROADMAP A13)")
     ld = LayerDef("attn", _attn_spec(cfg), ffn="mlp", d_ff=cfg.d_ff)
     return (StageDef((ld,), cfg.num_layers),)
 
@@ -70,12 +81,15 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 def init_layer(cfg: ModelConfig, ld: LayerDef, device,
                gen: torch.Generator) -> dict:
     dt = torch_dtype(cfg)
-    return {
-        "norm_attn": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "attn": L.init_attn(cfg.d_model, ld.attn, dt, device, gen),
-        "norm_mlp": torch.ones((cfg.d_model,), dtype=dt, device=device),
-        "mlp": L.init_mlp(cfg.d_model, ld.d_ff, dt, device, gen),
-    }
+    p = {"norm_attn": torch.ones((cfg.d_model,), dtype=dt, device=device),
+         "attn": L.init_attn(cfg.d_model, ld.attn, dt, device, gen),
+         "norm_mlp": torch.ones((cfg.d_model,), dtype=dt, device=device)}
+    if ld.ffn == "moe":
+        p["moe"] = MOE.init_moe(cfg.d_model, ld.d_ff, cfg.num_experts,
+                                cfg.num_shared_experts, dt, device, gen)
+    else:
+        p["mlp"] = L.init_mlp(cfg.d_model, ld.d_ff, dt, device, gen)
+    return p
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:

@@ -55,6 +55,7 @@ from repro_torch.core import srht
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.gather_kv import gather_heads_tiered
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import (LayerDef, _embed, _unembed, layer_defs,
                                       layer_plan, param_device, torch_dtype)
 
@@ -143,6 +144,24 @@ def make_caches(cfg: ModelConfig, batch: int, n_max: int,
             for _ in layer_defs(cfg)]
 
 
+class UnsupportedPagedConfig(NotImplementedError):
+    """A config whose cache structure the paged or offloaded pool cannot
+    serve, with the config's name and the offending ``stage``, ``layer``
+    (within the stage's period) and ``mixer``, raised instead of a bare
+    "not implemented" (the reference's message)."""
+
+    def __init__(self, cfg: ModelConfig, stage: int, layer: int,
+                 mixer: str, hint: str):
+        self.config_name = getattr(cfg, "name", cfg.family)
+        self.stage = stage
+        self.layer = layer
+        self.mixer = mixer
+        super().__init__(
+            f"config {self.config_name!r}: stage {stage} layer {layer} "
+            f"uses mixer={mixer!r}, which the paged block pool does not "
+            f"serve — {hint}")
+
+
 # a tiered cache's host-side fetch statistics, reset with every chunk
 _FETCH_HOST_ZERO = {"calls": 0, "retries": 0, "timeouts": 0, "stall": 0.0}
 
@@ -177,11 +196,21 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     hist_shape = (batch, G, pcfg.num_subspaces(cfg.head_dim),
                   pcfg.num_centroids())
     nd = num_blocks if num_device_blocks is None else num_device_blocks
+    for si, stage in enumerate(layer_plan(cfg)):
+        for i, ld in enumerate(stage.layers):
+            if ld.mixer == "mla":
+                raise UnsupportedPagedConfig(
+                    cfg, si, i, ld.mixer,
+                    "MLA latent caches stay contiguous (ROADMAP); serve "
+                    "this config with the slot engine (ServingEngine) or "
+                    "an attention-mixer config")
+            if not ld.use_pariskv:
+                raise UnsupportedPagedConfig(
+                    cfg, si, i, ld.mixer,
+                    "slot-local ring buffers are not ported yet (ROADMAP "
+                    "A13.3)")
     out = []
-    for ld in layer_defs(cfg):
-        if not ld.use_pariskv:
-            raise NotImplementedError("only ParisKV layers are paged "
-                                      "(ROADMAP A13)")
+    for _ in layer_defs(cfg):
         entry = {
             "kv": CC.init_tiered_cache(num_blocks, nd, block_size, G,
                                        cfg.head_dim, pcfg, dt, device),
@@ -283,6 +312,21 @@ def regions_init(batch: int, device) -> CC.CacheRegions:
         enc_end=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+# ----------------------------------------------------------------- FFN -----
+def _ffn(p: dict, h: torch.Tensor, ld: LayerDef,
+         cfg: ModelConfig) -> torch.Tensor:
+    """The layer's FFN on its normed input: the MLP, or the mixture of
+    experts — ``moe_decode`` on a decode step's rows h (b, d), free slots
+    too, and ``moe_fwd`` on a (padded) prompt or fill chunk h (b, S, d),
+    pad tokens too: capacity follows the padded token count and the batch,
+    as in the reference."""
+    if ld.ffn != "moe":
+        return L.mlp_fwd(p["mlp"], h)
+    if h.dim() == 2:
+        return MOE.moe_decode(p["moe"], h, cfg.experts_per_token)
+    return MOE.moe_fwd(p["moe"], h, cfg.experts_per_token)[0]
+
+
 # ------------------------------------------------------------- prefill -----
 def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                    positions: torch.Tensor, cache: dict,
@@ -295,7 +339,7 @@ def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                      lengths=lengths)
     x = x + y.to(x.dtype)
     h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
-    return x + L.mlp_fwd(p["mlp"], h).to(x.dtype)
+    return x + _ffn(p, h, ld, cfg).to(x.dtype)
 
 
 @torch.no_grad()
@@ -389,7 +433,7 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
         record.append(res)
     x_t = x_t + y.to(x_t.dtype)
     h = L.rms_norm(x_t, p["norm_mlp"], cfg.norm_eps)
-    return x_t + L.mlp_fwd(p["mlp"], h).to(x_t.dtype)
+    return x_t + _ffn(p, h, ld, cfg).to(x_t.dtype)
 
 
 # ------------------------------------------------------- chunked fill -----
@@ -549,7 +593,7 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                                   fctx.bt_row, start, start + n, pcfg)
     x_f = x_f + y.to(x_f.dtype)
     h = L.rms_norm(x_f, p["norm_mlp"], cfg.norm_eps)
-    return x_f + L.mlp_fwd(p["mlp"], h).to(x_f.dtype)
+    return x_f + _ffn(p, h, ld, cfg).to(x_f.dtype)
 
 
 # --------------------------------------------------------------- steps -----

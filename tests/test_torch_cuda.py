@@ -499,3 +499,50 @@ def test_two_gloo_ranks_on_one_card_match_one_device(card):
                 head = arr[:, :, g] if name.startswith("dense") else arr[:, g]
                 np.testing.assert_array_equal(
                     got[name], head, err_msg=f"rank {rank} layer {li} {name}")
+
+
+@pytest.mark.cuda
+def test_grok_moe_matches_plain_cpu_run_on_card(card):
+    """grok-1 at full width cut to 2 layers, float32: each layer's
+    ``moe_fwd`` (64 tokens) and ``moe_decode`` (4 rows) on the card equal
+    the same code on the CPU: expert ids exact wherever the top-2 gap (the
+    least gap between neighbours among a token's top three probabilities)
+    exceeds 1e-5, outputs within 1e-4 + 1e-4 · |out| on the tokens whose
+    expert ids and capacity positions agree."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.model import init_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("grok-1-314b"), num_layers=2,
+                              dtype="float32")
+    params = init_params(cfg, seed=0, device=card)
+    gen = torch.Generator(device=card).manual_seed(1)
+    k, E = cfg.experts_per_token, cfg.num_experts
+    for li, layer in enumerate(params["layers"]):
+        p_dev = layer["moe"]
+        p_cpu = {name: t.cpu() for name, t in p_dev.items()}
+        for shape in ((1, 64, cfg.d_model), (4, cfg.d_model)):
+            x = torch.randn(shape, generator=gen, device=card)
+            if x.dim() == 3:
+                got = MOE.moe_fwd(p_dev, x, k)[0].cpu()
+                want = MOE.moe_fwd(p_cpu, x.cpu(), k)[0]
+            else:
+                got = MOE.moe_decode(p_dev, x, k).cpu()
+                want = MOE.moe_decode(p_cpu, x.cpu(), k)
+            xt = x.reshape(-1, cfg.d_model)
+            idx_d = MOE._route(p_dev, xt, k)[2].cpu()
+            probs, _, idx_c = MOE._route(p_cpu, xt.cpu(), k)
+            top = probs.sort(-1, descending=True).values[:, :k + 1]
+            gap = (top[:, :-1] - top[:, 1:]).min(-1).values
+            flipped = (idx_d != idx_c).any(-1)
+            assert (gap[flipped] <= 1e-5).all(), (li, shape)
+            same = ~flipped & (MOE._positions(idx_d, E)
+                               == MOE._positions(idx_c, E)).all(-1)
+            assert flipped.any() or same.all()
+            torch.testing.assert_close(
+                got.reshape(xt.shape)[same], want.reshape(xt.shape)[same],
+                atol=1e-4, rtol=1e-4, msg=f"layer {li} {tuple(shape)}")
+        del p_cpu

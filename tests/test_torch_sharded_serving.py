@@ -439,7 +439,7 @@ def test_mesh_plus_offload_rejected(stablelm):
                            device="cpu")
 
 
-def _raise_on_rank_1(rank):
+def _raise_on_rank_1(rank, *_):
     if rank == 1:
         raise KeyError("rank 1 fails")
     torch.distributed.barrier()             # rank 0 waits for rank 1
@@ -459,3 +459,29 @@ def test_launch_local_fails_fast(fn, match):
     with pytest.raises(RankError, match=match):
         launch_local(fn, 2, "gloo", timeout_s=5.0)
     assert time.monotonic() - t0 < 30
+
+
+def _slow(seconds):
+    """Unpickled in each spawned rank before it starts: a slow start."""
+    time.sleep(seconds)
+
+
+class _SlowStart:
+    def __reduce__(self):
+        return _slow, (6.0,)
+
+
+@pytest.mark.parametrize("backend,args,match", [
+    ("no-such-backend", (), "no-such-backend"),
+    ("gloo", (_SlowStart(),), "KeyError: 'rank 1 fails'")],
+    ids=["raises", "slow"])
+def test_launch_local_start(backend, args, match):
+    """The start (spawn, import, rendezvous) has a bound of its own:
+    a rank that raises while joining the group fails the launch at once
+    with its traceback, and a start slower than ``timeout_s`` is not a
+    hang — the clock of ``fn`` starts when every rank has joined."""
+    t0 = time.monotonic()
+    with pytest.raises(RankError, match=match) as err:
+        launch_local(_raise_on_rank_1, 2, backend, timeout_s=5.0, args=args)
+    assert time.monotonic() - t0 < 30
+    assert "_rank_main" in str(err.value)
