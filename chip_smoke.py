@@ -179,7 +179,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
               TTFT, pool bytes and peak memory printed; (b) llama3.1-8b
               at full width and depth (32 layers, ~16 GB) on requests of
               6,000 and 12,000 tokens with 64 new, the same reports.
-14. parity  — 2 layers at full width in float32: one teacher-forced
+14. gemma   — gemma's local/global layers (sliding-window ring buffers
+              beside the paged pool), run it alone with ``python3
+              chip_smoke.py gemma``: (a) the four main-path kernels and
+              ``bucket_count`` at gemma3-12b's shapes (G 8, Hg 2, hd 256,
+              B 32: the first shapes past B = 16), held and timed as in
+              the sharded phase, the "g3" rows; (b) gemma3-12b at full
+              width and depth (48 layers, 40 local with a 1,024-token
+              window, 8 global; qk-norm; bf16, seed 0) through the fused
+              paged engine on requests of 6,000 and 12,000 tokens with
+              264 new: pool bytes, ring bytes, peak memory, tokens/s and
+              TTFT, launches held per global layer-step, ``bucket_count``
+              launched at admission, every request promotes (B = 32
+              encodes and histogram adds); (c) gemma2-27b at full width cut to
+              8 of its 46 layers (4 local/global periods; full depth's
+              54 GB of weights, pool and rings leave no room for a
+              16,384-token prefill) on the engine phase's four requests
+              with 264 new: every request promotes on its global layers;
+              (d) gemma3 at one period (6 layers) in float32: chunked and
+              solo tokens identical on the paged, slot and offloaded
+              engines for requests of 1,500/2,500/3,500 tokens, which wrap
+              the window (the ring fill's prefix read and its wrap).
+15. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -260,6 +281,13 @@ GROK_LAYERS = 4
 LLAMA_ARCH = "llama3.1-8b"
 LLAMA_LENS = (6000, 12000)
 LLAMA_GEN = 64
+# the gemma phase: gemma3-12b at full depth on LLAMA_LENS, gemma2-27b cut to
+# 4 of its 23 local/global periods on the engine phase's requests, both with
+# the engine phase's GEN new tokens so that every request promotes (at
+# gemma3's head_dim 256: B = 32 encodes and histogram adds), and gemma3 at
+# one period (its 6 layers) in float32
+GEMMA3_ARCH, GEMMA2_ARCH = "gemma3-12b", "gemma2-27b"
+GEMMA2_LAYERS = 8
 # its MoE layer in float32, card against CPU: a 64-token moe_fwd and a
 # 4-row moe_decode. Sums over d_ff = 32,768 reassociate (~1e-5 at outputs
 # of ~5); routing may differ only at a top-2 gap within float32 rounding
@@ -1195,6 +1223,7 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
     and histogram updates), added to the counts. → the count of
     non-finite logits (0)."""
     fill = fill or {}
+    n_layers = _retrieval_layers(cfg)
     _check(sorted(done) == list(range(n_requests)), f"served {sorted(done)}")
     for uid, r in done.items():
         if uid in failed:
@@ -1204,13 +1233,13 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
                f"request {uid}: {len(r.output)} tokens, failed={r.failed}")
     steps = eng.decode_steps
     for name, per_step in kernels.items():
-        need = per_step * cfg.num_layers * steps + fill.get(name, 0)
+        need = per_step * n_layers * steps + fill.get(name, 0)
         _check(launches[name] >= need,
                f"{name}: {launches[name]} launches < {need} "
-               f"({per_step} x {cfg.num_layers} layers x {steps} steps)")
+               f"({per_step} x {n_layers} layers x {steps} steps)")
     for name in exact:
         if name in kernels:
-            need = kernels[name] * cfg.num_layers * steps
+            need = kernels[name] * n_layers * steps
             _check(launches[name] == need,
                    f"{name}: {launches[name]} launches, not {kernels[name]} "
                    f"per layer-step ({need})")
@@ -1219,8 +1248,7 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
                f"bucket_hist launched {launches['bucket_hist']} times: Stage "
                f"I's histograms were not handed to the top-C cut")
     if "gather_rows_paged" in kernels:
-        most = cfg.num_layers * (steps + sum(r.promotions
-                                             for r in done.values()))
+        most = n_layers * (steps + sum(r.promotions for r in done.values()))
         most += fill.get("gather_rows_paged", 0)
         _check(launches["gather_rows_paged"] <= most,
                f"gather_rows_paged: {launches['gather_rows_paged']} launches "
@@ -1228,6 +1256,14 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
     nonfinite = int(eng.nonfinite_logits)
     _check(nonfinite == 0, f"{nonfinite} non-finite logits")
     return nonfinite
+
+
+def _retrieval_layers(cfg) -> int:
+    """The layers that run ParisKV retrieval, and so the kernels, in every
+    decode step: all of them but gemma's sliding-window local layers,
+    which decode densely over their ring buffers."""
+    from repro_torch.models.model import layer_defs
+    return sum(ld.use_pariskv for ld in layer_defs(cfg))
 
 
 def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
@@ -1742,7 +1778,8 @@ def _fill_counts(cfg, prompts, budget: int, starts=None):
             reads += f0 > 0
             spans += (CC.fill_enc_end(f1, pcfg)
                       > max(CC.fill_enc_end(f0, pcfg), pcfg.sink_size))
-    return cfg.num_layers * reads, cfg.num_layers * spans
+    n_layers = _retrieval_layers(cfg)
+    return n_layers * reads, n_layers * spans
 
 
 def _per_request(rec, done, paged_out):
@@ -1887,17 +1924,18 @@ def _mixed_profile(eng, cfg, gen: int = 64):
     return rec
 
 
-def _f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
-    """(d) 2 layers at full width in float32 on the card: chunked and solo
-    prefill give identical tokens on the paged, slot and offloaded
-    engines (three staggered requests of 1,500/2,500/3,500 tokens, fills
-    spanning several chunks and completing mid-chunk; the offloaded
-    engine stages 40 of 128 blocks)."""
+def _f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16,
+                  layers: int = 2):
+    """(d) ``layers`` layers at full width in float32 on the card: chunked
+    and solo prefill give identical tokens on the paged, slot and
+    offloaded engines (three staggered requests of 1,500/2,500/3,500
+    tokens, fills spanning several chunks and completing mid-chunk; the
+    offloaded engine stages 40 of 128 blocks)."""
     import torch
     from repro_torch.models.model import init_params
     from repro_torch.serving import PagedServingEngine, ServingEngine
 
-    cfg = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
+    cfg = dataclasses.replace(cfg_full, num_layers=layers, dtype="float32")
     params = init_params(cfg, seed=4, device=dev)
     prompts = _prompts(cfg, seed=6, lens=(1500, 2500, 3500))
     common = dict(n_max=4096, max_batch=4, chunk_size=4, device=dev)
@@ -1920,7 +1958,8 @@ def _f32_identity(dev, cfg_full, budget: int = 256, gen: int = 16):
         rec[name] = _same_tokens(outs[0], outs[budget])
     torch.cuda.empty_cache()
     print("chunked_f32 " + json.dumps(dict(
-        layers=2, dtype="float32", prompts=[1500, 2500, 3500],
+        arch=cfg.name, layers=layers, dtype="float32",
+        prompts=[1500, 2500, 3500],
         new_tokens=gen, prefill_budget=budget,
         chunked_tokens_identical_to_solo=rec)), flush=True)
     _check(all(rec[n] for n, _, _ in engines),
@@ -2427,9 +2466,18 @@ def _shard_engine(cfg, params, dev, shards: int, **kw):
 
 
 def _pool_bytes(eng) -> int:
-    """Device bytes of the pool: K/V, metadata and histograms, all layers."""
-    return sum(t.nbytes for lc in eng._state.caches
+    """Device bytes of the pool: K/V, metadata and histograms, all global
+    layers."""
+    from repro_torch.models.serve import pool_entries
+    return sum(t.nbytes for lc in pool_entries(eng._state.caches)
                for t in (*lc["kv"], lc["hist"]))
+
+
+def _ring_bytes(eng) -> int:
+    """Device bytes of the local layers' slot-local ring buffers."""
+    from repro_torch.models.serve import is_ring
+    return sum(t.nbytes for lc in eng._state.caches if is_ring(lc)
+               for t in lc["kv"])
 
 
 def _digest(t) -> str:
@@ -2735,7 +2783,8 @@ def _arch_serve(dev, cfg, full_layers: int, lens, gen: int, arrivals):
                        PAGED_KERNELS, cfg, audit=True)
     rec = dict(arch=cfg.name, layers=cfg.num_layers,
                full_layers=full_layers, dtype=cfg.dtype, params=n_params,
-               param_gb=param_gb, pool_bytes=_pool_bytes(eng), **rec)
+               param_gb=param_gb, pool_bytes=_pool_bytes(eng),
+               ring_bytes=_ring_bytes(eng), **rec)
     del eng, params
     torch.cuda.empty_cache()
     return rec, done
@@ -2765,6 +2814,87 @@ def arch_phase(dev):
                cut=f"{GROK_ARCH}: {GROK_LAYERS} of {grok_full.num_layers} "
                    f"layers (what one card holds)")
     print("arch " + json.dumps(rec), flush=True)
+    return rec, kern
+
+
+def _count_kernel(dev, cfg, tag: str, seed: int = 0):
+    """``bucket_count`` at ``cfg``'s shapes (all its KV heads, B from its
+    head_dim, four rows of the kernel phase's lengths in a (4, 16384)
+    store): held exactly to its plain version and timed beside
+    ``scatter_add_``, the record ``bucket_count/<tag>``."""
+    import torch
+    from repro_torch.core import retrieval as R
+    from repro_torch.kernels.collision import bucket_count
+    from repro_torch.kernels.collision import ops as CO
+    from repro_torch.kernels.collision.ref import bucket_count_ref
+
+    pcfg = cfg.pariskv
+    b, G, n = 4, cfg.num_kv_heads, 16384
+    B, nc, sink = (pcfg.num_subspaces(cfg.head_dim), pcfg.num_centroids(),
+                   pcfg.sink_size)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, nc, (b, G, n, B), generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint8)
+    enc_end = torch.tensor([ln - KERNEL_NEW - pcfg.local_size
+                            for ln in LENS_AFTER], dtype=torch.int32,
+                           device=dev)
+    nval = int((enc_end - sink).clamp_min(0).sum())
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    counts = bucket_count(ids, enc_end, sink, nc)
+    _check(torch.equal(counts, bucket_count_ref(ids, enc_end, sink, nc)),
+           f"bucket_count differs from its plain version ({tag} shapes)")
+    valid = R.region_mask(n, enc_end, pcfg)[:, None]
+    ids_t = ids.transpose(-1, -2).reshape(-1, n).long()
+    upd = torch.broadcast_to(valid[..., None, :], (b, G, B, n)).reshape(
+        -1, n).to(torch.int32)
+    acc = torch.zeros((ids_t.shape[0], nc), dtype=torch.int32, device=dev)
+    rec = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_count.cu",
+        replaces="none: the jnp bucket_histogram of "
+                 "src/repro/core/retrieval.py:79 (no TPU kernel)",
+        max_abs_err=0, tolerance="exact", G=G, B=B, rows=b, n=n,
+        cluster=CO.count_cluster(n), threads=CO.COUNT_THREADS,
+        ms=_time_ms(lambda: bucket_count(ids, enc_end, sink, nc), flush),
+        plain_ms=_time_ms(lambda: bucket_count_ref(ids, enc_end, sink, nc),
+                          flush),
+        library_ms=_time_ms(lambda: acc.scatter_add_(1, ids_t, upd), flush),
+        library="scatter_add_ alone, on prepared int64 ids and updates")
+    rec["bound_ms"], rec["bound_by"] = _bound(
+        G * nval * B + b * 4 + counts.numel() * 4, G * nval * B)
+    print(f"kernel bucket_count/{tag} " + json.dumps(rec), flush=True)
+    return {f"bucket_count/{tag}": rec}
+
+
+def gemma_phase(dev):
+    """gemma's local/global layers: the kernels at gemma3-12b's shapes
+    (a), gemma3-12b at full width and depth (b), gemma2-27b at full width
+    and ``GEMMA2_LAYERS`` layers (c), and gemma3 at one period in float32,
+    chunked against solo (d)."""
+    import dataclasses as dc
+    import torch
+    from repro_torch import configs
+
+    g3 = configs.get(GEMMA3_ARCH)
+    kern = _path_kernels(dev, g3, g3.num_kv_heads, "g3")
+    kern.update(_count_kernel(dev, g3, "g3"))
+    gemma3, done3 = _arch_serve(dev, g3, g3.num_layers, LLAMA_LENS, GEN,
+                                ARRIVALS[:len(LLAMA_LENS)])
+    # the paged engine counts each admission's histograms with bucket_count
+    _check(gemma3["launches"]["bucket_count"] > 0,
+           "gemma3: bucket_count never launched in the main path")
+    g2 = configs.get(GEMMA2_ARCH)
+    gemma2, done2 = _arch_serve(dev, dc.replace(g2, num_layers=GEMMA2_LAYERS),
+                                g2.num_layers, PROMPTS, GEN, ARRIVALS)
+    for arch, done in (("gemma3", done3), ("gemma2", done2)):
+        for uid, r in done.items():
+            _check(r.promotions >= 1, f"{arch} request {uid} never promoted")
+    f32 = _f32_identity(dev, g3, layers=g3.local_global_period)
+    rec = dict(device=torch.cuda.get_device_name(0), gemma3=gemma3,
+               gemma2=gemma2, f32_chunked_identical_to_solo=f32,
+               cut=f"{GEMMA2_ARCH}: {GEMMA2_LAYERS} of {g2.num_layers} layers "
+                   f"(4 local/global periods; full depth's weights, pool "
+                   f"and rings leave no room for a 16,384-token prefill)")
+    print("gemma " + json.dumps(rec), flush=True)
     return rec, kern
 
 
@@ -3038,7 +3168,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
-              "chunked", "share", "faults", "sharded", "arch", "parity")
+              "chunked", "share", "faults", "sharded", "arch", "gemma",
+              "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -3146,6 +3277,16 @@ def main() -> int:
         for name in arch_kern:
             launches[name] = arch["grok"]["launches"][name.split("/")[0]]
         lap("arch")
+    if "gemma" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        gemma, gemma_kern = gemma_phase(dev)
+        kern.update(gemma_kern)
+        # gemma3-12b's launches in (b)
+        for name in gemma_kern:
+            launches[name] = gemma["gemma3"]["launches"][name.split("/")[0]]
+        lap("gemma")
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")

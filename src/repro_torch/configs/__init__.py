@@ -1,6 +1,7 @@
 """Architecture configs ported so far (copies of ``repro.configs``): the
 plain dense qwen2-1.5b, stablelm-1.6b and the paper's own evaluation
-models llama3.1-8b and qwen3-8b, and grok-1's mixture of experts.
+models llama3.1-8b and qwen3-8b, grok-1's mixture of experts, and the
+local/global dense gemma2-27b and gemma3-12b.
 
 Usage: ``repro_torch.configs.get("qwen2-1.5b")`` or ``smoke(...)`` for the
 reduced CPU-test variant. Architectures of ``repro.configs.ARCHS`` that the
@@ -11,7 +12,7 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("qwen2-1.5b", "stablelm-1.6b", "llama3.1-8b", "qwen3-8b",
-         "grok-1-314b")
+         "grok-1-314b", "gemma2-27b", "gemma3-12b")
 
 
 def _module(name: str):

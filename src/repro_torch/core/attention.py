@@ -12,9 +12,14 @@ Sink, window and winner rows come through one gather launch
 batch row (``kernels.row_tables``).
 ``dense_decode_attention`` is the full-attention baseline, written as the
 reference writes it (float32 scores, a mask, a softmax).
+``ring_decode_attention`` is a local (sliding-window) layer's decode over
+its ring buffer, a dense softmax over at most ``window`` slots (jnp in the
+reference, outside any Pallas kernel).
 ``chunk_fill_attention`` is a prefill chunk's attention in a mixed
 prefill+decode step: chunk-causal over the cached prefix and the chunk in
 one joint softmax, masked by position (plain torch, as the reference's jnp).
+Prefill and chunk attention take a ``sliding_window``: keys more than
+``window - 1`` positions before a query are masked.
 """
 from __future__ import annotations
 
@@ -37,15 +42,19 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, sm_scale: float,
                                softcap: float = 0.0, q_chunk: int = 1024,
-                               kv_chunk: int = 2048) -> torch.Tensor:
+                               kv_chunk: int = 2048,
+                               sliding_window: int = 0) -> torch.Tensor:
     """Flash-style causal attention that never materializes the (S, S)
     score matrix: the working set is one (q_chunk, kv_chunk) tile per head.
-    q: (b, S, H, hd), k/v: (b, S, G, hd) → (b, S, H, hd) float32.
+    q: (b, S, H, hd), k/v: (b, S, G, hd) → (b, S, H, hd) float32. With
+    ``sliding_window`` w > 0 query t sees keys t - w < p <= t.
 
     The reference scans every kv chunk for every q chunk; chunks that lie
-    wholly after a q chunk are skipped here. That is exact, not an
-    approximation: once a real chunk has set the running max, a fully
-    masked chunk adds exp(-1e30 - m) = 0 to the sums and rescales by 1.
+    wholly after a q chunk, or wholly before its window, are skipped here.
+    That is exact, not an approximation: once a real chunk has set the
+    running max, a fully masked chunk adds exp(-1e30 - m) = 0 to the sums
+    and rescales by 1; a fully masked chunk before the first real one
+    leaves sums that the first real chunk rescales by exp(-1e30 - m) = 0.
 
     The reference requires S to be a multiple of both chunks. Here a
     ragged S is padded up to a multiple of both (the kv chunk rounded up
@@ -62,7 +71,7 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
             *(torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
               for t in (q, k, v)),
             sm_scale=sm_scale, softcap=softcap, q_chunk=q_chunk,
-            kv_chunk=kv_chunk)
+            kv_chunk=kv_chunk, sliding_window=sliding_window)
         return out[:, :S]
     qg = q.reshape(b, S, G, Hg, hd).float()
     kf, vf = k.float(), v.float()
@@ -74,13 +83,20 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
         acc = torch.zeros((b, G, q_chunk, Hg, vd), device=q.device)
         m_run = torch.full((b, G, q_chunk, Hg), NEG_INF, device=q.device)
         l_run = torch.zeros((b, G, q_chunk, Hg), device=q.device)
-        for k0 in range(0, q0 + q_chunk, kv_chunk):    # causal: skip future
+        # causal: skip the future; windowed: skip what precedes the window
+        # of the q chunk's first query
+        k_first = (max(0, q0 - sliding_window + 1) // kv_chunk * kv_chunk
+                   if sliding_window else 0)
+        for k0 in range(k_first, q0 + q_chunk, kv_chunk):
             k_blk = kf[:, k0:k0 + kv_chunk]
             v_blk = vf[:, k0:k0 + kv_chunk]
             kp = pos[k0:k0 + kv_chunk]
             s = torch.einsum("bqghd,bkgd->bgqhk", q_blk, k_blk) * sm_scale
             s = _softcap(s, softcap)
             causal = qp[:, None, None] >= kp[None, None, :]   # (qc, 1, kc)
+            if sliding_window:
+                causal = causal & (qp[:, None, None] - kp[None, None, :]
+                                   < sliding_window)
             s = torch.where(causal, s, NEG_INF)
             m_new = torch.maximum(m_run, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
@@ -295,12 +311,37 @@ def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, H, hd)
 
 
+def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
+                          v_ring: torch.Tensor, pos: torch.Tensor, *,
+                          sm_scale: float,
+                          softcap: float = 0.0) -> torch.Tensor:
+    """A local layer's decode attention over its ring buffer of n =
+    min(window, n_max) slots, the token at ``pos`` (b,) already written
+    at slot pos % n: every slot is valid once pos ≥ n, slots ≤ pos before
+    → (b, H, hd) float32. q (b, H, hd), k/v_ring (b, n, G, hd).
+
+    Float32 scores, a mask and a softmax, as the reference's ring branch;
+    the contractions are products and sums (``_dot``), so each head's bits
+    do not depend on the number of heads or rows in the call."""
+    b, H, hd = q.shape
+    n, G = k_ring.shape[1], k_ring.shape[2]
+    qg = q.reshape(b, G, H // G, hd).float()
+    s = _softcap(_dot(qg[..., None, :], _heads_first(k_ring)) * sm_scale,
+                 softcap)                                # (b, G, Hg, n)
+    valid = ((torch.arange(n, device=q.device)[None] <= pos[:, None])
+             | (pos[:, None] >= n))
+    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = _dot(p[..., None, :], _heads_first(v_ring).transpose(-1, -2))
+    return out.reshape(b, H, hd)
+
+
 def chunk_fill_attention(q: torch.Tensor, k_pref: torch.Tensor,
                          v_pref: torch.Tensor, pref_pos: torch.Tensor,
                          k_new: torch.Tensor, v_new: torch.Tensor,
                          q_pos: torch.Tensor, new_pos: torch.Tensor, *,
-                         sm_scale: float, softcap: float = 0.0
-                         ) -> torch.Tensor:
+                         sm_scale: float, softcap: float = 0.0,
+                         sliding_window: int = 0) -> torch.Tensor:
     """Prefill-chunk attention: the P prompt tokens of one filling slot
     attend to that slot's cached prefix plus the chunk under one joint
     softmax, in float32.
@@ -310,9 +351,10 @@ def chunk_fill_attention(q: torch.Tensor, k_pref: torch.Tensor,
     invalid); k_new/v_new (b, P, G, hd) the chunk's keys and values;
     q_pos (b, P) the query positions, new_pos (b, P) the chunk keys'
     positions (< 0: the last chunk's pad tail) → (b, P, H, hd) float32.
-    Key j is visible to query t iff 0 <= pos_j <= q_pos_t: the key set a
-    solo prefill's causal attention sees. The scores are (b, G, Hg, P,
-    n + P) float32, materialized."""
+    Key j is visible to query t iff 0 <= pos_j <= q_pos_t (and q_pos_t -
+    pos_j < ``sliding_window`` when given): the key set a solo prefill's
+    causal attention sees. The scores are (b, G, Hg, P, n + P) float32,
+    materialized."""
     b, P, H, hd = q.shape
     G = k_pref.shape[2]
     qg = q.reshape(b, P, G, H // G, hd).float()
@@ -320,6 +362,8 @@ def chunk_fill_attention(q: torch.Tensor, k_pref: torch.Tensor,
     def seg(k, v, pos):
         s = torch.einsum("bpghd,bngd->bghpn", qg, k.float())
         ok = (pos[:, None, :] >= 0) & (pos[:, None, :] <= q_pos[:, :, None])
+        if sliding_window:
+            ok = ok & (q_pos[:, :, None] - pos[:, None, :] < sliding_window)
         return torch.where(ok[:, None, None], s, NEG_INF), v.float()
 
     s_pref, vp = seg(k_pref, v_pref, pref_pos)

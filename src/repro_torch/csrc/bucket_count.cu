@@ -33,8 +33,9 @@
 //
 // Design: a thread-block cluster per (b, g). Each block of the cluster
 // counts a share of the row's sampled keys into its own shared-memory copy
-// of the B x nc bins (16 KB at B=16, nc=256) with shared-memory atomics,
-// bin s*nc + id; a key's B ids come in one 16-byte load, and each thread
+// of the B x nc bins (16 KB at B=16, 32 KB at B=32, nc=256: under the
+// 48 KB default, so no opt-in) with shared-memory atomics, bin s*nc + id;
+// a key's B ids come in one 16-byte load (two at B=32), and each thread
 // loads kUnroll keys before it counts any, so several loads are in flight.
 // After one cluster barrier every block sums its share of the bins over
 // all the cluster's copies through distributed shared memory and writes
@@ -164,6 +165,9 @@ REPRO_EXPORT int bucket_count_launch(const void* ids, const void* enc_end,
        cluster != 16))
     return (int)cudaErrorInvalidValue;
   if (b * G == 0) return (int)cudaGetLastError();
+  if (B == 32)
+    return launch<32>(ids, enc_end, bt, counts, b, G, n, nc, sink, stride,
+                      nblk, bs, accumulate, cluster, threads, stream);
   if (B == 16)
     return launch<16>(ids, enc_end, bt, counts, b, G, n, nc, sink, stride,
                       nblk, bs, accumulate, cluster, threads, stream);

@@ -43,10 +43,13 @@
 //   * Hg x B random 4-byte shared-memory lookups per key: tier weights lie
 //     in {0..6} and B x 6 = 96 < 256, so one 8-byte word per (subspace,
 //     centroid) holds the weights of up to 8 query heads, one byte lane
-//     each (32 KB for B=16, 2^m=256). One 8-byte lookup per subspace
+//     each (32 KB for B=16, 64 KB for B=32, 2^m=256; above 48 KB the
+//     launcher opts in, and three blocks of B=32 still fit an SM's 228 KB:
+//     3 x (64 KB + Hg x rng ints + 1 KB reserved)). One 8-byte lookup per
+//     subspace
 //     serves every head and plain 64-bit adds sum all heads at once: no
 //     lane carries into the next while B x max weight < 256, which the
-//     wrapper checks (score_range < 256). The caller emits the table in
+//     wrapper checks (score_range < 256; 32 x 6 = 192 at B=32). The caller emits the table in
 //     this layout (kernels/collision/ops.py:lane_packed_table), so staging
 //     is a plain copy: packing it here cost a byte transpose per word and
 //     16-way bank conflicts on its stores.
@@ -177,6 +180,7 @@ REPRO_EXPORT int collision_paged_launch(const void* pool_ids,
         static_cast<int32_t*>(seg_hist), nb, G, Hg, bs, nblk, nc, sink, rng);
     return (int)cudaGetLastError();
   };
+  if (B == 32) return run(collision_paged_kernel<32>);
   if (B == 16) return run(collision_paged_kernel<16>);
   if (B == 8) return run(collision_paged_kernel<8>);
   return (int)cudaErrorInvalidValue;

@@ -71,9 +71,9 @@ def collision_scores_paged_kernel(pool_ids: torch.Tensor,
     if not 0 <= score_range < 256:
         raise ValueError(f"collision_paged: needs 0 <= score_range < 256 on "
                          f"the card (byte lanes), got {score_range}")
-    if (tables.shape != (b, G, Hg, B, nc) or B not in (8, 16) or nc > 256
-            or nc % 16 or not 0 < Hg <= 8 or enc_end.shape != (b,)
-            or pool_ids.data_ptr() % 16):
+    if (tables.shape != (b, G, Hg, B, nc) or B not in (8, 16, 32)
+            or nc > 256 or nc % 16 or not 0 < Hg <= 8
+            or enc_end.shape != (b,) or pool_ids.data_ptr() % 16):
         raise ValueError(f"collision_paged: unsupported shapes "
                          f"{tuple(tables.shape)} for B={B}")
     if not _lane_packed(tables):
@@ -127,7 +127,7 @@ def launch_count(ids: torch.Tensor, enc_end: torch.Tensor, sink_size: int,
     b, G, n, B = ids.shape
     if ids.dtype != torch.uint8 or enc_end.dtype != torch.int32:
         raise TypeError("bucket_count: expects uint8 ids and int32 enc_end")
-    if (B not in (8, 16) or not 0 < num_buckets <= 256 or stride < 1
+    if (B not in (8, 16, 32) or not 0 < num_buckets <= 256 or stride < 1
             or sink_size < 0 or enc_end.shape != (b,) or ids.data_ptr() % 16):
         raise ValueError(f"bucket_count: unsupported ids {tuple(ids.shape)}, "
                          f"{num_buckets} buckets, stride {stride}")
@@ -181,7 +181,7 @@ def bucket_count_span(pool_ids: torch.Tensor, block_tables: torch.Tensor,
             or hist.dtype != torch.int32):
         raise TypeError("bucket_count: expects uint8 ids, int32 tables and "
                         "histograms")
-    if (B not in (8, 16) or not 0 < num_buckets <= 256 or lo < 0
+    if (B not in (8, 16, 32) or not 0 < num_buckets <= 256 or lo < 0
             or hist.shape != (b, G, B, num_buckets)
             or pool_ids.data_ptr() % 16):
         raise ValueError(f"bucket_count: unsupported pool "

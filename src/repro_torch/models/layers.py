@@ -1,5 +1,7 @@
 """Transformer building blocks for the dense family (port of the main-path
-and chunked-fill parts of ``repro/models/layers.py``).
+and chunked-fill parts of ``repro/models/layers.py``): global (ParisKV)
+layers, and the sliding-window local layers of gemma's local/global
+pattern, whose decode cache is a ring buffer of the window size.
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts: matmul weights are stored (in_dim, out_dim) — wq/wk/wv/wo for
@@ -30,11 +32,14 @@ def truncated_normal_(t: torch.Tensor, generator: torch.Generator,
                                        b=2 * std, generator=generator)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    """RMS norm in float32; ``plus_one`` scales by ``1 + scale`` (gemma's
+    zero-initialized qk-norm)."""
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    s = 1.0 + scale.float() if plus_one else scale.float()
+    return (xf * torch.rsqrt(var + eps) * s).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor,
@@ -75,6 +80,8 @@ class AttnSpec:
     rope_theta: float = 10_000.0
     qkv_bias: bool = False
     softcap: float = 0.0
+    sliding_window: int = 0      # > 0: local layer (ring-buffer decode cache)
+    qk_norm: bool = False
     sm_scale: float = 0.0        # 0 → 1/sqrt(head_dim)
 
     def scale(self) -> float:
@@ -93,12 +100,16 @@ def init_attn(d_model: int, spec: AttnSpec, dtype, device,
     if spec.qkv_bias:
         for name, width in (("bq", H * hd), ("bk", G * hd), ("bv", G * hd)):
             p[name] = torch.zeros((width,), dtype=dtype, device=device)
+    if spec.qk_norm:
+        p["q_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
+        p["k_norm"] = torch.zeros((hd,), dtype=dtype, device=device)
     return p
 
 
 def _project_qkv(p: dict, x: torch.Tensor, spec: AttnSpec,
                  positions: Optional[torch.Tensor]):
-    """x (b, s, d) → q (b, s, H, hd), k/v (b, s, G, hd), rope applied."""
+    """x (b, s, d) → q (b, s, H, hd), k/v (b, s, G, hd): qk-norm (scale
+    1 + s) when the spec has it, then rope."""
     b, s, _ = x.shape
     H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
@@ -107,6 +118,9 @@ def _project_qkv(p: dict, x: torch.Tensor, spec: AttnSpec,
     q = q.reshape(b, s, H, hd)
     k = k.reshape(b, s, G, hd)
     v = v.reshape(b, s, G, hd)
+    if spec.qk_norm:
+        q = rms_norm(q, p["q_norm"], plus_one=True)
+        k = rms_norm(k, p["k_norm"], plus_one=True)
     if positions is not None:
         q = rope(q, positions, spec.rope_theta)
         k = rope(k, positions, spec.rope_theta)
@@ -116,14 +130,16 @@ def _project_qkv(p: dict, x: torch.Tensor, spec: AttnSpec,
 def attn_prefill(p: dict, x: torch.Tensor, spec: AttnSpec,
                  positions: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Causal prefill attention; also returns (k, v) for the cache. The
-    output projection runs in float32, as the reference's float32
-    attention output promotes its product with ``wo``."""
+    """Causal prefill attention (within the spec's sliding window on a
+    local layer); also returns (k, v) for the cache. The output projection
+    runs in float32, as the reference's float32 attention output promotes
+    its product with ``wo``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, x, spec, positions)
     out = A.blockwise_causal_attention(
         q, k, v, sm_scale=spec.scale(), softcap=spec.softcap,
-        q_chunk=min(1024, s), kv_chunk=min(2048, s))
+        q_chunk=min(1024, s), kv_chunk=min(2048, s),
+        sliding_window=spec.sliding_window)
     return out.reshape(b, s, -1) @ p["wo"].float(), k, v
 
 
@@ -136,8 +152,9 @@ def attn_fill_chunk(p: dict, x: torch.Tensor, spec: AttnSpec,
     of x (b, P, d) at the chunk's true positions ``q_pos`` (b, P), then
     chunk-causal attention over the cached prefix (``k_pref``/``v_pref``
     at ``pref_pos``) and the chunk itself (``new_pos``, < 0 for the pad
-    tail). → (y (b, P, d) float32, k, v (b, P, G, hd)): the caller writes
-    k/v and the ParisKV metadata into the filling slot's cache."""
+    tail), within the spec's sliding window on a local layer. → (y (b, P,
+    d) float32, k, v (b, P, G, hd)): the caller writes k/v (and on a
+    global layer the ParisKV metadata) into the filling slot's cache."""
     return attn_fill_chunk_sharded(p, x, spec, q_pos, k_pref, v_pref,
                                    pref_pos, new_pos, None)
 
@@ -162,7 +179,8 @@ def attn_fill_chunk_sharded(p: dict, x: torch.Tensor, spec: AttnSpec,
     k, v = k[:, :, g0:g1], v[:, :, g0:g1]
     out = A.chunk_fill_attention(q, k_pref, v_pref, pref_pos, k, v, q_pos,
                                  new_pos, sm_scale=spec.scale(),
-                                 softcap=spec.softcap)
+                                 softcap=spec.softcap,
+                                 sliding_window=spec.sliding_window)
     if dist is not None:
         out = dist.all_gather_heads(out, 2)
     return out.reshape(b, P, -1) @ p["wo"].float(), k, v
@@ -188,16 +206,29 @@ def _decode_qkv(p: dict, x_t: torch.Tensor, spec: AttnSpec,
 def attn_decode_dense(p: dict, x_t: torch.Tensor,
                       kv: Tuple[torch.Tensor, torch.Tensor],
                       pos: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
-    """Full-attention decode over a contiguous cache (the baseline; global
-    layers only, the reference's ring-buffer branch serves sliding layers,
-    which qwen2 has none of). Appends the token at ``pos`` (b,) in place
-    (clamped as ``cache.append_kv``) → y (b, d)."""
+    """Dense decode over a contiguous cache (b, n, G, hd), appending the
+    token at ``pos`` (b,) in place → y (b, d).
+
+    A global layer (the full-attention baseline) appends at ``pos``
+    (clamped as ``cache.append_kv``) and attends to positions ≤ pos. A
+    local layer's cache is a ring buffer of n = min(window, n_max)
+    slots: the token goes to slot pos % n, every slot is valid once
+    pos ≥ n and slots ≤ pos before; stale slots of a previous tenant are
+    masked by position, never read. A ring holds only the last n ≤ window
+    positions, so no slot needs the window mask."""
     k_cache, v_cache = kv
-    b = x_t.shape[0]
+    b, n = x_t.shape[0], k_cache.shape[1]
     q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
-    C.append_kv(k_cache, v_cache, k_t, v_t, pos)
-    out = A.dense_decode_attention(q, k_cache, v_cache, pos,
-                                   sm_scale=spec.scale(), softcap=spec.softcap)
+    if not spec.sliding_window:
+        C.append_kv(k_cache, v_cache, k_t, v_t, pos)
+    else:
+        rows, slot = torch.arange(b, device=pos.device), (pos % n).long()
+        k_cache[rows, slot] = k_t.to(k_cache.dtype)
+        v_cache[rows, slot] = v_t.to(v_cache.dtype)
+    attend = (A.ring_decode_attention if spec.sliding_window
+              else A.dense_decode_attention)
+    out = attend(q, k_cache, v_cache, pos, sm_scale=spec.scale(),
+                 softcap=spec.softcap)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"]
 
 

@@ -1,6 +1,6 @@
-"""Model assembly for the plain dense family and grok-1's mixture of
-experts (port of the serving part of ``repro/models/model.py``): layer
-plan, parameter init, embed / unembed.
+"""Model assembly for the dense family (plain, or gemma's local/global
+pattern) and grok-1's mixture of experts (port of the serving part of
+``repro/models/model.py``): layer plan, parameter init, embed / unembed.
 
 The reference stacks each stage's layers on a leading axis for
 ``lax.scan``; the port keeps one parameter dict per layer in
@@ -28,7 +28,7 @@ class LayerDef:
     attn: Optional[AttnSpec] = None
     ffn: str = "mlp"           # 'mlp' | 'moe'
     d_ff: int = 0
-    use_pariskv: bool = True
+    use_pariskv: bool = True   # retrieval at decode (False: ring buffer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,21 +37,30 @@ class StageDef:
     repeat: int
 
 
-def _attn_spec(cfg: ModelConfig) -> AttnSpec:
+def _attn_spec(cfg: ModelConfig, sliding: int = 0,
+               qk_norm: bool = False) -> AttnSpec:
     scale = 0.0
     if cfg.query_pre_attn_scalar:
         scale = cfg.query_pre_attn_scalar ** -0.5
     return AttnSpec(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                     head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
                     qkv_bias=cfg.qkv_bias, softcap=cfg.attn_logit_softcap,
-                    sm_scale=scale)
+                    sliding_window=sliding, qk_norm=qk_norm, sm_scale=scale)
+
+
+# the families still refused, each with its ROADMAP A13 step
+_NOT_PORTED = {"ssm": "A13.5", "hybrid": "A13.5", "vlm": "A13.4",
+               "audio": "A13.4"}
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
     """The stage/period structure: one stage of ``num_layers``
     global-attention layers, with an MLP (the plain dense family) or a
-    mixture of experts of width ``moe_d_ff`` (grok-1). Other families and
-    local/global patterns are not ported yet (ROADMAP A13)."""
+    mixture of experts of width ``moe_d_ff`` (grok-1); with
+    ``local_global_period`` p (gemma) a period of p - 1 sliding-window
+    local layers and one global layer, repeated ``num_layers // p`` times,
+    with qk-norm on gemma3. Other families are not ported yet (ROADMAP
+    A13, step named in the error)."""
     if cfg.family == "moe" and cfg.kv_lora_rank:
         raise NotImplementedError(
             f"config {cfg.name!r}: MLA with a mixture of experts "
@@ -60,10 +69,21 @@ def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
         ld = LayerDef("attn", _attn_spec(cfg), ffn="moe",
                       d_ff=cfg.moe_d_ff or cfg.d_ff)
         return (StageDef((ld,), cfg.num_layers),)
-    if cfg.family != "dense" or cfg.local_global_period:
+    if cfg.family != "dense":
+        step = _NOT_PORTED.get(cfg.family, "A13")
         raise NotImplementedError(
-            f"config {cfg.name!r}: only the plain dense family and grok-1's "
-            f"mixture of experts are ported (ROADMAP A13)")
+            f"config {cfg.name!r}: family {cfg.family!r} is not ported yet "
+            f"(ROADMAP {step}); the dense family and grok-1's mixture of "
+            f"experts are")
+    if cfg.local_global_period:
+        p = cfg.local_global_period
+        qk = cfg.name.startswith("gemma3")
+        local = LayerDef("attn", _attn_spec(cfg, sliding=cfg.sliding_window,
+                                            qk_norm=qk),
+                         ffn="mlp", d_ff=cfg.d_ff, use_pariskv=False)
+        glob = LayerDef("attn", _attn_spec(cfg, qk_norm=qk), ffn="mlp",
+                        d_ff=cfg.d_ff)
+        return (StageDef((local,) * (p - 1) + (glob,), cfg.num_layers // p),)
     ld = LayerDef("attn", _attn_spec(cfg), ffn="mlp", d_ff=cfg.d_ff)
     return (StageDef((ld,), cfg.num_layers),)
 

@@ -19,9 +19,20 @@ paths of ``repro/models/serve.py``).
   rank's KV heads of a head-sharded group: the pool, its metadata and the
   histograms hold ``G / N`` heads (``make_paged_caches``), the replicated
   solo prefill is sliced to them at admission (``admit_paged``), and each
-  layer's decode and fill chunk run on them and gather the attention
-  output heads of every rank (``layers.attn_decode_pariskv_paged_sharded``,
-  ``attn_fill_chunk_sharded``); the rest of the model runs replicated.
+  global layer's decode and fill chunk run on them and gather the
+  attention output heads of every rank
+  (``layers.attn_decode_pariskv_paged_sharded``,
+  ``attn_fill_chunk_sharded``); the rest of the model runs replicated,
+  local layers and their ring buffers included.
+* Local (sliding-window) layers (gemma's local/global pattern,
+  ``LayerDef.use_pariskv`` False) cache their window in a ring buffer:
+  the entry's ``kv`` is a plain (k, v) tuple of (batch, w, G, hd)
+  tensors, w = min(window, n_max), position t at slot t % w, with no
+  ``hist`` and no ``fetch`` entry. On the paged engines it stays
+  slot-local beside the pool (``is_ring``, ``pool_entries``): admission
+  copies it into the slot's row, decode writes at pos % w, a fill chunk
+  reads its prefix from it by position and keeps each slot's last
+  write; stale slots of a previous tenant are masked by position.
 * With ``prefill_budget`` P > 0 (chunked prefill), ``admit_fill`` copies a
   prompt to the slot's device buffer (a shared-prefix admission starts
   the fill past the mapped prefix and rebuilds the slot's histogram from
@@ -44,7 +55,7 @@ pool and histogram tensors are updated in place.
 from __future__ import annotations
 
 import functools
-from typing import Any, List, NamedTuple, Optional
+from typing import Any, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +74,24 @@ from repro_torch.models.model import (LayerDef, _embed, _unembed, layer_defs,
 class ServeState(NamedTuple):
     caches: Any              # list over layers of {"kv": ..., "hist": ...}
     regions: CC.CacheRegions
+
+
+def is_ring(lc: dict) -> bool:
+    """Whether a layer's cache entry is a local layer's ring buffer
+    (``_ring_cache`` tags it), not a ParisKV store or pool."""
+    return lc.get("ring", False)
+
+
+def pool_entries(caches: List[dict]) -> List[dict]:
+    """The ParisKV (global-layer) entries of ``caches``, in layer order:
+    the contiguous stores or the pool with its histograms."""
+    return [lc for lc in caches if not is_ring(lc)]
+
+
+def _store(caches: List[dict]):
+    """The first ParisKV store or pool: its shape gives n_max (contiguous)
+    or the block size and KV heads (paged)."""
+    return pool_entries(caches)[0]["kv"]
 
 
 class TierView(NamedTuple):
@@ -89,13 +118,19 @@ class TierView(NamedTuple):
         return functools.partial(self.fetch, self.names[li], kind)
 
 
+def _plan_places(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """Each model layer's (stage, layer within the stage's period), in
+    layer order: the reference's way of naming a layer."""
+    return [(si, i) for si, st in enumerate(layer_plan(cfg))
+            for _ in range(st.repeat) for i in range(len(st.layers))]
+
+
 def entry_names(cfg: ModelConfig) -> List[str]:
     """Each layer's cache-entry name as the reference gives it,
     ``s<stage>.l<layer in stage>`` (a stage's repeats share one): the
     ``name`` a ``fetch.gather`` fault sees, so one ``FaultPlan`` matches
     and logs the same visits on both sides."""
-    return [f"s{si}.l{i}" for si, st in enumerate(layer_plan(cfg))
-            for _ in range(st.repeat) for i in range(len(st.layers))]
+    return [f"s{si}.l{i}" for si, i in _plan_places(cfg)]
 
 
 class SlotState(NamedTuple):
@@ -135,13 +170,27 @@ def _check_params(params: dict, dev: torch.device) -> None:
         raise ValueError(f"params live on {pd}, the call runs on {dev}")
 
 
+def _ring_cache(cfg: ModelConfig, ld: LayerDef, batch: int, n_max: int,
+                device) -> dict:
+    """A local layer's entry, tagged ``ring``: (k, v) ring tensors (batch,
+    w, G, hd), w = min(window, n_max), every KV head (replicated on a
+    head-sharded rank)."""
+    shape = (batch, min(ld.attn.sliding_window, n_max), cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"kv": tuple(torch.zeros(shape, dtype=torch_dtype(cfg),
+                                    device=device) for _ in range(2)),
+            "ring": True}
+
+
 def make_caches(cfg: ModelConfig, batch: int, n_max: int,
                 device) -> List[dict]:
-    """Contiguous per-layer caches (solo prefill)."""
+    """Contiguous per-layer caches (solo prefill): a ParisKV store per
+    global layer, a ring buffer per local layer."""
     dt = torch_dtype(cfg)
     return [{"kv": CC.init_layer_cache(batch, n_max, cfg.num_kv_heads,
                                        cfg.head_dim, cfg.pariskv, dt, device)}
-            for _ in layer_defs(cfg)]
+            if ld.use_pariskv else _ring_cache(cfg, ld, batch, n_max, device)
+            for ld in layer_defs(cfg)]
 
 
 class UnsupportedPagedConfig(NotImplementedError):
@@ -169,12 +218,15 @@ _FETCH_HOST_ZERO = {"calls": 0, "retries": 0, "timeouts": 0, "stall": 0.0}
 def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                       block_size: int, device,
                       num_device_blocks: Optional[int] = None,
-                      dist=None) -> List[dict]:
-    """Per layer: the shared block pool ``kv`` and the slot-local
-    (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``. With
-    ``dist`` (a ``distributed.ShardDist``) both hold that rank's G / N KV
-    heads: the counterpart of the reference's ``sharded_state_specs``,
-    which partitions exactly these leaves and replicates the rest.
+                      dist=None, n_max: int = 0) -> List[dict]:
+    """Per global layer: the shared block pool ``kv`` and the slot-local
+    (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``; per
+    local layer a slot-local ring buffer of min(window, ``n_max``) slots
+    (``make_caches``'s), not paged. With ``dist`` (a
+    ``distributed.ShardDist``) the pool and the histograms hold that
+    rank's G / N KV heads and the rings every head: the counterpart of the
+    reference's ``sharded_state_specs``, which partitions exactly the pool
+    and histogram leaves and replicates the rest.
 
     ``num_device_blocks`` makes the pool tiered: metadata for all
     ``num_blocks`` blocks, K/V for a staging pool of ``num_device_blocks``
@@ -204,13 +256,14 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                     "MLA latent caches stay contiguous (ROADMAP); serve "
                     "this config with the slot engine (ServingEngine) or "
                     "an attention-mixer config")
-            if not ld.use_pariskv:
-                raise UnsupportedPagedConfig(
-                    cfg, si, i, ld.mixer,
-                    "slot-local ring buffers are not ported yet (ROADMAP "
-                    "A13.3)")
     out = []
-    for _ in layer_defs(cfg):
+    for ld in layer_defs(cfg):
+        if not ld.use_pariskv:
+            if n_max <= 0:
+                raise ValueError(f"config {cfg.name!r}: a local layer's ring "
+                                 f"buffer needs n_max")
+            out.append(_ring_cache(cfg, ld, batch, n_max, device))
+            continue
         entry = {
             "kv": CC.init_tiered_cache(num_blocks, nd, block_size, G,
                                        cfg.head_dim, pcfg, dt, device),
@@ -261,15 +314,16 @@ def share_support_reason(cfg: ModelConfig) -> Optional[str]:
     and skips their fill, so every layer's prompt state must live in the
     shared pool: chunked prefill must be supported, and every attention
     layer must be a ParisKV layer (a sliding-window layer's ring buffer is
-    slot-local, and a slot that skipped the prefix would find it empty)."""
+    slot-local, and a slot that skipped the prefix would find it empty).
+    The message is the reference's."""
     reason = fill_support_reason(cfg)
     if reason is not None:
         return reason
-    for i, ld in enumerate(layer_defs(cfg)):
+    for ld, (si, li) in zip(layer_defs(cfg), _plan_places(cfg)):
         if not ld.use_pariskv:
-            return (f"config {cfg.name!r}: layer {i} caches its window in a "
-                    f"slot-local ring buffer, which a shared prefix cannot "
-                    f"populate (ParisKV-attention layers only)")
+            return (f"config {cfg.name!r}: stage {si} layer {li} caches its "
+                    f"window in a slot-local ring buffer, which a shared "
+                    f"prefix cannot populate (ParisKV-attention layers only)")
     return None
 
 
@@ -328,15 +382,50 @@ def _ffn(p: dict, h: torch.Tensor, ld: LayerDef,
 
 
 # ------------------------------------------------------------- prefill -----
+def _ring_prefill(kv: Tuple[torch.Tensor, torch.Tensor],
+                  k_new: torch.Tensor, v_new: torch.Tensor,
+                  lengths: Optional[torch.Tensor]) -> None:
+    """Fill a ring buffer (b, w, G, hd) from a LEFT-aligned padded prompt's
+    k/v (b, S, G, hd), in place: slot j of row i takes the latest real
+    position p < lengths[i] with p ≡ j (mod w), or zeros where there is
+    none (masked at decode by position). ``lengths`` None: every row spans
+    S."""
+    w = kv[0].shape[1]
+    b, S = k_new.shape[:2]
+    dev = k_new.device
+    if lengths is None:
+        lengths = torch.full((b,), S, dtype=torch.int32, device=dev)
+    last = (lengths.long() - 1)[:, None]                       # (b, 1)
+    p_src = last - (last - torch.arange(w, device=dev)[None]) % w
+    ok = (p_src >= 0)[..., None, None]
+    rows = torch.arange(b, device=dev)[:, None]
+    src = p_src.clamp(0, S - 1)
+    for ring, new in zip(kv, (k_new, v_new)):
+        ring.copy_(torch.where(ok, new[rows, src], 0).to(ring.dtype))
+
+
+def _ring_prefix_pos(start: int, w: int, device) -> torch.Tensor:
+    """(1, w) the position a fill's ring holds in each slot before the
+    chunk at ``start``: the latest p < start with p ≡ slot (mod w), -1
+    where there is none."""
+    last = start - 1
+    p_s = last - (last - torch.arange(w, device=device)) % w
+    return torch.where(p_s >= 0, p_s, -1)[None]
+
+
 def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                    positions: torch.Tensor, cache: dict,
                    signs: torch.Tensor,
                    lengths: Optional[torch.Tensor]) -> torch.Tensor:
-    """One layer over the full prompt; fills this layer's cache in place."""
+    """One layer over the full prompt; fills this layer's cache (a ParisKV
+    store, or a local layer's ring) in place."""
     h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
     y, k_new, v_new = L.attn_prefill(p["attn"], h, ld.attn, positions)
-    CC.prefill_write(cache["kv"], k_new, v_new, cfg.pariskv, signs,
-                     lengths=lengths)
+    if is_ring(cache):
+        _ring_prefill(cache["kv"], k_new, v_new, lengths)
+    else:
+        CC.prefill_write(cache["kv"], k_new, v_new, cfg.pariskv, signs,
+                         lengths=lengths)
     x = x + y.to(x.dtype)
     h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     return x + _ffn(p, h, ld, cfg).to(x.dtype)
@@ -389,12 +478,15 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     ``update_interval`` window tokens — on the paged paths with the
     histogram maintained (a tiered pool gathers the keys through the
     composed staging tables). ``use_pariskv=False`` is the full-attention
-    baseline over the contiguous cache (no promotion)."""
+    baseline over the contiguous cache (no promotion). A local layer
+    decodes densely over its ring buffer, whole on every rank."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_t, p["norm_attn"], cfg.norm_eps)
     kv = cache["kv"]
     res = None
-    if not (use_pariskv and ld.use_pariskv):
+    if is_ring(cache):
+        y = L.attn_decode_dense(p["attn"], h, kv, regions.pos + 1, ld.attn)
+    elif not (use_pariskv and ld.use_pariskv):
         y = L.attn_decode_dense(p["attn"], h, (kv.k, kv.v), regions.pos + 1,
                                 ld.attn)
     elif block_tables is None:
@@ -539,11 +631,29 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     (its pool's prefix, its heads' K/V and metadata written; the output
     heads gathered). Runs after the layer's decode:
     the filling row's dead decode append lands at the fill frontier, which
-    the chunk overwrites."""
+    the chunk overwrites (in a ring, at the slot of position start - w,
+    which lies outside every chunk query's window).
+
+    A local layer reads its prefix from the slot's ring by position
+    (``_ring_prefix_pos``), attends within its window on every head (no
+    fetch, no head split), and writes the chunk's last ``w`` valid tokens
+    (a chunk longer than the ring keeps only each slot's last write)."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_f, p["norm_attn"], cfg.norm_eps)
     kv = cache["kv"]
     slot, start, n = fctx.slot, fctx.start, fctx.valid_n
+    if is_ring(cache):
+        w = kv[0].shape[1]
+        y, k_new, v_new = L.attn_fill_chunk(
+            p["attn"], h, ld.attn, fctx.q_pos, kv[0][slot:slot + 1],
+            kv[1][slot:slot + 1], _ring_prefix_pos(start, w, h.device),
+            fctx.new_pos)
+        t = torch.arange(max(0, n - w), n, device=h.device)
+        for ring, new in zip(kv, (k_new, v_new)):
+            ring[slot, (start + t) % w] = new[0, t].to(ring.dtype)
+        x_f = x_f + y.to(x_f.dtype)
+        h = L.rms_norm(x_f, p["norm_mlp"], cfg.norm_eps)
+        return x_f + _ffn(p, h, ld, cfg).to(x_f.dtype)
     pref_pos = fctx.pref_pos
     ok = True
     if fetch is not None:                # tiered, under a fault plan
@@ -617,11 +727,11 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     will_promote = CC.promote_trigger(regions, pcfg) & act
     append_index = None
     if block_tables is None:
-        n_max = state.caches[0]["kv"].k.shape[1]
+        n_max = _store(state.caches).k.shape[1]
     else:
         if not use_pariskv:
             raise ValueError("paged decode serves the ParisKV path only")
-        bs = state.caches[0]["kv"].k.shape[1]
+        bs = _store(state.caches).k.shape[1]
         n_max = block_tables.shape[1] * bs
         append_index = CC.paged_append_index(
             block_tables if tier is None else tier.kv_tables,
@@ -742,14 +852,14 @@ def init_paged_slot_state(cfg: ModelConfig, batch: int, num_blocks: int,
     """Empty slot state over a shared block pool on ``device`` (the first
     CUDA card unless ``device="cpu"``); ``num_device_blocks`` makes the
     pool tiered and ``dist`` holds one rank's KV heads
-    (``make_paged_caches``). Block tables are host-managed by
-    the engine and passed to ``decode_chunk`` per call. ``prefill_budget``
-    > 0 adds the chunked-fill state, its prompt buffer ``n_max + P``
-    wide."""
+    (``make_paged_caches``), local layers' rings span min(window,
+    ``n_max``). Block tables are host-managed by the engine and passed to
+    ``decode_chunk`` per call. ``prefill_budget`` > 0 adds the
+    chunked-fill state, its prompt buffer ``n_max + P`` wide."""
     dev = resolve_device(device)
     return _zeros_slot_state(
         make_paged_caches(cfg, batch, num_blocks, block_size, dev,
-                          num_device_blocks, dist), batch, dev, n_max,
+                          num_device_blocks, dist, n_max), batch, dev, n_max,
         prefill_budget)
 
 
@@ -817,11 +927,11 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
         tier = TierView(dev_map, CC.tiered_kv_tables(block_tables, dev_map),
                         host_kv, side, fetch,
                         None if fetch is None else entry_names(cfg))
-        for lc in state.caches:
+        for lc in pool_entries(state.caches):
             for key in ("touched", "rows", "uniq", "dropped"):
                 lc["fetch"][key].zero_()
             lc["fetch"].update(_FETCH_HOST_ZERO)
-    kv0 = state.caches[0]["kv"]
+    kv0 = _store(state.caches)
     emitted = []
     for _ in range(num_steps):
         active = state.remaining > 0
@@ -881,9 +991,16 @@ def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
     one layer's blocks (``admit_tiered`` passes the metadata-only one).
     With ``dist`` the prefill ran replicated, every head, while the pool
     holds the rank's heads: the rank scatters, and counts its histogram
-    from, its heads' slice only."""
+    from, its heads' slice only. A local layer's ring is slot-local: the
+    prefill's ring (every head) goes to the slot's row, into its first
+    slots when a bucketed prefill's ring is shorter (its positions all lie
+    below its length, so they sit where the longer ring keeps them)."""
     phys_blocks = phys_blocks.to(state.cur_tok.device)
     for lc, lc1 in zip(state.caches, caches1):
+        if is_ring(lc):
+            for big, small in zip(lc["kv"], lc1["kv"]):
+                big[slot, :small.shape[1]] = small[0]
+            continue
         kv1 = lc1["kv"] if dist is None else CC.head_slice(
             lc1["kv"], *dist.head_range(lc1["kv"].k.shape[2]))
         scatter(lc["kv"], kv1, phys_blocks)

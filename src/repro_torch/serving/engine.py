@@ -97,7 +97,7 @@ from repro_torch.distributed import ShardDist
 from repro_torch.kernels.build import KernelError
 from repro_torch.models import serve as SV
 from repro_torch.models.layers import SideStream
-from repro_torch.models.model import param_device, torch_dtype
+from repro_torch.models.model import layer_defs, param_device, torch_dtype
 from repro_torch.serving import offload as offload_lib
 from repro_torch.serving.faults import FaultPlan
 
@@ -790,7 +790,7 @@ class PagedServingEngine(ServingEngine):
         zero until the next admission computes it). Blocks another slot
         still maps are left as they are."""
         phys = self._phys_row(dead).to(self.device)
-        for lc in self._state.caches:
+        for lc in SV.pool_entries(self._state.caches):
             CC.paged_clear_blocks(lc["kv"], phys)
             lc["hist"][slot] = 0
 
@@ -952,6 +952,8 @@ class PagedServingEngine(ServingEngine):
             if idle:
                 sel = torch.tensor(idle, device=self.device)
                 for li, lc in enumerate(self._state.caches):
+                    if SV.is_ring(lc):
+                        continue
                     self._check(not bool(lc["hist"][sel].any()),
                                 f"layer {li}: a free slot of {idle} holds "
                                 f"a histogram row")
@@ -970,6 +972,8 @@ class PagedServingEngine(ServingEngine):
         regions = CC.CacheRegions(pos=self._state.regions.pos[sel],
                                   enc_end=self._state.regions.enc_end[sel])
         for li, lc in enumerate(self._state.caches):
+            if SV.is_ring(lc):
+                continue
             ids = CC.paged_ids_view(lc["kv"], bt)
             want = CC.bucket_hist_from_meta(ids, regions, pcfg)
             self._check(torch.equal(lc["hist"][sel], want),
@@ -1097,7 +1101,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         self.prefetch = prefetch
         self.prefetch_hook = prefetch_hook
         self.overlap = bool(overlap)
-        self._names = [f"l{i}" for i in range(cfg.num_layers)]
+        # the host pool pages the global layers' K/V; local layers' rings
+        # stay slot-local on the device
+        glob = [ld.use_pariskv for ld in layer_defs(cfg)]
+        self._names = [f"l{i}" for i, g in enumerate(glob) if g]
         self.host = offload_lib.HostKVPool(
             {n: (cfg.num_kv_heads, cfg.head_dim) for n in self._names},
             self.num_blocks, block_size, torch_dtype(cfg),
@@ -1106,7 +1113,8 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         self.host.fetch_max_retries = fetch_max_retries
         self.host.fetch_backoff_s = fetch_backoff_s
         self.host.faults = faults
-        self._host_kv = [self.host.flat(n) for n in self._names]
+        self._host_kv = [self.host.flat(f"l{i}") if g else None
+                         for i, g in enumerate(glob)]
         self._side = (SideStream.create(self.device)
                       if self.overlap and self.device.type == "cuda"
                       else None)
@@ -1133,9 +1141,10 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         return min(self.n_max, -(-b // self.block_size) * self.block_size)
 
     def _install_solo(self, slot: int, req: Request, state1, tok0) -> None:
-        cap = state1.caches[0]["kv"].k.shape[1]
+        pool1 = SV.pool_entries(state1.caches)
+        cap = pool1[0]["kv"].k.shape[1]
         phys = self._phys_row(self._alloc[slot])[:cap // self.block_size]
-        for name, lc1 in zip(self._names, state1.caches):
+        for name, lc1 in zip(self._names, pool1):
             self.host.write_prefill(name, phys.numpy(), lc1["kv"].k[0],
                                     lc1["kv"].v[0])
         self._state = SV.admit_tiered(
@@ -1251,13 +1260,15 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         if writebacks:
             evs = np.asarray([e for e, _ in writebacks], np.int64)
             ss = torch.tensor([s for _, s in writebacks], device=self.device)
-            for name, lc in zip(self._names, self._state.caches):
+            for name, lc in zip(self._names,
+                                SV.pool_entries(self._state.caches)):
                 self.host.writeback(name, evs, lc["kv"].k[ss],
                                     lc["kv"].v[ss])
         if installs:
             hbs = np.asarray([h for h, _ in installs], np.int64)
             ss = torch.tensor([s for _, s in installs], device=self.device)
-            for name, lc in zip(self._names, self._state.caches):
+            for name, lc in zip(self._names,
+                                SV.pool_entries(self._state.caches)):
                 CC.tiered_stage_blocks(lc["kv"], ss,
                                        *self.host.read_blocks(name, hbs))
 
@@ -1267,7 +1278,7 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         and degraded counters, gather, stall, retry and timeout
         attribution, prefetch-hit accounting, and the exponential-decay
         touch scores that seed the next chunk's prefetch."""
-        caches = self._state.caches
+        caches = SV.pool_entries(self._state.caches)
         touched = torch.stack([lc["fetch"]["touched"] for lc in caches]
                               ).sum(0).cpu().numpy()
         rows = torch.stack([lc["fetch"]["rows"] for lc in caches]
@@ -1367,7 +1378,7 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         freed = self.staging.release_host_blocks(blocks)
         meta = torch.from_numpy(blocks).to(self.device)
         stag = torch.tensor(freed, dtype=torch.int64, device=self.device)
-        for lc in self._state.caches:
+        for lc in SV.pool_entries(self._state.caches):
             CC.tiered_clear_blocks(lc["kv"], meta, stag)
             lc["hist"][slot] = 0
         if blocks.size:

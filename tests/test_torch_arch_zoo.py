@@ -151,7 +151,8 @@ def grok():
 
 def test_archs_and_layer_plans():
     assert set(TC.ARCHS) == {"qwen2-1.5b", "stablelm-1.6b", "llama3.1-8b",
-                             "qwen3-8b", "grok-1-314b"}
+                             "qwen3-8b", "grok-1-314b", "gemma2-27b",
+                             "gemma3-12b"}
     from repro import configs as JC
     for arch in TC.ARCHS:
         assert dataclasses.asdict(TC.get(arch)) == dataclasses.asdict(
@@ -172,7 +173,7 @@ def test_archs_and_layer_plans():
     with pytest.raises(NotImplementedError, match=r"A13\.6"):
         TM.layer_plan(deepseek)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TC.get("gemma2-27b")
+        TC.get("mamba2-780m")
 
 
 def test_unsupported_paged_config_matches_reference(monkeypatch):

@@ -36,7 +36,7 @@ def card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("nsub", [8, 16])
+@pytest.mark.parametrize("nsub", [8, 16, 32])
 def test_kernels_match_plain_on_card(card, nsub):
     """Each CUDA kernel equals its plain version on the card (exact for
     integer outputs and gathers; rerank to float32 reassociation)."""
@@ -278,14 +278,14 @@ def test_dedup_tiered_gather_matches_plain_on_card(card, qk, threads):
 def test_bucket_count_span_matches_plain_on_card(card):
     """The chunked fill's histogram update (bucket_count's block-table
     mode) adds exactly its plain version's counts, through a table row with
-    an unallocated block and past the table, at B = 8 and 16."""
+    an unallocated block and past the table, at B = 8, 16 and 32."""
     from repro_torch.kernels.collision import bucket_count_span
     from repro_torch.kernels.collision.ref import bucket_count_span_ref
 
     gen = torch.Generator(device=card).manual_seed(3)
     nb, bs = 10, 32
     bt = torch.tensor([[7, 2, 9, -1, 0]], dtype=torch.int32, device=card)
-    for nsub in (8, 16):
+    for nsub in (8, 16, 32):
         ids = torch.randint(0, 256, (nb, G, bs, nsub), generator=gen,
                             device=card, dtype=torch.int32).to(torch.uint8)
         for lo, hi in ((8, 40), (30, 120), (100, 200), (0, 1)):
@@ -295,6 +295,49 @@ def test_bucket_count_span_matches_plain_on_card(card):
             want = base.cpu() + bucket_count_span_ref(ids.cpu(), bt.cpu(),
                                                       lo, hi, 256)
             assert torch.equal(got.cpu(), want), (nsub, lo, hi)
+
+
+@pytest.mark.cuda
+def test_b32_stage1_and_bucket_count_at_gemma3_shapes_on_card(card):
+    """gemma3-12b's global layers at B = 32 (head_dim 256), G 8, Hg 2, 512
+    blocks of 128, four rows: Stage I with its histograms, the cut and
+    ``bucket_count`` (the contiguous region's and the fill's span) equal
+    their plain versions exactly."""
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision import bucket_count_span
+    from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                                   bucket_count_span_ref,
+                                                   collision_paged_ref)
+
+    gen = torch.Generator(device=card).manual_seed(32)
+    G8, hg, B, nb, bs, b = 8, 2, 32, 512, 128, 4
+    nblk = nb // b
+    ids = torch.randint(0, 256, (nb, G8, bs, B), generator=gen, device=card,
+                        dtype=torch.int32).to(torch.uint8)
+    bt = torch.randperm(nb, generator=gen, device=card).to(
+        torch.int32).reshape(b, nblk)
+    bt[3, 100:] = -1
+    enc_end = torch.tensor([16000, 9000, 3000, 12000], dtype=torch.int32,
+                           device=card)
+    tables = lane_packed_table(b, G8, hg, B, 256, card)
+    tables.copy_(torch.randint(0, 7, (b, G8, hg, B, 256), generator=gen,
+                               device=card, dtype=torch.int32).to(
+                                   torch.uint8))
+    got, hist = collision_scores_paged_kernel(ids, bt, tables, enc_end, 64,
+                                              6 * B)
+    want, want_hist = collision_paged_ref(ids, bt, tables, enc_end, 64, 6 * B)
+    assert torch.equal(got, want) and torch.equal(hist, want_hist)
+    assert int(got.max()) > 6 * 16          # past B = 16's score range
+    cand = bucket_topk(got, 2048, 6 * B, seg_hist=hist)
+    assert torch.equal(cand, bucket_topk_ref(got, 2048, 6 * B))
+    view = ids[bt.clamp_min(0).long()].permute(0, 2, 1, 3, 4).reshape(
+        b, G8, nblk * bs, B).contiguous()
+    counts = bucket_count(view, enc_end, 64, 256)
+    assert torch.equal(counts, bucket_count_ref(view, enc_end, 64, 256))
+    base = torch.zeros((b, G8, B, 256), dtype=torch.int32, device=card)
+    span = bucket_count_span(ids, bt, 64, 12000, 256, base)
+    assert torch.equal(span.cpu(), bucket_count_span_ref(
+        ids.cpu(), bt.cpu(), 64, 12000, 256))
 
 
 @pytest.mark.cuda
