@@ -71,11 +71,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               every request promoted, token agreement with the engine
               phase printed as a rate (bf16 promises no identity).
 6. metaview — ``PagedServingEngine(fused=False)`` and the fused engine on
-              the first two requests with 32 new tokens: identical tokens
+              the first two requests with 16 new tokens: identical tokens
               asserted, Stage I over the view launched exactly 28 × steps.
 7. baseline — the slot engine with ParisKV and with full attention
               (``use_pariskv=False``), and ``WaveServingEngine``, on
-              requests of 3000/6000 prompt tokens with 32 new each: host-
+              requests of 3000/6000 prompt tokens with 16 new each: host-
               bound smoke throughputs, not a benchmark.
 8. offload  — ``PagedServingEngine(offload=True)``: (a) the engine phase's
               four requests with the K/V pool in pinned host memory and a
@@ -90,15 +90,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launch the missed winner head rows, how many repeat a row
               already read in that launch, and asserting that the kernel
               read each distinct one once (``offload_duplicates``). (b)
-              one request of 32,768 prompt tokens and 16 new through the
+              one request of 24,576 prompt tokens and 16 new through the
               offloaded engine (staging pool 1/8 of 1024 blocks) and the
               resident paged engine: identical tokens asserted, peak
               memory and TTFT printed.
 9. chunked  — chunked prefill (``prefill_budget=512``) at full width on
-              the engine phase's four requests with 48 new tokens each
+              the engine phase's four requests with 16 new tokens each
               (token agreement with the engine phase over those): (a)
-              the paged engine,
-              (b) the slot engine, (c) the offloaded engine (128 of 512
+              the paged engine, (b) the slot engine on the first two
+              of them, (c) the offloaded engine (128 of 512
               blocks staged, every tiered-gather launch checked as in
               ``offload_duplicates``): per request TTFT, the longest gap
               between tokens of the requests already decoding while it
@@ -113,12 +113,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               fill's gather_rows_paged and bucket_count launch in every
               layer of every step.
 10. share   — prefix sharing (``share_prefixes=True``, budget 512) at full
-              width on six requests with one 8,192-token system prompt
-              and suffixes of 256/384/512/200/448/320 tokens, 16 new each,
+              width on four requests with one 8,192-token system prompt
+              and suffixes of 256/384/512/200 tokens, 16 new each,
               all submitted at chunk 0: (a) the paged engine with sharing
               on, then off: per request TTFT and mapped blocks, the
               sharers' mean TTFT, blocks drawn from the pool, tokens/s and
-              peak memory; each sharer maps 64 blocks (320 hits), sharing
+              peak memory; each sharer maps 64 blocks (192 hits), sharing
               draws fewer blocks, ``verify_invariants()`` holds at every
               chunk boundary, the pool drains, each shared admission
               launches bucket_count once per layer and the first one's
@@ -139,25 +139,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
               chunk on (degraded attention), ``engine.slot`` failing uid 0
               (quarantine) and staging storms, each audited with
               ``verify_invariants()`` at every chunk; and a chunked run
-              (budget 512, four requests, 16 new) whose fill prefix reads
-              all exhaust their retries. Tokens equal the clean run's
-              where the contract says so (the survivor's under
-              quarantine); the degraded runs complete, and every degraded
-              tiered launch reads zero host rows; no ``kv-fetch*`` thread
-              survives ``close()``. Prints tokens/s against the clean run,
-              stall, retries, timeouts, degraded steps and storm
-              evictions, and the degraded run's token agreement.
+              (budget 512, four requests, 16 new) whose fill prefix
+              reads all exhaust their retries. Tokens equal the
+              clean run's where the contract says so (the survivor's
+              under quarantine); the degraded runs complete, and every
+              degraded tiered launch reads zero host rows; no
+              ``kv-fetch*`` thread survives ``close()``. Prints tokens/s
+              against the clean run, stall, retries, timeouts, degraded
+              steps and storm evictions, and the degraded run's token
+              agreement.
 12. sharded — head-sharded paged serving: stablelm-1.6b (32 KV heads of
               64) over two ranks on the one card (``launch_local``, gloo:
               NCCL refuses two ranks on one device). First its four
               kernels at a rank's shapes (16 KV heads, Hg 1, B 8), held to
               their plain versions and timed. (a) 24 layers, bf16, seed 0:
               ``PagedServingEngine(mesh_shards=2)`` and the same engine on
-              one device (this process) on the engine phase's four
-              requests with 64 new tokens each: each side's tokens/s, each
+              one device (this process) on the engine phase's first two
+              requests with 16 new tokens each: each side's tokens/s, each
               rank's pool bytes (asserted half the one-device pool's) and
               the bf16 token agreement; every rank's launches held as the
-              engine phase's; at one decode step each rank's Stage I
+              engine phase's; at one decode step of all four requests
+              admitted together, each rank's Stage I
               scores, top-C set, Stage II winners, estimates and rows and
               its decode gather's K/V rows equal the one-device outputs'
               slice of its heads exactly (SHA-256 per layer and field).
@@ -200,7 +202,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
               solo tokens identical on the paged, slot and offloaded
               engines for requests of 1,500/2,500/3,500 tokens, which wrap
               the window (the ring fill's prefix read and its wrap).
-15. parity  — 2 layers at full width in float32: one teacher-forced
+15. cross   — the cross-attention architectures, run it alone with
+              ``python3 chip_smoke.py cross``: (a) the four main-path
+              kernels and ``bucket_count`` at whisper-large-v3's shapes (G
+              20, the first KV-head count that is not a power of two; Hg
+              1, hd 64, B 8), held and timed as in the sharded phase, the
+              "w" rows; (b) whisper-large-v3 at full width and depth (32
+              decoder layers with a cross sublayer each, 32 encoder layers
+              over 1,500 stub frames a request; bf16, seed 0) through the
+              fused paged engine on the engine phase's four requests with
+              264 new: every request promotes (B = 8 encodes at G = 20),
+              pool and media bytes (the latter exact), peak memory,
+              tokens/s and TTFT, launches held as the engine phase's; (c)
+              llama-3.2-vision-11b at full width and depth (40 layers, a
+              gated cross layer every 5th over 1,600 patch embeddings) on
+              requests of 6,000 and 12,000 tokens with 64 new, its cross
+              gates seeded non-zero; (d) float32 at full width, card
+              against CPU: whisper's encoder at one layer, whisper's
+              cross sublayer and a vision cross layer for one decode
+              step, each within 1e-4 of the output's largest magnitude.
+              Head sharding of these families is held on the CPU only.
+16. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -254,22 +276,24 @@ EXACT = ("collision_paged", "bucket_topk", "rerank_topk_paged")
 OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
                    "rerank_topk_paged": 1, "gather_rows_paged": 1,
                    "gather_rows_tiered": 1}
-LONG_PROMPT, LONG_GEN = 32768, 16        # the offload phase's long request
+LONG_PROMPT, LONG_GEN = 24576, 16        # the offload phase's long request
 OVERLAP_GEN = 16                         # the offload overlap runs
 CHUNK_BUDGET = 512                       # the chunked phase's prefill_budget
-CHUNK_GEN = 48                           # and its new tokens
+CHUNK_GEN = 16                           # and its new tokens
 # the share phase's fleet: one system prompt of 64 blocks of 128, then
 # distinct suffixes, SHARE_GEN new tokens each, all submitted at chunk 0
 SHARE_PREFIX = 8192
-SHARE_SUFFIXES = (256, 384, 512, 200, 448, 320)
+SHARE_SUFFIXES = (256, 384, 512, 200)
 SHARE_GEN = 16
 FAULT_GEN = 16                           # the faults phase's new tokens
 FAULT_CHUNKED_GEN = 16                   # and in its chunked run (g)
 # the sharded phase: stablelm-1.6b (32 KV heads) over two ranks of one
-# card, the engine phase's requests with 64 new tokens; its float32 part
+# card, the engine phase's first two requests with 16 new tokens (the
+# retrieval probe admits all four); its float32 part
 SHARDS = 2
 SHARD_ARCH = "stablelm-1.6b"
-SHARD_GEN = 64
+SHARD_GEN = 16
+SHARD_REQUESTS = 2                       # of the engine phase's, in (a)
 SHARD_F32_LENS = (1500, 2500, 3500)
 SHARD_F32_GEN = 16
 SHARD_F32_BUDGET = 256
@@ -288,6 +312,17 @@ LLAMA_GEN = 64
 # one period (its 6 layers) in float32
 GEMMA3_ARCH, GEMMA2_ARCH = "gemma3-12b", "gemma2-27b"
 GEMMA2_LAYERS = 8
+# the cross phase: whisper-large-v3 at full width and depth (32 decoder and
+# 32 encoder layers over 1,500 stub frames) on the engine phase's requests
+# with GEN new tokens, every request promoting (G = 20 KV heads, B = 8), and
+# llama-3.2-vision-11b at full depth on LLAMA_LENS with LLAMA_GEN, its cross
+# gates seeded non-zero (zero at init, tanh(0) = 0, the cross layers would
+# add nothing); card against CPU in float32 at full width: one encoder
+# layer, one cross decode step of each family, held to CROSS_RTOL of the
+# output's largest magnitude
+WHISPER_ARCH, VISION_ARCH = "whisper-large-v3", "llama-3.2-vision-11b"
+CROSS_ROWS = 4
+CROSS_RTOL = 1e-4
 # its MoE layer in float32, card against CPU: a 64-token moe_fwd and a
 # 4-row moe_decode. Sums over d_ff = 32,768 reassociate (~1e-5 at outputs
 # of ~5); routing may differ only at a top-2 gap within float32 rounding
@@ -1260,20 +1295,23 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
 
 def _retrieval_layers(cfg) -> int:
     """The layers that run ParisKV retrieval, and so the kernels, in every
-    decode step: all of them but gemma's sliding-window local layers,
-    which decode densely over their ring buffers."""
-    from repro_torch.models.model import layer_defs
-    return sum(ld.use_pariskv for ld in layer_defs(cfg))
+    decode step, the pool's layers: all of them but gemma's sliding-window
+    local layers, which decode densely over their ring buffers, and
+    llama-vision's cross layers, which attend to static media K/V."""
+    from repro_torch.models.serve import pool_layers
+    return sum(pool_layers(cfg))
 
 
 def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
-           exact=EXACT, fill=None, failed=()):
+           exact=EXACT, fill=None, failed=(), media=None):
     """Serve ``prompts`` (uid = index) submitted before the chunks in
     ``arrivals``, with the launch counters zeroed just before and read just
     after, held to ``_check_run``. ``audit``: the engine's
     ``verify_invariants()`` (allocator, refcounts, tables, prefix index,
     staging, histograms == recompute) at every chunk boundary; the
-    audit's own launches are not counted. → (record, {uid: request})."""
+    audit's own launches are not counted. ``media``: each request's
+    media (the cross-attention architectures). → (record, {uid:
+    request})."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.serving import Request
@@ -1288,7 +1326,9 @@ def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
         for uid, at in enumerate(arrivals):
             if at == chunk:
                 eng.submit(Request(uid=uid, prompt=prompts[uid],
-                                   max_new_tokens=gen))
+                                   max_new_tokens=gen,
+                                   media=None if media is None
+                                   else media[uid]))
         t0 = time.perf_counter()
         eng.step_serve()
         torch.cuda.synchronize()
@@ -1344,8 +1384,20 @@ def _warm(eng, cfg, warm: int = 700):
     """One short request (cuBLAS handles, kernel libraries); not measured."""
     from repro_torch.serving import Request
     eng.submit(Request(uid=99, max_new_tokens=4,
-                       prompt=_prompts(cfg, seed=99, lens=(warm,))[0]))
+                       prompt=_prompts(cfg, seed=99, lens=(warm,))[0],
+                       media=_media(cfg, 1, seed=99)[0]))
     eng.run()
+
+
+def _media(cfg, n: int, seed: int = 0):
+    """``n`` requests' stub media (``data.media_stub``, seed + uid), each
+    (T, d) float32, for the cross-attention architectures; Nones for the
+    rest."""
+    from repro_torch.data import media_stub
+    from repro_torch.models.serve import media_len
+    T = media_len(cfg)
+    return [media_stub(1, T, cfg.d_model, seed=seed + i)[0] if T else None
+            for i in range(n)]
 
 
 def engine_phase(dev, cfg, params, n_max: int = 16384,
@@ -1390,7 +1442,7 @@ def slot_phase(dev, cfg, params, paged_out, n_max: int = 16384):
     return rec, eng
 
 
-def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 32):
+def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 16):
     """The paged meta-view fallback against the fused engine on the first
     two requests: identical tokens asserted."""
     import numpy as np
@@ -1632,7 +1684,7 @@ def _miss_duplicates(dev, cfg, params, n_max: int, gen: int = 16):
                 duplicate_share=1 - t["distinct_missed_head_rows"] / missed)
 
 
-def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 32):
+def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 16):
     """ParisKV slots, full-attention slots and ParisKV waves on two
     requests of 3000/6000 prompt tokens submitted together."""
     import numpy as np
@@ -1800,9 +1852,10 @@ def _per_request(rec, done, paged_out):
 def chunked_phase(dev, cfg, params, paged_out, paged_rec,
                   n_max: int = 16384, budget: int = CHUNK_BUDGET):
     """Chunked prefill (prefill_budget=512) at full width: (a) the paged
-    engine, (b) the slot engine and (c) the offloaded engine on the engine
-    phase's four requests, (d) float32 identity of chunked and solo
-    tokens on every engine at 2 layers, (e) a profile of mixed steps."""
+    engine and (c) the offloaded engine on the engine phase's four
+    requests, (b) the slot engine on the first two, (d) float32 identity
+    of chunked and solo tokens on every engine at 2 layers, (e) a profile
+    of mixed steps."""
     import torch
     from repro_torch.serving import PagedServingEngine, ServingEngine
 
@@ -1831,14 +1884,14 @@ def chunked_phase(dev, cfg, params, paged_out, paged_rec,
     rec["profile"] = _mixed_profile(eng, cfg)
     del eng
     torch.cuda.empty_cache()
-    # (b) the slot engine
+    # (b) the slot engine, on the first two requests
     eng = ServingEngine(cfg, params, **common)
     _warm(eng, cfg)
-    r, done = _serve(eng, prompts, CHUNK_GEN, ARRIVALS, SLOT_KERNELS, cfg,
-                     exact=EXACT + ("bucket_count",))
+    r, done = _serve(eng, prompts[:2], CHUNK_GEN, ARRIVALS[:2], SLOT_KERNELS,
+                     cfg, exact=EXACT + ("bucket_count",))
     rec["slot"] = dict(r, **_per_request(r, done, paged_out))
     rec["slot"]["tokens_identical_to_chunked_paged"] = _same_tokens(
-        {u: q.output for u, q in done.items()}, paged)
+        {u: q.output for u, q in done.items()}, {u: paged[u] for u in done})
     print("chunked_slot " + json.dumps(rec["slot"]), flush=True)
     del eng
     torch.cuda.empty_cache()
@@ -1912,6 +1965,9 @@ def _mixed_profile(eng, cfg, gen: int = 64):
         eng.step_serve()                  # ends after its first chunk
     rec = dict(path="chunked paged, mixed steps", rows=4, fill_rows=1,
                **_profile_chunk(eng))
+    for r in eng._slots:                 # profiled: the rest is not needed
+        if r is not None:
+            eng.cancel(r.uid)
     while eng.pending():
         eng.step_serve()
     per = rec["port_launches_per_step"]
@@ -2075,7 +2131,7 @@ def _share_run(eng, cfg, prompts, gen: int, kernels, budget: int, share):
 
 def share_phase(dev, cfg, params, n_max: int = 16384,
                 budget: int = CHUNK_BUDGET):
-    """Prefix sharing at full width on a fleet of six requests with one
+    """Prefix sharing at full width on a fleet of four requests with one
     8,192-token system prompt (``SHARE_SUFFIXES`` after it, ``SHARE_GEN``
     new tokens each, all submitted at chunk 0, admissions serialized through the one
     filling slot): (a) the fused paged engine with sharing on, then off;
@@ -2480,6 +2536,13 @@ def _ring_bytes(eng) -> int:
                for t in lc["kv"])
 
 
+def _media_bytes(eng) -> int:
+    """Device bytes of the slot-local media K/V (cross layers and
+    sublayers)."""
+    return sum(t.nbytes for lc in eng._state.caches
+               for t in lc.get("media_kv", ()))
+
+
 def _digest(t) -> str:
     """SHA-256 of a tensor's bytes."""
     import hashlib
@@ -2564,7 +2627,8 @@ def _shard_f32(dev, cfg_full, shards: int):
 
 def _shard_rank(rank: int, shards: int, backend: str, device_type: str):
     """One rank of the sharded phase: (a) at full width, the engine phase's
-    requests with 64 new tokens each, its launches counted and checked
+    first two requests with 16 new tokens each, its launches counted and
+    checked
     (``_serve``), and the retrieval probe; (b) the float32 modes. A rank
     serves on its own card under NCCL, on card 0 under gloo."""
     import torch
@@ -2582,8 +2646,8 @@ def _shard_rank(rank: int, shards: int, backend: str, device_type: str):
     eng = _shard_engine(cfg, params, dev, shards)
     _warm(eng, cfg)
     pool = _pool_bytes(eng)
-    rec, done = _serve(eng, _prompts(cfg), SHARD_GEN, ARRIVALS,
-                       PAGED_KERNELS, cfg)
+    rec, done = _serve(eng, _prompts(cfg)[:SHARD_REQUESTS], SHARD_GEN,
+                       ARRIVALS[:SHARD_REQUESTS], PAGED_KERNELS, cfg)
     probe = _probe(eng, cfg, _prompts(cfg), [None])[0]
     del eng, params
     torch.cuda.empty_cache()
@@ -2609,8 +2673,8 @@ def sharded_phase(dev):
     eng = _shard_engine(cfg, params, dev, 1)
     _warm(eng, cfg)
     pool = _pool_bytes(eng)
-    one, done = _serve(eng, _prompts(cfg), SHARD_GEN, ARRIVALS,
-                       PAGED_KERNELS, cfg)
+    one, done = _serve(eng, _prompts(cfg)[:SHARD_REQUESTS], SHARD_GEN,
+                       ARRIVALS[:SHARD_REQUESTS], PAGED_KERNELS, cfg)
     one_tokens = {u: r.output.tolist() for u, r in done.items()}
     per = cfg.num_kv_heads // SHARDS
     probes = _probe(eng, cfg, _prompts(cfg),
@@ -2765,11 +2829,25 @@ def _moe_card_vs_cpu(dev, cfg, seed: int = 0):
                 **out)
 
 
+def _seed_gates(params, seed: int = 1) -> list:
+    """Set every cross layer's ``cross_gate`` (zero at init) to a seeded
+    value in (0.3, 0.9), in place → the gates."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    gates = []
+    for p in params["layers"]:
+        if "cross_gate" in p:
+            p["cross_gate"].fill_(float(rng.uniform(0.3, 0.9)))
+            gates.append(float(p["cross_gate"]))
+    return gates
+
+
 def _arch_serve(dev, cfg, full_layers: int, lens, gen: int, arrivals):
-    """``cfg`` (random bf16 weights, seed 0) through the fused paged engine
-    at the engine phase's geometry: the requests ``lens`` submitted before
-    the chunks ``arrivals``, ``gen`` new tokens each, launches counted and
-    checked and every chunk audited (``_serve``)."""
+    """``cfg`` (random bf16 weights, seed 0; cross gates seeded non-zero)
+    through the fused paged engine at the engine phase's geometry: the
+    requests ``lens`` (with stub media on a cross-attention architecture)
+    submitted before the chunks ``arrivals``, ``gen`` new tokens each,
+    launches counted and checked and every chunk audited (``_serve``)."""
     import torch
     from repro_torch.models.model import init_params, param_count
 
@@ -2777,14 +2855,17 @@ def _arch_serve(dev, cfg, full_layers: int, lens, gen: int, arrivals):
     params = init_params(cfg, seed=0, device=dev)
     param_gb = (torch.cuda.memory_allocated() - before) / 1e9
     n_params = param_count(params)
+    gates = _seed_gates(params)
     eng = _shard_engine(cfg, params, dev, 1)
     _warm(eng, cfg)
     rec, done = _serve(eng, _prompts(cfg, lens=lens), gen, arrivals,
-                       PAGED_KERNELS, cfg, audit=True)
+                       PAGED_KERNELS, cfg, audit=True,
+                       media=_media(cfg, len(lens)))
     rec = dict(arch=cfg.name, layers=cfg.num_layers,
                full_layers=full_layers, dtype=cfg.dtype, params=n_params,
                param_gb=param_gb, pool_bytes=_pool_bytes(eng),
-               ring_bytes=_ring_bytes(eng), **rec)
+               ring_bytes=_ring_bytes(eng), media_bytes=_media_bytes(eng),
+               **({"cross_gates": gates} if gates else {}), **rec)
     del eng, params
     torch.cuda.empty_cache()
     return rec, done
@@ -2895,6 +2976,130 @@ def gemma_phase(dev):
                    f"(4 local/global periods; full depth's weights, pool "
                    f"and rings leave no room for a 16,384-token prefill)")
     print("gemma " + json.dumps(rec), flush=True)
+    return rec, kern
+
+
+def _card_vs_cpu(fn, args_dev, move):
+    """``fn`` on the card's ``args_dev`` and on their CPU copies
+    (``move``) → (max |difference|, max |CPU output|)."""
+    import torch
+    got = fn(*args_dev)
+    want = fn(*move(args_dev))
+    torch.cuda.synchronize()
+    return (float((got.cpu() - want).abs().max()),
+            float(want.abs().max()))
+
+
+def _cross_card_vs_cpu(dev, whisper, vision, seed: int = 0):
+    """(d) Float32 at full width, card against the port's CPU run of the
+    same function on copies of the same seeded weights and inputs:
+    whisper's encoder at one layer over 1,500 stub frames
+    (``encoder_fwd``), a whisper layer's cross sublayer
+    (``attn_cross_decode``) and a whole vision cross layer (``_layer_decode``:
+    the gated cross attention and the MLP, gate non-zero), each one decode
+    step of ``CROSS_ROWS`` rows over random media K/V of its full length.
+    Each held to ``CROSS_RTOL`` of the output's largest magnitude."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.data import media_stub
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(v) for v in tree)
+        return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    # whisper's encoder, one layer
+    cfg = dataclasses.replace(whisper, num_layers=1, encoder_layers=1,
+                              dtype="float32")
+    params = M.init_params(cfg, seed=seed, device=dev)
+    enc = {"encoder": params["encoder"],
+           "enc_final_norm": params["enc_final_norm"]}
+    feats = torch.from_numpy(media_stub(1, cfg.encoder_seq, cfg.d_model,
+                                        seed=seed)).to(dev)
+    out["whisper_encoder_layer"] = _card_vs_cpu(
+        lambda p, f: M.encoder_fwd(p, cfg, f), (enc, feats), cpu)
+    # whisper's cross sublayer, one decode step
+    ld = M.layer_defs(cfg)[0]
+    T, G, hd = cfg.encoder_seq, cfg.num_kv_heads, cfg.head_dim
+    media = tuple(torch.randn((CROSS_ROWS, T, G, hd), generator=gen,
+                              device=dev) for _ in range(2))
+    h = L.rms_norm(torch.randn((CROSS_ROWS, cfg.d_model), generator=gen,
+                               device=dev), params["layers"][0]["norm_cross"])
+    out["whisper_cross_decode"] = _card_vs_cpu(
+        lambda p, x, m: L.attn_cross_decode(p, x, m, ld.attn),
+        (params["layers"][0]["cross"], h, media), cpu)
+    del params, enc, media
+    # a vision cross layer, one decode step
+    cfg = dataclasses.replace(vision, dtype="float32")
+    ld = M.layer_plan(cfg)[0].layers[-1]
+    p = M.init_layer(cfg, ld, dev, gen)
+    p["cross_gate"].fill_(0.6)
+    T, G, hd = cfg.num_media_tokens, cfg.num_kv_heads, cfg.head_dim
+    media = tuple(torch.randn((CROSS_ROWS, T, G, hd), generator=gen,
+                              device=dev) for _ in range(2))
+    x = torch.randn((CROSS_ROWS, cfg.d_model), generator=gen, device=dev)
+
+    def layer(p, x, m):
+        z = torch.zeros((CROSS_ROWS,), dtype=torch.int32, device=x.device)
+        return SV._layer_decode(
+            p, x, ld, cfg, {"media_kv": m, "cross": True},
+            CC.CacheRegions(z, z), None, 0, z.bool(), False, None, None,
+            None, True, True)
+    out["vision_cross_layer_decode"] = _card_vs_cpu(layer, (p, x, media),
+                                                    cpu)
+    del p, media
+    torch.cuda.empty_cache()
+    for name, (err, mag) in out.items():
+        _check(err <= CROSS_RTOL * mag,
+               f"{name}: card and CPU differ by {err} (outputs up to {mag})")
+    return dict(dtype="float32", rows=CROSS_ROWS, rtol=CROSS_RTOL,
+                **{k: dict(max_abs_err=e, max_abs_out=m)
+                   for k, (e, m) in out.items()})
+
+
+def cross_phase(dev):
+    """The cross-attention architectures: the kernels at whisper's shapes
+    (a), whisper-large-v3 at full width and depth, every request promoting
+    (b), llama-3.2-vision-11b at full width and depth with non-zero cross
+    gates (c), and float32 card against CPU at full width (d)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.serve import media_len
+
+    w = configs.get(WHISPER_ARCH)
+    kern = _path_kernels(dev, w, w.num_kv_heads, "w")
+    kern.update(_count_kernel(dev, w, "w"))
+    whisper, done = _arch_serve(dev, w, w.num_layers, PROMPTS, GEN,
+                                ARRIVALS)
+    for uid, r in done.items():
+        _check(r.promotions >= 1, f"whisper request {uid} never promoted")
+    v = configs.get(VISION_ARCH)
+    vision, _ = _arch_serve(dev, v, v.num_layers, LLAMA_LENS, LLAMA_GEN,
+                            ARRIVALS[:len(LLAMA_LENS)])
+    for rec, cfg in ((whisper, w), (vision, v)):
+        # K and V, bf16, every slot of every cross layer or sublayer
+        n_cross = (cfg.num_layers // cfg.cross_attn_period
+                   if cfg.cross_attn_period else cfg.num_layers)
+        want = (4 * n_cross * media_len(cfg) * cfg.num_kv_heads
+                * cfg.head_dim * 2 * 2)
+        _check(rec["media_bytes"] == want,
+               f"{cfg.name}: media bytes {rec['media_bytes']} != {want}")
+        _check(rec["ring_bytes"] == 0, f"{cfg.name}: ring buffers")
+    _check(all(g > 0.29 for g in vision["cross_gates"]),
+           "vision: a cross gate is zero")
+    f32 = _cross_card_vs_cpu(dev, w, v)
+    rec = dict(device=torch.cuda.get_device_name(0), whisper=whisper,
+               vision=vision, card_vs_cpu=f32,
+               note="head sharding of the cross families is held on the "
+                    "CPU (tests/test_torch_cross_engines.py), not here")
+    print("cross " + json.dumps(rec), flush=True)
     return rec, kern
 
 
@@ -3169,7 +3374,7 @@ def main() -> int:
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
               "chunked", "share", "faults", "sharded", "arch", "gemma",
-              "parity")
+              "cross", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -3287,6 +3492,16 @@ def main() -> int:
         for name in gemma_kern:
             launches[name] = gemma["gemma3"]["launches"][name.split("/")[0]]
         lap("gemma")
+    if "cross" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        cross, cross_kern = cross_phase(dev)
+        kern.update(cross_kern)
+        # whisper-large-v3's launches in (b)
+        for name in cross_kern:
+            launches[name] = cross["whisper"]["launches"][name.split("/")[0]]
+        lap("cross")
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")

@@ -1,7 +1,9 @@
 """Architecture configs ported so far (copies of ``repro.configs``): the
 plain dense qwen2-1.5b, stablelm-1.6b and the paper's own evaluation
-models llama3.1-8b and qwen3-8b, grok-1's mixture of experts, and the
-local/global dense gemma2-27b and gemma3-12b.
+models llama3.1-8b and qwen3-8b, grok-1's mixture of experts, the
+local/global dense gemma2-27b and gemma3-12b, and the cross-attention
+families: whisper-large-v3's encoder-decoder and llama-3.2-vision-11b's
+gated cross layers.
 
 Usage: ``repro_torch.configs.get("qwen2-1.5b")`` or ``smoke(...)`` for the
 reduced CPU-test variant. Architectures of ``repro.configs.ARCHS`` that the
@@ -12,7 +14,8 @@ from __future__ import annotations
 import importlib
 
 ARCHS = ("qwen2-1.5b", "stablelm-1.6b", "llama3.1-8b", "qwen3-8b",
-         "grok-1-314b", "gemma2-27b", "gemma3-12b")
+         "grok-1-314b", "gemma2-27b", "gemma3-12b", "whisper-large-v3",
+         "llama-3.2-vision-11b")
 
 
 def _module(name: str):

@@ -20,6 +20,11 @@ prefill+decode step: chunk-causal over the cached prefix and the chunk in
 one joint softmax, masked by position (plain torch, as the reference's jnp).
 Prefill and chunk attention take a ``sliding_window``: keys more than
 ``window - 1`` positions before a query are masked.
+``full_attention`` is the reference's dense oracle (float32, GQA, an
+optional mask): whisper's bidirectional encoder and the cross attention of
+a prefill over the media. ``cross_decode_attention`` is a decode step's
+cross attention, one query row over a slot's static media K/V (jnp in the
+reference, outside any Pallas kernel).
 """
 from __future__ import annotations
 
@@ -31,12 +36,41 @@ from repro_torch.kernels import row_tables
 from repro_torch.kernels.gather_kv import gather_decode_paged
 
 NEG_INF = -1e30
+_FULL_Q_CHUNK = 2048          # query rows per score tile of full_attention
 
 
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     if cap and cap > 0:
         return cap * torch.tanh(x / cap)
     return x
+
+
+def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None, *,
+                   sm_scale: float) -> torch.Tensor:
+    """Dense attention, the reference's oracle: q (b, S, H, hd), k/v (b, T,
+    G, hd), ``mask`` broadcastable to (b, H, S, T) (True: visible) or None
+    → (b, S, H, hd) float32. GQA: query head h reads kv head h // (H / G).
+    Float32 scores, a mask and a softmax; the queries go ``_FULL_Q_CHUNK``
+    rows at a time, which bounds the (b, H, rows, T) scores (a
+    16,384-token prompt bucket over 1,600 media tokens would otherwise
+    hold 3.4 GB) and does not change a row's softmax."""
+    b, S, H, hd = q.shape
+    T, G = k.shape[1], k.shape[2]
+    qg = q.reshape(b, S, G, H // G, hd).float()
+    kf, vf = k.float(), v.float()
+    if mask is not None:
+        mask = torch.broadcast_to(mask, (b, H, S, T)).reshape(
+            b, G, H // G, S, T)
+    outs = []
+    for s0 in range(0, S, _FULL_Q_CHUNK):
+        rows = slice(s0, s0 + _FULL_Q_CHUNK)
+        s = torch.einsum("bsgqd,btgd->bgqst", qg[:, rows], kf) * sm_scale
+        if mask is not None:
+            s = torch.where(mask[..., rows, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bgqst,btgd->bsgqd", p, vf))
+    return torch.cat(outs, dim=1).reshape(b, S, H, hd)
 
 
 def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
@@ -333,6 +367,27 @@ def ring_decode_attention(q: torch.Tensor, k_ring: torch.Tensor,
     s = torch.where(valid[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = _dot(p[..., None, :], _heads_first(v_ring).transpose(-1, -2))
+    return out.reshape(b, H, hd)
+
+
+def cross_decode_attention(q: torch.Tensor, k_media: torch.Tensor,
+                           v_media: torch.Tensor, *,
+                           sm_scale: float) -> torch.Tensor:
+    """A decode step's cross attention: one query row per batch row over
+    its slot's static media K/V, every media token visible (no mask, no
+    softcap, as the reference's decode) → (b, H, hd) float32. q (b, H,
+    hd); k/v_media (b, T, G, hd). A free slot's zero media gives a
+    uniform softmax over zeros: finite, and never emitted.
+
+    Float32 scores and a softmax, the contractions written as products
+    and sums (``_dot``), so each head's bits do not depend on the number
+    of heads or rows in the call."""
+    b, H, hd = q.shape
+    G = k_media.shape[2]
+    qg = q.reshape(b, G, H // G, hd).float()
+    s = _dot(qg[..., None, :], _heads_first(k_media)) * sm_scale
+    p = torch.softmax(s, dim=-1)                         # (b, G, Hg, T)
+    out = _dot(p[..., None, :], _heads_first(v_media).transpose(-1, -2))
     return out.reshape(b, H, hd)
 
 

@@ -1,1 +1,2 @@
-from repro_torch.data.pipeline import SyntheticLMStream  # noqa: F401
+from repro_torch.data.pipeline import (SyntheticLMStream,  # noqa: F401
+                                       media_stub)

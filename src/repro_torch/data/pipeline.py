@@ -1,5 +1,6 @@
-"""Synthetic token streams (a numpy copy of ``repro/data/pipeline.py``'s
-``SyntheticLMStream``, so the port's CLI sends the reference's prompts).
+"""Synthetic token streams and media (numpy copies of
+``repro/data/pipeline.py``'s ``SyntheticLMStream`` and ``media_stub``, so
+the port's CLI sends the reference's prompts and media).
 
 A deterministic mixture of Zipf-distributed unigrams and short repeated
 motifs: the same seed gives the same sequences as the reference.
@@ -37,3 +38,12 @@ class SyntheticLMStream:
                     self.vocab, size=n, p=self.unigram)
                 i += n
         return out
+
+
+def media_stub(batch: int, num_tokens: int, d_model: int,
+               seed: int = 0) -> np.ndarray:
+    """Precomputed image-patch / audio-frame embeddings (batch,
+    num_tokens, d_model) float32: the stand-in for a vision encoder's
+    patches or whisper's mel frontend, bit for bit the reference's."""
+    rng = np.random.RandomState(seed)
+    return (rng.randn(batch, num_tokens, d_model) * 0.02).astype(np.float32)

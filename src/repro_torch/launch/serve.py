@@ -5,6 +5,9 @@ Runs the slot-based continuous-batching ``ServingEngine`` (or the lockstep
 weights from seed 0, and reports per-request TTFT and TPOT and the
 aggregate throughput, for ParisKV or the full-attention baseline
 (``--baseline``). Runs on the first CUDA card unless ``--device cpu``.
+The cross-attention architectures (``--arch llama-3.2-vision-11b``,
+``--arch whisper-large-v3``) give every request the reference's stub media
+(``data.media_stub``): patch embeddings or encoder frames.
 
 ``--mesh-shards N`` serves the paged engine head-sharded over N ranks
 (``PagedServingEngine(mesh_shards=N)``), one process per rank:
@@ -25,7 +28,7 @@ import time
 import torch
 
 from repro_torch import configs, resolve_device
-from repro_torch.data import SyntheticLMStream
+from repro_torch.data import SyntheticLMStream, media_stub
 from repro_torch.distributed import backend_for
 from repro_torch.models import model as M
 from repro_torch.serving import (PagedServingEngine, Request, ServingEngine,
@@ -95,9 +98,14 @@ def main(argv=None) -> None:
                                max_batch=args.batch, chunk_size=args.chunk,
                                use_pariskv=not args.baseline, device=device)
     stream = SyntheticLMStream(cfg.vocab_size, seed=1)
+    media = None
+    if cfg.family == "vlm":
+        media = media_stub(1, cfg.num_media_tokens, cfg.d_model)[0]
+    if cfg.family == "audio":
+        media = media_stub(1, cfg.encoder_seq, cfg.d_model)[0]
     for i in range(args.requests):
         engine.submit(Request(uid=i, prompt=stream.sequence(args.prompt_len),
-                              max_new_tokens=args.gen))
+                              max_new_tokens=args.gen, media=media))
     t0 = time.perf_counter()
     done = engine.run()
     _sync(device)

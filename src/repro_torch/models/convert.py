@@ -7,7 +7,8 @@ reference arrive here as numpy arrays:
   and lists of numpy arrays, e.g. ``jax.device_get(params)``). The
   reference stacks each stage's layers on a leading axis for ``lax.scan``;
   the port keeps one dict per layer, so the stacks are unstacked in scan
-  order.
+  order. Whisper's encoder, stacked by the reference's ``vmap`` over
+  ``encoder_layers``, becomes a list of layer dicts.
 * ``load_npz`` reads the reference's ``ckpt/npz.py`` format: tree paths
   joined with ``::``, bfloat16 stored as a uint16 view under a
   ``__bf16__`` suffix.
@@ -57,7 +58,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     in the tree's dtype."""
     dev = resolve_device(device)
     out = {k: _tensor(tree[k], dev)
-           for k in ("embed", "final_norm", "unembed") if k in tree}
+           for k in ("embed", "final_norm", "unembed", "enc_final_norm")
+           if k in tree}
     layers = []
     for stage, stacked in zip(layer_plan(cfg), tree["stages"]):
         for r in range(stage.repeat):
@@ -68,6 +70,14 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name!r} has {cfg.num_layers}")
     out["layers"] = layers
+    if cfg.encoder_layers or "encoder" in tree:
+        enc = tree.get("encoder")
+        depth = 0 if enc is None else len(enc["norm_attn"])
+        if depth != cfg.encoder_layers:
+            raise ValueError(f"tree holds {depth} encoder layers, config "
+                             f"{cfg.name!r} has {cfg.encoder_layers}")
+        out["encoder"] = [_map(enc, lambda a: _tensor(a[r], dev))
+                          for r in range(depth)]
     return out
 
 

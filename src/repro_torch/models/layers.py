@@ -1,7 +1,10 @@
-"""Transformer building blocks for the dense family (port of the main-path
-and chunked-fill parts of ``repro/models/layers.py``): global (ParisKV)
-layers, and the sliding-window local layers of gemma's local/global
-pattern, whose decode cache is a ring buffer of the window size.
+"""Transformer building blocks (port of the serving parts of
+``repro/models/layers.py``): global (ParisKV) layers, the sliding-window
+local layers of gemma's local/global pattern, whose decode cache is a ring
+buffer of the window size, whisper's bidirectional encoder attention, and
+the cross attention of whisper's decoder and llama-3.2-vision's cross
+layers, whose keys and values come from the media and stay static after
+prefill.
 
 Parameters are plain dicts of tensors with the JAX package's names and
 layouts: matmul weights are stored (in_dim, out_dim) — wq/wk/wv/wo for
@@ -57,6 +60,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal_positions(n: int, d: int) -> np.ndarray:
+    """(n, d) float32 sine / cosine position table, whisper's encoder
+    positions (the reference's, computed in numpy)."""
+    pos = np.arange(n)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / (10000 ** (2 * dim / d))
+    return np.concatenate([np.sin(ang), np.cos(ang)], -1).astype(np.float32)
+
+
 def mlp_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])) @ p["wo_mlp"]
 
@@ -83,6 +95,7 @@ class AttnSpec:
     sliding_window: int = 0      # > 0: local layer (ring-buffer decode cache)
     qk_norm: bool = False
     sm_scale: float = 0.0        # 0 → 1/sqrt(head_dim)
+    causal: bool = True          # False for encoder / cross attention
 
     def scale(self) -> float:
         return self.sm_scale or (1.0 / float(np.sqrt(self.head_dim)))
@@ -141,6 +154,62 @@ def attn_prefill(p: dict, x: torch.Tensor, spec: AttnSpec,
         q_chunk=min(1024, s), kv_chunk=min(2048, s),
         sliding_window=spec.sliding_window)
     return out.reshape(b, s, -1) @ p["wo"].float(), k, v
+
+
+def attn_encoder(p: dict, x: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
+    """Bidirectional attention with no rope (whisper's encoder): x (b, s,
+    d) → (b, s, d) float32. The caller hands float32 weights with a
+    float32 x, as the reference's float32 frames promote every product."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, spec, None)
+    out = A.full_attention(q, k, v, None, sm_scale=spec.scale())
+    return out.reshape(b, s, -1) @ p["wo"].float()
+
+
+def cross_kv(p: dict, kv_src: torch.Tensor, spec: AttnSpec
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The media's keys and values (b, t, G, hd) float32 from ``kv_src``
+    (b, t, d): no bias, no rope, no norm. The media is float32 (the stub
+    embeddings, or whisper's encoder output) and the reference's product
+    with the config-dtype weights promotes to float32; torch refuses a
+    mixed-dtype product, so the weights are cast up here. The cache
+    stores the result in the config's dtype, as the reference's."""
+    b, t, _ = kv_src.shape
+    G, hd = spec.num_kv_heads, spec.head_dim
+    src = kv_src.float()
+    return ((src @ p["wk"].float()).reshape(b, t, G, hd),
+            (src @ p["wv"].float()).reshape(b, t, G, hd))
+
+
+def attn_cross(p: dict, x: torch.Tensor, kv_src: torch.Tensor,
+               spec: AttnSpec, kv=None) -> torch.Tensor:
+    """Cross attention of a prompt: queries from x (b, s, d), keys and
+    values from ``kv_src`` (b, t, d) (``kv``: them from ``cross_kv``, when
+    the caller has them already); every media token visible, qk-norm when
+    the spec has it. → (b, s, d) float32 (whisper's decoder and
+    llama-vision's cross layers)."""
+    b, s, _ = x.shape
+    H, hd = spec.num_heads, spec.head_dim
+    q = (x @ p["wq"]).reshape(b, s, H, hd)
+    k, v = cross_kv(p, kv_src, spec) if kv is None else kv
+    if spec.qk_norm:
+        q = rms_norm(q, p["q_norm"], plus_one=True)
+        k = rms_norm(k, p["k_norm"], plus_one=True)
+    out = A.full_attention(q, k, v, None, sm_scale=spec.scale())
+    return out.reshape(b, s, -1) @ p["wo"].float()
+
+
+def attn_cross_decode(p: dict, x_t: torch.Tensor,
+                      media_kv: Tuple[torch.Tensor, torch.Tensor],
+                      spec: AttnSpec) -> torch.Tensor:
+    """Cross attention of a decode step: one query row per batch row (x_t
+    (b, d)) over its slot's static media K/V (b, T, G, hd), free slots
+    too, with no bias and no qk-norm, as the reference's decode → (b, d)
+    float32."""
+    b = x_t.shape[0]
+    q = (x_t @ p["wq"]).reshape(b, spec.num_heads, spec.head_dim)
+    out = A.cross_decode_attention(q, *media_kv, sm_scale=spec.scale())
+    return out.reshape(b, -1) @ p["wo"].float()
 
 
 def attn_fill_chunk(p: dict, x: torch.Tensor, spec: AttnSpec,

@@ -1,11 +1,14 @@
 """Model assembly for the dense family (plain, or gemma's local/global
-pattern) and grok-1's mixture of experts (port of the serving part of
-``repro/models/model.py``): layer plan, parameter init, embed / unembed.
+pattern), grok-1's mixture of experts and the cross-attention families
+(whisper's encoder-decoder, llama-3.2-vision's cross layers) (port of the
+serving part of ``repro/models/model.py``): layer plan, parameter init,
+whisper's encoder, embed / unembed.
 
 The reference stacks each stage's layers on a leading axis for
 ``lax.scan``; the port keeps one parameter dict per layer in
 ``params["layers"]``, in the order the scan visits them (stage by stage,
-repeat by repeat, layer by layer within a period).
+repeat by repeat, layer by layer within a period), and whisper's encoder
+layers as a list in ``params["encoder"]``.
 """
 from __future__ import annotations
 
@@ -24,11 +27,13 @@ from repro_torch.models.layers import AttnSpec
 
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
-    mixer: str                 # 'attn' (the only mixer ported so far)
+    mixer: str                 # 'attn' | 'cross' (the mixers ported so far)
     attn: Optional[AttnSpec] = None
     ffn: str = "mlp"           # 'mlp' | 'moe'
     d_ff: int = 0
-    use_pariskv: bool = True   # retrieval at decode (False: ring buffer)
+    cross: bool = False        # extra cross-attn sublayer (whisper decoder)
+    use_pariskv: bool = True   # retrieval at decode (False: ring buffer, or
+    #                            a cross layer's static media K/V)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +42,7 @@ class StageDef:
     repeat: int
 
 
-def _attn_spec(cfg: ModelConfig, sliding: int = 0,
+def _attn_spec(cfg: ModelConfig, sliding: int = 0, causal: bool = True,
                qk_norm: bool = False) -> AttnSpec:
     scale = 0.0
     if cfg.query_pre_attn_scalar:
@@ -45,12 +50,12 @@ def _attn_spec(cfg: ModelConfig, sliding: int = 0,
     return AttnSpec(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                     head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
                     qkv_bias=cfg.qkv_bias, softcap=cfg.attn_logit_softcap,
-                    sliding_window=sliding, qk_norm=qk_norm, sm_scale=scale)
+                    sliding_window=sliding, qk_norm=qk_norm, sm_scale=scale,
+                    causal=causal)
 
 
 # the families still refused, each with its ROADMAP A13 step
-_NOT_PORTED = {"ssm": "A13.5", "hybrid": "A13.5", "vlm": "A13.4",
-               "audio": "A13.4"}
+_NOT_PORTED = {"ssm": "A13.5", "hybrid": "A13.5"}
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
@@ -59,8 +64,12 @@ def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
     mixture of experts of width ``moe_d_ff`` (grok-1); with
     ``local_global_period`` p (gemma) a period of p - 1 sliding-window
     local layers and one global layer, repeated ``num_layers // p`` times,
-    with qk-norm on gemma3. Other families are not ported yet (ROADMAP
-    A13, step named in the error)."""
+    with qk-norm on gemma3; llama-3.2-vision (``vlm``) a period of
+    ``cross_attn_period`` - 1 ParisKV layers and one cross layer (queries
+    from the hidden state, keys and values from the media, gated by
+    tanh(cross_gate)); whisper's decoder (``audio``) ParisKV layers each
+    with a cross sublayer over the encoder's output. Other families are
+    not ported yet (ROADMAP A13, step named in the error)."""
     if cfg.family == "moe" and cfg.kv_lora_rank:
         raise NotImplementedError(
             f"config {cfg.name!r}: MLA with a mixture of experts "
@@ -69,12 +78,23 @@ def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
         ld = LayerDef("attn", _attn_spec(cfg), ffn="moe",
                       d_ff=cfg.moe_d_ff or cfg.d_ff)
         return (StageDef((ld,), cfg.num_layers),)
+    if cfg.family == "vlm":                     # llama-3.2-vision
+        period = cfg.cross_attn_period
+        self_l = LayerDef("attn", _attn_spec(cfg), ffn="mlp", d_ff=cfg.d_ff)
+        cross_l = LayerDef("cross", _attn_spec(cfg, causal=False), ffn="mlp",
+                           d_ff=cfg.d_ff, use_pariskv=False)
+        return (StageDef((self_l,) * (period - 1) + (cross_l,),
+                         cfg.num_layers // period),)
+    if cfg.family == "audio":                   # whisper decoder (+cross)
+        ld = LayerDef("attn", _attn_spec(cfg), ffn="mlp", d_ff=cfg.d_ff,
+                      cross=True)
+        return (StageDef((ld,), cfg.num_layers),)
     if cfg.family != "dense":
         step = _NOT_PORTED.get(cfg.family, "A13")
         raise NotImplementedError(
             f"config {cfg.name!r}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP {step}); the dense family and grok-1's mixture of "
-            f"experts are")
+            f"(ROADMAP {step}); the dense family, grok-1's mixture of "
+            f"experts and the cross-attention families are")
     if cfg.local_global_period:
         p = cfg.local_global_period
         qk = cfg.name.startswith("gemma3")
@@ -100,10 +120,22 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def init_layer(cfg: ModelConfig, ld: LayerDef, device,
                gen: torch.Generator) -> dict:
+    """One layer's parameters: a cross layer adds the 0-d ``cross_gate``,
+    zero as in the reference (tanh(0) = 0: the layer adds nothing until
+    the gate is trained or set), a ``cross=True`` layer its cross
+    sublayer's ``cross`` attention and ``norm_cross``."""
     dt = torch_dtype(cfg)
-    p = {"norm_attn": torch.ones((cfg.d_model,), dtype=dt, device=device),
+
+    def ones():
+        return torch.ones((cfg.d_model,), dtype=dt, device=device)
+    p = {"norm_attn": ones(),
          "attn": L.init_attn(cfg.d_model, ld.attn, dt, device, gen),
-         "norm_mlp": torch.ones((cfg.d_model,), dtype=dt, device=device)}
+         "norm_mlp": ones()}
+    if ld.mixer == "cross":
+        p["cross_gate"] = torch.zeros((), dtype=dt, device=device)
+    if ld.cross:
+        p["cross"] = L.init_attn(cfg.d_model, ld.attn, dt, device, gen)
+        p["norm_cross"] = ones()
     if ld.ffn == "moe":
         p["moe"] = MOE.init_moe(cfg.d_model, ld.d_ff, cfg.num_experts,
                                 cfg.num_shared_experts, dt, device, gen)
@@ -132,7 +164,49 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
             gen).to(dt)
     params["layers"] = [init_layer(cfg, ld, dev, gen)
                         for ld in layer_defs(cfg)]
+    if cfg.encoder_layers:                      # whisper's encoder
+        spec = _attn_spec(cfg, causal=False)
+        params["encoder"] = [
+            {"norm_attn": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+             "attn": L.init_attn(cfg.d_model, spec, dt, dev, gen),
+             "norm_mlp": torch.ones((cfg.d_model,), dtype=dt, device=dev),
+             "mlp": L.init_mlp(cfg.d_model, cfg.d_ff, dt, dev, gen)}
+            for _ in range(cfg.encoder_layers)]
+        params["enc_final_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                              device=dev)
     return params
+
+
+def _float(tree):
+    """A parameter dict with every tensor in float32."""
+    if isinstance(tree, dict):
+        return {k: _float(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def encoder_fwd(params: dict, cfg: ModelConfig,
+                feats: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings ``feats`` (b, T, d):
+    sinusoidal positions added, then per layer rms-norm, bidirectional
+    attention with no rope, rms-norm and the MLP, then ``enc_final_norm``
+    → (b, T, d) float32.
+
+    The frames are float32, and in the reference every product of a
+    float32 activation with a config-dtype weight promotes to float32, so
+    the whole encoder runs in float32. torch refuses a mixed-dtype
+    product: each layer's weights are cast up to float32 (one layer's
+    copy at a time; a no-op in a float32 config)."""
+    pos = torch.from_numpy(L.sinusoidal_positions(feats.shape[1],
+                                                  cfg.d_model))
+    x = feats.float() + pos.to(feats.device)[None]
+    spec = _attn_spec(cfg, causal=False)
+    for p in params["encoder"]:
+        p = _float(p)
+        h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
+        x = x + L.attn_encoder(p["attn"], h, spec)
+        h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+        x = x + L.mlp_fwd(p["mlp"], h)
+    return L.rms_norm(x, params["enc_final_norm"], cfg.norm_eps)
 
 
 def param_device(params: dict) -> torch.device:

@@ -33,6 +33,18 @@ paths of ``repro/models/serve.py``).
   copies it into the slot's row, decode writes at pos % w, a fill chunk
   reads its prefix from it by position and keeps each slot's last
   write; stale slots of a previous tenant are masked by position.
+* Cross attention (llama-3.2-vision's ``cross`` layers, whisper's
+  ``cross=True`` sublayers) reads the slot's media K/V, (batch, T, G, hd)
+  in the config's dtype, computed once by the prefill from the request's
+  media (whisper: from ``models.model.encoder_fwd`` of it) and static
+  after it: a ``media_kv`` entry beside a whisper layer's ParisKV store
+  or pool, a vision cross layer's entry alone (``_cross_cache``, tagged
+  ``cross``, no ``kv``, so ``pool_entries`` skips it). It is slot-local
+  on every layout (contiguous, paged, tiered, replicated at full heads on
+  a head-sharded rank): admission copies it into the slot's row, and
+  decode attends one query row to it (free slots too, over whatever
+  media their row holds), whole on every rank. Chunked prefill and
+  sharing refuse these families (``fill_support_reason``).
 * With ``prefill_budget`` P > 0 (chunked prefill), ``admit_fill`` copies a
   prompt to the slot's device buffer (a shared-prefix admission starts
   the fill past the mapped prefix and rebuilds the slot's histogram from
@@ -67,8 +79,9 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.gather_kv import gather_heads_tiered
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
-from repro_torch.models.model import (LayerDef, _embed, _unembed, layer_defs,
-                                      layer_plan, param_device, torch_dtype)
+from repro_torch.models.model import (LayerDef, _embed, _unembed,
+                                      encoder_fwd, layer_defs, layer_plan,
+                                      param_device, torch_dtype)
 
 
 class ServeState(NamedTuple):
@@ -82,10 +95,32 @@ def is_ring(lc: dict) -> bool:
     return lc.get("ring", False)
 
 
+def is_cross(lc: dict) -> bool:
+    """Whether a layer's cache entry is a cross layer's media K/V alone
+    (``_cross_cache`` tags it): no ``kv``, no ``hist``."""
+    return lc.get("cross", False)
+
+
+def is_pool(lc: dict) -> bool:
+    """Whether a layer's cache entry holds a ParisKV store or pool (with
+    its histograms on the paged layouts): neither a ring nor a cross
+    layer's media. A whisper entry is one, with ``media_kv`` beside it."""
+    return not (is_ring(lc) or is_cross(lc))
+
+
+def pool_layers(cfg: ModelConfig) -> List[bool]:
+    """Each layer, in layer order: whether its cache entry is a pool entry
+    (``is_pool``), i.e. a ParisKV attention layer; the caches are built
+    from this list, and a host pool names its entries from it."""
+    return [ld.mixer == "attn" and ld.use_pariskv for ld in layer_defs(cfg)]
+
+
 def pool_entries(caches: List[dict]) -> List[dict]:
     """The ParisKV (global-layer) entries of ``caches``, in layer order:
-    the contiguous stores or the pool with its histograms."""
-    return [lc for lc in caches if not is_ring(lc)]
+    the contiguous stores or the pool with its histograms. Every walk
+    over the pool (evictions, audits, staging, fetch statistics, host
+    pool names) goes through this list."""
+    return [lc for lc in caches if is_pool(lc)]
 
 
 def _store(caches: List[dict]):
@@ -182,15 +217,52 @@ def _ring_cache(cfg: ModelConfig, ld: LayerDef, batch: int, n_max: int,
             "ring": True}
 
 
+def media_len(cfg: ModelConfig) -> int:
+    """The media tokens a request carries: llama-vision's patch
+    embeddings, whisper's encoder frames (0 without cross attention)."""
+    return {"vlm": cfg.num_media_tokens,
+            "audio": cfg.encoder_seq}.get(cfg.family, 0)
+
+
+def _media_kv(cfg: ModelConfig, batch: int, device):
+    """Zero media K/V (k, v), each (batch, T, G, hd) in the config's
+    dtype, every KV head (replicated on a head-sharded rank)."""
+    shape = (batch, media_len(cfg), cfg.num_kv_heads, cfg.head_dim)
+    return tuple(torch.zeros(shape, dtype=torch_dtype(cfg), device=device)
+                 for _ in range(2))
+
+
+def _cross_cache(cfg: ModelConfig, batch: int, device) -> dict:
+    """A cross layer's entry, tagged ``cross``: its media K/V only."""
+    return {"media_kv": _media_kv(cfg, batch, device), "cross": True}
+
+
+def _with_media(cfg: ModelConfig, ld: LayerDef, entry: dict, batch: int,
+                device) -> dict:
+    """``entry`` with a ``media_kv`` beside it when ``ld`` has a cross
+    sublayer (whisper's decoder layers)."""
+    if ld.cross:
+        entry["media_kv"] = _media_kv(cfg, batch, device)
+    return entry
+
+
 def make_caches(cfg: ModelConfig, batch: int, n_max: int,
                 device) -> List[dict]:
     """Contiguous per-layer caches (solo prefill): a ParisKV store per
-    global layer, a ring buffer per local layer."""
+    global layer (with the media K/V of its cross sublayer on whisper), a
+    ring buffer per local layer, the media K/V of a cross layer."""
     dt = torch_dtype(cfg)
-    return [{"kv": CC.init_layer_cache(batch, n_max, cfg.num_kv_heads,
-                                       cfg.head_dim, cfg.pariskv, dt, device)}
-            if ld.use_pariskv else _ring_cache(cfg, ld, batch, n_max, device)
-            for ld in layer_defs(cfg)]
+    out = []
+    for ld, pooled in zip(layer_defs(cfg), pool_layers(cfg)):
+        if ld.mixer == "cross":
+            out.append(_cross_cache(cfg, batch, device))
+        elif not pooled:
+            out.append(_ring_cache(cfg, ld, batch, n_max, device))
+        else:
+            out.append(_with_media(cfg, ld, {"kv": CC.init_layer_cache(
+                batch, n_max, cfg.num_kv_heads, cfg.head_dim, cfg.pariskv,
+                dt, device)}, batch, device))
+    return out
 
 
 class UnsupportedPagedConfig(NotImplementedError):
@@ -222,11 +294,13 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     """Per global layer: the shared block pool ``kv`` and the slot-local
     (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``; per
     local layer a slot-local ring buffer of min(window, ``n_max``) slots
-    (``make_caches``'s), not paged. With ``dist`` (a
-    ``distributed.ShardDist``) the pool and the histograms hold that
-    rank's G / N KV heads and the rings every head: the counterpart of the
-    reference's ``sharded_state_specs``, which partitions exactly the pool
-    and histogram leaves and replicates the rest.
+    (``make_caches``'s), not paged; the slot-local media K/V of a cross
+    layer or sublayer (``make_caches``'s), not paged either. With ``dist``
+    (a ``distributed.ShardDist``) the pool and the histograms hold that
+    rank's G / N KV heads and the rings and media every head: the
+    counterpart of the reference's ``sharded_state_specs``, which
+    partitions exactly the pool and histogram leaves and replicates the
+    rest.
 
     ``num_device_blocks`` makes the pool tiered: metadata for all
     ``num_blocks`` blocks, K/V for a staging pool of ``num_device_blocks``
@@ -257,8 +331,11 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                     "this config with the slot engine (ServingEngine) or "
                     "an attention-mixer config")
     out = []
-    for ld in layer_defs(cfg):
-        if not ld.use_pariskv:
+    for ld, pooled in zip(layer_defs(cfg), pool_layers(cfg)):
+        if ld.mixer == "cross":
+            out.append(_cross_cache(cfg, batch, device))
+            continue
+        if not pooled:
             if n_max <= 0:
                 raise ValueError(f"config {cfg.name!r}: a local layer's ring "
                                  f"buffer needs n_max")
@@ -279,7 +356,7 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                 "dropped": torch.zeros((2,), dtype=torch.int64,
                                        device=device),
                 **_FETCH_HOST_ZERO}
-        out.append(entry)
+        out.append(_with_media(cfg, ld, entry, batch, device))
     return out
 
 
@@ -296,11 +373,20 @@ def offload_support_reason(cfg: ModelConfig) -> Optional[str]:
 
 def fill_support_reason(cfg: ModelConfig) -> Optional[str]:
     """Why chunked prefill cannot serve this architecture, or None when it
-    can: every mixer must be plain attention."""
+    can: the media K/V of the cross-attention families come from one
+    encoder pass over the whole prompt's media (the reference's message,
+    checked first), and every mixer must be plain attention with no cross
+    sublayer."""
+    if cfg.family in ("vlm", "audio"):
+        return (f"config {cfg.name!r}: family {cfg.family!r} computes media "
+                f"K/V in one encoder pass, so prompts prefill solo")
     for i, ld in enumerate(layer_defs(cfg)):
         if ld.mixer != "attn":
             return (f"config {cfg.name!r}: layer {i} mixer {ld.mixer!r} has "
                     f"no chunk-resumable prefill (attention mixers only)")
+        if ld.cross:
+            return (f"config {cfg.name!r}: layer {i} has a cross-attention "
+                    f"sublayer, which reads encoder-pass media K/V")
     return None
 
 
@@ -413,36 +499,73 @@ def _ring_prefix_pos(start: int, w: int, device) -> torch.Tensor:
     return torch.where(p_s >= 0, p_s, -1)[None]
 
 
+def _gate(p: dict) -> torch.Tensor:
+    """A cross layer's output scale tanh(cross_gate), taken in the gate's
+    dtype as the reference takes it, then float32 (it scales a float32
+    output)."""
+    return torch.tanh(p["cross_gate"]).float()
+
+
+def _cross_prefill(p: dict, h: torch.Tensor, media: torch.Tensor,
+                   spec, cache: dict, dt: torch.dtype) -> torch.Tensor:
+    """Cross attention of the prompt's normed states ``h`` over ``media``
+    (b, T, d) float32; the media's K/V (float32 products, as the
+    reference's) go to the entry's ``media_kv`` in the config's dtype
+    ``dt``, which decode reads. → (b, S, d) float32."""
+    kv = L.cross_kv(p, media, spec)
+    cache["media_kv"] = tuple(t.to(dt) for t in kv)
+    return L.attn_cross(p, h, media, spec, kv=kv)
+
+
 def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                    positions: torch.Tensor, cache: dict,
-                   signs: torch.Tensor,
-                   lengths: Optional[torch.Tensor]) -> torch.Tensor:
+                   signs: torch.Tensor, lengths: Optional[torch.Tensor],
+                   media: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One layer over the full prompt; fills this layer's cache (a ParisKV
-    store, or a local layer's ring) in place."""
+    store, a local layer's ring, a cross layer's or sublayer's media K/V
+    from ``media``) in place."""
+    dt = torch_dtype(cfg)
     h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
-    y, k_new, v_new = L.attn_prefill(p["attn"], h, ld.attn, positions)
-    if is_ring(cache):
-        _ring_prefill(cache["kv"], k_new, v_new, lengths)
+    if ld.mixer == "cross":
+        y = _gate(p) * _cross_prefill(p["attn"], h, media, ld.attn, cache,
+                                      dt)
     else:
-        CC.prefill_write(cache["kv"], k_new, v_new, cfg.pariskv, signs,
-                         lengths=lengths)
+        y, k_new, v_new = L.attn_prefill(p["attn"], h, ld.attn, positions)
+        if is_ring(cache):
+            _ring_prefill(cache["kv"], k_new, v_new, lengths)
+        else:
+            CC.prefill_write(cache["kv"], k_new, v_new, cfg.pariskv, signs,
+                             lengths=lengths)
     x = x + y.to(x.dtype)
+    if ld.cross:
+        h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
+        x = x + _cross_prefill(p["cross"], h, media, ld.attn, cache,
+                               dt).to(x.dtype)
     h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     return x + _ffn(p, h, ld, cfg).to(x.dtype)
 
 
 @torch.no_grad()
 def prefill(params: dict, cfg: ModelConfig, tokens, n_max: int,
-            lengths=None, device=None):
+            lengths=None, device=None, media=None):
     """Process LEFT-aligned prompts ``tokens`` (b, S); returns the logits
     at each row's last real token (b, vocab) and a ServeState holding
     contiguous (b, n_max) caches. ``lengths`` (b,) are the true prompt
-    lengths (default: all S). Runs on the first CUDA card unless
-    ``device="cpu"``."""
+    lengths (default: all S). ``media`` (b, T, d) float32, each row's
+    patch or frame embeddings, is required by the cross-attention
+    families (whisper's rows first go through ``encoder_fwd``). Runs on
+    the first CUDA card unless ``device="cpu"``."""
     dev = resolve_device(device)
     _check_params(params, dev)
     tokens = torch.as_tensor(tokens, device=dev)
     b, S = tokens.shape
+    if media_len(cfg):
+        if media is None:
+            raise ValueError(f"config {cfg.name!r}: family {cfg.family!r} "
+                             f"needs each request's media (b, T, d)")
+        media = torch.as_tensor(media, dtype=torch.float32, device=dev)
+        if cfg.family == "audio":
+            media = encoder_fwd(params, cfg, media)
     signs = rotation_signs(cfg, dev)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=dev).expand(b, S)
@@ -450,7 +573,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens, n_max: int,
         lengths, dtype=torch.int32, device=dev)
     caches = make_caches(cfg, b, n_max, dev)
     for ld, p, cache in zip(layer_defs(cfg), params["layers"], caches):
-        x = _layer_prefill(p, x, ld, cfg, positions, cache, signs, lens)
+        x = _layer_prefill(p, x, ld, cfg, positions, cache, signs, lens,
+                           media)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lens is None:
         lens = torch.full((b,), S, dtype=torch.int32, device=dev)
@@ -479,12 +603,18 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     histogram maintained (a tiered pool gathers the keys through the
     composed staging tables). ``use_pariskv=False`` is the full-attention
     baseline over the contiguous cache (no promotion). A local layer
-    decodes densely over its ring buffer, whole on every rank."""
+    decodes densely over its ring buffer, a cross layer (and a whisper
+    layer's cross sublayer, after its ParisKV attention) attends to the
+    slot's media K/V, gated by tanh(cross_gate) on a cross layer: whole on
+    every rank."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_t, p["norm_attn"], cfg.norm_eps)
-    kv = cache["kv"]
+    kv = cache.get("kv")
     res = None
-    if is_ring(cache):
+    if ld.mixer == "cross":
+        y = _gate(p) * L.attn_cross_decode(p["attn"], h, cache["media_kv"],
+                                           ld.attn)
+    elif is_ring(cache):
         y = L.attn_decode_dense(p["attn"], h, kv, regions.pos + 1, ld.attn)
     elif not (use_pariskv and ld.use_pariskv):
         y = L.attn_decode_dense(p["attn"], h, (kv.k, kv.v), regions.pos + 1,
@@ -524,6 +654,10 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     if record is not None and res is not None:
         record.append(res)
     x_t = x_t + y.to(x_t.dtype)
+    if ld.cross:
+        h = L.rms_norm(x_t, p["norm_cross"], cfg.norm_eps)
+        x_t = x_t + L.attn_cross_decode(p["cross"], h, cache["media_kv"],
+                                        ld.attn).to(x_t.dtype)
     h = L.rms_norm(x_t, p["norm_mlp"], cfg.norm_eps)
     return x_t + _ffn(p, h, ld, cfg).to(x_t.dtype)
 
@@ -638,6 +772,8 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     (``_ring_prefix_pos``), attends within its window on every head (no
     fetch, no head split), and writes the chunk's last ``w`` valid tokens
     (a chunk longer than the ring keeps only each slot's last write)."""
+    if ld.mixer != "attn" or ld.cross:
+        raise NotImplementedError(fill_support_reason(cfg))
     pcfg = cfg.pariskv
     h = L.rms_norm(x_f, p["norm_attn"], cfg.norm_eps)
     kv = cache["kv"]
@@ -979,6 +1115,14 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
     return torch.stack(emitted, dim=1), state
 
 
+def _admit_media(lc: dict, lc1: dict, slot: int) -> None:
+    """Copy a batch-1 prefill's media K/V, if the entry has one, into row
+    ``slot`` whole (its length is the media's, not the prompt bucket's)."""
+    if "media_kv" in lc:
+        for big, small in zip(lc["media_kv"], lc1["media_kv"]):
+            big[slot] = small[0]
+
+
 @torch.no_grad()
 def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
                 caches1: List[dict], regions1: CC.CacheRegions, tok0: int,
@@ -994,9 +1138,13 @@ def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
     from, its heads' slice only. A local layer's ring is slot-local: the
     prefill's ring (every head) goes to the slot's row, into its first
     slots when a bucketed prefill's ring is shorter (its positions all lie
-    below its length, so they sit where the longer ring keeps them)."""
+    below its length, so they sit where the longer ring keeps them). Media
+    K/V (every head) go to the slot's row whole."""
     phys_blocks = phys_blocks.to(state.cur_tok.device)
     for lc, lc1 in zip(state.caches, caches1):
+        _admit_media(lc, lc1, slot)
+        if is_cross(lc):
+            continue
         if is_ring(lc):
             for big, small in zip(lc["kv"], lc1["kv"]):
                 big[slot, :small.shape[1]] = small[0]
@@ -1032,8 +1180,10 @@ def admit_slot(state: SlotState, slot: int, caches1: List[dict],
     ``slot``, in place: every cache tensor's row ``slot`` takes the batch-1
     row whole (the reference's ``ServingEngine._admit_impl``)."""
     for lc, lc1 in zip(state.caches, caches1):
-        for big, small in zip(lc["kv"], lc1["kv"]):
-            big[slot] = small[0]
+        _admit_media(lc, lc1, slot)
+        if "kv" in lc:
+            for big, small in zip(lc["kv"], lc1["kv"]):
+                big[slot] = small[0]
     state.regions.pos[slot] = regions1.pos[0]
     state.regions.enc_end[slot] = regions1.enc_end[0]
     state.cur_tok[slot] = tok0

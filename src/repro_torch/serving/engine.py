@@ -97,7 +97,7 @@ from repro_torch.distributed import ShardDist
 from repro_torch.kernels.build import KernelError
 from repro_torch.models import serve as SV
 from repro_torch.models.layers import SideStream
-from repro_torch.models.model import layer_defs, param_device, torch_dtype
+from repro_torch.models.model import param_device, torch_dtype
 from repro_torch.serving import offload as offload_lib
 from repro_torch.serving.faults import FaultPlan
 
@@ -113,6 +113,9 @@ class Request:
     uid: int
     prompt: np.ndarray              # (s,) int32
     max_new_tokens: int = 32
+    # (T, d) float32 patch / frame embeddings: llama-vision's and whisper's
+    # requests carry them (``data.media_stub``); None for the rest
+    media: Optional[np.ndarray] = None
     # filled by the engine:
     output: Optional[np.ndarray] = None
     ttft_s: float = 0.0             # admission → first token (per request)
@@ -158,12 +161,15 @@ def _solo_prefill(params, cfg: ModelConfig, req: Request, cap: int,
                   device):
     """Solo (batch=1) prefill of a request's prompt, LEFT-aligned and
     padded to a power-of-two bucket capped at ``cap``, into caches of
-    ``cap`` positions. → (state1, tok0)."""
+    ``cap`` positions, with its media (if any) as a batch of one.
+    → (state1, tok0)."""
     s = _bucket(len(req.prompt), cap=cap)
     toks = np.zeros((1, s), np.int32)
     toks[0, :len(req.prompt)] = req.prompt
+    media = None if req.media is None else np.asarray(req.media)[None]
     logits, state1 = SV.prefill(params, cfg, toks, cap,
-                                lengths=[len(req.prompt)], device=device)
+                                lengths=[len(req.prompt)], device=device,
+                                media=media)
     return state1, int(logits[0].argmax(-1))     # blocks: first token
 
 
@@ -952,7 +958,7 @@ class PagedServingEngine(ServingEngine):
             if idle:
                 sel = torch.tensor(idle, device=self.device)
                 for li, lc in enumerate(self._state.caches):
-                    if SV.is_ring(lc):
+                    if not SV.is_pool(lc):
                         continue
                     self._check(not bool(lc["hist"][sel].any()),
                                 f"layer {li}: a free slot of {idle} holds "
@@ -972,7 +978,7 @@ class PagedServingEngine(ServingEngine):
         regions = CC.CacheRegions(pos=self._state.regions.pos[sel],
                                   enc_end=self._state.regions.enc_end[sel])
         for li, lc in enumerate(self._state.caches):
-            if SV.is_ring(lc):
+            if not SV.is_pool(lc):
                 continue
             ids = CC.paged_ids_view(lc["kv"], bt)
             want = CC.bucket_hist_from_meta(ids, regions, pcfg)
@@ -1102,8 +1108,8 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         self.prefetch_hook = prefetch_hook
         self.overlap = bool(overlap)
         # the host pool pages the global layers' K/V; local layers' rings
-        # stay slot-local on the device
-        glob = [ld.use_pariskv for ld in layer_defs(cfg)]
+        # and media K/V stay slot-local on the device
+        glob = SV.pool_layers(cfg)
         self._names = [f"l{i}" for i, g in enumerate(glob) if g]
         self.host = offload_lib.HostKVPool(
             {n: (cfg.num_kv_heads, cfg.head_dim) for n in self._names},
@@ -1529,9 +1535,11 @@ class WaveServingEngine:
         b = len(wave)
         self.peak_concurrency = max(self.peak_concurrency, b)
         toks = self._pad_prompts(wave)
+        media = (None if wave[0].media is None
+                 else np.stack([r.media for r in wave]))
         t0 = time.perf_counter()
         logits, state = SV.prefill(self.params, self.cfg, toks, self.n_max,
-                                   device=self.device)
+                                   device=self.device, media=media)
         _sync(self.device)
         t1 = time.perf_counter()
         for r in wave:

@@ -152,7 +152,8 @@ def grok():
 def test_archs_and_layer_plans():
     assert set(TC.ARCHS) == {"qwen2-1.5b", "stablelm-1.6b", "llama3.1-8b",
                              "qwen3-8b", "grok-1-314b", "gemma2-27b",
-                             "gemma3-12b"}
+                             "gemma3-12b", "whisper-large-v3",
+                             "llama-3.2-vision-11b"}
     from repro import configs as JC
     for arch in TC.ARCHS:
         assert dataclasses.asdict(TC.get(arch)) == dataclasses.asdict(
@@ -174,6 +175,10 @@ def test_archs_and_layer_plans():
         TM.layer_plan(deepseek)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         TC.get("mamba2-780m")
+    for family, step in (("ssm", "A13.5"), ("hybrid", "A13.5")):
+        other = dataclasses.replace(TC.smoke("qwen2-1.5b"), family=family)
+        with pytest.raises(NotImplementedError, match=step):
+            TM.layer_plan(other)
 
 
 def test_unsupported_paged_config_matches_reference(monkeypatch):

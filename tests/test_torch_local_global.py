@@ -91,8 +91,8 @@ def _local(arch):
 
 @pytest.mark.parametrize("arch", ["gemma2-27b", "gemma3-12b"])
 def test_layer_plan_matches_reference(arch):
-    """Period, repeat and every LayerDef field; the AttnSpec's fields (the
-    port's subset of the reference's, whose ``causal`` stays True)."""
+    """Period, repeat and every LayerDef field, the AttnSpec's fields
+    (``causal`` included: True on every layer) and ``cross`` (False)."""
     for cfg_j, cfg_t in ((JC.get(arch), TC.get(arch)), _cfgs(arch)):
         plan_j, plan_t = JM.layer_plan(cfg_j), TM.layer_plan(cfg_t)
         assert len(plan_j) == len(plan_t) == 1
@@ -101,10 +101,10 @@ def test_layer_plan_matches_reference(arch):
             cfg_t.local_global_period
         assert len(st.layers) == len(sj.layers) == cfg_t.local_global_period
         for lj, lt in zip(sj.layers, st.layers):
-            assert (lt.mixer, lt.ffn, lt.d_ff, lt.use_pariskv) == (
-                lj.mixer, lj.ffn, lj.d_ff, lj.use_pariskv)
+            assert (lt.mixer, lt.ffn, lt.d_ff, lt.use_pariskv, lt.cross) == (
+                lj.mixer, lj.ffn, lj.d_ff, lj.use_pariskv, lj.cross)
             aj = dataclasses.asdict(lj.attn)
-            assert aj.pop("causal") is True
+            assert aj["causal"] is True and lt.cross is False
             assert dataclasses.asdict(lt.attn) == aj
     (st,) = TM.layer_plan(TC.get(arch))
     local, glob = st.layers[0], st.layers[-1]
