@@ -71,11 +71,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               every request promoted, token agreement with the engine
               phase printed as a rate (bf16 promises no identity).
 6. metaview — ``PagedServingEngine(fused=False)`` and the fused engine on
-              the first two requests with 16 new tokens: identical tokens
+              the first two requests with 8 new tokens: identical tokens
               asserted, Stage I over the view launched exactly 28 × steps.
 7. baseline — the slot engine with ParisKV and with full attention
               (``use_pariskv=False``), and ``WaveServingEngine``, on
-              requests of 3000/6000 prompt tokens with 16 new each: host-
+              requests of 3000/6000 prompt tokens with 8 new each: host-
               bound smoke throughputs, not a benchmark.
 8. offload  — ``PagedServingEngine(offload=True)``: (a) the engine phase's
               four requests with the K/V pool in pinned host memory and a
@@ -84,13 +84,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the tiered gather launched 28 × steps; tokens/s, TTFT, peak
               device memory, pinned bytes, fetched bytes, miss share and
               prefetch hits printed beside the resident run's, then a
-              profile of one chunk; the first two requests (16 new) with
+              profile of one chunk; the first two requests (8 new) with
               overlap on and off, identical tokens asserted; the same two
-              (16 new) once more, untimed, counting in every tiered-gather
+              (8 new) once more, untimed, counting in every tiered-gather
               launch the missed winner head rows, how many repeat a row
               already read in that launch, and asserting that the kernel
               read each distinct one once (``offload_duplicates``). (b)
-              one request of 24,576 prompt tokens and 16 new through the
+              one request of 16,384 prompt tokens and 16 new through the
               offloaded engine (staging pool 1/8 of 1024 blocks) and the
               resident paged engine: identical tokens asserted, peak
               memory and TTFT printed.
@@ -180,7 +180,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               promotes, launches held as the engine phase's, tokens/s,
               TTFT, pool bytes and peak memory printed; (b) llama3.1-8b
               at full width and depth (32 layers, ~16 GB) on requests of
-              6,000 and 12,000 tokens with 64 new, the same reports.
+              6,000 and 12,000 tokens with 32 new, the same reports.
 14. gemma   — gemma's local/global layers (sliding-window ring buffers
               beside the paged pool), run it alone with ``python3
               chip_smoke.py gemma``: (a) the four main-path kernels and
@@ -216,13 +216,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
               tokens/s and TTFT, launches held as the engine phase's; (c)
               llama-3.2-vision-11b at full width and depth (40 layers, a
               gated cross layer every 5th over 1,600 patch embeddings) on
-              requests of 6,000 and 12,000 tokens with 64 new, its cross
+              requests of 6,000 and 12,000 tokens with 32 new, its cross
               gates seeded non-zero; (d) float32 at full width, card
               against CPU: whisper's encoder at one layer, whisper's
               cross sublayer and a vision cross layer for one decode
               step, each within 1e-4 of the output's largest magnitude.
               Head sharding of these families is held on the CPU only.
-16. parity  — 2 layers at full width in float32: one teacher-forced
+16. ssm     — the state-space architectures, run it alone with ``python3
+              chip_smoke.py ssm``: (a) the four main-path kernels and
+              ``bucket_count`` at hymba-1.5b's shapes (G 5, Hg 5: the
+              first odd Hg above 1, 5 of the tier table's 8 byte lanes;
+              hd 64, B 8), held and timed as in the sharded phase, the "h"
+              rows; (b) hymba-1.5b at full width and depth (32 hybrid
+              layers, each 0.5 · (ParisKV attention + an SSD mixer of 50
+              heads of 64 with state 16), then an MLP; bf16, seed 0)
+              through the fused paged engine on the engine phase's four
+              requests with 264 new: every request promotes, launches held
+              as the engine phase's, SSM state bytes exactly 4 slots × 32
+              layers × (50·64·16·4 + 3·3232·2), pool bytes, peak memory,
+              tokens/s and TTFT printed; (c) mamba2-780m at full width and
+              depth (48 SSD layers of 48 heads of 64, state 128; no
+              attention, no KV cache) through the slot engine on requests
+              of 6,000 and 12,000 tokens with 64 new: no ParisKV kernel
+              launches, SSM state bytes exactly 4 × 48 × (48·64·128·4 +
+              3·3328·2); (d) float32 at full width, card against CPU: one
+              hymba layer's prefill over four LEFT-aligned rows of up to
+              512 tokens and one decode step after it, one mamba2 mixer's
+              ``ssm_prefill`` and ``ssm_decode``, each within 1e-4 of the
+              output's largest magnitude. Head sharding of hymba is held
+              on the CPU only.
+17. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -276,8 +299,9 @@ EXACT = ("collision_paged", "bucket_topk", "rerank_topk_paged")
 OFFLOAD_KERNELS = {"collision_paged": 1, "bucket_topk": 1,
                    "rerank_topk_paged": 1, "gather_rows_paged": 1,
                    "gather_rows_tiered": 1}
-LONG_PROMPT, LONG_GEN = 24576, 16        # the offload phase's long request
-OVERLAP_GEN = 16                         # the offload overlap runs
+LONG_PROMPT, LONG_GEN = 16384, 16        # the offload phase's long request
+OVERLAP_GEN = 8                          # the offload overlap and
+#                                          duplicate-count runs
 CHUNK_BUDGET = 512                       # the chunked phase's prefill_budget
 CHUNK_GEN = 16                           # and its new tokens
 # the share phase's fleet: one system prompt of 64 blocks of 128, then
@@ -304,7 +328,7 @@ GROK_ARCH = "grok-1-314b"
 GROK_LAYERS = 4
 LLAMA_ARCH = "llama3.1-8b"
 LLAMA_LENS = (6000, 12000)
-LLAMA_GEN = 64
+LLAMA_GEN = 32
 # the gemma phase: gemma3-12b at full depth on LLAMA_LENS, gemma2-27b cut to
 # 4 of its 23 local/global periods on the engine phase's requests, both with
 # the engine phase's GEN new tokens so that every request promotes (at
@@ -323,6 +347,18 @@ GEMMA2_LAYERS = 8
 WHISPER_ARCH, VISION_ARCH = "whisper-large-v3", "llama-3.2-vision-11b"
 CROSS_ROWS = 4
 CROSS_RTOL = 1e-4
+# the ssm phase: hymba-1.5b at full width and depth on the engine phase's
+# requests with GEN new tokens, every request promoting (G = 5 KV heads,
+# Hg = 5, B = 8), and mamba2-780m at full width and depth through the slot
+# engine on LLAMA_LENS with MAMBA_GEN (no KV cache: no ParisKV launch);
+# card against CPU in float32 at full width: one hymba layer's prefill of
+# SSM_F32_LEN tokens (LEFT-aligned rows of SSM_F32_LENS) and one decode
+# step, one mamba2 mixer's ssm_prefill and ssm_decode, held to CROSS_RTOL
+# of the output's largest magnitude
+HYMBA_ARCH, MAMBA_ARCH = "hymba-1.5b", "mamba2-780m"
+MAMBA_GEN = 64
+SSM_F32_LEN = 512
+SSM_F32_LENS = (512, 448, 384, 320)
 # its MoE layer in float32, card against CPU: a 64-token moe_fwd and a
 # 4-row moe_decode. Sums over d_ff = 32,768 reassociate (~1e-5 at outputs
 # of ~5); routing may differ only at a top-2 gap within float32 rounding
@@ -1442,7 +1478,7 @@ def slot_phase(dev, cfg, params, paged_out, n_max: int = 16384):
     return rec, eng
 
 
-def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 16):
+def metaview_phase(dev, cfg, params, n_max: int = 16384, gen: int = 8):
     """The paged meta-view fallback against the fused engine on the first
     two requests: identical tokens asserted."""
     import numpy as np
@@ -1539,11 +1575,12 @@ def offload_phase(dev, cfg, params, paged_rec, paged_out, n_max: int = 16384):
     print("offload_overlap " + json.dumps(short["overlap_on_off"]),
           flush=True)
     _check(same_ovl, "overlap=False tokens differ from overlap=True")
-    short["miss_duplicates"] = _miss_duplicates(dev, cfg, params, n_max)
+    short["miss_duplicates"] = _miss_duplicates(dev, cfg, params, n_max,
+                                                OVERLAP_GEN)
     print("offload_duplicates " + json.dumps(short["miss_duplicates"]),
           flush=True)
 
-    # (b): one request past 32k tokens, staging pool 1/8 of the blocks
+    # (b): one request past the engine phase's lengths, staging pool 1/8
     n_long = -(-(LONG_PROMPT + LONG_GEN) // 128) * 128
     prompt = _prompts(cfg, seed=5, lens=(LONG_PROMPT,))
     outs, recs = {}, {}
@@ -1650,7 +1687,7 @@ class _TieredTally:
             del self._host.fetch_attempt
 
 
-def _miss_duplicates(dev, cfg, params, n_max: int, gen: int = 16):
+def _miss_duplicates(dev, cfg, params, n_max: int, gen: int):
     """The offload phase's first two requests once more, untimed, under
     ``_TieredTally``: the missed winner head rows, how many repeat one
     already read in the same launch (several query heads of a kv head
@@ -1684,7 +1721,7 @@ def _miss_duplicates(dev, cfg, params, n_max: int, gen: int = 16):
                 duplicate_share=1 - t["distinct_missed_head_rows"] / missed)
 
 
-def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 16):
+def baseline_phase(dev, cfg, params, n_max: int = 16384, gen: int = 8):
     """ParisKV slots, full-attention slots and ParisKV waves on two
     requests of 3000/6000 prompt tokens submitted together."""
     import numpy as np
@@ -1742,7 +1779,8 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
                   gen: int = 40):
     """Where a decode step's time goes: one chunk of the engine (four
     active rows, same n_max) under torch.profiler, after an unprofiled
-    chunk for the wall time (``_profile_chunk``)."""
+    chunk for the wall time (``_profile_chunk``); the requests are
+    cancelled once profiled."""
     import numpy as np
     from repro_torch.serving import Request
 
@@ -1754,6 +1792,9 @@ def profile_phase(eng, cfg, path: str, seed: int = 2, prompt: int = 2000,
     eng.start()
     eng.step_serve()                      # admissions + first chunk
     rec = dict(path=path, rows=4, **_profile_chunk(eng))
+    for r in eng._slots:                 # profiled: the rest is not needed
+        if r is not None:
+            eng.cancel(r.uid)
     while eng.pending():
         eng.step_serve()
     print("profile " + json.dumps(rec), flush=True)
@@ -2543,6 +2584,22 @@ def _media_bytes(eng) -> int:
                for t in lc.get("media_kv", ()))
 
 
+def _ssm_bytes(eng) -> int:
+    """Device bytes of the slot-local SSD states and conv tails (mamba2's
+    layers, hymba's hybrid layers)."""
+    return sum(t.nbytes for lc in eng._state.caches
+               for t in lc.get("ssm", ()))
+
+
+def _ssm_bytes_want(cfg, slots: int) -> int:
+    """``slots`` × layers × (the float32 state h·p·n + the conv tail of
+    k - 1 rows of conv_dim in bf16)."""
+    from repro_torch.models import ssm as SSM
+    _, nh, hp, n, _ = SSM.ssm_dims(cfg)
+    return slots * cfg.num_layers * (
+        nh * hp * n * 4 + (cfg.ssm_conv_width - 1) * SSM.conv_dim(cfg) * 2)
+
+
 def _digest(t) -> str:
     """SHA-256 of a tensor's bytes."""
     import hashlib
@@ -2842,29 +2899,37 @@ def _seed_gates(params, seed: int = 1) -> list:
     return gates
 
 
-def _arch_serve(dev, cfg, full_layers: int, lens, gen: int, arrivals):
+def _arch_serve(dev, cfg, full_layers: int, lens, gen: int, arrivals,
+                slot: bool = False):
     """``cfg`` (random bf16 weights, seed 0; cross gates seeded non-zero)
     through the fused paged engine at the engine phase's geometry: the
     requests ``lens`` (with stub media on a cross-attention architecture)
     submitted before the chunks ``arrivals``, ``gen`` new tokens each,
-    launches counted and checked and every chunk audited (``_serve``)."""
+    launches counted and checked and every chunk audited (``_serve``).
+    ``slot``: through the contiguous slot engine of the same geometry
+    instead (mamba2, which has no pool), no launch expected, no audit."""
     import torch
     from repro_torch.models.model import init_params, param_count
+    from repro_torch.serving import ServingEngine
 
     before = torch.cuda.memory_allocated()
     params = init_params(cfg, seed=0, device=dev)
     param_gb = (torch.cuda.memory_allocated() - before) / 1e9
     n_params = param_count(params)
     gates = _seed_gates(params)
-    eng = _shard_engine(cfg, params, dev, 1)
+    eng = (ServingEngine(cfg, params, n_max=16384, max_batch=4,
+                         chunk_size=8, device=dev) if slot
+           else _shard_engine(cfg, params, dev, 1))
     _warm(eng, cfg)
     rec, done = _serve(eng, _prompts(cfg, lens=lens), gen, arrivals,
-                       PAGED_KERNELS, cfg, audit=True,
+                       {} if slot else PAGED_KERNELS, cfg, audit=not slot,
                        media=_media(cfg, len(lens)))
-    rec = dict(arch=cfg.name, layers=cfg.num_layers,
+    rec = dict(arch=cfg.name, engine=type(eng).__name__,
+               layers=cfg.num_layers,
                full_layers=full_layers, dtype=cfg.dtype, params=n_params,
                param_gb=param_gb, pool_bytes=_pool_bytes(eng),
                ring_bytes=_ring_bytes(eng), media_bytes=_media_bytes(eng),
+               ssm_bytes=_ssm_bytes(eng),
                **({"cross_gates": gates} if gates else {}), **rec)
     del eng, params
     torch.cuda.empty_cache()
@@ -2981,13 +3046,18 @@ def gemma_phase(dev):
 
 def _card_vs_cpu(fn, args_dev, move):
     """``fn`` on the card's ``args_dev`` and on their CPU copies
-    (``move``) → (max |difference|, max |CPU output|)."""
+    (``move``) → (max |difference|, max |CPU output|); an ``fn`` that
+    returns a tuple of outputs gives a list of those pairs."""
     import torch
     got = fn(*args_dev)
     want = fn(*move(args_dev))
     torch.cuda.synchronize()
-    return (float((got.cpu() - want).abs().max()),
-            float(want.abs().max()))
+
+    def pair(g, w):
+        return float((g.cpu() - w).abs().max()), float(w.abs().max())
+    if isinstance(got, tuple):
+        return [pair(g, w) for g, w in zip(got, want)]
+    return pair(got, want)
 
 
 def _cross_card_vs_cpu(dev, whisper, vision, seed: int = 0):
@@ -3100,6 +3170,119 @@ def cross_phase(dev):
                note="head sharding of the cross families is held on the "
                     "CPU (tests/test_torch_cross_engines.py), not here")
     print("cross " + json.dumps(rec), flush=True)
+    return rec, kern
+
+
+def _ssm_card_vs_cpu(dev, hymba, mamba, seed: int = 0):
+    """(d) Float32 at full width, card against the port's CPU run of the
+    same function on copies of the same seeded weights and inputs: one
+    hymba layer (``_layer_prefill``: ParisKV attention and the SSD mixer,
+    halved, then the MLP) over ``len(SSM_F32_LENS)`` LEFT-aligned rows of
+    up to ``SSM_F32_LEN`` tokens, and that prefill followed by one
+    ``_layer_decode`` step on the contiguous path (the retrieval region is
+    still empty at these lengths, so the winners cannot flip); one mamba2
+    mixer's ``ssm_prefill`` over the same rows and one ``ssm_decode``
+    step. Each held to ``CROSS_RTOL`` of the output's largest
+    magnitude."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.models import model as M
+    from repro_torch.models import serve as SV
+    from repro_torch.models import ssm as SSM
+
+    def cpu(tree):
+        if isinstance(tree, dict):
+            return {k: cpu(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cpu(v) for v in tree)
+        return tree.cpu() if isinstance(tree, torch.Tensor) else tree
+
+    b, S = len(SSM_F32_LENS), SSM_F32_LEN
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.tensor(SSM_F32_LENS, dtype=torch.int32, device=dev)
+    out = {}
+    # one hymba layer
+    cfg = dataclasses.replace(hymba, num_layers=1, dtype="float32")
+    ld = M.layer_defs(cfg)[0]
+    p = M.init_layer(cfg, ld, dev, gen)
+    x = torch.randn((b, S, cfg.d_model), generator=gen, device=dev)
+    x_t = torch.randn((b, cfg.d_model), generator=gen, device=dev)
+
+    def layer(p, x, lens, x_t):
+        d = x.device
+        cache = SV.make_caches(cfg, b, 2 * S, d)[0]
+        valid = torch.arange(S, device=d)[None] < lens[:, None]
+        signs = SV.rotation_signs(cfg, d)
+        y = SV._layer_prefill(p, x, ld, cfg,
+                              torch.arange(S, device=d).expand(b, S), cache,
+                              signs, lens, None, valid)
+        y_t = SV._layer_decode(
+            p, x_t, ld, cfg, cache, CC.initial_regions(lens, cfg.pariskv),
+            signs, cfg.pariskv.candidate_count(2 * S),
+            torch.zeros((b,), dtype=torch.bool, device=d), False, None, None,
+            None, True, True)
+        return y, y_t
+    (out["hymba_layer_prefill"],
+     out["hymba_layer_decode"]) = _card_vs_cpu(layer, (p, x, lens, x_t), cpu)
+    del p
+    # one mamba2 mixer
+    cfg = dataclasses.replace(mamba, num_layers=1, dtype="float32")
+    p = SSM.init_ssm(cfg, torch.float32, dev, gen)
+    x = torch.randn((b, S, cfg.d_model), generator=gen, device=dev)
+    x_t = torch.randn((b, cfg.d_model), generator=gen, device=dev)
+
+    def mixer(p, x, lens, x_t):
+        valid = torch.arange(S, device=x.device)[None] < lens[:, None]
+        y, cache = SSM.ssm_prefill(p, x, cfg, token_valid=valid,
+                                   lengths=lens)
+        return y, SSM.ssm_decode(p, x_t, cache, cfg)[0]
+    (out["mamba2_ssm_prefill"],
+     out["mamba2_ssm_decode"]) = _card_vs_cpu(mixer, (p, x, lens, x_t), cpu)
+    del p
+    torch.cuda.empty_cache()
+    for name, (err, mag) in out.items():
+        _check(err <= CROSS_RTOL * mag,
+               f"{name}: card and CPU differ by {err} (outputs up to {mag})")
+    return dict(dtype="float32", rows=b, lengths=list(SSM_F32_LENS),
+                rtol=CROSS_RTOL,
+                **{k: dict(max_abs_err=e, max_abs_out=m)
+                   for k, (e, m) in out.items()})
+
+
+def ssm_phase(dev):
+    """The state-space architectures: the kernels at hymba's shapes (a),
+    hymba-1.5b at full width and depth through the fused paged engine,
+    every request promoting (b), mamba2-780m at full width and depth
+    through the slot engine with no ParisKV launch (c), and float32 card
+    against CPU at full width (d)."""
+    import torch
+    from repro_torch import configs
+
+    hy = configs.get(HYMBA_ARCH)
+    kern = _path_kernels(dev, hy, hy.num_kv_heads, "h")
+    kern.update(_count_kernel(dev, hy, "h"))
+    hymba, done = _arch_serve(dev, hy, hy.num_layers, PROMPTS, GEN,
+                              ARRIVALS)
+    for uid, r in done.items():
+        _check(r.promotions >= 1, f"hymba request {uid} never promoted")
+    ma = configs.get(MAMBA_ARCH)
+    mamba, _ = _arch_serve(dev, ma, ma.num_layers, LLAMA_LENS, MAMBA_GEN,
+                           ARRIVALS[:len(LLAMA_LENS)], slot=True)
+    _check(not any(mamba["launches"].values()),
+           f"mamba2: ParisKV kernels launched: {mamba['launches']}")
+    for rec, cfg in ((hymba, hy), (mamba, ma)):
+        want = _ssm_bytes_want(cfg, 4)
+        _check(rec["ssm_bytes"] == want,
+               f"{cfg.name}: SSM state bytes {rec['ssm_bytes']} != {want}")
+    _check(mamba["pool_bytes"] == 0, "mamba2: a pool")
+    _check(hymba["ring_bytes"] == hymba["media_bytes"] == 0,
+           "hymba: ring or media bytes")
+    f32 = _ssm_card_vs_cpu(dev, hy, ma)
+    rec = dict(device=torch.cuda.get_device_name(0), hymba=hymba,
+               mamba2=mamba, card_vs_cpu=f32,
+               note="hymba's head sharding is held on the CPU "
+                    "(tests/test_torch_ssm_engines.py), not here")
+    print("ssm " + json.dumps(rec), flush=True)
     return rec, kern
 
 
@@ -3374,7 +3557,7 @@ def main() -> int:
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
               "chunked", "share", "faults", "sharded", "arch", "gemma",
-              "cross", "parity")
+              "cross", "ssm", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -3502,6 +3685,16 @@ def main() -> int:
         for name in cross_kern:
             launches[name] = cross["whisper"]["launches"][name.split("/")[0]]
         lap("cross")
+    if "ssm" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        ssm, ssm_kern = ssm_phase(dev)
+        kern.update(ssm_kern)
+        # hymba-1.5b's launches in (b)
+        for name in ssm_kern:
+            launches[name] = ssm["hymba"]["launches"][name.split("/")[0]]
+        lap("ssm")
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")

@@ -7,7 +7,11 @@ aggregate throughput, for ParisKV or the full-attention baseline
 (``--baseline``). Runs on the first CUDA card unless ``--device cpu``.
 The cross-attention architectures (``--arch llama-3.2-vision-11b``,
 ``--arch whisper-large-v3``) give every request the reference's stub media
-(``data.media_stub``): patch embeddings or encoder frames.
+(``data.media_stub``): patch embeddings or encoder frames. The
+state-space architectures (``--arch mamba2-780m``, ``--arch hymba-1.5b``)
+run on both engines; mamba2 has no KV cache, so ``--baseline`` changes
+nothing there, and hymba's hybrid layers retrieve in the baseline too (as
+the reference's do: only plain attention layers turn dense).
 
 ``--mesh-shards N`` serves the paged engine head-sharded over N ranks
 (``PagedServingEngine(mesh_shards=N)``), one process per rank:

@@ -1,8 +1,9 @@
 """Model assembly for the dense family (plain, or gemma's local/global
-pattern), grok-1's mixture of experts and the cross-attention families
-(whisper's encoder-decoder, llama-3.2-vision's cross layers) (port of the
-serving part of ``repro/models/model.py``): layer plan, parameter init,
-whisper's encoder, embed / unembed.
+pattern), grok-1's mixture of experts, the cross-attention families
+(whisper's encoder-decoder, llama-3.2-vision's cross layers) and the
+state-space families (mamba2's SSD layers, hymba's hybrid layers) (port
+of the serving part of ``repro/models/model.py``): layer plan, parameter
+init, whisper's encoder, embed / unembed.
 
 The reference stacks each stage's layers on a leading axis for
 ``lax.scan``; the port keeps one parameter dict per layer in
@@ -22,14 +23,15 @@ from repro_torch import resolve_device
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import AttnSpec
 
 
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
-    mixer: str                 # 'attn' | 'cross' (the mixers ported so far)
+    mixer: str                 # 'attn' | 'cross' | 'ssm' | 'hybrid'
     attn: Optional[AttnSpec] = None
-    ffn: str = "mlp"           # 'mlp' | 'moe'
+    ffn: str = "mlp"           # 'mlp' | 'moe' | 'none'
     d_ff: int = 0
     cross: bool = False        # extra cross-attn sublayer (whisper decoder)
     use_pariskv: bool = True   # retrieval at decode (False: ring buffer, or
@@ -54,8 +56,6 @@ def _attn_spec(cfg: ModelConfig, sliding: int = 0, causal: bool = True,
                     causal=causal)
 
 
-# the families still refused, each with its ROADMAP A13 step
-_NOT_PORTED = {"ssm": "A13.5", "hybrid": "A13.5"}
 
 
 def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
@@ -68,8 +68,15 @@ def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
     ``cross_attn_period`` - 1 ParisKV layers and one cross layer (queries
     from the hidden state, keys and values from the media, gated by
     tanh(cross_gate)); whisper's decoder (``audio``) ParisKV layers each
-    with a cross sublayer over the encoder's output. Other families are
-    not ported yet (ROADMAP A13, step named in the error)."""
+    with a cross sublayer over the encoder's output; mamba2 (``ssm``) SSD
+    layers with no FFN; hymba (``hybrid``) layers whose mixer is half
+    ParisKV attention and half SSD, with an MLP. MLA (deepseek-v2) is
+    not ported yet (ROADMAP A13.6)."""
+    if cfg.family == "ssm":
+        return (StageDef((LayerDef("ssm", ffn="none"),), cfg.num_layers),)
+    if cfg.family == "hybrid":
+        ld = LayerDef("hybrid", _attn_spec(cfg), ffn="mlp", d_ff=cfg.d_ff)
+        return (StageDef((ld,), cfg.num_layers),)
     if cfg.family == "moe" and cfg.kv_lora_rank:
         raise NotImplementedError(
             f"config {cfg.name!r}: MLA with a mixture of experts "
@@ -90,11 +97,9 @@ def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
                       cross=True)
         return (StageDef((ld,), cfg.num_layers),)
     if cfg.family != "dense":
-        step = _NOT_PORTED.get(cfg.family, "A13")
         raise NotImplementedError(
             f"config {cfg.name!r}: family {cfg.family!r} is not ported yet "
-            f"(ROADMAP {step}); the dense family, grok-1's mixture of "
-            f"experts and the cross-attention families are")
+            f"(ROADMAP A13)")
     if cfg.local_global_period:
         p = cfg.local_global_period
         qk = cfg.name.startswith("gemma3")
@@ -123,23 +128,29 @@ def init_layer(cfg: ModelConfig, ld: LayerDef, device,
     """One layer's parameters: a cross layer adds the 0-d ``cross_gate``,
     zero as in the reference (tanh(0) = 0: the layer adds nothing until
     the gate is trained or set), a ``cross=True`` layer its cross
-    sublayer's ``cross`` attention and ``norm_cross``."""
+    sublayer's ``cross`` attention and ``norm_cross``, an ``ssm`` or
+    ``hybrid`` layer its SSD mixer ``ssm``; an ``ssm`` layer has no
+    attention, and no ``norm_mlp`` (``ffn="none"``)."""
     dt = torch_dtype(cfg)
 
     def ones():
         return torch.ones((cfg.d_model,), dtype=dt, device=device)
-    p = {"norm_attn": ones(),
-         "attn": L.init_attn(cfg.d_model, ld.attn, dt, device, gen),
-         "norm_mlp": ones()}
+    p = {"norm_attn": ones()}
+    if ld.mixer != "ssm":
+        p["attn"] = L.init_attn(cfg.d_model, ld.attn, dt, device, gen)
+    if ld.mixer in ("ssm", "hybrid"):
+        p["ssm"] = SSM.init_ssm(cfg, dt, device, gen)
     if ld.mixer == "cross":
         p["cross_gate"] = torch.zeros((), dtype=dt, device=device)
     if ld.cross:
         p["cross"] = L.init_attn(cfg.d_model, ld.attn, dt, device, gen)
         p["norm_cross"] = ones()
+    if ld.ffn != "none":
+        p["norm_mlp"] = ones()
     if ld.ffn == "moe":
         p["moe"] = MOE.init_moe(cfg.d_model, ld.d_ff, cfg.num_experts,
                                 cfg.num_shared_experts, dt, device, gen)
-    else:
+    elif ld.ffn == "mlp":
         p["mlp"] = L.init_mlp(cfg.d_model, ld.d_ff, dt, device, gen)
     return p
 

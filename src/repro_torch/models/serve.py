@@ -45,6 +45,19 @@ paths of ``repro/models/serve.py``).
   decode attends one query row to it (free slots too, over whatever
   media their row holds), whole on every rank. Chunked prefill and
   sharing refuse these families (``fill_support_reason``).
+* SSD mixers (mamba2's ``ssm`` layers, the SSM half of hymba's
+  ``hybrid`` layers, ``models.ssm``) keep their recurrent state, an
+  ``ssm`` entry ``SSMCache`` (state (batch, h, p, n) float32, conv tail
+  (batch, k - 1, conv_dim) in the config's dtype): alone on a mamba2
+  layer (no ``kv``, so ``pool_entries`` skips it), beside the ParisKV
+  store or pool on a hybrid layer, whose output is 0.5 · (attention +
+  SSM). It is slot-local on every layout, whole on every rank:
+  admission copies the slot's state and tail, decode advances every
+  row's. The prefill skips a LEFT-aligned row's pads exactly (dt = 0
+  there, ``token_valid``) and takes its tail from its last real inputs.
+  A config with no ParisKV layer (mamba2) has no pool: the paged engines
+  refuse it (``UnsupportedPagedConfig``), the slot and wave engines serve
+  it. Chunked prefill and sharing refuse both families.
 * With ``prefill_budget`` P > 0 (chunked prefill), ``admit_fill`` copies a
   prompt to the slot's device buffer (a shared-prefix admission starts
   the fill past the mapped prefix and rebuilds the slot's histogram from
@@ -79,6 +92,7 @@ from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.gather_kv import gather_heads_tiered
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 from repro_torch.models.model import (LayerDef, _embed, _unembed,
                                       encoder_fwd, layer_defs, layer_plan,
                                       param_device, torch_dtype)
@@ -103,16 +117,19 @@ def is_cross(lc: dict) -> bool:
 
 def is_pool(lc: dict) -> bool:
     """Whether a layer's cache entry holds a ParisKV store or pool (with
-    its histograms on the paged layouts): neither a ring nor a cross
-    layer's media. A whisper entry is one, with ``media_kv`` beside it."""
-    return not (is_ring(lc) or is_cross(lc))
+    its histograms on the paged layouts): not a ring, not a cross layer's
+    media alone, not a mamba2 layer's SSM state alone. A whisper entry is
+    one, with ``media_kv`` beside it, and a hymba entry, with ``ssm``."""
+    return "kv" in lc and not is_ring(lc)
 
 
 def pool_layers(cfg: ModelConfig) -> List[bool]:
     """Each layer, in layer order: whether its cache entry is a pool entry
-    (``is_pool``), i.e. a ParisKV attention layer; the caches are built
-    from this list, and a host pool names its entries from it."""
-    return [ld.mixer == "attn" and ld.use_pariskv for ld in layer_defs(cfg)]
+    (``is_pool``), i.e. a ParisKV attention layer or a hybrid layer's
+    attention half; the caches are built from this list, and a host pool
+    names its entries from it."""
+    return [ld.mixer in ("attn", "hybrid") and ld.use_pariskv
+            for ld in layer_defs(cfg)]
 
 
 def pool_entries(caches: List[dict]) -> List[dict]:
@@ -125,8 +142,10 @@ def pool_entries(caches: List[dict]) -> List[dict]:
 
 def _store(caches: List[dict]):
     """The first ParisKV store or pool: its shape gives n_max (contiguous)
-    or the block size and KV heads (paged)."""
-    return pool_entries(caches)[0]["kv"]
+    or the block size and KV heads (paged); None where there is none
+    (mamba2)."""
+    pool = pool_entries(caches)
+    return pool[0]["kv"] if pool else None
 
 
 class TierView(NamedTuple):
@@ -237,29 +256,36 @@ def _cross_cache(cfg: ModelConfig, batch: int, device) -> dict:
     return {"media_kv": _media_kv(cfg, batch, device), "cross": True}
 
 
-def _with_media(cfg: ModelConfig, ld: LayerDef, entry: dict, batch: int,
-                device) -> dict:
+def _with_slot_local(cfg: ModelConfig, ld: LayerDef, entry: dict,
+                     batch: int, device) -> dict:
     """``entry`` with a ``media_kv`` beside it when ``ld`` has a cross
-    sublayer (whisper's decoder layers)."""
+    sublayer (whisper's decoder layers), an ``ssm`` state when it has an
+    SSD mixer (mamba2, hymba)."""
     if ld.cross:
         entry["media_kv"] = _media_kv(cfg, batch, device)
+    if ld.mixer in ("ssm", "hybrid"):
+        entry["ssm"] = SSM.init_ssm_cache(batch, cfg, torch_dtype(cfg),
+                                          device)
     return entry
 
 
 def make_caches(cfg: ModelConfig, batch: int, n_max: int,
                 device) -> List[dict]:
     """Contiguous per-layer caches (solo prefill): a ParisKV store per
-    global layer (with the media K/V of its cross sublayer on whisper), a
-    ring buffer per local layer, the media K/V of a cross layer."""
+    global layer (with the media K/V of its cross sublayer on whisper, the
+    SSM state of a hybrid layer), a ring buffer per local layer, the media
+    K/V of a cross layer, the SSM state of a mamba2 layer."""
     dt = torch_dtype(cfg)
     out = []
     for ld, pooled in zip(layer_defs(cfg), pool_layers(cfg)):
         if ld.mixer == "cross":
             out.append(_cross_cache(cfg, batch, device))
+        elif ld.mixer == "ssm":
+            out.append(_with_slot_local(cfg, ld, {}, batch, device))
         elif not pooled:
             out.append(_ring_cache(cfg, ld, batch, n_max, device))
         else:
-            out.append(_with_media(cfg, ld, {"kv": CC.init_layer_cache(
+            out.append(_with_slot_local(cfg, ld, {"kv": CC.init_layer_cache(
                 batch, n_max, cfg.num_kv_heads, cfg.head_dim, cfg.pariskv,
                 dt, device)}, batch, device))
     return out
@@ -283,6 +309,36 @@ class UnsupportedPagedConfig(NotImplementedError):
             f"serve — {hint}")
 
 
+def paged_refusal(cfg: ModelConfig) -> Optional[UnsupportedPagedConfig]:
+    """The ``UnsupportedPagedConfig`` for a config the paged block pool
+    cannot serve, or None: one with an MLA layer (its latent caches stay
+    contiguous), or one with no ParisKV attention layer at all (mamba2:
+    nothing to page), named by its first layer. The paged engines raise
+    it at construction (``check_pageable``), ``make_paged_caches`` again;
+    the offload and shard gates give its message as their reason."""
+    for si, stage in enumerate(layer_plan(cfg)):
+        for i, ld in enumerate(stage.layers):
+            if ld.mixer == "mla":
+                return UnsupportedPagedConfig(
+                    cfg, si, i, ld.mixer,
+                    "MLA latent caches stay contiguous (ROADMAP); serve "
+                    "this config with the slot engine (ServingEngine) or "
+                    "an attention-mixer config")
+    if not any(pool_layers(cfg)):
+        return UnsupportedPagedConfig(
+            cfg, 0, 0, layer_defs(cfg)[0].mixer,
+            "no ParisKV attention layer to page; serve it with "
+            "ServingEngine or WaveServingEngine")
+    return None
+
+
+def check_pageable(cfg: ModelConfig) -> None:
+    """Raise ``paged_refusal(cfg)``, if there is one."""
+    err = paged_refusal(cfg)
+    if err is not None:
+        raise err
+
+
 # a tiered cache's host-side fetch statistics, reset with every chunk
 _FETCH_HOST_ZERO = {"calls": 0, "retries": 0, "timeouts": 0, "stall": 0.0}
 
@@ -295,10 +351,12 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     (batch, G, B, 2^m) int32 incremental bucket histogram ``hist``; per
     local layer a slot-local ring buffer of min(window, ``n_max``) slots
     (``make_caches``'s), not paged; the slot-local media K/V of a cross
-    layer or sublayer (``make_caches``'s), not paged either. With ``dist``
+    layer or sublayer and the SSM state of a hybrid layer
+    (``make_caches``'s), not paged either. A config with no global layer
+    raises ``UnsupportedPagedConfig`` (``check_pageable``). With ``dist``
     (a ``distributed.ShardDist``) the pool and the histograms hold that
-    rank's G / N KV heads and the rings and media every head: the
-    counterpart of the reference's ``sharded_state_specs``, which
+    rank's G / N KV heads and the rings, media and SSM states every head:
+    the counterpart of the reference's ``sharded_state_specs``, which
     partitions exactly the pool and histogram leaves and replicates the
     rest.
 
@@ -322,14 +380,7 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     hist_shape = (batch, G, pcfg.num_subspaces(cfg.head_dim),
                   pcfg.num_centroids())
     nd = num_blocks if num_device_blocks is None else num_device_blocks
-    for si, stage in enumerate(layer_plan(cfg)):
-        for i, ld in enumerate(stage.layers):
-            if ld.mixer == "mla":
-                raise UnsupportedPagedConfig(
-                    cfg, si, i, ld.mixer,
-                    "MLA latent caches stay contiguous (ROADMAP); serve "
-                    "this config with the slot engine (ServingEngine) or "
-                    "an attention-mixer config")
+    check_pageable(cfg)
     out = []
     for ld, pooled in zip(layer_defs(cfg), pool_layers(cfg)):
         if ld.mixer == "cross":
@@ -356,19 +407,17 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
                 "dropped": torch.zeros((2,), dtype=torch.int64,
                                        device=device),
                 **_FETCH_HOST_ZERO}
-        out.append(_with_media(cfg, ld, entry, batch, device))
+        out.append(_with_slot_local(cfg, ld, entry, batch, device))
     return out
 
 
 def offload_support_reason(cfg: ModelConfig) -> Optional[str]:
     """Why the tiered host-offloaded pool cannot serve this architecture,
     or None when it can: it pages exactly what ``make_paged_caches`` pages
-    (ParisKV attention K/V), so only MLA's latent caches are out."""
-    for i, ld in enumerate(layer_defs(cfg)):
-        if ld.mixer == "mla":
-            return (f"config {cfg.name!r}: layer {i} mixer 'mla' keeps "
-                    f"latent caches contiguous")
-    return None
+    (ParisKV attention K/V), so MLA's latent caches are out, and so is a
+    config with no ParisKV layer (``paged_refusal``'s message)."""
+    err = paged_refusal(cfg)
+    return None if err is None else str(err)
 
 
 def fill_support_reason(cfg: ModelConfig) -> Optional[str]:
@@ -376,17 +425,21 @@ def fill_support_reason(cfg: ModelConfig) -> Optional[str]:
     can: the media K/V of the cross-attention families come from one
     encoder pass over the whole prompt's media (the reference's message,
     checked first), and every mixer must be plain attention with no cross
-    sublayer."""
+    sublayer: an SSD recurrence (mamba2, hymba) has no chunk-resumable
+    prefill. Layers are named as the reference names them, ``stage {si}
+    layer {i}``."""
     if cfg.family in ("vlm", "audio"):
         return (f"config {cfg.name!r}: family {cfg.family!r} computes media "
                 f"K/V in one encoder pass, so prompts prefill solo")
-    for i, ld in enumerate(layer_defs(cfg)):
+    for ld, (si, i) in zip(layer_defs(cfg), _plan_places(cfg)):
         if ld.mixer != "attn":
-            return (f"config {cfg.name!r}: layer {i} mixer {ld.mixer!r} has "
-                    f"no chunk-resumable prefill (attention mixers only)")
+            return (f"config {cfg.name!r}: stage {si} layer {i} mixer "
+                    f"{ld.mixer!r} has no chunk-resumable prefill "
+                    f"(attention mixers only)")
         if ld.cross:
-            return (f"config {cfg.name!r}: layer {i} has a cross-attention "
-                    f"sublayer, which reads encoder-pass media K/V")
+            return (f"config {cfg.name!r}: stage {si} layer {i} has a "
+                    f"cross-attention sublayer, which reads encoder-pass "
+                    f"media K/V")
     return None
 
 
@@ -432,14 +485,12 @@ class UnsupportedShardedConfig(NotImplementedError):
 def sharded_support_reason(cfg: ModelConfig) -> Optional[str]:
     """Why head-sharded paged serving cannot serve this architecture, or
     None when it can: the shards split the paged ParisKV pool on the KV
-    head axis, so only a cache the pool cannot hold (MLA's latent caches,
-    whose configs wait for ROADMAP A13) is out."""
-    for i, ld in enumerate(layer_defs(cfg)):
-        if ld.mixer == "mla":
-            return (f"config {cfg.name!r}: layer {i} mixer 'mla' keeps "
-                    f"latent caches contiguous; the shards split the paged "
-                    f"block pool only")
-    return None
+    head axis, so a cache the pool cannot hold (MLA's latent caches,
+    whose configs wait for ROADMAP A13.6) is out, and so is a config with
+    no pool (``paged_refusal``'s message); slot-local state (rings, media,
+    SSM) is replicated."""
+    err = paged_refusal(cfg)
+    return None if err is None else str(err)
 
 
 def sharded_supported(cfg: ModelConfig) -> bool:
@@ -520,15 +571,24 @@ def _cross_prefill(p: dict, h: torch.Tensor, media: torch.Tensor,
 def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                    positions: torch.Tensor, cache: dict,
                    signs: torch.Tensor, lengths: Optional[torch.Tensor],
-                   media: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   media: Optional[torch.Tensor] = None,
+                   token_valid: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
     """One layer over the full prompt; fills this layer's cache (a ParisKV
     store, a local layer's ring, a cross layer's or sublayer's media K/V
-    from ``media``) in place."""
+    from ``media``, an SSD mixer's state and conv tail) in place.
+    ``lengths`` (b,) / ``token_valid`` (b, S) describe LEFT-aligned rows:
+    causal attention already hides a row's pad tail from its real tokens,
+    the SSD recurrence skips the pads (dt = 0 there)."""
     dt = torch_dtype(cfg)
     h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
     if ld.mixer == "cross":
         y = _gate(p) * _cross_prefill(p["attn"], h, media, ld.attn, cache,
                                       dt)
+    elif ld.mixer == "ssm":
+        y, cache["ssm"] = SSM.ssm_prefill(p["ssm"], h, cfg,
+                                          token_valid=token_valid,
+                                          lengths=lengths)
     else:
         y, k_new, v_new = L.attn_prefill(p["attn"], h, ld.attn, positions)
         if is_ring(cache):
@@ -536,11 +596,18 @@ def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
         else:
             CC.prefill_write(cache["kv"], k_new, v_new, cfg.pariskv, signs,
                              lengths=lengths)
+        if ld.mixer == "hybrid":
+            ys, cache["ssm"] = SSM.ssm_prefill(p["ssm"], h, cfg,
+                                               token_valid=token_valid,
+                                               lengths=lengths)
+            y = 0.5 * (y + ys)
     x = x + y.to(x.dtype)
     if ld.cross:
         h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
         x = x + _cross_prefill(p["cross"], h, media, ld.attn, cache,
                                dt).to(x.dtype)
+    if ld.ffn == "none":
+        return x
     h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
     return x + _ffn(p, h, ld, cfg).to(x.dtype)
 
@@ -569,12 +636,14 @@ def prefill(params: dict, cfg: ModelConfig, tokens, n_max: int,
     signs = rotation_signs(cfg, dev)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, device=dev).expand(b, S)
-    lens = None if lengths is None else torch.as_tensor(
-        lengths, dtype=torch.int32, device=dev)
+    lens = valid = None
+    if lengths is not None:
+        lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+        valid = torch.arange(S, device=dev)[None] < lens[:, None]
     caches = make_caches(cfg, b, n_max, dev)
     for ld, p, cache in zip(layer_defs(cfg), params["layers"], caches):
         x = _layer_prefill(p, x, ld, cfg, positions, cache, signs, lens,
-                           media)
+                           media, valid)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if lens is None:
         lens = torch.full((b,), S, dtype=torch.int32, device=dev)
@@ -606,17 +675,23 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     decodes densely over its ring buffer, a cross layer (and a whisper
     layer's cross sublayer, after its ParisKV attention) attends to the
     slot's media K/V, gated by tanh(cross_gate) on a cross layer: whole on
-    every rank."""
+    every rank. An SSD mixer (a mamba2 layer, the SSM half of a hybrid
+    layer, whose output is 0.5 · (attention + SSM)) advances every row's
+    state and conv tail, whole on every rank. A hybrid layer's attention
+    retrieves and promotes in the baseline too (``use_pariskv=False``),
+    as the reference's does: only plain attention layers turn dense."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_t, p["norm_attn"], cfg.norm_eps)
     kv = cache.get("kv")
-    res = None
-    if ld.mixer == "cross":
+    y = res = None
+    if ld.mixer == "ssm":
+        pass                             # no attention: the SSD mixer below
+    elif ld.mixer == "cross":
         y = _gate(p) * L.attn_cross_decode(p["attn"], h, cache["media_kv"],
                                            ld.attn)
     elif is_ring(cache):
         y = L.attn_decode_dense(p["attn"], h, kv, regions.pos + 1, ld.attn)
-    elif not (use_pariskv and ld.use_pariskv):
+    elif not (use_pariskv and ld.use_pariskv) and ld.mixer != "hybrid":
         y = L.attn_decode_dense(p["attn"], h, (kv.k, kv.v), regions.pos + 1,
                                 ld.attn)
     elif block_tables is None:
@@ -653,11 +728,16 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                                        signs)
     if record is not None and res is not None:
         record.append(res)
+    if ld.mixer in ("ssm", "hybrid"):
+        ys, cache["ssm"] = SSM.ssm_decode(p["ssm"], h, cache["ssm"], cfg)
+        y = ys if y is None else 0.5 * (y + ys)
     x_t = x_t + y.to(x_t.dtype)
     if ld.cross:
         h = L.rms_norm(x_t, p["norm_cross"], cfg.norm_eps)
         x_t = x_t + L.attn_cross_decode(p["cross"], h, cache["media_kv"],
                                         ld.attn).to(x_t.dtype)
+    if ld.ffn == "none":
+        return x_t
     h = L.rms_norm(x_t, p["norm_mlp"], cfg.norm_eps)
     return x_t + _ffn(p, h, ld, cfg).to(x_t.dtype)
 
@@ -862,17 +942,21 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
            else active)
     will_promote = CC.promote_trigger(regions, pcfg) & act
     append_index = None
+    kv0 = _store(state.caches)
     if block_tables is None:
-        n_max = _store(state.caches).k.shape[1]
+        n_max = 0 if kv0 is None else kv0.k.shape[1]   # mamba2: no store
     else:
         if not use_pariskv:
             raise ValueError("paged decode serves the ParisKV path only")
-        bs = _store(state.caches).k.shape[1]
+        bs = kv0.k.shape[1]
         n_max = block_tables.shape[1] * bs
         append_index = CC.paged_append_index(
             block_tables if tier is None else tier.kv_tables,
             regions.pos + 1, bs)
-    any_promote = use_pariskv and bool(will_promote.any())   # host sync
+    # host sync; hybrid layers promote in the baseline too (_layer_decode)
+    any_promote = ((use_pariskv or any(ld.mixer == "hybrid"
+                                       for ld in layer_defs(cfg)))
+                   and bool(will_promote.any()))
     num_candidates = pcfg.candidate_count(n_max)
     for li, (ld, p, cache) in enumerate(zip(layer_defs(cfg), params["layers"],
                                             state.caches)):
@@ -1115,12 +1199,14 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
     return torch.stack(emitted, dim=1), state
 
 
-def _admit_media(lc: dict, lc1: dict, slot: int) -> None:
-    """Copy a batch-1 prefill's media K/V, if the entry has one, into row
-    ``slot`` whole (its length is the media's, not the prompt bucket's)."""
-    if "media_kv" in lc:
-        for big, small in zip(lc["media_kv"], lc1["media_kv"]):
-            big[slot] = small[0]
+def _admit_slot_local(lc: dict, lc1: dict, slot: int) -> None:
+    """Copy a batch-1 prefill's media K/V and SSM state and conv tail, if
+    the entry has them, into row ``slot`` whole (the media's length is the
+    media's, not the prompt bucket's)."""
+    for key in ("media_kv", "ssm"):
+        if key in lc:
+            for big, small in zip(lc[key], lc1[key]):
+                big[slot] = small[0]
 
 
 @torch.no_grad()
@@ -1139,15 +1225,15 @@ def admit_paged(state: SlotState, slot: int, phys_blocks: torch.Tensor,
     prefill's ring (every head) goes to the slot's row, into its first
     slots when a bucketed prefill's ring is shorter (its positions all lie
     below its length, so they sit where the longer ring keeps them). Media
-    K/V (every head) go to the slot's row whole."""
+    K/V (every head) and SSM states and conv tails go to the slot's row
+    whole."""
     phys_blocks = phys_blocks.to(state.cur_tok.device)
     for lc, lc1 in zip(state.caches, caches1):
-        _admit_media(lc, lc1, slot)
-        if is_cross(lc):
-            continue
-        if is_ring(lc):
-            for big, small in zip(lc["kv"], lc1["kv"]):
-                big[slot, :small.shape[1]] = small[0]
+        _admit_slot_local(lc, lc1, slot)
+        if not is_pool(lc):
+            if is_ring(lc):
+                for big, small in zip(lc["kv"], lc1["kv"]):
+                    big[slot, :small.shape[1]] = small[0]
             continue
         kv1 = lc1["kv"] if dist is None else CC.head_slice(
             lc1["kv"], *dist.head_range(lc1["kv"].k.shape[2]))
@@ -1180,7 +1266,7 @@ def admit_slot(state: SlotState, slot: int, caches1: List[dict],
     ``slot``, in place: every cache tensor's row ``slot`` takes the batch-1
     row whole (the reference's ``ServingEngine._admit_impl``)."""
     for lc, lc1 in zip(state.caches, caches1):
-        _admit_media(lc, lc1, slot)
+        _admit_slot_local(lc, lc1, slot)
         if "kv" in lc:
             for big, small in zip(lc["kv"], lc1["kv"]):
                 big[slot] = small[0]

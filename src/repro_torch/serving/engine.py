@@ -575,6 +575,12 @@ class PagedServingEngine(ServingEngine):
     from the pool, ``shared_block_hits`` the blocks ever mapped, and
     ``Request.shared_prefix_blocks`` each request's mapped blocks.
 
+    A config the pool cannot page (``models.serve.check_pageable``: one
+    with no ParisKV attention layer, mamba2) raises
+    ``UnsupportedPagedConfig`` at construction, with every option but
+    ``share_prefixes=True``, whose refusal (the reference's ``ValueError``
+    and message) comes first; the slot and wave engines serve it.
+
     ``mesh_shards=N`` > 1 (module docstring) runs in each rank of a process
     group of N ranks (``torchrun``, or ``distributed.launch_local``) on
     that rank's device: on a card, the rank's current CUDA device. It
@@ -599,12 +605,6 @@ class PagedServingEngine(ServingEngine):
                  prefill_budget: int = 0, offload: bool = False,
                  share_prefixes: bool = False, mesh_shards: int = 1,
                  faults: Optional[FaultPlan] = None, device=None):
-        self.dist = _shard_dist(cfg, mesh_shards)
-        if not use_pariskv:
-            raise ValueError("the paged engine serves the ParisKV path only")
-        if n_max % block_size != 0:
-            raise ValueError(f"n_max={n_max} must be a multiple of "
-                             f"block_size={block_size}")
         if share_prefixes:
             if prefill_budget <= 0:
                 raise ValueError(
@@ -614,6 +614,13 @@ class PagedServingEngine(ServingEngine):
             reason = SV.share_support_reason(cfg)
             if reason is not None:
                 raise ValueError(f"prefix sharing unavailable — {reason}")
+        SV.check_pageable(cfg)
+        self.dist = _shard_dist(cfg, mesh_shards)
+        if not use_pariskv:
+            raise ValueError("the paged engine serves the ParisKV path only")
+        if n_max % block_size != 0:
+            raise ValueError(f"n_max={n_max} must be a multiple of "
+                             f"block_size={block_size}")
         super().__init__(cfg, params, n_max=n_max, max_batch=max_batch,
                          greedy=greedy, chunk_size=chunk_size,
                          eos_id=eos_id, prefill_budget=prefill_budget,
@@ -1085,6 +1092,7 @@ class OffloadedPagedServingEngine(PagedServingEngine):
                  fetch_timeout_s: Optional[float] = None,
                  fetch_max_retries: int = 2, fetch_backoff_s: float = 0.005,
                  faults: Optional[FaultPlan] = None, device=None):
+        SV.check_pageable(cfg)
         if mesh_shards > 1:
             raise SV.UnsupportedShardedConfig(
                 cfg, f"offload=True with mesh_shards={mesh_shards}",

@@ -153,7 +153,8 @@ def test_archs_and_layer_plans():
     assert set(TC.ARCHS) == {"qwen2-1.5b", "stablelm-1.6b", "llama3.1-8b",
                              "qwen3-8b", "grok-1-314b", "gemma2-27b",
                              "gemma3-12b", "whisper-large-v3",
-                             "llama-3.2-vision-11b"}
+                             "llama-3.2-vision-11b", "mamba2-780m",
+                             "hymba-1.5b"}
     from repro import configs as JC
     for arch in TC.ARCHS:
         assert dataclasses.asdict(TC.get(arch)) == dataclasses.asdict(
@@ -174,11 +175,16 @@ def test_archs_and_layer_plans():
     with pytest.raises(NotImplementedError, match=r"A13\.6"):
         TM.layer_plan(deepseek)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        TC.get("mamba2-780m")
-    for family, step in (("ssm", "A13.5"), ("hybrid", "A13.5")):
-        other = dataclasses.replace(TC.smoke("qwen2-1.5b"), family=family)
-        with pytest.raises(NotImplementedError, match=step):
-            TM.layer_plan(other)
+        TC.get("deepseek-v2-lite-16b")
+    from repro.models import model as JM
+    for arch in ("mamba2-780m", "hymba-1.5b"):
+        plan_j, plan_t = JM.layer_plan(JC.get(arch)), TM.layer_plan(
+            TC.get(arch))
+        assert [(s.repeat, len(s.layers)) for s in plan_t] == \
+            [(s.repeat, len(s.layers)) for s in plan_j]
+        for sj, st in zip(plan_j, plan_t):
+            for lj, lt in zip(sj.layers, st.layers):
+                assert dataclasses.asdict(lt) == dataclasses.asdict(lj)
 
 
 def test_unsupported_paged_config_matches_reference(monkeypatch):

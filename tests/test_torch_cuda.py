@@ -341,6 +341,44 @@ def test_b32_stage1_and_bucket_count_at_gemma3_shapes_on_card(card):
 
 
 @pytest.mark.cuda
+def test_stage1_and_bucket_count_at_hymba_shapes_on_card(card):
+    """hymba-1.5b's hybrid layers: G 5 KV heads, Hg 5 query heads each
+    (the first odd Hg above 1: 5 of the 8 byte lanes of the packed tier
+    table), B 8 (head_dim 64), 512 blocks of 128, four rows: Stage I with
+    its histograms, the cut and ``bucket_count`` equal their plain
+    versions exactly."""
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                                   collision_paged_ref)
+
+    gen = torch.Generator(device=card).manual_seed(5)
+    g5, hg, B, nb, bs, b = 5, 5, 8, 512, 128, 4
+    nblk = nb // b
+    ids = torch.randint(0, 256, (nb, g5, bs, B), generator=gen, device=card,
+                        dtype=torch.int32).to(torch.uint8)
+    bt = torch.randperm(nb, generator=gen, device=card).to(
+        torch.int32).reshape(b, nblk)
+    bt[2, 40:] = -1
+    enc_end = torch.tensor([16000, 9000, 3000, 12000], dtype=torch.int32,
+                           device=card)
+    tables = lane_packed_table(b, g5, hg, B, 256, card)
+    tables.copy_(torch.randint(0, 7, (b, g5, hg, B, 256), generator=gen,
+                               device=card, dtype=torch.int32).to(
+                                   torch.uint8))
+    got, hist = collision_scores_paged_kernel(ids, bt, tables, enc_end, 8,
+                                              6 * B)
+    want, want_hist = collision_paged_ref(ids, bt, tables, enc_end, 8, 6 * B)
+    assert torch.equal(got, want) and torch.equal(hist, want_hist)
+    assert got.shape[:3] == (b, g5, hg)
+    cand = bucket_topk(got, 1311, 6 * B, seg_hist=hist)
+    assert torch.equal(cand, bucket_topk_ref(got, 1311, 6 * B))
+    view = ids[bt.clamp_min(0).long()].permute(0, 2, 1, 3, 4).reshape(
+        b, g5, nblk * bs, B).contiguous()
+    counts = bucket_count(view, enc_end, 8, 256)
+    assert torch.equal(counts, bucket_count_ref(view, enc_end, 8, 256))
+
+
+@pytest.mark.cuda
 def test_bucket_count_span_long_rebuild_exact_on_card(card):
     """A shared-prefix admission's histogram rebuild (``core/cache.py:
     bucket_hist_from_paged_meta``): bucket_count's block-table mode over
