@@ -52,13 +52,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               report (registers, shared memory, spills) of the five
               kernels designed for Hopper is printed.
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
-              serving qwen2-1.5b at full width (28 layers, bf16, random
-              weights from a seed) to four staggered requests of
-              ~3k/6k/9k/12k prompt tokens and 264 new tokens each. Launch
-              counters are zeroed just before and read just after; each
-              kernel of the path must have launched at least 28 × decode
-              steps times (Stage II exactly that, the paged gather at most
-              28 more per promotion), every request must promote, and the
+              serving qwen2-1.5b at full width cut to 16 of its 28 layers
+              (the script's time limit; bf16, random weights from a seed;
+              every serving phase through 11 uses this model) to four
+              staggered requests of ~3k/6k/9k/12k prompt tokens and 264
+              new tokens each. Launch counters are zeroed just before and
+              read just after; each kernel of the path must have launched
+              at least layers × decode steps times (Stage II exactly that,
+              the paged gather at most one more per layer and promotion),
+              every request must promote, and the
               incremental histograms must equal a recompute at every chunk.
    profile  — then one decode chunk of the same engine (four rows) under
               torch.profiler: wall and device-busy time per step, kernel
@@ -66,13 +68,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
               The slot phase ends with the same profile of its engine.
 5. slot     — the contiguous ``ServingEngine`` on the same four requests:
               the region's histogram, Stage I, top-C and Stage II each
-              launched exactly 28 × steps, the decode gather 28 × steps
-              plus at most 28 per promotion, the histogram pass never;
+              launched exactly layers × steps, the decode gather layers ×
+              steps plus at most layers per promotion, the histogram pass
+              never;
               every request promoted, token agreement with the engine
               phase printed as a rate (bf16 promises no identity).
 6. metaview — ``PagedServingEngine(fused=False)`` and the fused engine on
               the first two requests with 8 new tokens: identical tokens
-              asserted, Stage I over the view launched exactly 28 × steps.
+              asserted, Stage I over the view launched exactly layers ×
+              steps.
 7. baseline — the slot engine with ParisKV and with full attention
               (``use_pariskv=False``), and ``WaveServingEngine``, on
               requests of 3000/6000 prompt tokens with 8 new each: host-
@@ -81,7 +85,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               four requests with the K/V pool in pinned host memory and a
               staging pool of a quarter of its blocks; tokens identical to
               the engine phase's asserted, staging misses and hits > 0,
-              the tiered gather launched 28 × steps; tokens/s, TTFT, peak
+              the tiered gather launched layers × steps; tokens/s, TTFT, peak
               device memory, pinned bytes, fetched bytes, miss share and
               prefetch hits printed beside the resident run's, then a
               profile of one chunk; the first two requests (8 new) with
@@ -122,8 +126,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               draws fewer blocks, ``verify_invariants()`` holds at every
               chunk boundary, the pool drains, each shared admission
               launches bucket_count once per layer and the first one's
-              rebuilt histograms equal the plain version's in all 28
-              layers. (b) the meta view on the first two requests (16
+              rebuilt histograms equal the plain version's in every
+              layer. (b) the meta view on the first two requests (16
               new). (c) the offloaded engine with sharing on, then off
               (128 of 512 staged, every tiered gather checked): tokens
               identical to (a)'s run with the same sharing, staging
@@ -180,15 +184,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               promotes, launches held as the engine phase's, tokens/s,
               TTFT, pool bytes and peak memory printed; (b) llama3.1-8b
               at full width and depth (32 layers, ~16 GB) on requests of
-              6,000 and 12,000 tokens with 32 new, the same reports.
+              6,000 and 12,000 tokens with 16 new, the same reports.
 14. gemma   — gemma's local/global layers (sliding-window ring buffers
               beside the paged pool), run it alone with ``python3
               chip_smoke.py gemma``: (a) the four main-path kernels and
               ``bucket_count`` at gemma3-12b's shapes (G 8, Hg 2, hd 256,
               B 32: the first shapes past B = 16), held and timed as in
               the sharded phase, the "g3" rows; (b) gemma3-12b at full
-              width and depth (48 layers, 40 local with a 1,024-token
-              window, 8 global; qk-norm; bf16, seed 0) through the fused
+              width cut to 24 of its 48 layers (4 periods: 20 local with a
+              1,024-token window, 4 global; qk-norm; bf16, seed 0; the
+              script's time limit, not memory) through the fused
               paged engine on requests of 6,000 and 12,000 tokens with
               264 new: pool bytes, ring bytes, peak memory, tokens/s and
               TTFT, launches held per global layer-step, ``bucket_count``
@@ -207,16 +212,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
               kernels and ``bucket_count`` at whisper-large-v3's shapes (G
               20, the first KV-head count that is not a power of two; Hg
               1, hd 64, B 8), held and timed as in the sharded phase, the
-              "w" rows; (b) whisper-large-v3 at full width and depth (32
-              decoder layers with a cross sublayer each, 32 encoder layers
-              over 1,500 stub frames a request; bf16, seed 0) through the
+              "w" rows; (b) whisper-large-v3 at full width cut to 16 of its
+              32 decoder layers (the time limit), each with a cross
+              sublayer, its 32 encoder layers whole over 1,500 stub frames
+              a request; bf16, seed 0) through the
               fused paged engine on the engine phase's four requests with
               264 new: every request promotes (B = 8 encodes at G = 20),
               pool and media bytes (the latter exact), peak memory,
               tokens/s and TTFT, launches held as the engine phase's; (c)
               llama-3.2-vision-11b at full width and depth (40 layers, a
               gated cross layer every 5th over 1,600 patch embeddings) on
-              requests of 6,000 and 12,000 tokens with 32 new, its cross
+              requests of 6,000 and 12,000 tokens with 16 new, its cross
               gates seeded non-zero; (d) float32 at full width, card
               against CPU: whisper's encoder at one layer, whisper's
               cross sublayer and a vision cross layer for one decode
@@ -227,17 +233,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``bucket_count`` at hymba-1.5b's shapes (G 5, Hg 5: the
               first odd Hg above 1, 5 of the tier table's 8 byte lanes;
               hd 64, B 8), held and timed as in the sharded phase, the "h"
-              rows; (b) hymba-1.5b at full width and depth (32 hybrid
-              layers, each 0.5 · (ParisKV attention + an SSD mixer of 50
-              heads of 64 with state 16), then an MLP; bf16, seed 0)
-              through the fused paged engine on the engine phase's four
-              requests with 264 new: every request promotes, launches held
-              as the engine phase's, SSM state bytes exactly 4 slots × 32
-              layers × (50·64·16·4 + 3·3232·2), pool bytes, peak memory,
+              rows; (b) hymba-1.5b at full width cut to 16 of its 32
+              hybrid layers (the time limit), each 0.5 · (ParisKV
+              attention + an SSD mixer of 50 heads of 64 with state 16),
+              then an MLP; bf16, seed 0) through the fused paged engine
+              on the engine phase's four requests with 264 new: every
+              request promotes, launches held as the engine phase's, SSM
+              state bytes exactly 4 slots × 16 layers × (50·64·16·4 +
+              3·3232·2), pool bytes, peak memory,
               tokens/s and TTFT printed; (c) mamba2-780m at full width and
               depth (48 SSD layers of 48 heads of 64, state 128; no
               attention, no KV cache) through the slot engine on requests
-              of 6,000 and 12,000 tokens with 64 new: no ParisKV kernel
+              of 6,000 and 12,000 tokens with 32 new: no ParisKV kernel
               launches, SSM state bytes exactly 4 × 48 × (48·64·128·4 +
               3·3328·2); (d) float32 at full width, card against CPU: one
               hymba layer's prefill over four LEFT-aligned rows of up to
@@ -245,7 +252,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``ssm_prefill`` and ``ssm_decode``, each within 1e-4 of the
               output's largest magnitude. Head sharding of hymba is held
               on the CPU only.
-17. parity  — 2 layers at full width in float32: one teacher-forced
+17. mla     — deepseek-v2-lite's multi-head latent attention, run it
+              alone with ``python3 chip_smoke.py mla``: (a) the "m"
+              rows at its decode shapes (one 576-wide bf16 latent a
+              token shared by Hg 16 query heads, G 1, B 128, score range
+              768, four slots of 16,384, C 1,311): Stage I in its wide
+              mode (a 16-lane tier table staged 16 subspaces at a time),
+              the cut over 770 bins, Stage
+              II with its top-k at B = 128 (its bound priced on the
+              distinct (row, position) candidates, the bound over every
+              head's printed beside it), the K-only decode gather and
+              ``bucket_count`` at B = 128, each held to its plain version
+              and timed beside its library call, and the ptxas report of
+              the wide instantiations (``ptxas_wide``); (b)
+              deepseek-v2-lite-16b at full width and depth (27 layers:
+              layer 0 a dense MLP, 26 with 64 routed experts top-6 and 2
+              shared; bf16, seed 0) through the slot engine, 4 slots of
+              16,384, on requests of 6,000 and 12,000 tokens with 264
+              new: Stage I, the cut, Stage II and ``bucket_count``
+              launched exactly 27 × steps, the gather 27 × steps plus at
+              most 27 per promotion, every request promoting, the latent
+              and metadata bytes exactly 2,038,431,744 each, no pool;
+              tokens/s, TTFT and peak memory printed; (c) float32 at full
+              width, card against CPU: one MLA layer's prefill of two
+              2,048-token prompts and four decode steps retrieving over
+              the latent (within 1e-4 of the output's magnitude where
+              every winner set agrees), and one 64-expert MoE layer,
+              routing flips printed with their top-2 gaps. The paged,
+              offloaded and sharded engines refuse deepseek (CPU tests).
+18. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -272,6 +307,10 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 20_000_000       # ~10 ms of device spin: longer than any
 #                                call's host-side enqueue in this script
 RERANK_RTOL, RERANK_ATOL = 1e-4, 1e-3
+# the engines' phases serve qwen2-1.5b at full width cut to 16 of its 28
+# layers: the script's time limit (on a slow host the whole script took
+# 1,359 s of the 1,200 allowed with all 28)
+QWEN_LAYERS = 16
 PROMPTS = (3000, 6000, 9000, 12000)      # the four requests of the engines
 # their new tokens: every request must promote, and its first promotion
 # comes at decode step 257 (update_interval + 1)
@@ -328,16 +367,17 @@ GROK_ARCH = "grok-1-314b"
 GROK_LAYERS = 4
 LLAMA_ARCH = "llama3.1-8b"
 LLAMA_LENS = (6000, 12000)
-LLAMA_GEN = 32
-# the gemma phase: gemma3-12b at full depth on LLAMA_LENS, gemma2-27b cut to
-# 4 of its 23 local/global periods on the engine phase's requests, both with
-# the engine phase's GEN new tokens so that every request promotes (at
-# gemma3's head_dim 256: B = 32 encodes and histogram adds), and gemma3 at
-# one period (its 6 layers) in float32
+LLAMA_GEN = 16
+# the gemma phase: gemma3-12b cut to GEMMA3_LAYERS on LLAMA_LENS, gemma2-27b
+# cut to 4 of its 23 local/global periods on the engine phase's requests,
+# both with the engine phase's GEN new tokens so that every request
+# promotes (at gemma3's head_dim 256: B = 32 encodes and histogram adds),
+# and gemma3 at one period (its 6 layers) in float32
 GEMMA3_ARCH, GEMMA2_ARCH = "gemma3-12b", "gemma2-27b"
 GEMMA2_LAYERS = 8
-# the cross phase: whisper-large-v3 at full width and depth (32 decoder and
-# 32 encoder layers over 1,500 stub frames) on the engine phase's requests
+GEMMA3_LAYERS = 24        # 4 of its 8 periods: the time limit, not memory
+# the cross phase: whisper-large-v3 at full width, WHISPER_LAYERS decoder and
+# 32 encoder layers over 1,500 stub frames, on the engine phase's requests
 # with GEN new tokens, every request promoting (G = 20 KV heads, B = 8), and
 # llama-3.2-vision-11b at full depth on LLAMA_LENS with LLAMA_GEN, its cross
 # gates seeded non-zero (zero at init, tanh(0) = 0, the cross layers would
@@ -345,23 +385,38 @@ GEMMA2_LAYERS = 8
 # layer, one cross decode step of each family, held to CROSS_RTOL of the
 # output's largest magnitude
 WHISPER_ARCH, VISION_ARCH = "whisper-large-v3", "llama-3.2-vision-11b"
+WHISPER_LAYERS = 16       # of 32 decoder layers: the time limit
 CROSS_ROWS = 4
 CROSS_RTOL = 1e-4
-# the ssm phase: hymba-1.5b at full width and depth on the engine phase's
-# requests with GEN new tokens, every request promoting (G = 5 KV heads,
-# Hg = 5, B = 8), and mamba2-780m at full width and depth through the slot
-# engine on LLAMA_LENS with MAMBA_GEN (no KV cache: no ParisKV launch);
+# the ssm phase: hymba-1.5b at full width and HYMBA_LAYERS on the engine
+# phase's requests with GEN new tokens, every request promoting (G = 5 KV
+# heads, Hg = 5, B = 8), and mamba2-780m at full width and depth through
+# the slot engine on LLAMA_LENS with MAMBA_GEN (no KV cache: no ParisKV
+# launch);
 # card against CPU in float32 at full width: one hymba layer's prefill of
 # SSM_F32_LEN tokens (LEFT-aligned rows of SSM_F32_LENS) and one decode
 # step, one mamba2 mixer's ssm_prefill and ssm_decode, held to CROSS_RTOL
 # of the output's largest magnitude
 HYMBA_ARCH, MAMBA_ARCH = "hymba-1.5b", "mamba2-780m"
-MAMBA_GEN = 64
+HYMBA_LAYERS = 16         # of 32: the time limit
+MAMBA_GEN = 32
 SSM_F32_LEN = 512
 SSM_F32_LENS = (512, 448, 384, 320)
-# its MoE layer in float32, card against CPU: a 64-token moe_fwd and a
-# 4-row moe_decode. Sums over d_ff = 32,768 reassociate (~1e-5 at outputs
-# of ~5); routing may differ only at a top-2 gap within float32 rounding
+# the mla phase: deepseek-v2-lite at full width and depth (27 MLA layers,
+# one dense, 26 with 64 routed experts top-6 and 2 shared) through the slot
+# engine on MLA_LENS with MLA_GEN new tokens (the least that promotes);
+# card against CPU in float32 at full width: one MLA layer's prefill of
+# MLA_F32_ROWS prompts of MLA_F32_LEN tokens and MLA_F32_STEPS decode steps
+# retrieving over the latent, held to CROSS_RTOL of the output's largest
+# magnitude where every winner set agrees, and one 64-expert MoE layer
+DEEPSEEK_ARCH = "deepseek-v2-lite-16b"
+MLA_LENS = (6000, 12000)
+MLA_GEN = 264
+MLA_F32_ROWS, MLA_F32_LEN, MLA_F32_STEPS = 2, 2048, 4
+# grok-1's MoE layer (the arch phase; deepseek's in the mla phase) in
+# float32, card against CPU: a 64-token moe_fwd and a 4-row moe_decode.
+# Sums over d_ff = 32,768 reassociate (~1e-5 at outputs of ~5); routing
+# may differ only at a top-2 gap within float32 rounding
 MOE_TOKENS, MOE_ROWS = 64, 4
 MOE_ATOL = MOE_RTOL = 1e-4
 MOE_GAP = 1e-5
@@ -1331,11 +1386,14 @@ def _check_run(eng, done, n_requests: int, gen: int, launches, kernels,
 
 def _retrieval_layers(cfg) -> int:
     """The layers that run ParisKV retrieval, and so the kernels, in every
-    decode step, the pool's layers: all of them but gemma's sliding-window
+    decode step: the pool's layers (all of them but gemma's sliding-window
     local layers, which decode densely over their ring buffers, and
-    llama-vision's cross layers, which attend to static media K/V."""
+    llama-vision's cross layers, which attend to static media K/V) and
+    deepseek's MLA layers, which retrieve over their latent."""
+    from repro_torch.models.model import layer_defs
     from repro_torch.models.serve import pool_layers
-    return sum(pool_layers(cfg))
+    return sum(pool_layers(cfg)) + sum(ld.mixer == "mla"
+                                       for ld in layer_defs(cfg))
 
 
 def _serve(eng, prompts, gen: int, arrivals, kernels, cfg, audit=False,
@@ -1451,7 +1509,7 @@ def engine_phase(dev, cfg, params, n_max: int = 16384,
                        audit=True)
     for uid, r in done.items():
         _check(r.promotions >= 1, f"request {uid} never promoted")
-    rec = dict(layers=cfg.num_layers, dtype=cfg.dtype,
+    rec = dict(layers=cfg.num_layers, full_layers=28, dtype=cfg.dtype,
                params=param_count(params), **rec)
     print("engine " + json.dumps(rec), flush=True)
     return rec, eng, {u: r.output for u, r in done.items()}
@@ -2853,7 +2911,8 @@ def _moe_compare(p_dev, p_cpu, x, top_k: int):
 
 def _moe_card_vs_cpu(dev, cfg, seed: int = 0):
     """(c) One MoE layer of ``cfg`` at full width in float32 (grok-1: 8
-    experts of 6144 × 32768, 19.3 GB), card against CPU: a
+    experts of 6144 × 32768, 19.3 GB; deepseek-v2-lite: 64 of 2048 × 1408
+    and a shared MLP of 2 × 1408), card against CPU: a
     ``MOE_TOKENS``-token ``moe_fwd`` and a ``MOE_ROWS``-row
     ``moe_decode``, held by ``_moe_compare``: routing equal wherever the
     top-2 gap exceeds ``MOE_GAP``, outputs within ``MOE_ATOL`` +
@@ -2864,7 +2923,9 @@ def _moe_card_vs_cpu(dev, cfg, seed: int = 0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     p_dev = MOE.init_moe(cfg.d_model, cfg.moe_d_ff, cfg.num_experts,
                          cfg.num_shared_experts, torch.float32, dev, gen)
-    p_cpu = {k: v.cpu() for k, v in p_dev.items()}
+    p_cpu = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.cpu())   # shared experts
+             for k, v in p_dev.items()}
     out = {}
     for name, shape in (("moe_fwd", (1, MOE_TOKENS, cfg.d_model)),
                         ("moe_decode", (MOE_ROWS, cfg.d_model))):
@@ -3013,9 +3074,9 @@ def _count_kernel(dev, cfg, tag: str, seed: int = 0):
 
 def gemma_phase(dev):
     """gemma's local/global layers: the kernels at gemma3-12b's shapes
-    (a), gemma3-12b at full width and depth (b), gemma2-27b at full width
-    and ``GEMMA2_LAYERS`` layers (c), and gemma3 at one period in float32,
-    chunked against solo (d)."""
+    (a), gemma3-12b at full width and ``GEMMA3_LAYERS`` layers (b),
+    gemma2-27b at full width and ``GEMMA2_LAYERS`` layers (c), and gemma3
+    at one period in float32, chunked against solo (d)."""
     import dataclasses as dc
     import torch
     from repro_torch import configs
@@ -3023,7 +3084,8 @@ def gemma_phase(dev):
     g3 = configs.get(GEMMA3_ARCH)
     kern = _path_kernels(dev, g3, g3.num_kv_heads, "g3")
     kern.update(_count_kernel(dev, g3, "g3"))
-    gemma3, done3 = _arch_serve(dev, g3, g3.num_layers, LLAMA_LENS, GEN,
+    gemma3, done3 = _arch_serve(dev, dc.replace(g3, num_layers=GEMMA3_LAYERS),
+                                g3.num_layers, LLAMA_LENS, GEN,
                                 ARRIVALS[:len(LLAMA_LENS)])
     # the paged engine counts each admission's histograms with bucket_count
     _check(gemma3["launches"]["bucket_count"] > 0,
@@ -3039,7 +3101,9 @@ def gemma_phase(dev):
                gemma2=gemma2, f32_chunked_identical_to_solo=f32,
                cut=f"{GEMMA2_ARCH}: {GEMMA2_LAYERS} of {g2.num_layers} layers "
                    f"(4 local/global periods; full depth's weights, pool "
-                   f"and rings leave no room for a 16,384-token prefill)")
+                   f"and rings leave no room for a 16,384-token prefill); "
+                   f"{GEMMA3_ARCH}: {GEMMA3_LAYERS} of {g3.num_layers} "
+                   f"(the script's time limit)")
     print("gemma " + json.dumps(rec), flush=True)
     return rec, kern
 
@@ -3136,8 +3200,9 @@ def _cross_card_vs_cpu(dev, whisper, vision, seed: int = 0):
 
 def cross_phase(dev):
     """The cross-attention architectures: the kernels at whisper's shapes
-    (a), whisper-large-v3 at full width and depth, every request promoting
-    (b), llama-3.2-vision-11b at full width and depth with non-zero cross
+    (a), whisper-large-v3 at full width and ``WHISPER_LAYERS`` decoder
+    layers (its 32 encoder layers whole), every request promoting (b),
+    llama-3.2-vision-11b at full width and depth with non-zero cross
     gates (c), and float32 card against CPU at full width (d)."""
     import torch
     from repro_torch import configs
@@ -3146,14 +3211,15 @@ def cross_phase(dev):
     w = configs.get(WHISPER_ARCH)
     kern = _path_kernels(dev, w, w.num_kv_heads, "w")
     kern.update(_count_kernel(dev, w, "w"))
-    whisper, done = _arch_serve(dev, w, w.num_layers, PROMPTS, GEN,
+    w_cut = dataclasses.replace(w, num_layers=WHISPER_LAYERS)
+    whisper, done = _arch_serve(dev, w_cut, w.num_layers, PROMPTS, GEN,
                                 ARRIVALS)
     for uid, r in done.items():
         _check(r.promotions >= 1, f"whisper request {uid} never promoted")
     v = configs.get(VISION_ARCH)
     vision, _ = _arch_serve(dev, v, v.num_layers, LLAMA_LENS, LLAMA_GEN,
                             ARRIVALS[:len(LLAMA_LENS)])
-    for rec, cfg in ((whisper, w), (vision, v)):
+    for rec, cfg in ((whisper, w_cut), (vision, v)):
         # K and V, bf16, every slot of every cross layer or sublayer
         n_cross = (cfg.num_layers // cfg.cross_attn_period
                    if cfg.cross_attn_period else cfg.num_layers)
@@ -3251,9 +3317,10 @@ def _ssm_card_vs_cpu(dev, hymba, mamba, seed: int = 0):
 
 def ssm_phase(dev):
     """The state-space architectures: the kernels at hymba's shapes (a),
-    hymba-1.5b at full width and depth through the fused paged engine,
-    every request promoting (b), mamba2-780m at full width and depth
-    through the slot engine with no ParisKV launch (c), and float32 card
+    hymba-1.5b at full width and ``HYMBA_LAYERS`` layers through the fused
+    paged engine, every request promoting (b), mamba2-780m at full width
+    and depth through the slot engine with no ParisKV launch (c), and
+    float32 card
     against CPU at full width (d)."""
     import torch
     from repro_torch import configs
@@ -3261,7 +3328,8 @@ def ssm_phase(dev):
     hy = configs.get(HYMBA_ARCH)
     kern = _path_kernels(dev, hy, hy.num_kv_heads, "h")
     kern.update(_count_kernel(dev, hy, "h"))
-    hymba, done = _arch_serve(dev, hy, hy.num_layers, PROMPTS, GEN,
+    hy_cut = dataclasses.replace(hy, num_layers=HYMBA_LAYERS)
+    hymba, done = _arch_serve(dev, hy_cut, hy.num_layers, PROMPTS, GEN,
                               ARRIVALS)
     for uid, r in done.items():
         _check(r.promotions >= 1, f"hymba request {uid} never promoted")
@@ -3270,7 +3338,7 @@ def ssm_phase(dev):
                            ARRIVALS[:len(LLAMA_LENS)], slot=True)
     _check(not any(mamba["launches"].values()),
            f"mamba2: ParisKV kernels launched: {mamba['launches']}")
-    for rec, cfg in ((hymba, hy), (mamba, ma)):
+    for rec, cfg in ((hymba, hy_cut), (mamba, ma)):
         want = _ssm_bytes_want(cfg, 4)
         _check(rec["ssm_bytes"] == want,
                f"{cfg.name}: SSM state bytes {rec['ssm_bytes']} != {want}")
@@ -3283,6 +3351,374 @@ def ssm_phase(dev):
                note="hymba's head sharding is held on the CPU "
                     "(tests/test_torch_ssm_engines.py), not here")
     print("ssm " + json.dumps(rec), flush=True)
+    return rec, kern
+
+
+# ------------------------------------------------------------------ mla ---
+def _mla_ptxas() -> None:
+    """Registers, shared memory and spills of the wide instantiations (the
+    wide Stage I, Stage II at B = 128, ``bucket_count<128>``), from nvcc's
+    -Xptxas -v logs."""
+    from repro_torch.kernels import build
+    picks = {"collision_paged": "wide", "rerank_topk_paged": "ILi32ELi1E",
+             "bucket_count": "ILi128E"}
+    for source, tag in picks.items():
+        rep = {k: v for k, v in build.ptxas_report(source).items()
+               if tag in k}
+        _check(bool(rep), f"ptxas: no {tag} instantiation in {source}")
+        print(f"ptxas_wide {source} " + json.dumps(rep), flush=True)
+
+
+def _mla_kernels(dev, cfg, seed: int = 0, n: int = 16384):
+    """(a) The "m" rows: Stage I (the wide mode: a 16-lane tier table),
+    the cut, Stage II with its top-k, the K-only decode gather and
+    ``bucket_count`` at deepseek-v2-lite's decode shapes: four slots of a
+    (4, 16384) latent store (576 wide, bf16; its metadata B = 128), G 1,
+    Hg 16 query heads, score range 768 (770 bins), C 1311, top-k 100, the
+    kernel phase's region ends. Each held to its plain version (exact;
+    Stage II's estimates to its tolerance, its selection exact) and timed
+    beside its plain version and library call. Stage II's bound is priced
+    on the distinct (row, position) candidates (its 16 heads share one
+    latent's metadata) and printed beside the bound over every head's."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.core import centroids
+    from repro_torch.core import encode as E
+    from repro_torch.core import retrieval as R
+    from repro_torch.kernels import SEG_LEN, row_tables
+    from repro_torch.kernels.bucket_topk import bucket_topk
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision import (bucket_count,
+                                               collision_scores_kernel,
+                                               lane_packed_table,
+                                               table_lanes)
+    from repro_torch.kernels.collision import ops as CO
+    from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                                   collision_paged_ref)
+    from repro_torch.kernels.gather_kv import gather_decode_paged
+    from repro_torch.kernels.gather_kv.ref import gather_decode_paged_ref
+    from repro_torch.kernels.rerank import rerank_topk_paged
+    from repro_torch.kernels.rerank.ref import rerank_topk_paged_ref
+    from repro_torch.models import mla as MLA
+    from repro_torch.models.serve import rotation_signs
+
+    pcfg = cfg.pariskv
+    b, G, Hg = 4, 1, cfg.num_heads
+    D = cfg.retrieval_dim()
+    B, m, nc = pcfg.num_subspaces(D), pcfg.m, pcfg.num_centroids()
+    sink, W, k_top = pcfg.sink_size, CC.window_size(pcfg), pcfg.top_k
+    C = pcfg.candidate_count(n)
+    rng_s = R.max_collision_score(pcfg, B)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    signs = rotation_signs(cfg, dev)
+    cache = MLA.init_mla_cache(b, n, cfg, torch.bfloat16, dev)
+    lat = torch.randn((b, n, D), generator=gen, device=dev)
+    cache.latent.copy_(lat)
+    for i in range(b):                    # one row at a time: ~1 GB a row
+        meta = E.encode_keys(lat[i:i + 1, None], pcfg, signs)
+        for dst, src in zip(cache[1:], meta):
+            dst[i:i + 1].copy_(src)
+    ids, rows1 = cache.meta_ids, row_tables(b, dev)
+    enc_end = torch.tensor([ln - KERNEL_NEW - pcfg.local_size
+                            for ln in LENS_AFTER], dtype=torch.int32,
+                           device=dev)
+    pos = enc_end + pcfg.local_size + 150
+    nval = int((enc_end - sink).clamp_min(0).sum())
+    # each query head near a key of its row's retrieval region, as a
+    # trained model's queries lie near some keys: scores past 255
+    at = (sink + torch.rand((b, Hg), generator=gen, device=dev)
+          * (enc_end - sink)[:, None]).long()
+    q = (lat[torch.arange(b, device=dev)[:, None], at]
+         + 0.3 * torch.randn((b, Hg, D), generator=gen, device=dev))[:, None]
+    qt = E.encode_query(q, pcfg, signs)
+    del lat, meta
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    shape = dict(G=G, Hg=Hg, latent=D, dtype="bfloat16", B=B, rows=b, n=n,
+                 score_range=rng_s, C=C, top_k=k_top)
+    out = {}
+
+    # bucket_count at B = 128
+    counts = bucket_count(ids, enc_end, sink, nc)
+    _check(torch.equal(counts, bucket_count_ref(ids, enc_end, sink, nc)),
+           "bucket_count differs from its plain version (m shapes)")
+    valid = R.region_mask(n, enc_end, pcfg)[:, None]
+    ids_t = ids.transpose(-1, -2).reshape(-1, n).long()
+    upd = torch.broadcast_to(valid[..., None, :], (b, G, B, n)).reshape(
+        -1, n).to(torch.int32)
+    acc = torch.zeros((ids_t.shape[0], nc), dtype=torch.int32, device=dev)
+    out["bucket_count/m"] = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_count.cu",
+        replaces="none: the jnp bucket_histogram of "
+                 "src/repro/core/retrieval.py:79 (no TPU kernel)",
+        max_abs_err=0, tolerance="exact", **shape,
+        cluster=CO.count_cluster(n), threads=CO.COUNT_THREADS,
+        ms=_time_ms(lambda: bucket_count(ids, enc_end, sink, nc), flush),
+        plain_ms=_time_ms(lambda: bucket_count_ref(ids, enc_end, sink, nc),
+                          flush),
+        library_ms=_time_ms(lambda: acc.scatter_add_(1, ids_t, upd), flush),
+        library="scatter_add_ alone, on prepared int64 ids and updates",
+        bound=_bound(G * nval * B + b * 4 + counts.numel() * 4,
+                     G * nval * B))
+    del ids_t, upd, acc
+
+    # Stage I, the wide mode
+    cs = centroids.centroid_scores(qt.q_sub, m)
+    n_valid = (enc_end - sink).clamp_min(0)
+    lanes = table_lanes(Hg, B, rng_s)
+    _check(lanes == 16, f"deepseek's tier table takes {lanes} lanes, not 16")
+    tables = R.tier_weight_table(cs, counts[:, :, None],
+                                 n_valid[:, None, None], pcfg,
+                                 out=lane_packed_table(*cs.shape, device=dev,
+                                                       lanes=lanes))
+    coarse, seg_hist = collision_scores_kernel(ids, tables, enc_end, sink,
+                                               rng_s)
+    want, want_hist = collision_paged_ref(ids, rows1, tables, enc_end, sink,
+                                          rng_s)
+    _check(torch.equal(coarse, want) and torch.equal(seg_hist, want_hist),
+           "collision_paged (wide) differs from its plain version")
+    _check(int(coarse.max()) > 255, "the wide scores stay below 256")
+    del want, want_hist
+    out["collision_paged/m"] = dict(
+        route="cuda", source="src/repro_torch/csrc/collision_paged.cu",
+        replaces="src/repro/kernels/collision/collision.py:83",
+        max_abs_err=0, tolerance="exact (scores and seg_hist)",
+        mode="wide: a 16-lane table staged 16 subspaces at a time",
+        **shape,
+        ms=_time_ms(lambda: collision_scores_kernel(ids, tables, enc_end,
+                                                    sink, rng_s), flush),
+        plain_ms=_time_ms(lambda: collision_paged_ref(
+            ids, rows1, tables, enc_end, sink, rng_s), flush),
+        library_ms=None,
+        bound_parts_bytes=dict(ids=G * nval * B, tables=b * G * Hg * B * nc,
+                               scores=coarse.numel() * 4,
+                               seg_hist=seg_hist.numel() * 4),
+        bound=_bound(G * nval * B + b * G * Hg * B * nc + b * 4
+                     + coarse.numel() * 4 + seg_hist.numel() * 4,
+                     G * nval * B))
+
+    # the cut: 770 bins
+    cand = bucket_topk(coarse, C, rng_s, seg_hist=seg_hist)
+    _check(torch.equal(cand, bucket_topk_ref(coarse, C, rng_s)),
+           "bucket_topk differs from its plain version (m shapes)")
+    seg_read = int(torch.zeros(coarse.shape[:-1] + (n // SEG_LEN,),
+                               dtype=torch.int32, device=dev).scatter_(
+        -1, (cand // SEG_LEN).long(), 1).sum())
+    out["bucket_topk/m"] = dict(
+        route="cuda", source="src/repro_torch/csrc/bucket_topk.cu",
+        replaces="src/repro/kernels/bucket_topk/bucket_topk.py:50",
+        max_abs_err=0, tolerance="exact", **shape,
+        ms=_time_ms(lambda: bucket_topk(coarse, C, rng_s, seg_hist=seg_hist),
+                    flush),
+        plain_ms=_time_ms(lambda: bucket_topk_ref(coarse, C, rng_s), flush),
+        library_ms=_time_ms(lambda: torch.topk(coarse, C, -1, sorted=False),
+                            flush),
+        bound=_bound(seg_hist.numel() * 4 + seg_read * SEG_LEN * 4
+                     + cand.numel() * 4, 0))
+
+    # Stage II with its top-k at B = 128
+    q_sub = qt.q_sub.float().contiguous()
+    q_norm = qt.q_norm.float().contiguous()
+    args = (cache.meta_codes, cache.meta_w, rows1, cand, q_sub, q_norm,
+            enc_end, sink, k_top, m, pcfg.magnitude_bits)
+    won, err = _stage2_checks(args, n, "m shapes")
+    ok = (cand >= sink) & (cand < enc_end[:, None, None, None])
+    n_cand = int(ok.sum())
+    keyed = torch.where(ok, cand.long()
+                        + torch.arange(b, device=dev)[:, None, None, None]
+                        * n, -1)
+    n_distinct = int(torch.unique(keyed[keyed >= 0]).numel())
+    small = (cand.numel() * 8 + b * 4 + b * G * Hg * k_top * 16
+             + q_sub.numel() * 4 + q_norm.numel() * 4)
+    ops = n_cand * (2 * B * m + 2 * B)
+    all_heads = _bound(n_cand * B * 8 + small, ops)
+    out["rerank_topk_paged/m"] = dict(
+        route="cuda", source="src/repro_torch/csrc/rerank_topk_paged.cu",
+        replaces="src/repro/kernels/rerank/rerank.py:78",
+        max_abs_err=err,
+        tolerance=f"estimates rtol {RERANK_RTOL}, atol {RERANK_ATOL}; the "
+                  f"selection exact against the plain top-k of the "
+                  f"kernel's own estimates", **shape,
+        candidates_valid=n_cand, candidates_distinct=n_distinct,
+        bound_ms_every_head=all_heads[0],
+        ms=_time_ms(lambda: rerank_topk_paged(*args), flush),
+        plain_ms=_time_ms(lambda: rerank_topk_paged_ref(*args), flush),
+        library_ms=None,
+        bound=_bound(n_distinct * B * 8 + small, ops))
+
+    # the K-only decode gather: sink, window and the winners' latent rows
+    lat4 = cache.latent[:, :, None]
+    ws = (pos + 2 - W).clamp(0, n - W).to(torch.int32)
+    phys = won.phys_rows
+
+    def kern():
+        return gather_decode_paged(lat4, None, rows1, ws, sink, W, phys)
+    got = kern()
+    plain = gather_decode_paged_ref(lat4, None, rows1, ws, sink, W, phys)
+    _check(got[1] is None and got[3] is None
+           and torch.equal(got[0], plain[0]) and torch.equal(got[2], plain[2]),
+           "gather_rows_paged (K only) differs from its plain version")
+    flat = cache.latent.reshape(b * n, 1, D)
+    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                      ws[:, None] + torch.arange(W, device=dev)], 1)
+    rows_l = (torch.arange(b, device=dev)[:, None] * n + lidx).long()
+    rows_p = phys.long()
+    out["gather_rows_paged/m"] = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows_paged.cu",
+        replaces="src/repro/kernels/gather_kv/gather_kv.py:46",
+        max_abs_err=0, tolerance="exact", mode="K only (the latent is K "
+        "and V)", **shape, row_bytes=D * 2,
+        ms=_time_ms(kern, flush),
+        plain_ms=_time_ms(lambda: gather_decode_paged_ref(
+            lat4, None, rows1, ws, sink, W, phys), flush),
+        library_ms=_time_ms(lambda: (flat[rows_l], flat[rows_p, 0]), flush),
+        bound=_bound(2 * (got[0].numel() + got[2].numel()) * 2
+                     + phys.numel() * 4 + b * 4, 0))
+    for name, rec in out.items():
+        rec["bound_ms"], rec["bound_by"] = rec.pop("bound")
+        print(f"kernel {name} " + json.dumps(rec), flush=True)
+    _mla_ptxas()
+    del cache, coarse, seg_hist, tables, cand
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mla_card_vs_cpu(dev, cfg, seed: int = 0):
+    """(c) Float32 at full width, card against the port's CPU run of the
+    same code on copies of the same seeded weights and inputs: one MLA
+    layer's ``mla_train`` and ``mla_prefill_cache`` over MLA_F32_ROWS
+    prompts of MLA_F32_LEN tokens (576-wide latent, B = 128: the wide
+    kernels on the card, the plain versions on the CPU), then
+    MLA_F32_STEPS ``mla_decode`` steps retrieving over [sink, enc_end):
+    the prefill within CROSS_RTOL of its output's magnitude, and each
+    step whose every (row, head) winner set agrees on both sides too;
+    then one 64-expert MoE layer (``_moe_card_vs_cpu``)."""
+    import torch
+    from repro_torch.core import cache as CC
+    from repro_torch.models import mla as MLA
+    from repro_torch.models.serve import rotation_signs
+
+    b, S, steps = MLA_F32_ROWS, MLA_F32_LEN, MLA_F32_STEPS
+    n_max = 2 * S
+    pcfg = cfg.pariskv
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = MLA.init_mla(cfg, torch.float32, dev, gen)
+    x = torch.randn((b, S, cfg.d_model), generator=gen, device=dev)
+    xs = torch.randn((steps, b, cfg.d_model), generator=gen, device=dev)
+    C = pcfg.candidate_count(n_max)
+
+    def layer(p, x, xs):
+        d = x.device
+        cache = MLA.init_mla_cache(b, n_max, cfg, torch.float32, d)
+        positions = torch.arange(S, device=d).expand(b, S)
+        signs = rotation_signs(cfg, d)
+        y = MLA.mla_train(p, x, cfg, positions)
+        MLA.mla_prefill_cache(p, x, cache, cfg, positions, signs)
+        regions = CC.initial_regions(
+            torch.full((b,), S, dtype=torch.int32, device=d), pcfg)
+        ys, won = [], []
+        for t in range(steps):
+            y_t, res = MLA.mla_decode(p, xs[t], cache, regions, cfg, signs,
+                                      C)
+            ys.append(y_t)
+            won.append(res.indices.sort(-1).values)
+            regions = CC.CacheRegions(regions.pos + 1, regions.enc_end)
+        return y, torch.stack(ys), torch.stack(won)
+
+    y_d, ys_d, won_d = layer(p, x, xs)
+    p_cpu = {k: v.cpu() for k, v in p.items()}
+    y_c, ys_c, won_c = layer(p_cpu, x.cpu(), xs.cpu())
+    torch.cuda.synchronize()
+    agree = [bool(torch.equal(won_d[t].cpu(), won_c[t]))
+             for t in range(steps)]
+    pre = (float((y_d.cpu() - y_c).abs().max()), float(y_c.abs().max()))
+    dec = [(float((ys_d[t].cpu() - ys_c[t]).abs().max()),
+            float(ys_c[t].abs().max())) for t in range(steps)]
+    _check(pre[0] <= CROSS_RTOL * pre[1],
+           f"mla prefill: card and CPU differ by {pre[0]} (outputs up to "
+           f"{pre[1]})")
+    _check(any(agree), "mla decode: no step's winner sets agree")
+    for t, (err, mag) in enumerate(dec):
+        if agree[t]:
+            _check(err <= CROSS_RTOL * mag,
+                   f"mla decode step {t}: card and CPU differ by {err} "
+                   f"(outputs up to {mag})")
+    del p, p_cpu
+    torch.cuda.empty_cache()
+    return dict(dtype="float32", rows=b, prompt=S, n_max=n_max, C=C,
+                rtol=CROSS_RTOL,
+                mla_prefill=dict(max_abs_err=pre[0], max_abs_out=pre[1]),
+                mla_decode=[dict(step=t, winners_agree=agree[t],
+                                 max_abs_err=e, max_abs_out=mg)
+                            for t, (e, mg) in enumerate(dec)],
+                moe=_moe_card_vs_cpu(dev, cfg))
+
+
+def _latent_bytes(eng):
+    """Device bytes of the MLA latents and of their metadata, all
+    layers."""
+    from repro_torch.models.serve import is_mla
+    lats = [lc["kv"] for lc in eng._state.caches if is_mla(lc)]
+    return (sum(c.latent.nbytes for c in lats),
+            sum(t.nbytes for c in lats for t in c[1:]))
+
+
+def _mla_serve(dev, cfg):
+    """(b) ``cfg`` at full width and depth (random bf16 weights, seed 0)
+    through the slot ``ServingEngine`` (4 slots, n_max 16384, chunks of
+    8) on MLA_LENS with MLA_GEN new tokens each: Stage I, the cut, Stage
+    II and ``bucket_count`` launched exactly once per MLA layer and step,
+    the gather once plus at most once per promotion, every request
+    promoting, the latent and metadata bytes exactly 4 × 16384 × layers ×
+    (576 bf16; 128 ids, codes and weights: 1,152 bytes each), no pool."""
+    import torch
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.serving import ServingEngine
+
+    before = torch.cuda.memory_allocated()
+    params = init_params(cfg, seed=0, device=dev)
+    param_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    eng = ServingEngine(cfg, params, n_max=16384, max_batch=4, chunk_size=8,
+                        device=dev)
+    _warm(eng, cfg)
+    rec, done = _serve(eng, _prompts(cfg, lens=MLA_LENS), MLA_GEN,
+                       ARRIVALS[:len(MLA_LENS)], SLOT_KERNELS, cfg,
+                       exact=EXACT + ("bucket_count",))
+    for uid, r in done.items():
+        _check(r.promotions >= 1, f"deepseek request {uid} never promoted")
+    lat_b, meta_b = _latent_bytes(eng)
+    rows = 4 * 16384 * cfg.num_layers
+    D = cfg.retrieval_dim()
+    want = (rows * D * 2, rows * cfg.pariskv.num_subspaces(D) * (1 + 4 + 4))
+    _check((lat_b, meta_b) == want,
+           f"deepseek: latent and metadata bytes {(lat_b, meta_b)}, not "
+           f"{want}")
+    _check(_pool_bytes(eng) == 0, "deepseek: a pool")
+    rec = dict(arch=cfg.name, engine=type(eng).__name__, slots=4,
+               layers=cfg.num_layers, dtype=cfg.dtype,
+               params=param_count(params), param_gb=param_gb,
+               latent_bytes=lat_b, metadata_bytes=meta_b, **rec)
+    del eng, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mla_phase(dev):
+    """deepseek-v2-lite's MLA: the wide kernels at its shapes, the "m"
+    rows (a), the model at full width and depth through the slot engine
+    (b), and float32 card against CPU of an MLA layer and a 64-expert MoE
+    layer (c)."""
+    import torch
+    from repro_torch import configs
+
+    cfg = configs.get(DEEPSEEK_ARCH)
+    kern = _mla_kernels(dev, cfg)
+    deepseek = _mla_serve(dev, cfg)
+    f32 = _mla_card_vs_cpu(dev, cfg)
+    rec = dict(device=torch.cuda.get_device_name(0), deepseek=deepseek,
+               card_vs_cpu=f32,
+               note="deepseek's paged, offloaded and sharded engines "
+                    "refuse it (tests/test_torch_mla_engines.py)")
+    print("mla " + json.dumps(rec), flush=True)
     return rec, kern
 
 
@@ -3557,7 +3993,7 @@ def main() -> int:
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
               "chunked", "share", "faults", "sharded", "arch", "gemma",
-              "cross", "ssm", "parity")
+              "cross", "ssm", "mla", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -3576,7 +4012,10 @@ def main() -> int:
     print(smi, flush=True)
     print("kernels " + " ".join(K.KERNELS), flush=True)
 
-    cfg = configs.get("qwen2-1.5b")
+    # qwen2-1.5b at full width, cut to QWEN_LAYERS of its 28 layers for the
+    # phases that serve it (the kernel phase takes only its widths)
+    cfg = dataclasses.replace(configs.get("qwen2-1.5b"),
+                              num_layers=QWEN_LAYERS)
     seconds = {}                  # wall seconds per phase
     t_phase = time.perf_counter()
 
@@ -3695,6 +4134,16 @@ def main() -> int:
         for name in ssm_kern:
             launches[name] = ssm["hymba"]["launches"][name.split("/")[0]]
         lap("ssm")
+    if "mla" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        mla, mla_kern = mla_phase(dev)
+        kern.update(mla_kern)
+        # deepseek-v2-lite's launches in (b)
+        for name in mla_kern:
+            launches[name] = mla["deepseek"]["launches"][name.split("/")[0]]
+        lap("mla")
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")

@@ -145,7 +145,8 @@ def blockwise_causal_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                            v_cache: torch.Tensor, top_idx: torch.Tensor,
+                            v_cache: Optional[torch.Tensor],
+                            top_idx: torch.Tensor,
                             window_start: torch.Tensor, pos: torch.Tensor,
                             enc_end: torch.Tensor, phys_rows: torch.Tensor,
                             *, sink_size: int, window_size: int,
@@ -160,7 +161,9 @@ def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     Sink, window and winner rows come through one gather launch over the
     cache seen as a pool of one block per batch row. As the reference's
     ``dynamic_slice``, the window's start clamps to n_max - W for the
-    gather, while its masks keep the unclamped ``window_start``."""
+    gather, while its masks keep the unclamped ``window_start``.
+    ``v_cache`` None: the keys are the values too (MLA's latent), and the
+    gather reads them once."""
     b, H, hd = q.shape
     n, G = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
@@ -258,7 +261,8 @@ def _segment_attention(qg: torch.Tensor, k_sink: torch.Tensor,
 
 class DecodeRows(NamedTuple):
     """A decode step's gathered K/V rows over a paged pool: sink (b, sink,
-    G, hd), window (b, W, G, hd) and winners (b, G, Hg, k, hd)."""
+    G, hd), window (b, W, G, hd) and winners (b, G, Hg, k, hd); the V
+    fields are the K tensors when the keys are the values."""
     k_sink: torch.Tensor
     v_sink: torch.Tensor
     k_loc: torch.Tensor
@@ -267,7 +271,7 @@ class DecodeRows(NamedTuple):
     v_ret: Optional[torch.Tensor]
 
 
-def paged_decode_rows(pool_k: torch.Tensor, pool_v: torch.Tensor,
+def paged_decode_rows(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
                       block_tables: torch.Tensor, window_start: torch.Tensor,
                       phys_rows: Optional[torch.Tensor] = None, *,
                       sink_size: int, window_size: int) -> DecodeRows:
@@ -276,10 +280,13 @@ def paged_decode_rows(pool_k: torch.Tensor, pool_v: torch.Tensor,
     table, positions computed in the kernel from ``window_start`` (b,)
     int32, and the winners' head rows at ``phys_rows`` (b, G, Hg, k) int32
     flat physical rows (winners None without them: the tiered path reads
-    its winners with its own kernel)."""
+    its winners with its own kernel). ``pool_v`` None: K only, each row
+    read once, and the V fields are the K rows (MLA's latent)."""
     k_dense, v_dense, k_ret, v_ret = gather_decode_paged(
         pool_k, pool_v, block_tables, window_start, sink_size, window_size,
         phys_rows)
+    if pool_v is None:
+        v_dense, v_ret = k_dense, k_ret
     return DecodeRows(k_dense[:, :sink_size], v_dense[:, :sink_size],
                       k_dense[:, sink_size:], v_dense[:, sink_size:], k_ret,
                       v_ret)

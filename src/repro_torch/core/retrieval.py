@@ -45,7 +45,7 @@ from repro_torch.kernels import row_tables
 from repro_torch.kernels.bucket_topk import bucket_topk
 from repro_torch.kernels.collision import (bucket_count,
                                            collision_scores_paged_kernel,
-                                           lane_packed_table)
+                                           lane_packed_table, table_lanes)
 from repro_torch.kernels.rerank import RerankTopK, rerank_topk_paged
 from repro_torch.kernels.rerank.ref import block_relative
 
@@ -124,15 +124,20 @@ def collision_scores_paged_hist(pool_ids: torch.Tensor,
     pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32, q_sub
     (b, G, Hg, B, m), counts (b, G, B, 2^m) int32 incremental histogram,
     enc_end (b,) int32 → (scores (b, G, Hg, nblk·bs) int32, -1 outside
-    [sink, enc_end); seg_hist (b, G, Hg, nseg, max score + 2) int32)."""
+    [sink, enc_end); seg_hist (b, G, Hg, nseg, max score + 2) int32). The
+    tier table's layout follows (Hg, B, max score) on every device
+    (``kernels.collision.table_lanes``): 8 byte lanes, or the wide mode's
+    16 (MLA's Hg = 16 query heads over B = 128 subspaces)."""
     cs = centroids.centroid_scores(q_sub, cfg.m)
     n_valid = (enc_end - cfg.sink_size).clamp_min(0)
+    b, G, Hg, B, nc = cs.shape
+    rng = max_collision_score(cfg, B)
     table = tier_weight_table(cs, counts[:, :, None], n_valid[:, None, None],
-                              cfg, out=lane_packed_table(*cs.shape,
-                                                         device=cs.device))
-    return collision_scores_paged_kernel(
-        pool_ids, block_tables, table, enc_end, cfg.sink_size,
-        max_collision_score(cfg, pool_ids.shape[-1]))
+                              cfg, out=lane_packed_table(
+                                  *cs.shape, device=cs.device,
+                                  lanes=table_lanes(Hg, B, rng)))
+    return collision_scores_paged_kernel(pool_ids, block_tables, table,
+                                         enc_end, cfg.sink_size, rng)
 
 
 def collision_scores_paged(pool_ids: torch.Tensor, block_tables: torch.Tensor,

@@ -42,6 +42,14 @@
 // them, scaled by the stride, once: no global atomics, no zeroing launch,
 // no second pass. A second barrier keeps each copy alive until the others
 // have read it. A row with no valid key writes zeros.
+//
+// B = 128 (deepseek-v2-lite's MLA: one 576-wide latent, 1024 after the
+// SRHT's padding): a key's ids are eight 16-byte loads, so a thread loads
+// one key at a time (kUnroll of them would take 128 registers), and the
+// bins are 128 KB a block, above the 48 KB default: the launcher opts in,
+// and each block of the cluster has an SM of its own. Bound at deepseek's
+// decode shapes (b=4, G=1, 27,440 valid keys): 3.5 MB of ids and 0.5 MB of
+// counts, ~1.2 us.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -82,11 +90,12 @@ bucket_count_kernel(const uint8_t* __restrict__ ids,
   const int step = csize * T;
   __syncthreads();
 
-  for (int k0 = rank * T + tid; k0 < K; k0 += kUnroll * step) {
-    repro::KeyIds<B> key[kUnroll];
-    bool ok[kUnroll];
+  constexpr int U = B > 32 ? 1 : kUnroll;   // keys loaded before counting
+  for (int k0 = rank * T + tid; k0 < K; k0 += U * step) {
+    repro::KeyIds<B> key[U];
+    bool ok[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       const int k = k0 + u * step;
       const int p = p0 + k * stride;
       ok[u] = k < K;
@@ -101,7 +110,7 @@ bucket_count_kernel(const uint8_t* __restrict__ ids,
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < U; ++u) {
       if (!ok[u]) continue;
 #pragma unroll
       for (int s = 0; s < B; ++s) atomicAdd(&hist[s * nc + key[u][s]], 1);
@@ -129,10 +138,16 @@ int launch(const void* ids, const void* enc_end, const void* bt,
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
+  const size_t smem = (size_t)B * nc * sizeof(int);
+  if (smem > 48 * 1024) {               // B = 128: the bins need the opt-in
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)cluster, (unsigned)(b * G));
   cfg.blockDim = dim3((unsigned)threads);
-  cfg.dynamicSmemBytes = (size_t)B * nc * sizeof(int);
+  cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -165,6 +180,9 @@ REPRO_EXPORT int bucket_count_launch(const void* ids, const void* enc_end,
        cluster != 16))
     return (int)cudaErrorInvalidValue;
   if (b * G == 0) return (int)cudaGetLastError();
+  if (B == 128)
+    return launch<128>(ids, enc_end, bt, counts, b, G, n, nc, sink, stride,
+                       nblk, bs, accumulate, cluster, threads, stream);
   if (B == 32)
     return launch<32>(ids, enc_end, bt, counts, b, G, n, nc, sink, stride,
                       nblk, bs, accumulate, cluster, threads, stream);

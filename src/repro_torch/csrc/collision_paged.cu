@@ -58,6 +58,34 @@
 //     positions are counted in closed form and cost none.
 // At the decode shapes 222 of the 512 blocks hold valid keys (kSegLen 256
 // makes at least 132, one per SM).
+//
+// Wide mode (lanes = 16): more query heads or a larger
+// score range than one byte lane per head in one 8-byte word can hold --
+// deepseek-v2-lite's MLA, where all Hg = 16 query heads share one latent
+// of 576 (B = 128 subspaces, scores up to 6 x 128 = 768). The table lies as
+// 16 byte lanes a (subspace, centroid) entry, one 16-byte word (head h in
+// byte h, Hg <= 16; kernels/collision/ops.py:lane_packed_table(lanes=16)):
+// 512 KB a (b, g) at B = 128, past a block's shared memory. So:
+//   * the table is staged kTile = 16 subspaces at a time (64 KB at 2^m =
+//     256), double-buffered through cp.async: the next tile's copies are in
+//     flight while the current tile is summed;
+//   * within a tile the byte lanes sum without carries (16 x 6 = 96 < 256);
+//     after each tile each word's 8 lanes spread into 16-bit lanes of two
+//     accumulators (16 heads: four 64-bit words), which hold any sum below
+//     65,536;
+//   * a block covers one segment of kSegLen keys, one key a thread, as in
+//     the 8-lane mode, so each block stages the whole table once (512 KB
+//     from L2 at B = 128). Blocks covering 2 or 4 segments stage it once
+//     for 512 or 1,024 keys, but leave SMs idle: at deepseek's decode
+//     shapes they took 0.0343 and 0.0548 ms against one segment's 0.0276
+//     (measured on an H100 80GB HBM3 at 700 W);
+//   * once the table is no longer read its shared memory holds the
+//     segment's (Hg, rng) histogram (49 KB at rng 770), counted with
+//     shared-memory atomics.
+// Bound at deepseek's decode shapes (b=4, G=1, Hg=16, n=16384, B=128,
+// rng=770, 27,440 valid keys): ~3.5 MB of ids, 2 MB of tables, 4.2 MB of
+// scores and 12.6 MB of seg_hist (three times the scores at rng 770):
+// ~22 MB, ~6.7 us at 3.35 TB/s.
 #include "common.cuh"
 
 namespace {
@@ -71,6 +99,26 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
                    : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+constexpr int kTile = 16;       // subspaces of a staged table tile (wide)
+constexpr int kWideLanes = 16;  // byte lanes of a wide table entry
+
+// The 4 bytes of x in the 16-bit lanes of a 64-bit word, byte i in lane i.
+__device__ __forceinline__ uint64_t spread16(uint32_t x) {
+  uint64_t v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  return (v | (v << 8)) & 0x00FF00FF00FF00FFull;
 }
 
 template <int B>
@@ -149,6 +197,144 @@ collision_paged_kernel(const uint8_t* __restrict__ pool_ids,
   }
 }
 
+// Wide mode: see the header. Grid (nseg, b * G), kSegLen threads, one
+// key a thread.
+__global__ void __launch_bounds__(repro::kSegLen)
+collision_paged_kernel_wide(const uint8_t* __restrict__ pool_ids,
+                            const int32_t* __restrict__ block_tables,
+                            const uint4* __restrict__ tables,
+                            const int32_t* __restrict__ enc_end,
+                            int32_t* __restrict__ out,
+                            int32_t* __restrict__ seg_hist, int nb, int G,
+                            int Hg, int bs, int nblk, int B, int nc,
+                            int sink, int rng) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* tab = reinterpret_cast<uint4*>(smem);   // 2 x (kTile, nc) entries
+  int* hist = reinterpret_cast<int*>(smem);      // (Hg, rng), after them
+
+  constexpr int L = repro::kSegLen;
+  const int j = blockIdx.x;             // segment
+  const int bg = blockIdx.y;            // (b, g) flattened
+  const int g = bg % G;
+  const int bi = bg / G;
+  const int n = nblk * bs;
+  const int nseg = gridDim.x;
+  const int tid = threadIdx.x;
+  const int lo = j * L, hi = min(lo + L, n);
+  const int e = enc_end[bi];
+  const int vlo = max(lo, sink), vhi = min(hi, e);
+  const int nvalid = max(vhi - vlo, 0);
+  const int nmasked = (hi - lo) - nvalid;
+  int32_t* orow = out + (size_t)bg * Hg * n;                  // head 0's row
+  int32_t* hrow = seg_hist + ((size_t)bg * Hg * nseg + j) * rng;
+  const size_t hstride = (size_t)nseg * rng;                  // per head
+  const int p = lo + tid;
+
+  if (nvalid == 0) {                    // wholly masked: closed form
+    if (p < hi)
+      for (int h = 0; h < Hg; ++h) orow[(size_t)h * n + p] = -1;
+    for (int i = tid; i < Hg * rng; i += L) {
+      const int h = i / rng, v = i % rng;
+      hrow[h * hstride + v] = v == 0 ? nmasked : 0;
+    }
+    return;
+  }
+
+  const int tile_entries = kTile * nc;
+  const uint4* tsrc = tables + (size_t)bg * B * nc;
+  for (int c = tid; c < tile_entries; c += L) cp_async16(tab + c, tsrc + c);
+  cp_async_commit();
+  const bool valid = p >= vlo && p < vhi;
+  const uint4* key = nullptr;
+  if (valid) {
+    const int blk = repro::clampi(block_tables[(size_t)bi * nblk + p / bs],
+                                  0, nb - 1);
+    key = reinterpret_cast<const uint4*>(
+        pool_ids + (((size_t)blk * G + g) * bs + (p % bs)) * B);
+  }
+  uint64_t acc[4] = {0, 0, 0, 0};   // 16 heads in 16-bit lanes, 4 a word
+
+  const int ntiles = B / kTile;
+  for (int t = 0; t < ntiles; ++t) {
+    const uint4* cur = tab + (t & 1) * tile_entries;
+    if (t + 1 < ntiles) {               // the next tile, while this one sums
+      uint4* nxt = tab + ((t + 1) & 1) * tile_entries;
+      const uint4* src = tsrc + (size_t)(t + 1) * tile_entries;
+      for (int c = tid; c < tile_entries; c += L) cp_async16(nxt + c, src + c);
+      cp_async_commit();
+    }
+    const uint4 ids = valid ? key[t] : make_uint4(0u, 0u, 0u, 0u);
+    if (t + 1 < ntiles) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();                    // tile t staged by every thread
+    if (valid) {
+      const uint32_t w[4] = {ids.x, ids.y, ids.z, ids.w};
+      uint64_t lo8 = 0, hi8 = 0;        // heads 0-7 and 8-15, byte lanes
+#pragma unroll
+      for (int ss = 0; ss < kTile; ++ss) {
+        const uint32_t id = (w[ss >> 2] >> ((ss & 3) * 8)) & 0xFFu;
+        const uint4 ent = cur[ss * nc + id];
+        lo8 += ((uint64_t)ent.y << 32) | ent.x;
+        hi8 += ((uint64_t)ent.w << 32) | ent.z;
+      }
+      acc[0] += spread16((uint32_t)lo8);
+      acc[1] += spread16((uint32_t)(lo8 >> 32));
+      acc[2] += spread16((uint32_t)hi8);
+      acc[3] += spread16((uint32_t)(hi8 >> 32));
+    }
+    __syncthreads();                    // tile t's buffer may be refilled
+  }
+
+  // the table is no longer read: its memory holds the histogram
+  for (int i = tid; i < Hg * rng; i += L) hist[i] = 0;
+  __syncthreads();
+  if (p < hi) {
+#pragma unroll
+    for (int h = 0; h < kWideLanes; ++h) {
+      if (h >= Hg) break;
+      const int sc =
+          valid ? (int)((acc[h >> 2] >> (16 * (h & 3))) & 0xFFFFu) : -1;
+      orow[(size_t)h * n + p] = sc;
+      // masked positions are counted below in closed form
+      if (valid && sc + 1 < rng) atomicAdd(&hist[h * rng + sc + 1], 1);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < Hg * rng; i += L) {
+    const int h = i / rng, v = i % rng;
+    hrow[h * hstride + v] = hist[i] + (v == 0 ? nmasked : 0);
+  }
+}
+
+// Wide mode (see the header): tables (b, G, B, nc) 16-byte entries, Hg <=
+// 16, B a multiple of kTile, score range + 2 = rng <= 65,537.
+int launch_wide(const void* pool_ids, const void* block_tables,
+                const void* tables, const void* enc_end, void* out,
+                void* seg_hist, int nb, int G, int Hg, int bs, int nblk,
+                int B, int nc, int sink, int b, int rng, int seg_len,
+                cudaStream_t stream) {
+  if (seg_len != repro::kSegLen || Hg < 1 || Hg > kWideLanes || nc < 1 ||
+      nc > 256 || B < kTile || B % kTile || rng < 2 || rng > 65537)
+    return (int)cudaErrorInvalidValue;
+  const int n = nblk * bs;
+  dim3 grid((n + repro::kSegLen - 1) / repro::kSegLen, b * G);
+  const size_t tiles = (size_t)2 * kTile * nc * sizeof(uint4);
+  const size_t hist = (size_t)Hg * rng * sizeof(int);
+  const size_t smem = tiles > hist ? tiles : hist;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        collision_paged_kernel_wide,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  collision_paged_kernel_wide<<<grid, repro::kSegLen, smem, stream>>>(
+      static_cast<const uint8_t*>(pool_ids),
+      static_cast<const int32_t*>(block_tables),
+      static_cast<const uint4*>(tables),
+      static_cast<const int32_t*>(enc_end), static_cast<int32_t*>(out),
+      static_cast<int32_t*>(seg_hist), nb, G, Hg, bs, nblk, B, nc, sink, rng);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 REPRO_EXPORT int collision_paged_launch(const void* pool_ids,
@@ -158,9 +344,13 @@ REPRO_EXPORT int collision_paged_launch(const void* pool_ids,
                                         void* seg_hist, int nb, int G, int Hg,
                                         int bs, int nblk, int B, int nc,
                                         int sink, int b, int rng, int seg_len,
-                                        cudaStream_t stream) {
-  if (seg_len != repro::kSegLen || Hg < 1 || Hg > 8 || nc % 16 ||
-      rng < 2 || rng > 257)
+                                        int lanes, cudaStream_t stream) {
+  if (lanes == kWideLanes)
+    return launch_wide(pool_ids, block_tables, tables, enc_end, out,
+                       seg_hist, nb, G, Hg, bs, nblk, B, nc, sink, b, rng,
+                       seg_len, stream);
+  if (lanes != 8 || seg_len != repro::kSegLen || Hg < 1 || Hg > 8 ||
+      nc % 16 || rng < 2 || rng > 257)
     return (int)cudaErrorInvalidValue;
   const int n = nblk * bs;
   dim3 grid((n + repro::kSegLen - 1) / repro::kSegLen, b * G);

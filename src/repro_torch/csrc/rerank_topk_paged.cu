@@ -38,6 +38,11 @@
 //   loads all its candidate indices, then all their block-table entries,
 //   then the 16-byte code and weight vectors of two candidates at a time
 //   before decoding them: three dependent round trips for C <= 2*split*T.
+//   At B = 128 (MLA's latent, 1 KB of codes and weights a candidate) one
+//   candidate's vectors come kChunk at a time, decoded before the next;
+//   its decode table is 64 KB, the launch ~101 KB at C = 1311. The bound
+//   at deepseek's decode shapes counts the distinct (row, position)
+//   candidates: the 16 query heads of a row share one latent's metadata.
 // - Each block stores its slots' order-preserving keys, physical rows and
 //   positions in the leader block's shared memory (distributed shared
 //   memory), then one cluster barrier hands them to the leader. The cluster
@@ -126,7 +131,15 @@ __device__ __forceinline__ void select_pair(uint64_t* sel, uint32_t* count,
 }
 
 // NV: 16-byte vectors per pool row (B / 4); PAIR: candidates whose codes
-// and weights a thread holds in registers at once.
+// and weights a thread holds in registers at once. Rows wider than
+// kHeld vectors (B = 128, MLA's latent: 32 vectors of codes and 32 of
+// weights a candidate, far past 255 registers) load and decode one
+// candidate kChunk vectors at a time (4: no spill at 128 registers; 8
+// spilled 48 bytes and 16 990, and ran 3 % and 53 % slower, measured on
+// an H100 80GB HBM3 at 700 W).
+constexpr int kHeld = 8;
+constexpr int kChunk = 4;
+
 template <int NV, int PAIR>
 __global__ void __launch_bounds__(kMaxThreads) rerank_topk_paged_kernel(
     const int32_t* __restrict__ pool_codes, const float* __restrict__ pool_w,
@@ -210,6 +223,60 @@ __global__ void __launch_bounds__(kMaxThreads) rerank_topk_paged_kernel(
     if (first) {
       __syncthreads();   // the table is complete (uniform over the block)
       first = false;
+    }
+    if constexpr (NV > kHeld) {
+      // wide rows: one candidate at a time, its codes and weights loaded
+      // and decoded kChunk vectors a round
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        if (tile + j * stride >= C) break;   // uniform over the block
+        const int s = tile + tid + j * stride;
+        const bool ok = s < C && ci[j] >= sink && ci[j] < end;
+        const int r = repro::clampi(pr[j], 0, nb * bs - 1);
+        const size_t base = (((size_t)(r / bs) * G + g) * bs + r % bs) * B;
+        const int4* c4 = reinterpret_cast<const int4*>(pool_codes + base);
+        const float4* w4 = reinterpret_cast<const float4*>(pool_w + base);
+        float acc = 0.f;
+#pragma unroll 1
+        for (int v0 = 0; v0 < NV; v0 += kChunk) {
+          int4 cw[kChunk];
+          float4 ww[kChunk];
+          if (ok) {
+#pragma unroll
+            for (int v = 0; v < kChunk; ++v) {
+              cw[v] = c4[v0 + v];
+              ww[v] = w4[v0 + v];
+            }
+          }
+          if (!waited) {
+            cluster_wait();
+            waited = true;
+          }
+          if (!ok) continue;
+#pragma unroll
+          for (int v = 0; v < kChunk; ++v) {
+            const int words[4] = {cw[v].x, cw[v].y, cw[v].z, cw[v].w};
+            const float wts[4] = {ww[v].x, ww[v].y, ww[v].z, ww[v].w};
+#pragma unroll
+            for (int t = 0; t < 4; ++t) {
+              const float* L = lut + ((v0 + v) * 4 + t) * 128;
+              const uint32_t w = (uint32_t)words[t];
+              float dot = 0.f;
+#pragma unroll
+              for (int q = 0; q < 8; ++q)
+                dot += L[q * 16 + ((w >> (4 * q)) & 15)];
+              acc += wts[t] * dot;
+            }
+          }
+        }
+        if (s >= C) continue;
+        const float est = ok ? qn * acc : repro::kNegInf;
+        est_out[rowC + s] = est;
+        keys_l[s] = order_key(est);
+        rows_l[s] = pr[j];
+        cand_l[s] = ci[j];
+      }
+      continue;
     }
 #pragma unroll
     for (int j0 = 0; j0 < kSlots; j0 += PAIR) {
@@ -535,6 +602,11 @@ REPRO_EXPORT int rerank_topk_paged_launch(
                        q_norm, levels, enc_end, est, top_est, top_idx,
                        top_phys, top_blk, nb, nblk, G, Hg, bs, C, m, bits,
                        sink, top_k, rows, split, threads, stream);
+    case 128:   // MLA's latent: rows decoded kChunk vectors at a time
+      return launch<32, 1>(pool_codes, pool_w, block_tables, cand_idx, q_sub,
+                        q_norm, levels, enc_end, est, top_est, top_idx,
+                        top_phys, top_blk, nb, nblk, G, Hg, bs, C, m, bits,
+                        sink, top_k, rows, split, threads, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

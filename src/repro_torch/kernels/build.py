@@ -49,7 +49,7 @@ _FNS: Dict[str, object] = {}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 SIGNATURES = {
     "collision_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _P],
     "bucket_hist": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bucket_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rerank_topk_paged": [_P] * 13 + [_I] * 14 + [_P],

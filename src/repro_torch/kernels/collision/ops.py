@@ -17,25 +17,40 @@ from repro_torch.kernels.collision.ref import (bucket_count_ref,
 COUNT_THREADS = 512
 COUNT_MAX_CLUSTER = 8
 
+# the subspaces of a staged table tile of the wide Stage I
+# (csrc/collision_paged.cu, wide mode): B must be a multiple
+WIDE_TILE = 16
+
+
+def table_lanes(Hg: int, B: int, score_range: int) -> int:
+    """Byte lanes of a tier-table entry in the layout the paged Stage I
+    reads for Hg query heads, B subspaces and scores up to
+    ``score_range``: 8 (one 8-byte word: Hg <= 8, B in {8, 16, 32}, sums
+    below 256) or 16 (the wide mode: Hg <= 16, B a multiple of
+    ``WIDE_TILE``, sums below 65,536, summed tile by tile)."""
+    return 8 if Hg <= 8 and B in (8, 16, 32) and score_range < 256 else 16
+
 
 def lane_packed_table(b: int, G: int, Hg: int, B: int, nc: int,
-                      device) -> torch.Tensor:
+                      device, lanes: int = 8) -> torch.Tensor:
     """An uninitialized (b, G, Hg, B, nc) uint8 tier table in the layout
-    the paged Stage-I kernel reads: its storage is (b, G, B, nc, 8), the Hg
-    query heads' weights of one (subspace, centroid) in the low bytes of
-    one 8-byte word (Hg <= 8). The bytes past Hg are never written: a sum's
-    carries run only towards higher bytes, so they never reach the Hg
-    bytes the kernel reads."""
-    if not 0 < Hg <= 8:
-        raise ValueError(f"lane_packed_table: Hg={Hg} does not fit 8 lanes")
-    return torch.empty((b, G, B, nc, 8), dtype=torch.uint8,
+    the paged Stage-I kernel reads: its storage is (b, G, B, nc, lanes),
+    the Hg query heads' weights of one (subspace, centroid) in the low
+    bytes of one ``lanes``-byte entry (Hg <= lanes; ``table_lanes``). The
+    bytes past Hg are never written: a sum's carries run only towards
+    higher bytes, so they never reach the Hg bytes the kernel reads."""
+    if lanes not in (8, 16) or not 0 < Hg <= lanes:
+        raise ValueError(f"lane_packed_table: Hg={Hg} does not fit {lanes} "
+                         f"lanes (8 or 16)")
+    return torch.empty((b, G, B, nc, lanes), dtype=torch.uint8,
                        device=device).permute(0, 1, 4, 2, 3)[:, :, :Hg]
 
 
-def _lane_packed(tables: torch.Tensor) -> bool:
+def _lane_packed(tables: torch.Tensor, lanes: int) -> bool:
     b, G, Hg, B, nc = tables.shape
     return (tables.dtype == torch.uint8
-            and tables.stride() == (G * B * nc * 8, B * nc * 8, 1, nc * 8, 8)
+            and tables.stride() == (G * B * nc * lanes, B * nc * lanes, 1,
+                                    nc * lanes, lanes)
             and tables.data_ptr() % 16 == 0)
 
 
@@ -48,13 +63,16 @@ def collision_scores_paged_kernel(pool_ids: torch.Tensor,
 
     pool_ids (nb, G, bs, B) uint8, block_tables (b, nblk) int32 (< 0 =
     unallocated, clipped to block 0), tables (b, G, Hg, B, nc) tier
-    weights (on the card uint8 in the ``lane_packed_table`` layout; any
-    integer layout on the CPU), enc_end (b,) int32, ``score_range`` the
-    largest score (< 256 on the card: its byte lanes hold sums up to 255)
-    → (scores (b, G, Hg, nblk·bs) int32, seg_hist (b, G, Hg,
-    ceil(n / SEG_LEN), score_range + 2) int32), the histograms per segment
-    that ``bucket_topk`` takes. CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+    weights (on the card uint8 in the ``lane_packed_table`` layout of
+    ``table_lanes(Hg, B, score_range)`` lanes; any integer layout on the
+    CPU), enc_end (b,) int32, ``score_range`` the largest score → (scores
+    (b, G, Hg, nblk·bs) int32, seg_hist (b, G, Hg, ceil(n / SEG_LEN),
+    score_range + 2) int32), the histograms per segment that
+    ``bucket_topk`` takes. On the card the 8-lane layout takes B in {8,
+    16, 32}, Hg <= 8 and a score range below 256 (its byte lanes hold sums
+    up to 255); the 16-lane layout (the wide mode) takes B a multiple of
+    16, Hg <= 16 and a score range below 65,536. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
     if pool_ids.device.type == "cpu":
         return collision_paged_ref(pool_ids, block_tables, tables, enc_end,
                                    sink_size, score_range)
@@ -68,17 +86,20 @@ def collision_scores_paged_kernel(pool_ids: torch.Tensor,
             or tables.dtype != torch.uint8 or enc_end.dtype != torch.int32):
         raise TypeError("collision_paged: expects uint8 ids and tables, "
                         "int32 block tables and enc_end")
-    if not 0 <= score_range < 256:
-        raise ValueError(f"collision_paged: needs 0 <= score_range < 256 on "
-                         f"the card (byte lanes), got {score_range}")
-    if (tables.shape != (b, G, Hg, B, nc) or B not in (8, 16, 32)
-            or nc > 256 or nc % 16 or not 0 < Hg <= 8
+    lanes = table_lanes(Hg, B, score_range)
+    if not 0 <= score_range < (256 if lanes == 8 else 65536):
+        raise ValueError(f"collision_paged: needs 0 <= score_range < "
+                         f"{256 if lanes == 8 else 65536} on the card "
+                         f"({lanes} byte lanes), got {score_range}")
+    shapes_ok = B in (8, 16, 32) if lanes == 8 else B % WIDE_TILE == 0
+    if (tables.shape != (b, G, Hg, B, nc) or not shapes_ok
+            or nc > 256 or nc % 16 or not 0 < Hg <= lanes
             or enc_end.shape != (b,) or pool_ids.data_ptr() % 16):
         raise ValueError(f"collision_paged: unsupported shapes "
                          f"{tuple(tables.shape)} for B={B}")
-    if not _lane_packed(tables):
-        raise ValueError("collision_paged: tables must lie in the byte-lane "
-                         "layout of lane_packed_table")
+    if not _lane_packed(tables, lanes):
+        raise ValueError(f"collision_paged: tables must lie in the "
+                         f"{lanes}-lane layout of lane_packed_table")
     n = nblk * bs
     out = torch.empty((b, G, Hg, n), dtype=torch.int32,
                       device=pool_ids.device)
@@ -87,7 +108,7 @@ def collision_scores_paged_kernel(pool_ids: torch.Tensor,
     K.launch("collision_paged", K.ptr(pool_ids), K.ptr(block_tables),
              K.ptr(tables), K.ptr(enc_end), K.ptr(out), K.ptr(hist), nb, G,
              Hg, bs, nblk, B, nc, int(sink_size), b, score_range + 2,
-             SEG_LEN)
+             SEG_LEN, lanes)
     LAUNCHES["collision_paged"] += 1
     return out, hist
 
@@ -127,8 +148,9 @@ def launch_count(ids: torch.Tensor, enc_end: torch.Tensor, sink_size: int,
     b, G, n, B = ids.shape
     if ids.dtype != torch.uint8 or enc_end.dtype != torch.int32:
         raise TypeError("bucket_count: expects uint8 ids and int32 enc_end")
-    if (B not in (8, 16, 32) or not 0 < num_buckets <= 256 or stride < 1
-            or sink_size < 0 or enc_end.shape != (b,) or ids.data_ptr() % 16):
+    if (B not in (8, 16, 32, 128) or not 0 < num_buckets <= 256
+            or stride < 1 or sink_size < 0 or enc_end.shape != (b,)
+            or ids.data_ptr() % 16):
         raise ValueError(f"bucket_count: unsupported ids {tuple(ids.shape)}, "
                          f"{num_buckets} buckets, stride {stride}")
     out = torch.empty((b, G, B, num_buckets), dtype=torch.int32,

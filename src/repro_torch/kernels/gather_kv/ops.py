@@ -76,7 +76,7 @@ def gather_rows_paged(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
     return outs[0] if pool_v is None else tuple(outs)
 
 
-def gather_decode_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
+def gather_decode_paged(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
                         block_tables: torch.Tensor, window_start: torch.Tensor,
                         sink: int, window: int,
                         phys_rows: Optional[torch.Tensor] = None):
@@ -88,7 +88,9 @@ def gather_decode_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     pool_k/v (nb, bs, G, hd), block_tables (b, nblk) int32, window_start
     (b,) int32, phys_rows (b, G, Q, k) int32 or None → (k_dense, v_dense,
     k_ret, v_ret): dense (b, sink + window, G, hd), sink rows first;
-    winners (b, G, Q, k, hd), or None without ``phys_rows``. CPU tensors
+    winners (b, G, Q, k, hd), or None without ``phys_rows``. ``pool_v``
+    None is the K-only mode (MLA's latent is its keys and values): the
+    K rows alone, each read once, and None for both V parts. CPU tensors
     take the plain version; CUDA tensors launch the kernel or raise."""
     if pool_k.device.type == "cpu":
         return gather_decode_paged_ref(pool_k, pool_v, block_tables,
@@ -96,6 +98,8 @@ def gather_decode_paged(pool_k: torch.Tensor, pool_v: torch.Tensor,
     b = window_start.shape[0]
     dense, ret = _launch(pool_k, pool_v, block_tables, b, sink + window,
                          wstart=window_start, sink=sink, phys=phys_rows)
+    if pool_v is None:
+        return dense[0], None, ret[0] if ret else None, None
     return (*dense, *(ret or (None, None)))
 
 

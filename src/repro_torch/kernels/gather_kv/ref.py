@@ -8,6 +8,8 @@ host rows it reads, counted as ``repro/serving/offload.py:
 _dedup_heads_gather`` counts them)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -36,23 +38,28 @@ def gather_heads_physical_ref(pool: torch.Tensor,
     return flat[rows, heads]
 
 
-def gather_decode_paged_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
+def gather_decode_paged_ref(pool_k: torch.Tensor,
+                            pool_v: Optional[torch.Tensor],
                             block_tables: torch.Tensor,
                             window_start: torch.Tensor, sink: int,
                             window: int, phys_rows=None):
     """The decode gather as the two plain gathers: sink and window rows at
     the positions [0, sink) ++ [ws, ws + window) (``gather_rows_paged_ref``)
     and the winners' head rows (``gather_heads_physical_ref``) → (k_dense,
-    v_dense, k_ret, v_ret), the winners None without ``phys_rows``."""
+    v_dense, k_ret, v_ret), the winners None without ``phys_rows``, the V
+    parts None when ``pool_v`` is None (K only)."""
     b = window_start.shape[0]
     dev = window_start.device
     lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
                       window_start[:, None]
                       + torch.arange(window, device=dev)], dim=1)
-    dense = [gather_rows_paged_ref(p, block_tables, lidx)
-             for p in (pool_k, pool_v)]
+    pools = (pool_k, pool_v)
+    dense = [None if p is None else gather_rows_paged_ref(p, block_tables,
+                                                          lidx)
+             for p in pools]
     ret = [None, None] if phys_rows is None else [
-        gather_heads_physical_ref(p, phys_rows) for p in (pool_k, pool_v)]
+        None if p is None else gather_heads_physical_ref(p, phys_rows)
+        for p in pools]
     return (*dense, *ret)
 
 

@@ -80,7 +80,7 @@ def launch(pool_codes, pool_w, block_tables, cand_idx, q_sub, q_norm,
             or enc_end.dtype != torch.int32):
         raise TypeError("rerank_topk_paged: expects int32 codes, indices and "
                         "tables, float32 weights and queries")
-    if (B not in (8, 16, 32) or q_sub.shape != (b, G, Hg, B, m)
+    if (B not in (8, 16, 32, 128) or q_sub.shape != (b, G, Hg, B, m)
             or not 1 <= m <= 8 or not 1 <= bits <= 3
             or block_tables.shape[0] != b or pool_w.shape != pool_codes.shape):
         raise ValueError(f"rerank_topk_paged: unsupported shapes B={B}, "

@@ -12,6 +12,9 @@ state-space architectures (``--arch mamba2-780m``, ``--arch hymba-1.5b``)
 run on both engines; mamba2 has no KV cache, so ``--baseline`` changes
 nothing there, and hymba's hybrid layers retrieve in the baseline too (as
 the reference's do: only plain attention layers turn dense).
+deepseek-v2-lite (``--arch deepseek-v2-lite-16b``) runs on both engines
+too; its MLA layers retrieve over their latent in the baseline as well,
+and ``--mesh-shards`` refuses it (its latent caches are not paged).
 
 ``--mesh-shards N`` serves the paged engine head-sharded over N ranks
 (``PagedServingEngine(mesh_shards=N)``), one process per rank:

@@ -1,7 +1,8 @@
 """Model assembly for the dense family (plain, or gemma's local/global
 pattern), grok-1's mixture of experts, the cross-attention families
-(whisper's encoder-decoder, llama-3.2-vision's cross layers) and the
-state-space families (mamba2's SSD layers, hymba's hybrid layers) (port
+(whisper's encoder-decoder, llama-3.2-vision's cross layers), the
+state-space families (mamba2's SSD layers, hymba's hybrid layers) and
+deepseek-v2's latent attention with its mixture of experts (port
 of the serving part of ``repro/models/model.py``): layer plan, parameter
 init, whisper's encoder, embed / unembed.
 
@@ -22,6 +23,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import AttnSpec
@@ -29,7 +31,7 @@ from repro_torch.models.layers import AttnSpec
 
 @dataclasses.dataclass(frozen=True)
 class LayerDef:
-    mixer: str                 # 'attn' | 'cross' | 'ssm' | 'hybrid'
+    mixer: str                 # 'attn' | 'cross' | 'ssm' | 'hybrid' | 'mla'
     attn: Optional[AttnSpec] = None
     ffn: str = "mlp"           # 'mlp' | 'moe' | 'none'
     d_ff: int = 0
@@ -70,17 +72,26 @@ def layer_plan(cfg: ModelConfig) -> Tuple[StageDef, ...]:
     tanh(cross_gate)); whisper's decoder (``audio``) ParisKV layers each
     with a cross sublayer over the encoder's output; mamba2 (``ssm``) SSD
     layers with no FFN; hymba (``hybrid``) layers whose mixer is half
-    ParisKV attention and half SSD, with an MLP. MLA (deepseek-v2) is
-    not ported yet (ROADMAP A13.6)."""
+    ParisKV attention and half SSD, with an MLP; deepseek-v2 (``moe`` with
+    ``kv_lora_rank``) a stage of ``first_dense_layers`` MLA layers with a
+    dense MLP of ``first_dense_d_ff``, then a stage of MLA layers with a
+    mixture of experts of width ``moe_d_ff`` (``models.mla``)."""
     if cfg.family == "ssm":
         return (StageDef((LayerDef("ssm", ffn="none"),), cfg.num_layers),)
     if cfg.family == "hybrid":
         ld = LayerDef("hybrid", _attn_spec(cfg), ffn="mlp", d_ff=cfg.d_ff)
         return (StageDef((ld,), cfg.num_layers),)
-    if cfg.family == "moe" and cfg.kv_lora_rank:
-        raise NotImplementedError(
-            f"config {cfg.name!r}: MLA with a mixture of experts "
-            f"(deepseek-v2) is not ported yet (ROADMAP A13.6)")
+    if cfg.family == "moe" and cfg.kv_lora_rank:   # deepseek-v2
+        dense = LayerDef("mla", None, ffn="mlp",
+                         d_ff=cfg.first_dense_d_ff or cfg.d_ff)
+        moe_l = LayerDef("mla", None, ffn="moe",
+                         d_ff=cfg.moe_d_ff or cfg.d_ff)
+        stages = []
+        if cfg.first_dense_layers:
+            stages.append(StageDef((dense,), cfg.first_dense_layers))
+        stages.append(StageDef((moe_l,),
+                               cfg.num_layers - cfg.first_dense_layers))
+        return tuple(stages)
     if cfg.family == "moe":                     # grok-1
         ld = LayerDef("attn", _attn_spec(cfg), ffn="moe",
                       d_ff=cfg.moe_d_ff or cfg.d_ff)
@@ -130,13 +141,16 @@ def init_layer(cfg: ModelConfig, ld: LayerDef, device,
     the gate is trained or set), a ``cross=True`` layer its cross
     sublayer's ``cross`` attention and ``norm_cross``, an ``ssm`` or
     ``hybrid`` layer its SSD mixer ``ssm``; an ``ssm`` layer has no
-    attention, and no ``norm_mlp`` (``ffn="none"``)."""
+    attention, and no ``norm_mlp`` (``ffn="none"``); an ``mla`` layer's
+    ``attn`` holds the latent projections (``models.mla.init_mla``)."""
     dt = torch_dtype(cfg)
 
     def ones():
         return torch.ones((cfg.d_model,), dtype=dt, device=device)
     p = {"norm_attn": ones()}
-    if ld.mixer != "ssm":
+    if ld.mixer == "mla":
+        p["attn"] = MLA.init_mla(cfg, dt, device, gen)
+    elif ld.mixer != "ssm":
         p["attn"] = L.init_attn(cfg.d_model, ld.attn, dt, device, gen)
     if ld.mixer in ("ssm", "hybrid"):
         p["ssm"] = SSM.init_ssm(cfg, dt, device, gen)

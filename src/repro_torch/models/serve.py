@@ -58,6 +58,16 @@ paths of ``repro/models/serve.py``).
   A config with no ParisKV layer (mamba2) has no pool: the paged engines
   refuse it (``UnsupportedPagedConfig``), the slot and wave engines serve
   it. Chunked prefill and sharing refuse both families.
+* MLA layers (deepseek-v2, ``models.mla``) keep a latent store and its
+  ParisKV metadata, an ``MLACache`` under ``kv`` tagged ``mla``
+  (``_mla_cache``, ``is_mla``; ``pool_entries`` skips it): contiguous on
+  every engine, as in the reference. The prefill runs the decompressed
+  attention and encodes the latent of every position (no ``lengths``);
+  decode retrieves over the latent with the contiguous route and
+  promotes, in the baseline (``use_pariskv=False``) too. Every paged
+  engine, the offloaded tier and head sharding refuse such a config
+  (``paged_refusal``, ``offload_support_reason``,
+  ``sharded_support_reason``), and so do chunked prefill and sharing.
 * With ``prefill_budget`` P > 0 (chunked prefill), ``admit_fill`` copies a
   prompt to the slot's device buffer (a shared-prefix admission starts
   the fill past the mapped prefix and rebuilds the slot's histogram from
@@ -91,6 +101,7 @@ from repro_torch.core import srht
 from repro_torch.core.config import ModelConfig
 from repro_torch.kernels.gather_kv import gather_heads_tiered
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import (LayerDef, _embed, _unembed,
@@ -115,12 +126,20 @@ def is_cross(lc: dict) -> bool:
     return lc.get("cross", False)
 
 
+def is_mla(lc: dict) -> bool:
+    """Whether a layer's cache entry is an MLA layer's latent store
+    (``_mla_cache`` tags it): its ``kv`` is a ``models.mla.MLACache``,
+    contiguous on every engine, never a pool."""
+    return lc.get("mla", False)
+
+
 def is_pool(lc: dict) -> bool:
     """Whether a layer's cache entry holds a ParisKV store or pool (with
     its histograms on the paged layouts): not a ring, not a cross layer's
-    media alone, not a mamba2 layer's SSM state alone. A whisper entry is
-    one, with ``media_kv`` beside it, and a hymba entry, with ``ssm``."""
-    return "kv" in lc and not is_ring(lc)
+    media alone, not a mamba2 layer's SSM state alone, not an MLA latent.
+    A whisper entry is one, with ``media_kv`` beside it, and a hymba
+    entry, with ``ssm``."""
+    return "kv" in lc and not is_ring(lc) and not is_mla(lc)
 
 
 def pool_layers(cfg: ModelConfig) -> List[bool]:
@@ -143,9 +162,21 @@ def pool_entries(caches: List[dict]) -> List[dict]:
 def _store(caches: List[dict]):
     """The first ParisKV store or pool: its shape gives n_max (contiguous)
     or the block size and KV heads (paged); None where there is none
-    (mamba2)."""
+    (mamba2, deepseek-v2)."""
     pool = pool_entries(caches)
     return pool[0]["kv"] if pool else None
+
+
+def _contiguous_n_max(caches: List[dict]) -> int:
+    """The positions of contiguous caches, from the first ParisKV store or
+    MLA latent (the reference's ``_cache_n_max``); 0 where there is none
+    (mamba2: nothing retrieves)."""
+    for lc in caches:
+        if is_pool(lc):
+            return lc["kv"].k.shape[1]
+        if is_mla(lc):
+            return lc["kv"].latent.shape[1]
+    return 0
 
 
 class TierView(NamedTuple):
@@ -256,6 +287,14 @@ def _cross_cache(cfg: ModelConfig, batch: int, device) -> dict:
     return {"media_kv": _media_kv(cfg, batch, device), "cross": True}
 
 
+def _mla_cache(cfg: ModelConfig, batch: int, n_max: int, device) -> dict:
+    """An MLA layer's entry, tagged ``mla``: the latent store and its
+    metadata (``models.mla.MLACache``, (batch, n_max, r + dr) in the
+    config's dtype), contiguous on every engine."""
+    return {"kv": MLA.init_mla_cache(batch, n_max, cfg, torch_dtype(cfg),
+                                     device), "mla": True}
+
+
 def _with_slot_local(cfg: ModelConfig, ld: LayerDef, entry: dict,
                      batch: int, device) -> dict:
     """``entry`` with a ``media_kv`` beside it when ``ld`` has a cross
@@ -274,11 +313,14 @@ def make_caches(cfg: ModelConfig, batch: int, n_max: int,
     """Contiguous per-layer caches (solo prefill): a ParisKV store per
     global layer (with the media K/V of its cross sublayer on whisper, the
     SSM state of a hybrid layer), a ring buffer per local layer, the media
-    K/V of a cross layer, the SSM state of a mamba2 layer."""
+    K/V of a cross layer, the SSM state of a mamba2 layer, the latent of
+    an MLA layer."""
     dt = torch_dtype(cfg)
     out = []
     for ld, pooled in zip(layer_defs(cfg), pool_layers(cfg)):
-        if ld.mixer == "cross":
+        if ld.mixer == "mla":
+            out.append(_mla_cache(cfg, batch, n_max, device))
+        elif ld.mixer == "cross":
             out.append(_cross_cache(cfg, batch, device))
         elif ld.mixer == "ssm":
             out.append(_with_slot_local(cfg, ld, {}, batch, device))
@@ -316,14 +358,13 @@ def paged_refusal(cfg: ModelConfig) -> Optional[UnsupportedPagedConfig]:
     nothing to page), named by its first layer. The paged engines raise
     it at construction (``check_pageable``), ``make_paged_caches`` again;
     the offload and shard gates give its message as their reason."""
-    for si, stage in enumerate(layer_plan(cfg)):
-        for i, ld in enumerate(stage.layers):
-            if ld.mixer == "mla":
-                return UnsupportedPagedConfig(
-                    cfg, si, i, ld.mixer,
-                    "MLA latent caches stay contiguous (ROADMAP); serve "
-                    "this config with the slot engine (ServingEngine) or "
-                    "an attention-mixer config")
+    place = _mla_place(cfg)
+    if place is not None:
+        return UnsupportedPagedConfig(
+            cfg, *place, "mla",
+            "MLA latent caches stay contiguous (ROADMAP); serve this config "
+            "with the slot engine (ServingEngine) or an attention-mixer "
+            "config")
     if not any(pool_layers(cfg)):
         return UnsupportedPagedConfig(
             cfg, 0, 0, layer_defs(cfg)[0].mixer,
@@ -411,11 +452,32 @@ def make_paged_caches(cfg: ModelConfig, batch: int, num_blocks: int,
     return out
 
 
+def _mla_place(cfg: ModelConfig) -> Optional[Tuple[int, int]]:
+    """(stage, layer within the stage's period) of the first MLA layer,
+    or None."""
+    for si, stage in enumerate(layer_plan(cfg)):
+        for i, ld in enumerate(stage.layers):
+            if ld.mixer == "mla":
+                return si, i
+    return None
+
+
+def has_mla(cfg: ModelConfig) -> bool:
+    """Whether the config has an MLA layer (deepseek-v2)."""
+    return _mla_place(cfg) is not None
+
+
 def offload_support_reason(cfg: ModelConfig) -> Optional[str]:
     """Why the tiered host-offloaded pool cannot serve this architecture,
     or None when it can: it pages exactly what ``make_paged_caches`` pages
-    (ParisKV attention K/V), so MLA's latent caches are out, and so is a
-    config with no ParisKV layer (``paged_refusal``'s message)."""
+    (ParisKV attention K/V), so MLA's latent caches are out (the
+    reference's message) and so is a config with no ParisKV layer
+    (``paged_refusal``'s message)."""
+    place = _mla_place(cfg)
+    if place is not None:
+        return (f"config {cfg.name!r}: stage {place[0]} layer {place[1]} "
+                f"mixer 'mla' keeps latent caches contiguous "
+                f"(UnsupportedPagedConfig; ROADMAP)")
     err = paged_refusal(cfg)
     return None if err is None else str(err)
 
@@ -485,10 +547,15 @@ class UnsupportedShardedConfig(NotImplementedError):
 def sharded_support_reason(cfg: ModelConfig) -> Optional[str]:
     """Why head-sharded paged serving cannot serve this architecture, or
     None when it can: the shards split the paged ParisKV pool on the KV
-    head axis, so a cache the pool cannot hold (MLA's latent caches,
-    whose configs wait for ROADMAP A13.6) is out, and so is a config with
-    no pool (``paged_refusal``'s message); slot-local state (rings, media,
-    SSM) is replicated."""
+    head axis, so a cache the pool cannot hold is out: MLA's latent caches
+    (the reference's message), and a config with no pool
+    (``paged_refusal``'s message); slot-local state (rings, media, SSM) is
+    replicated."""
+    place = _mla_place(cfg)
+    if place is not None:
+        return (f"config {cfg.name!r}: stage {place[0]} layer {place[1]} "
+                f"mixer 'mla' keeps latent caches contiguous — the mesh "
+                f"shards the paged block pool only (ROADMAP)")
     err = paged_refusal(cfg)
     return None if err is None else str(err)
 
@@ -576,7 +643,8 @@ def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                    ) -> torch.Tensor:
     """One layer over the full prompt; fills this layer's cache (a ParisKV
     store, a local layer's ring, a cross layer's or sublayer's media K/V
-    from ``media``, an SSD mixer's state and conv tail) in place.
+    from ``media``, an SSD mixer's state and conv tail, an MLA latent and
+    its metadata) in place.
     ``lengths`` (b,) / ``token_valid`` (b, S) describe LEFT-aligned rows:
     causal attention already hides a row's pad tail from its real tokens,
     the SSD recurrence skips the pads (dt = 0 there)."""
@@ -589,6 +657,10 @@ def _layer_prefill(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
         y, cache["ssm"] = SSM.ssm_prefill(p["ssm"], h, cfg,
                                           token_valid=token_valid,
                                           lengths=lengths)
+    elif ld.mixer == "mla":              # as the reference: no lengths
+        y = MLA.mla_train(p["attn"], h, cfg, positions)
+        MLA.mla_prefill_cache(p["attn"], h, cache["kv"], cfg, positions,
+                              signs)
     else:
         y, k_new, v_new = L.attn_prefill(p["attn"], h, ld.attn, positions)
         if is_ring(cache):
@@ -678,14 +750,22 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     every rank. An SSD mixer (a mamba2 layer, the SSM half of a hybrid
     layer, whose output is 0.5 · (attention + SSM)) advances every row's
     state and conv tail, whole on every rank. A hybrid layer's attention
-    retrieves and promotes in the baseline too (``use_pariskv=False``),
-    as the reference's does: only plain attention layers turn dense."""
+    and an MLA layer (``models.mla.mla_decode``, over its contiguous
+    latent) retrieve and promote in the baseline too
+    (``use_pariskv=False``), as the reference's do: only plain attention
+    layers turn dense."""
     pcfg = cfg.pariskv
     h = L.rms_norm(x_t, p["norm_attn"], cfg.norm_eps)
     kv = cache.get("kv")
     y = res = None
     if ld.mixer == "ssm":
         pass                             # no attention: the SSD mixer below
+    elif ld.mixer == "mla":              # contiguous only; retrieves always
+        y, res = MLA.mla_decode(p["attn"], h, kv, regions, cfg, signs,
+                                num_candidates)
+        if any_promote:
+            MLA.mla_promote_rows(kv, regions.enc_end, will_promote, pcfg,
+                                 signs)
     elif ld.mixer == "cross":
         y = _gate(p) * L.attn_cross_decode(p["attn"], h, cache["media_kv"],
                                            ld.attn)
@@ -944,7 +1024,7 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     append_index = None
     kv0 = _store(state.caches)
     if block_tables is None:
-        n_max = 0 if kv0 is None else kv0.k.shape[1]   # mamba2: no store
+        n_max = _contiguous_n_max(state.caches)
     else:
         if not use_pariskv:
             raise ValueError("paged decode serves the ParisKV path only")
@@ -953,8 +1033,9 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
         append_index = CC.paged_append_index(
             block_tables if tier is None else tier.kv_tables,
             regions.pos + 1, bs)
-    # host sync; hybrid layers promote in the baseline too (_layer_decode)
-    any_promote = ((use_pariskv or any(ld.mixer == "hybrid"
+    # host sync; hybrid and MLA layers promote in the baseline too
+    # (_layer_decode)
+    any_promote = ((use_pariskv or any(ld.mixer in ("hybrid", "mla")
                                        for ld in layer_defs(cfg)))
                    and bool(will_promote.any()))
     num_candidates = pcfg.candidate_count(n_max)

@@ -576,10 +576,13 @@ class PagedServingEngine(ServingEngine):
     ``Request.shared_prefix_blocks`` each request's mapped blocks.
 
     A config the pool cannot page (``models.serve.check_pageable``: one
-    with no ParisKV attention layer, mamba2) raises
+    with no ParisKV attention layer, mamba2, or with MLA layers,
+    deepseek-v2, whose latent caches stay contiguous) raises
     ``UnsupportedPagedConfig`` at construction, with every option but
     ``share_prefixes=True``, whose refusal (the reference's ``ValueError``
-    and message) comes first; the slot and wave engines serve it.
+    and message) comes first, and but ``mesh_shards`` > 1 on an MLA
+    config, which raises the reference's ``UnsupportedShardedConfig``
+    naming 'mla'; the slot and wave engines serve both.
 
     ``mesh_shards=N`` > 1 (module docstring) runs in each rank of a process
     group of N ranks (``torchrun``, or ``distributed.launch_local``) on
@@ -614,6 +617,12 @@ class PagedServingEngine(ServingEngine):
             reason = SV.share_support_reason(cfg)
             if reason is not None:
                 raise ValueError(f"prefix sharing unavailable — {reason}")
+        if mesh_shards > 1 and SV.has_mla(cfg):
+            # the reference's sharding refusal, before any paging check
+            _check_shard_heads(cfg, mesh_shards)
+            raise SV.UnsupportedShardedConfig(
+                cfg, f"mesh_shards={mesh_shards}",
+                SV.sharded_support_reason(cfg))
         SV.check_pageable(cfg)
         self.dist = _shard_dist(cfg, mesh_shards)
         if not use_pariskv:
@@ -1456,17 +1465,23 @@ class OffloadedPagedServingEngine(PagedServingEngine):
         return done
 
 
+def _check_shard_heads(cfg: ModelConfig, shards: int) -> None:
+    """The reference's first sharding check: ``shards`` ranks split whole
+    KV heads."""
+    if shards < 1 or cfg.num_kv_heads % shards:
+        raise ValueError(
+            f"mesh_shards={shards} must divide num_kv_heads="
+            f"{cfg.num_kv_heads}: the ranks split whole KV heads, and an "
+            f"uneven split would give them different pool shapes")
+
+
 def _shard_dist(cfg: ModelConfig, shards: int) -> Optional[ShardDist]:
     """This rank's ``ShardDist`` for ``mesh_shards=shards`` (None for one
     device), after the reference's checks in its order: whole heads per
     rank, a process group of ``shards`` ranks, a supported architecture."""
     if shards == 1:
         return None
-    if shards < 1 or cfg.num_kv_heads % shards:
-        raise ValueError(
-            f"mesh_shards={shards} must divide num_kv_heads="
-            f"{cfg.num_kv_heads}: the ranks split whole KV heads, and an "
-            f"uneven split would give them different pool shapes")
+    _check_shard_heads(cfg, shards)
     dist = ShardDist.from_process_group(shards)
     reason = SV.sharded_support_reason(cfg)
     if reason is not None:

@@ -154,8 +154,9 @@ def test_archs_and_layer_plans():
                              "qwen3-8b", "grok-1-314b", "gemma2-27b",
                              "gemma3-12b", "whisper-large-v3",
                              "llama-3.2-vision-11b", "mamba2-780m",
-                             "hymba-1.5b"}
+                             "hymba-1.5b", "deepseek-v2-lite-16b"}
     from repro import configs as JC
+    assert set(TC.ARCHS) == set(JC.ARCHS)
     for arch in TC.ARCHS:
         assert dataclasses.asdict(TC.get(arch)) == dataclasses.asdict(
             JC.get(arch))
@@ -172,12 +173,18 @@ def test_archs_and_layer_plans():
         assert stage.layers[0].ffn == "mlp"
     deepseek = dataclasses.replace(TC.smoke("grok-1-314b"),
                                    name="deepseek-style", kv_lora_rank=64)
-    with pytest.raises(NotImplementedError, match=r"A13\.6"):
-        TM.layer_plan(deepseek)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TC.get("deepseek-v2-lite-16b")
     from repro.models import model as JM
-    for arch in ("mamba2-780m", "hymba-1.5b"):
+    assert [dataclasses.asdict(ld) for st in TM.layer_plan(deepseek)
+            for ld in st.layers] == [
+        dataclasses.asdict(ld) for st in JM.layer_plan(
+            dataclasses.replace(JC.smoke("grok-1-314b"),
+                                name="deepseek-style", kv_lora_rank=64))
+        for ld in st.layers]
+    assert dataclasses.asdict(TC.get("deepseek-v2-lite-16b")) == \
+        dataclasses.asdict(JC.get("deepseek-v2-lite-16b"))
+    with pytest.raises(NotImplementedError, match="not one of"):
+        TC.get("deepseek-v3")
+    for arch in ("mamba2-780m", "hymba-1.5b", "deepseek-v2-lite-16b"):
         plan_j, plan_t = JM.layer_plan(JC.get(arch)), TM.layer_plan(
             TC.get(arch))
         assert [(s.repeat, len(s.layers)) for s in plan_t] == \

@@ -379,6 +379,68 @@ def test_stage1_and_bucket_count_at_hymba_shapes_on_card(card):
 
 
 @pytest.mark.cuda
+def test_wide_kernels_at_deepseek_shapes_on_card(card):
+    """deepseek-v2-lite's MLA retrieval shapes (one 576-wide latent: G 1,
+    Hg 16 query heads, B 128, score range 768), four rows of 16,384 with
+    about 27k valid keys: the wide Stage I (16-lane tier table) with its
+    histograms, the cut (770 bins),
+    ``bucket_count`` at B = 128, Stage II with its top-k at B = 128 and the
+    K-only decode gather of 1,152-byte rows equal their plain versions
+    (exact; Stage II's estimates to float32 reassociation, its selection
+    the plain top-k of its own estimates)."""
+    from repro_torch.kernels.bucket_topk.ref import bucket_topk_ref
+    from repro_torch.kernels.collision.ref import (bucket_count_ref,
+                                                   collision_paged_ref)
+    from repro_torch.kernels.gather_kv.ref import gather_decode_paged_ref
+    from repro_torch.kernels.rerank.ref import rerank_paged_ref, topk_ref
+
+    gen = torch.Generator(device=card).manual_seed(25)
+    b, hg, B, n, C, k, sink, rng_s = 4, 16, 128, 16384, 1311, 100, 128, 768
+    ids = torch.randint(0, 256, (b, 1, n, B), generator=gen, device=card,
+                        dtype=torch.int32).to(torch.uint8)
+    enc_end = torch.tensor([2488, 5488, 8488, 11488], dtype=torch.int32,
+                           device=card)
+    tables = lane_packed_table(b, 1, hg, B, 256, card, lanes=16)
+    tables.copy_(torch.randint(0, 7, (b, 1, hg, B, 256), generator=gen,
+                               device=card, dtype=torch.int32).to(
+                                   torch.uint8))
+    got, hist = collision_scores_paged_kernel(
+        ids, row_tables(b, card), tables, enc_end, sink, rng_s)
+    want, want_hist = collision_paged_ref(ids, row_tables(b, card), tables,
+                                          enc_end, sink, rng_s)
+    assert torch.equal(got, want) and torch.equal(hist, want_hist)
+    assert int(got.max()) > 255
+    cand = bucket_topk(got, C, rng_s, seg_hist=hist)
+    assert torch.equal(cand, bucket_topk_ref(got, C, rng_s))
+    counts = bucket_count(ids, enc_end, sink, 256)
+    assert torch.equal(counts, bucket_count_ref(ids, enc_end, sink, 256))
+    codes = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, 1, n, B),
+                          generator=gen, device=card, dtype=torch.int64).to(
+                              torch.int32)
+    w = torch.rand((b, 1, n, B), generator=gen, device=card)
+    q_sub = torch.randn((b, 1, hg, B, 8), generator=gen, device=card)
+    q_norm = torch.rand((b, 1, hg), generator=gen, device=card) + 0.5
+    won = rerank_topk_paged(codes, w, row_tables(b, card), cand, q_sub,
+                            q_norm, enc_end, sink, k)
+    phys = cand + (torch.arange(b, device=card) * n)[:, None, None, None]
+    est = rerank_paged_ref(codes, w, phys.to(torch.int32), cand, q_sub,
+                           q_norm, enc_end, sink, 8)
+    assert torch.allclose(won.est, est, rtol=1e-4, atol=1e-3)
+    top, pos = topk_ref(won.est, k)
+    assert torch.equal(won.top_est, top)
+    assert torch.equal(won.top_idx, cand.gather(-1, pos))
+    lat = torch.randn((b, n, 1, 576), generator=gen, device=card).to(
+        torch.bfloat16)
+    ws = (enc_end - 128).to(torch.int32)
+    rows = gather_decode_paged(lat, None, row_tables(b, card), ws, sink, 640,
+                               won.phys_rows)
+    plain = gather_decode_paged_ref(lat, None, row_tables(b, card), ws, sink,
+                                    640, won.phys_rows)
+    assert rows[1] is None and rows[3] is None
+    assert torch.equal(rows[0], plain[0]) and torch.equal(rows[2], plain[2])
+
+
+@pytest.mark.cuda
 def test_bucket_count_span_long_rebuild_exact_on_card(card):
     """A shared-prefix admission's histogram rebuild (``core/cache.py:
     bucket_hist_from_paged_meta``): bucket_count's block-table mode over
