@@ -52,7 +52,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               report (registers, shared memory, spills) of the five
               kernels designed for Hopper is printed.
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
-              serving qwen2-1.5b at full width cut to 16 of its 28 layers
+              serving qwen2-1.5b at full width cut to 8 of its 28 layers
               (the script's time limit; bf16, random weights from a seed;
               every serving phase through 11 uses this model) to four
               staggered requests of ~3k/6k/9k/12k prompt tokens and 264
@@ -280,7 +280,35 @@ Phases, each of which fails the run (non-zero exit, no result line):
               every winner set agrees), and one 64-expert MoE layer,
               routing flips printed with their top-2 gaps. The paged,
               offloaded and sharded engines refuse deepseek (CPU tests).
-18. parity  — 2 layers at full width in float32: one teacher-forced
+18. baselines — the paper's comparison code over one head of 131,072
+              keys of 128 (seeded Gaussians) on the card: MagicPIG's
+              SimHash tables (L 10, K 10) and PQCache at its defaults (64
+              coarse clusters, 16 sub-codebooks of 256, fitted on 32,768
+              keys, 8 probed): build and retrieve times at top-k 1,024
+              with CUDA events, beside ``exact_topk``'s; each method's
+              ``recall_at_k`` against ``exact_topk``; card against CPU on
+              the same inputs: signatures, assignments and PQ codes from
+              the card's fitted centroids, every method's ids from the same
+              tables and book, each equal but at a float near tie within
+              1e-5 of its scale (a projection's distance from 0, a
+              squared-distance gap, a score gap; printed). No ParisKV
+              kernel launches.
+19. train   — (a) qwen2-1.5b at full width and depth (28 layers, bf16,
+              random weights from seed 0): 8 ``train_step``s (remat,
+              AdamW, peak lr 3e-4, warm-up 1) on one fixed batch of 4 ×
+              1,024 tokens from ``make_batch``: every loss finite, every
+              grad norm > 0, the last loss below the first, no ParisKV
+              kernel launched; per-step seconds, tokens/s and peak memory
+              printed; (b) float32 at full width cut to 2 layers, batch 2
+              × 256, card against CPU from the same params: the loss and
+              every gradient (within 5e-5 of its leaf's largest), then 3
+              steps at peak lr 1e-3 (loss, grad norm and lr within 1e-5
+              relative, params within 1e-5 where the gradient exceeds
+              1e-3 of its leaf's largest): the CPU tests' bars; (c) (b)'s
+              trained params through ``save_checkpoint`` and
+              ``load_checkpoint`` (the reference's npz format), bit for
+              bit.
+20. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
@@ -307,10 +335,11 @@ SCALAR_OPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 SPIN_CYCLES = 20_000_000       # ~10 ms of device spin: longer than any
 #                                call's host-side enqueue in this script
 RERANK_RTOL, RERANK_ATOL = 1e-4, 1e-3
-# the engines' phases serve qwen2-1.5b at full width cut to 16 of its 28
+# the engines' phases serve qwen2-1.5b at full width cut to 8 of its 28
 # layers: the script's time limit (on a slow host the whole script took
-# 1,359 s of the 1,200 allowed with all 28)
-QWEN_LAYERS = 16
+# 1,359 s of the 1,200 allowed with all 28, and 1,023 s with 16 before the
+# baselines and train phases)
+QWEN_LAYERS = 8
 PROMPTS = (3000, 6000, 9000, 12000)      # the four requests of the engines
 # their new tokens: every request must promote, and its first promotion
 # comes at decode step 257 (update_interval + 1)
@@ -420,6 +449,25 @@ MLA_F32_ROWS, MLA_F32_LEN, MLA_F32_STEPS = 2, 2048, 4
 MOE_TOKENS, MOE_ROWS = 64, 4
 MOE_ATOL = MOE_RTOL = 1e-4
 MOE_GAP = 1e-5
+# the baselines phase: the paper's comparison points over one head of
+# BASE_KEYS keys of 128 (seeded Gaussians) on the card, MagicPIG at L = 10
+# tables of K = 10 bits, PQCache at its defaults, top-k BASE_TOP_K; card
+# against CPU on the same inputs, where an integer output may differ only
+# at a float near tie within BASE_NOISE of the values' scale
+BASE_KEYS, BASE_DIM, BASE_TOP_K = 131_072, 128, 1024
+BASE_NOISE = 1e-5
+# the train phase: (a) qwen2-1.5b at full width and depth in its dtype,
+# TRAIN_STEPS steps of remat training on one fixed batch of TRAIN_BATCH ×
+# TRAIN_SEQ; (b) float32 at full width cut to 2 layers, card against CPU,
+# with the CPU tests' bars (tests/test_torch_train.py): loss, grad norm
+# and lr within 1e-5 relative, each gradient within TRAIN_GRAD_RTOL of its
+# leaf's largest, params within TRAIN_PARAM_ATOL (1 % of the lr) where
+# the gradient exceeds TRAIN_GRAD_FLOOR of its leaf's largest
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 1024, 3e-4
+TRAIN_F32_BATCH, TRAIN_F32_SEQ, TRAIN_F32_STEPS = 2, 256, 3
+TRAIN_F32_LR = 1e-3
+TRAIN_RTOL, TRAIN_GRAD_RTOL = 1e-5, 5e-5
+TRAIN_PARAM_ATOL, TRAIN_GRAD_FLOOR = 1e-5, 1e-3
 # card (kernels, cuBLAS) vs CPU (plain versions) in float32. Where every
 # (layer, head) winner set agrees, only summation order differs: 1e-3 over
 # two layers and 64 appended steps. A near-tie Stage-II estimate can pick
@@ -3722,6 +3770,294 @@ def mla_phase(dev):
     return rec, kern
 
 
+# ------------------------------------------------------------- baselines ---
+def _near_ties(differ, gap, scale: float) -> dict:
+    """The share of equal entries and the margins (``gap``) of those that
+    differ; ``ok`` when every margin lies within ``BASE_NOISE`` of
+    ``scale``."""
+    margins = gap[differ].double()
+    return dict(share_equal=1.0 - float(differ.double().mean()),
+                differ=int(differ.sum()),
+                max_margin=float(margins.max()) if margins.numel() else None,
+                ok=bool(not margins.numel()
+                        or float(margins.max()) <= BASE_NOISE * scale))
+
+
+def _assign_ties(x, cents, got):
+    """``got`` (the card's nearest centroids of x, on the CPU) against
+    the CPU's ``assign_clusters`` on the same centroids; the margin of a
+    differing point is its squared-distance gap (float64)."""
+    from repro_torch.baselines.pqcache import assign_clusters
+    differ = got != assign_clusters(x, cents)
+    gap = x.new_zeros((x.shape[0],), dtype=x.dtype).double()
+    rows = differ.nonzero()[:, 0]
+    d2 = ((x[rows].double()[:, None] - cents.double()[None]) ** 2).sum(-1)
+    if rows.numel():
+        two = d2.topk(2, -1, largest=False).values
+        gap[rows] = two[:, 1] - two[:, 0]
+    scale = float((x.double() ** 2).sum(-1).max())
+    return _near_ties(differ, gap, scale)
+
+
+def _id_ties(got, want, score):
+    """Ids from the card against the CPU's; a differing position's margin
+    is the gap between the two ids' float64 scores."""
+    got, want = got.cpu().long(), want.long()
+    return _near_ties(got != want, (score[got] - score[want]).abs(),
+                      float(score.abs().max()))
+
+
+def baselines_phase(dev, seed: int = 0):
+    """The paper's baselines and the exact oracle over ``BASE_KEYS``
+    keys of one head on the card: build and retrieve times (CUDA events),
+    each method's recall against ``exact_topk``, and card against CPU on
+    the same inputs (signatures; assignments and PQ codes from the card's
+    fitted centroids; every method's ids from the same tables and book),
+    equal but at float near ties."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.baselines import magicpig as MP
+    from repro_torch.baselines import pqcache as PQ
+    from repro_torch.core.retrieval import exact_topk, recall_at_k
+
+    rng = np.random.RandomState(seed)
+    keys = torch.from_numpy(rng.randn(BASE_KEYS, BASE_DIM).astype(
+        np.float32))
+    q = torch.from_numpy(rng.randn(BASE_DIM).astype(np.float32))
+    kd, qd = keys.to(dev), q.to(dev)
+    valid = torch.ones(BASE_KEYS, dtype=torch.bool, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    K.reset_launches()
+    lsh = MP.make_params(BASE_DIM, 10, 10, seed=seed, device=dev)
+    tables = MP.build(kd, lsh)
+    book = PQ.build_pq(kd, seed=seed)
+    torch.cuda.synchronize()
+    ms = dict(build=_time_ms(lambda: MP.build(kd, lsh), flush, iters=5),
+              build_pq=_time_ms(lambda: PQ.build_pq(kd, seed=seed), flush,
+                                iters=2))
+    calls = dict(
+        retrieve=lambda: MP.retrieve(tables, qd, BASE_TOP_K),
+        coarse_retrieve=lambda: PQ.coarse_retrieve(kd, book.coarse, qd,
+                                                   BASE_TOP_K),
+        pq_retrieve=lambda: PQ.pq_retrieve(book, qd, BASE_TOP_K),
+        exact_topk=lambda: exact_topk(kd, qd, valid, BASE_TOP_K)[0])
+    ids = {name: fn() for name, fn in calls.items()}
+    ms.update({name: _time_ms(fn, flush, iters=10)
+               for name, fn in calls.items()})
+    recall = {name: float(recall_at_k(ids[name], ids["exact_topk"]))
+              for name in ("retrieve", "coarse_retrieve", "pq_retrieve")}
+    _check(sum(K.LAUNCHES.values()) == 0, f"the baselines launched ParisKV "
+           f"kernels: {dict(K.LAUNCHES)}")
+    # card against CPU on the same inputs
+    lsh_c = MP.LSHParams(lsh.projections.cpu())
+    tables_c = MP.build(keys, lsh_c)
+    book_c = PQ.PQCodebook(*(t.cpu() for t in book))
+    proj = (keys.double() @ lsh_c.projections.reshape(100, BASE_DIM).T
+            .double()).abs()
+    cmp = dict(signatures=_near_ties(
+        tables.codes.cpu() != tables_c.codes,
+        proj.reshape(BASE_KEYS, 10, 10).amin(-1), float(proj.max())))
+    cmp["assignments"] = _assign_ties(keys, book_c.coarse,
+                                      book.assignments.cpu())
+    n_sub, m = book_c.pq_codes.shape[1], book_c.sub_codebooks.shape[-1]
+    resid = (keys - book_c.coarse[book_c.assignments]).reshape(
+        BASE_KEYS, n_sub, m)
+    per_sub = [_assign_ties(resid[:, b], book_c.sub_codebooks[b],
+                            book_c.pq_codes[:, b].long())
+               for b in range(n_sub)]
+    cmp["pq_codes"] = dict(
+        share_equal=float(np.mean([r["share_equal"] for r in per_sub])),
+        differ=sum(r["differ"] for r in per_sub),
+        max_margin=max((r["max_margin"] for r in per_sub
+                        if r["max_margin"] is not None), default=None),
+        ok=all(r["ok"] for r in per_sub))
+    ip = keys.double() @ q.double()
+    hits = (tables_c.codes == MP._signature(q, lsh_c)).sum(-1).double()
+    c_score = (book_c.coarse.double() @ q.double())[book_c.assignments]
+    lut = (book_c.sub_codebooks.double()
+           * q.double().reshape(n_sub, 1, m)).sum(-1)
+    adc = c_score + lut.gather(-1, book_c.pq_codes.long().T).sum(0)
+    cmp["exact_topk"] = _id_ties(ids["exact_topk"], exact_topk(
+        keys, q, torch.ones(BASE_KEYS, dtype=torch.bool), BASE_TOP_K)[0], ip)
+    cmp["retrieve"] = _id_ties(ids["retrieve"],
+                               MP.retrieve(tables_c, q, BASE_TOP_K), hits)
+    cmp["coarse_retrieve"] = _id_ties(
+        ids["coarse_retrieve"],
+        PQ.coarse_retrieve(keys, book_c.coarse, q, BASE_TOP_K), c_score)
+    cmp["pq_retrieve"] = _id_ties(ids["pq_retrieve"],
+                                  PQ.pq_retrieve(book_c, q, BASE_TOP_K), adc)
+    rec = dict(device=torch.cuda.get_device_name(0), keys=BASE_KEYS,
+               dim=BASE_DIM, top_k=BASE_TOP_K,
+               magicpig=dict(tables=10, bits=10),
+               pqcache=dict(coarse=64, sub_codebooks=n_sub, fit_sample=32768,
+                            n_probe=8),
+               ms=ms, recall_vs_exact_topk=recall, card_vs_cpu=cmp,
+               noise=BASE_NOISE)
+    print("baselines " + json.dumps(rec), flush=True)
+    for name, r in cmp.items():
+        _check(r["ok"], f"baselines: {name} differ from the CPU's beyond "
+               f"float noise: {r}")
+    return rec
+
+
+# ----------------------------------------------------------------- train ---
+def _train_f32(dev, cfg_full, seed: int = 1):
+    """(b) float32 at full width cut to 2 layers, card against CPU from
+    the same params and batch: the gradients, then ``TRAIN_F32_STEPS``
+    train steps on each side; (c) the card's trained params through
+    ``save_checkpoint`` and ``load_checkpoint``, bit for bit. → (record,
+    the bars it missed)."""
+    import torch
+    from repro_torch.ckpt import load_checkpoint, save_checkpoint
+    from repro_torch.data import SyntheticLMStream, make_batch
+    from repro_torch.models.model import init_params
+    from repro_torch import tree_leaves, tree_map
+    from repro_torch.models.train import TrainState, loss_grads, train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = dataclasses.replace(cfg_full, num_layers=2, dtype="float32")
+    p_cpu = init_params(cfg, seed=seed, device="cpu")
+    tokens, labels = make_batch(SyntheticLMStream(cfg.vocab_size, seed),
+                                TRAIN_F32_BATCH, TRAIN_F32_SEQ)
+    batch = {"tokens": tokens, "labels": labels}
+    side = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        p = tree_map(lambda t: t.to(d), p_cpu)
+        mets0, grads = loss_grads(p, cfg, batch, remat=False)
+        loss0 = float(mets0["loss"])
+        state, mets = TrainState(p, adamw_init(p)), []
+        for _ in range(TRAIN_F32_STEPS):
+            state, m = train_step(state, batch, cfg, peak_lr=TRAIN_F32_LR,
+                                  warmup=1, total_steps=TRAIN_F32_STEPS,
+                                  remat=False)
+            mets.append({k: float(v) for k, v in m.items()})
+        side[name] = dict(grads=[g.cpu() for g in tree_leaves(grads)],
+                          params=state.params, metrics=mets, loss0=loss0,
+                          seconds=time.perf_counter() - t0)
+    card, cpu = side["card"], side["cpu"]
+    grad_err = max(float((a - b).abs().max())
+                   / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(card["grads"], cpu["grads"]))
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+                     for a, b in zip(card["metrics"], cpu["metrics"])
+                     for k in ("loss", "grad_norm", "lr"))
+    param_err, below = 0.0, 0
+    by_floor = {f: 0.0 for f in (1e-4, 1e-3, 1e-2)}
+    for a, b, g in zip(tree_leaves(card["params"]),
+                       tree_leaves(cpu["params"]), cpu["grads"]):
+        keep = g.abs() > TRAIN_GRAD_FLOOR * float(g.abs().max())
+        below += int((~keep).sum())
+        if keep.any():
+            param_err = max(param_err,
+                            float((a.cpu() - b)[keep].abs().max()))
+        for f in by_floor:
+            k = g.abs() > f * float(g.abs().max())
+            if k.any():
+                by_floor[f] = max(by_floor[f],
+                                  float((a.cpu() - b)[k].abs().max()))
+    path = os.path.join(ROOT, "build", "train_phase.npz")
+    t0 = time.perf_counter()
+    save_checkpoint(path, card["params"], cfg, step=TRAIN_F32_STEPS)
+    back = load_checkpoint(path, cfg, device=dev)
+    ckpt_s = time.perf_counter() - t0
+    ckpt_bytes = os.path.getsize(path)
+    os.remove(path)
+    bitwise = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(
+        tree_leaves(back), tree_leaves(card["params"])))
+    rec = dict(
+        layers=2, dtype="float32", batch=TRAIN_F32_BATCH, seq=TRAIN_F32_SEQ,
+        steps=TRAIN_F32_STEPS, peak_lr=TRAIN_F32_LR,
+        loss={k: [m["loss"] for m in v["metrics"]] for k, v in side.items()},
+        grad_norm={k: [m["grad_norm"] for m in v["metrics"]]
+                   for k, v in side.items()},
+        seconds={k: v["seconds"] for k, v in side.items()},
+        max_grad_rel_err=grad_err, max_metric_rel_err=metric_err,
+        max_param_err=param_err, params_below_grad_floor=below,
+        max_param_err_by_floor=by_floor,
+        tolerance=dict(metrics=TRAIN_RTOL, grads=TRAIN_GRAD_RTOL,
+                       params=TRAIN_PARAM_ATOL, floor=TRAIN_GRAD_FLOOR),
+        checkpoint=dict(bytes=ckpt_bytes, seconds=ckpt_s,
+                        bitwise_equal=bitwise))
+    bars = [
+        (abs(card["loss0"] - cpu["loss0"]) <= TRAIN_RTOL * cpu["loss0"],
+         f"train (b): card loss {card['loss0']} vs CPU {cpu['loss0']}"),
+        (grad_err <= TRAIN_GRAD_RTOL, f"train (b): gradients differ by "
+         f"{grad_err} of their leaf's largest"),
+        (metric_err <= TRAIN_RTOL, f"train (b): step metrics differ by "
+         f"{metric_err} relative"),
+        (param_err <= TRAIN_PARAM_ATOL, f"train (b): params differ by "
+         f"{param_err} after {TRAIN_F32_STEPS} steps"),
+        (bitwise, "train (c): the checkpoint did not round-trip")]
+    return rec, [msg for ok, msg in bars if not ok]
+
+
+def train_phase(dev):
+    """(a) qwen2-1.5b at full width and depth in its dtype: TRAIN_STEPS
+    remat train steps on one fixed batch from ``make_batch``; (b), (c) in
+    ``_train_f32``."""
+    import math
+
+    import torch
+    from repro_torch import configs
+    from repro_torch import kernels as K
+    from repro_torch.data import SyntheticLMStream, make_batch
+    from repro_torch.models.model import init_params, param_count
+    from repro_torch.models.train import TrainState, train_step
+    from repro_torch.optim import adamw_init
+
+    cfg = configs.get("qwen2-1.5b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=dev)
+    n_params = param_count(params)
+    state = TrainState(params, adamw_init(params))
+    del params
+    tokens, labels = make_batch(SyntheticLMStream(cfg.vocab_size, seed=0),
+                                TRAIN_BATCH, TRAIN_SEQ)
+    batch = {"tokens": torch.as_tensor(tokens, device=dev),
+             "labels": torch.as_tensor(labels, device=dev)}
+    torch.cuda.synchronize()
+    K.reset_launches()
+    steps = []
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        state, m = train_step(state, batch, cfg, peak_lr=TRAIN_LR, warmup=1,
+                              total_steps=TRAIN_STEPS, remat=True)
+        torch.cuda.synchronize()
+        steps.append(dict({k: float(v) for k, v in m.items()},
+                          seconds=time.perf_counter() - t0))
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del state, batch
+    torch.cuda.empty_cache()
+    losses = [s["loss"] for s in steps]
+    steady = [s["seconds"] for s in steps[1:]]
+    full = dict(
+        arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+        params=n_params, batch=TRAIN_BATCH, seq=TRAIN_SEQ, remat=True,
+        peak_lr=TRAIN_LR, warmup=1, steps=steps,
+        step_seconds_after_first=statistics.median(steady),
+        tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / statistics.median(steady),
+        max_memory_allocated=peak, pariskv_launches=launches)
+    bars = [
+        (all(math.isfinite(x) for x in losses), f"train (a): losses "
+         f"{losses}"),
+        (all(s["grad_norm"] > 0 for s in steps), "train (a): a zero "
+         "gradient norm"),
+        (losses[-1] < losses[0], f"train (a): the loss did not fall: "
+         f"{losses}"),
+        (sum(launches.values()) == 0, f"train (a) launched ParisKV "
+         f"kernels: {launches}")]
+    f32, missed = _train_f32(dev, cfg)
+    rec = dict(device=torch.cuda.get_device_name(0), full=full,
+               card_vs_cpu=f32)
+    print("train " + json.dumps(rec), flush=True)
+    missed = [msg for ok, msg in bars if not ok] + missed
+    _check(not missed, "; ".join(missed))
+    return rec
+
+
 # ---------------------------------------------------------------- parity ---
 def faults_phase(dev, cfg, params, n_max: int = 16384, gen: int = FAULT_GEN):
     """Fault handling at full width (bf16, seed 0) on the offloaded engine
@@ -3993,7 +4329,7 @@ def main() -> int:
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
               "chunked", "share", "faults", "sharded", "arch", "gemma",
-              "cross", "ssm", "mla", "parity")
+              "cross", "ssm", "mla", "baselines", "train", "parity")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -4144,6 +4480,15 @@ def main() -> int:
         for name in mla_kern:
             launches[name] = mla["deepseek"]["launches"][name.split("/")[0]]
         lap("mla")
+    if "baselines" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        baselines_phase(dev)
+        lap("baselines")
+    if "train" in only:
+        train_phase(dev)
+        lap("train")
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")

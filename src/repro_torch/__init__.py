@@ -14,6 +14,8 @@ CUDA tensors (or an exception — there is no fallback on the card).
 """
 from __future__ import annotations
 
+from typing import Callable, List
+
 import torch
 
 
@@ -30,3 +32,23 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (a parameter tree: dicts and
+    lists of tensors) and the same leaves of ``rest``, trees of its
+    structure; anything but a dict or a list is a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> List[torch.Tensor]:
+    """The leaves of ``tree`` in ``tree_map``'s order."""
+    out: List[torch.Tensor] = []
+    tree_map(out.append, tree)
+    return out

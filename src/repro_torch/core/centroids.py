@@ -49,3 +49,9 @@ def centroid_scores(q_sub: torch.Tensor, m: int) -> torch.Tensor:
     device's (their ranks set the tier weights)."""
     return (q_sub.float()[..., None, :]
             * _codebook_on(m, str(q_sub.device))).sum(-1)
+
+
+def decode_centroid(ids: torch.Tensor, m: int) -> torch.Tensor:
+    """Centroid ids (...,) → centroid vectors (..., m) float32, an oracle
+    and test helper."""
+    return _codebook_on(m, str(ids.device))[ids.long()]

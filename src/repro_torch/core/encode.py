@@ -64,3 +64,13 @@ def encode_query(q: torch.Tensor, cfg: ParisKVConfig,
     """Transform an online query (..., D) identically to the keys."""
     q_norm = torch.linalg.vector_norm(q.float(), dim=-1)
     return QueryTransform(q_norm, rotate_split(q, cfg, signs))
+
+
+def estimate_inner_products(meta: KeyMetadata, qt: QueryTransform,
+                            cfg: ParisKVConfig) -> torch.Tensor:
+    """The RSQ-IP estimate over *all* keys (the paper's Eq. 24), an oracle
+    for the analysis benchmarks; the serving path estimates only Stage I's
+    candidates (Stage II). → (..., n) estimates of ⟨k_i, q⟩ float32."""
+    v = quantizer.decode_directions(meta.codes, cfg.m, cfg.magnitude_bits)
+    dots = (v * qt.q_sub.float()[..., None, :, :]).sum(-1)   # (..., n, B)
+    return qt.q_norm[..., None] * (meta.weights * dots).sum(-1)

@@ -19,25 +19,19 @@ import torch
 _GRID = 1 << 14
 
 
-def _beta_half_density(m: int, x: np.ndarray) -> np.ndarray:
-    """Density of X = |u_j| where X² ~ Beta(1/2, (m-1)/2) on (0, 1)."""
-    a, b = 0.5, (m - 1) / 2.0
+def _sqrt_beta_density(a: float, b: float, x: np.ndarray) -> np.ndarray:
+    """Density of X on (0, 1) where X² ~ Beta(a, b)."""
     log_beta = math.lgamma(a) + math.lgamma(b) - math.lgamma(a + b)
     y = np.clip(x * x, 1e-12, 1 - 1e-12)
     fy = np.exp(-log_beta + (a - 1) * np.log(y) + (b - 1) * np.log(1 - y))
     return 2.0 * x * fy
 
 
-@functools.lru_cache(maxsize=8)
-def lloyd_max_levels(m: int, bits: int = 3, iters: int = 200):
-    """Offline Lloyd–Max scalar quantizer for the analytic |u_j| prior.
-
-    Returns (thresholds τ[2^bits - 1], levels a[2^bits]) as float32 numpy.
-    """
+def _lloyd_max(x: np.ndarray, f: np.ndarray, bits: int, iters: int):
+    """Lloyd–Max levels of the density ``f`` on the grid ``x`` (summing to
+    1): quantile starts, then centroid updates until they settle.
+    → (thresholds, levels) float32."""
     n_levels = 1 << bits
-    x = (np.arange(_GRID) + 0.5) / _GRID
-    f = _beta_half_density(m, x)
-    f /= f.sum()
     cdf = np.cumsum(f)
     qs = (np.arange(n_levels) + 0.5) / n_levels
     levels = x[np.searchsorted(cdf, qs).clip(0, _GRID - 1)]
@@ -56,6 +50,41 @@ def lloyd_max_levels(m: int, bits: int = 3, iters: int = 200):
         levels = new_levels
     thresholds = 0.5 * (levels[:-1] + levels[1:])
     return thresholds.astype(np.float32), levels.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def lloyd_max_levels(m: int, bits: int = 3, iters: int = 200):
+    """Offline Lloyd–Max scalar quantizer for the analytic |u_j| prior.
+
+    Returns (thresholds τ[2^bits - 1], levels a[2^bits]) as float32 numpy.
+    """
+    x = (np.arange(_GRID) + 0.5) / _GRID
+    f = _sqrt_beta_density(0.5, (m - 1) / 2.0, x)     # |u_j|
+    f /= f.sum()
+    return _lloyd_max(x, f, bits, iters)
+
+
+@functools.lru_cache(maxsize=16)
+def radius_levels(m: int, D: int, bits: int = 2, iters: int = 200):
+    """The optional radius quantizer (the paper's App. B.1.3), an ablation
+    the serving path leaves out (K_r = 1): z = r² ~ Beta(m/2, (D − m)/2)
+    under the rotation prior; Lloyd–Max on the density of r = √z gives
+    data-independent radius centres. → (thresholds, levels) float32 numpy
+    over r ∈ (0, 1), the reference's bit for bit."""
+    x = (np.arange(_GRID) + 0.5) / _GRID
+    f = _sqrt_beta_density(m / 2.0, (D - m) / 2.0, x)
+    f /= f.sum()
+    return _lloyd_max(x, f, bits, iters)
+
+
+def quantize_radii(r: torch.Tensor, m: int, D: int,
+                   bits: int = 2) -> torch.Tensor:
+    """Radii r (...,) in (0, 1) → their quantized levels (K_r = 2^bits):
+    searchsorted on the left side, as the reference."""
+    tau, levels = radius_levels(m, D, bits)
+    idx = torch.searchsorted(torch.from_numpy(tau).to(r.device),
+                             r.float().contiguous())
+    return torch.from_numpy(levels).to(r.device)[idx]
 
 
 @functools.lru_cache(maxsize=16)

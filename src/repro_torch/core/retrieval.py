@@ -47,7 +47,7 @@ from repro_torch.kernels.collision import (bucket_count,
                                            collision_scores_paged_kernel,
                                            lane_packed_table, table_lanes)
 from repro_torch.kernels.rerank import RerankTopK, rerank_topk_paged
-from repro_torch.kernels.rerank.ref import block_relative
+from repro_torch.kernels.rerank.ref import block_relative, order_keys
 
 NEG_INF = -1e30
 
@@ -307,3 +307,31 @@ def tiered_winner_rows(phys_rows: torch.Tensor, dev_map: torch.Tensor,
     off = phys_rows - host_blk * block_size
     stag = dev_map[host_blk.clamp(0, dev_map.shape[0] - 1).long()]
     return stag >= 0, stag.clamp_min(0) * block_size + off
+
+
+def lax_top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lax.top_k`` along the last axis: the ``k`` largest, descending,
+    ties to the lowest index (a stable descending sort; ``torch.topk``
+    promises no order among ties). Floats rank by their total order
+    (``order_keys``), integers by value. → (values, indices int64)."""
+    keys = order_keys(x) if x.is_floating_point() else x
+    idx = torch.sort(keys, dim=-1, descending=True,
+                     stable=True).indices[..., :k]
+    return x.gather(-1, idx), idx
+
+
+def exact_topk(keys: torch.Tensor, q: torch.Tensor, valid: torch.Tensor,
+               top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Oracle: exact inner-product top-k of full-precision keys (..., n, d)
+    for queries (..., d) where ``valid`` (..., n); invalid keys score
+    NEG_INF. → (ids int32, inner products float32), ``lax.top_k``'s order."""
+    ip = (keys.float() * q.float()[..., None, :]).sum(-1)
+    ip = torch.where(valid, ip, NEG_INF)
+    vals, idx = lax_top_k(ip, top_k)
+    return idx.to(torch.int32), vals
+
+
+def recall_at_k(retrieved: torch.Tensor, oracle: torch.Tensor) -> torch.Tensor:
+    """|retrieved ∩ oracle| / |oracle| along the last axis (float32)."""
+    hits = (retrieved[..., :, None] == oracle[..., None, :]).any(-1)
+    return hits.float().mean(-1)

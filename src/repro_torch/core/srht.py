@@ -48,3 +48,12 @@ def srht_rotate(x: torch.Tensor, signs: torch.Tensor) -> torch.Tensor:
     dp = signs.shape[-1]
     y = fwht(pad_pow2(x, dp).float() * signs)
     return y * float(1.0 / np.sqrt(dp))      # applied as a float32 scalar
+
+
+def srht_rotate_t(y: torch.Tensor, signs: torch.Tensor,
+                  out_dim: int) -> torch.Tensor:
+    """The inverse (= transpose) rotation, cut back to ``out_dim``
+    features; an oracle for tests."""
+    dp = signs.shape[-1]
+    x = fwht(y.float()) * float(1.0 / np.sqrt(dp)) * signs
+    return x[..., :out_dim]

@@ -1,2 +1,2 @@
 from repro_torch.data.pipeline import (SyntheticLMStream,  # noqa: F401
-                                       media_stub)
+                                       make_batch, media_stub)

@@ -1,11 +1,14 @@
-"""Synthetic token streams and media (numpy copies of
-``repro/data/pipeline.py``'s ``SyntheticLMStream`` and ``media_stub``, so
-the port's CLI sends the reference's prompts and media).
+"""Synthetic token streams, batches and media (numpy copies of
+``repro/data/pipeline.py``'s ``SyntheticLMStream``, ``make_batch`` and
+``media_stub``, so the port's CLIs send the reference's prompts, batches
+and media).
 
 A deterministic mixture of Zipf-distributed unigrams and short repeated
 motifs: the same seed gives the same sequences as the reference.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -38,6 +41,20 @@ class SyntheticLMStream:
                     self.vocab, size=n, p=self.unigram)
                 i += n
         return out
+
+
+def make_batch(stream: SyntheticLMStream, batch: int, seq_len: int,
+               host_id: int = 0, num_hosts: int = 1
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """→ (tokens (b, s), labels (b, s)) int32 of this host's shard: the
+    next ``batch // num_hosts`` sequences of the stream, each of
+    ``seq_len + 1`` tokens, labels shifted by one."""
+    if batch % num_hosts:
+        raise ValueError(f"batch {batch} does not split over {num_hosts} "
+                         f"hosts")
+    rows = np.stack([stream.sequence(seq_len + 1)
+                     for _ in range(batch // num_hosts)])
+    return rows[:, :-1], rows[:, 1:]
 
 
 def media_stub(batch: int, num_tokens: int, d_model: int,

@@ -9,9 +9,10 @@ reference arrive here as numpy arrays:
   the port keeps one dict per layer, so the stacks are unstacked in scan
   order. Whisper's encoder, stacked by the reference's ``vmap`` over
   ``encoder_layers``, becomes a list of layer dicts.
-* ``load_npz`` reads the reference's ``ckpt/npz.py`` format: tree paths
-  joined with ``::``, bfloat16 stored as a uint16 view under a
-  ``__bf16__`` suffix.
+* ``params_to_jax`` is its inverse: the port's params → the reference's
+  stacked tree of numpy leaves.
+* ``load_npz`` reads a checkpoint in the reference's format
+  (``ckpt.npz``, which owns the format).
 
 Every leaf keeps the dtype the reference's tree gives it: the config's,
 but for the mixture of experts' router, which the reference holds in
@@ -24,12 +25,9 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, tree_map
 from repro_torch.core.config import ModelConfig
 from repro_torch.models.model import layer_plan
-
-_SEP = "::"
-_BF16_TAG = "__bf16__"
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -45,12 +43,6 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return a.to(device=device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> dict:
     """The reference's parameter tree (numpy leaves) → the port's params
@@ -64,8 +56,8 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     for stage, stacked in zip(layer_plan(cfg), tree["stages"]):
         for r in range(stage.repeat):
             for i in range(len(stage.layers)):
-                layers.append(_map(stacked[f"l{i}"],
-                                   lambda a: _tensor(a[r], dev)))
+                layers.append(tree_map(lambda a: _tensor(a[r], dev),
+                                       stacked[f"l{i}"]))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name!r} has {cfg.num_layers}")
@@ -76,42 +68,47 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         if depth != cfg.encoder_layers:
             raise ValueError(f"tree holds {depth} encoder layers, config "
                              f"{cfg.name!r} has {cfg.encoder_layers}")
-        out["encoder"] = [_map(enc, lambda a: _tensor(a[r], dev))
+        out["encoder"] = [tree_map(lambda a: _tensor(a[r], dev), enc)
                           for r in range(depth)]
     return out
 
 
-def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
-    """``a::0::b`` keys → nested dicts, with integer parts as list
-    indices (``stages`` is a list in the reference's tree)."""
-    root: Dict[str, Any] = {}
-    for key, arr in flat.items():
-        parts = key.split(_SEP)
-        node = root
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = arr
+def stack_params(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's params → the reference's tree of tensors on the CPU:
+    each stage's layers stacked per period position (``stages`` [{"l0":
+    ..., ...}], ``repeat`` on the leading axis) and whisper's encoder
+    layers stacked, every leaf in its own dtype."""
+    def stack(layers):
+        return tree_map(lambda *ts: torch.stack(
+            [t.detach().cpu() for t in ts]), *layers)
+    out = {k: params[k].detach().cpu()
+           for k in ("embed", "final_norm", "unembed", "enc_final_norm")
+           if k in params}
+    out["stages"], at = [], 0
+    for stage in layer_plan(cfg):
+        width = len(stage.layers)
+        period = params["layers"][at:at + width * stage.repeat]
+        out["stages"].append({f"l{i}": stack(period[i::width])
+                              for i in range(width)})
+        at += width * stage.repeat
+    if at != len(params["layers"]):
+        raise ValueError(f"params hold {len(params['layers'])} layers, "
+                         f"config {cfg.name!r} has {at}")
+    if "encoder" in params:
+        out["encoder"] = stack(params["encoder"])
+    return out
 
-    def lists(node):
-        if not isinstance(node, dict):
-            return node
-        if node and all(k.isdigit() for k in node):
-            return [lists(node[str(i)]) for i in range(len(node))]
-        return {k: lists(v) for k, v in node.items()}
-    return lists(root)
+
+def params_to_jax(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's params → the reference's parameter tree with numpy
+    leaves, stacked as ``stack_params`` stacks them. numpy has no
+    bfloat16: a bfloat16 leaf comes back as float32 holding the same
+    values (``ckpt.save_checkpoint`` stores its 16-bit pattern)."""
+    return tree_map(lambda t: (t.float() if t.dtype == torch.bfloat16
+                               else t).numpy(), stack_params(params, cfg))
 
 
 def load_npz(path: str, cfg: ModelConfig, device=None) -> dict:
     """Read a reference ``save_checkpoint`` file into the port's params."""
-    flat = {}
-    with np.load(path) as data:
-        for key in data.files:
-            if key == "__step__":
-                continue
-            arr = data[key]
-            if key.endswith(_BF16_TAG):
-                key = key[:-len(_BF16_TAG)]
-                arr = torch.from_numpy(arr.view(np.int16)).view(
-                    torch.bfloat16)
-            flat[key] = arr
-    return params_from_jax(_unflatten(flat), cfg, device)
+    from repro_torch.ckpt.npz import load_checkpoint   # ckpt imports this
+    return load_checkpoint(path, cfg, device)

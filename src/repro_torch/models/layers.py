@@ -156,6 +156,13 @@ def attn_prefill(p: dict, x: torch.Tensor, spec: AttnSpec,
     return out.reshape(b, s, -1) @ p["wo"].float(), k, v
 
 
+def attn_train(p: dict, x: torch.Tensor, spec: AttnSpec,
+               positions: torch.Tensor) -> torch.Tensor:
+    """Causal training attention: ``attn_prefill``'s output (b, s, d)
+    float32, without the cache's k/v."""
+    return attn_prefill(p, x, spec, positions)[0]
+
+
 def attn_encoder(p: dict, x: torch.Tensor, spec: AttnSpec) -> torch.Tensor:
     """Bidirectional attention with no rope (whisper's encoder): x (b, s,
     d) → (b, s, d) float32. The caller hands float32 weights with a

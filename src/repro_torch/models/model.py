@@ -3,8 +3,9 @@ pattern), grok-1's mixture of experts, the cross-attention families
 (whisper's encoder-decoder, llama-3.2-vision's cross layers), the
 state-space families (mamba2's SSD layers, hymba's hybrid layers) and
 deepseek-v2's latent attention with its mixture of experts (port
-of the serving part of ``repro/models/model.py``): layer plan, parameter
-init, whisper's encoder, embed / unembed.
+of ``repro/models/model.py`` but its prefill and decode, which are
+``models.serve``'s): layer plan, parameter init, whisper's encoder, embed
+/ unembed, and the training forward.
 
 The reference stacks each stage's layers on a leading axis for
 ``lax.scan``; the port keeps one parameter dict per layer in
@@ -15,10 +16,12 @@ layers as a list in ``params["encoder"]``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.config import ModelConfig
@@ -265,3 +268,82 @@ def _unembed(params: dict, cfg: ModelConfig,
         logits = cfg.final_logit_softcap * torch.tanh(
             logits / cfg.final_logit_softcap)
     return logits
+
+
+def _gate(p: dict) -> torch.Tensor:
+    """A cross layer's output scale tanh(cross_gate), taken in the gate's
+    dtype as the reference takes it, then float32 (it scales a float32
+    output)."""
+    return torch.tanh(p["cross_gate"]).float()
+
+
+def layer_fwd_train(p: dict, x: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
+                    positions: torch.Tensor, media: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer over a full sequence x (b, s, d) → (x, aux loss float32):
+    the mixer (attention, MLA, a cross layer gated by tanh(cross_gate),
+    the SSD mixer, or hybrid's 0.5 · (attention + SSD)), the cross
+    sublayer of whisper's decoder, then the MLP or the mixture of experts.
+    Each sublayer's output joins the residual in x's dtype, as the
+    reference's ``x + y.astype(x.dtype)``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = L.rms_norm(x, p["norm_attn"], cfg.norm_eps)
+    if ld.mixer == "attn":
+        y = L.attn_train(p["attn"], h, ld.attn, positions)
+    elif ld.mixer == "mla":
+        y = MLA.mla_train(p["attn"], h, cfg, positions)
+    elif ld.mixer == "cross":
+        y = _gate(p) * L.attn_cross(p["attn"], h, media, ld.attn)
+    elif ld.mixer == "ssm":
+        y = SSM.ssm_train(p["ssm"], h, cfg)
+    elif ld.mixer == "hybrid":
+        y = 0.5 * (L.attn_train(p["attn"], h, ld.attn, positions)
+                   + SSM.ssm_train(p["ssm"], h, cfg))
+    else:
+        raise ValueError(ld.mixer)
+    x = x + y.to(x.dtype)
+    if ld.cross:
+        h = L.rms_norm(x, p["norm_cross"], cfg.norm_eps)
+        x = x + L.attn_cross(p["cross"], h, media, ld.attn).to(x.dtype)
+    if ld.ffn != "none":
+        h = L.rms_norm(x, p["norm_mlp"], cfg.norm_eps)
+        if ld.ffn == "moe":
+            y, aux = MOE.moe_fwd(p["moe"], h, cfg.experts_per_token)
+        else:
+            y = L.mlp_fwd(p["mlp"], h)
+        x = x + y.to(x.dtype)
+    return x, aux
+
+
+def forward_train(params: dict, cfg: ModelConfig, tokens,
+                  media: Optional[torch.Tensor] = None,
+                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (b, s) → (logits (b, s, vocab) in the config's dtype, the
+    summed aux loss float32), on the parameters' device. ``media`` (b, T,
+    d) float32 carries the stub patch or frame embeddings of the vlm and
+    audio families (whisper's go through ``encoder_fwd`` first).
+
+    ``remat`` recomputes each layer's activations in the backward pass
+    (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``):
+    between the passes only each layer's input is kept."""
+    dev = param_device(params)
+    tokens = torch.as_tensor(tokens, device=dev)
+    b, s = tokens.shape
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    if media is not None:
+        media = torch.as_tensor(media, dtype=torch.float32, device=dev)
+        if cfg.family == "audio":
+            media = encoder_fwd(params, cfg, media)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for ld, p in zip(layer_defs(cfg), params["layers"]):
+        fwd = functools.partial(layer_fwd_train, ld=ld, cfg=cfg,
+                                positions=positions, media=media)
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                fwd, p, x, use_reentrant=False)
+        else:
+            x, aux = fwd(p, x)
+        aux_total = aux_total + aux
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, cfg, x), aux_total

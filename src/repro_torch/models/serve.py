@@ -104,7 +104,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-from repro_torch.models.model import (LayerDef, _embed, _unembed,
+from repro_torch.models.model import (LayerDef, _embed, _gate, _unembed,
                                       encoder_fwd, layer_defs, layer_plan,
                                       param_device, torch_dtype)
 
@@ -615,13 +615,6 @@ def _ring_prefix_pos(start: int, w: int, device) -> torch.Tensor:
     last = start - 1
     p_s = last - (last - torch.arange(w, device=device)) % w
     return torch.where(p_s >= 0, p_s, -1)[None]
-
-
-def _gate(p: dict) -> torch.Tensor:
-    """A cross layer's output scale tanh(cross_gate), taken in the gate's
-    dtype as the reference takes it, then float32 (it scales a float32
-    output)."""
-    return torch.tanh(p["cross_gate"]).float()
 
 
 def _cross_prefill(p: dict, h: torch.Tensor, media: torch.Tensor,

@@ -214,6 +214,13 @@ def _ssm_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, chunk: int,
     return y @ p["w_out"], final_state, xBC
 
 
+def ssm_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              chunk: int = 256) -> torch.Tensor:
+    """The mixer over a full sequence x (b, l, d) → (b, l, d), without
+    the decode cache."""
+    return _ssm_apply(p, x, cfg, chunk)[0]
+
+
 def ssm_prefill(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 chunk: int = 256, token_valid=None, lengths=None
                 ) -> Tuple[torch.Tensor, SSMCache]:

@@ -689,3 +689,118 @@ def test_grok_moe_matches_plain_cpu_run_on_card(card):
                 got.reshape(xt.shape)[same], want.reshape(xt.shape)[same],
                 atol=1e-4, rtol=1e-4, msg=f"layer {li} {tuple(shape)}")
         del p_cpu
+
+
+@pytest.mark.cuda
+def test_train_step_matches_plain_cpu_run_on_card(card):
+    """Three ``train_step``s of qwen2-smoke and grok-smoke in float32 on
+    the card and on the CPU from the same params and batch: loss and grad
+    norm within 1e-5 relative at every step, the params within 1e-5 (1 %
+    of the lr) where the CPU's first gradient exceeds 1e-3 of its leaf's
+    largest (Adam divides each gradient by its own size)."""
+    import dataclasses
+
+    from repro_torch import configs, tree_leaves, tree_map
+    from repro_torch.data import SyntheticLMStream, make_batch
+    from repro_torch.models import model as M
+    from repro_torch.models import train as T
+    from repro_torch.optim import adamw_init
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for arch in ("qwen2-1.5b", "grok-1-314b"):
+        cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+        p_cpu = M.init_params(cfg, seed=4, device="cpu")
+        tokens, labels = make_batch(SyntheticLMStream(cfg.vocab_size, 2),
+                                    2, 64)
+        batch = {"tokens": tokens, "labels": labels}
+        g0 = tree_leaves(T.loss_grads(p_cpu, cfg, batch, remat=False)[1])
+        sides = []
+        for dev in (card, torch.device("cpu")):
+            p = tree_map(lambda t: t.to(dev), p_cpu)
+            state = T.TrainState(p, adamw_init(p))
+            mets = []
+            for _ in range(3):
+                state, m = T.train_step(state, batch, cfg, peak_lr=1e-3,
+                                        warmup=1, total_steps=3,
+                                        remat=True)
+                mets.append({k: float(v) for k, v in m.items()})
+            sides.append((tree_leaves(state.params), mets))
+        (p_card, m_card), (p_host, m_host) = sides
+        for a, b in zip(m_card, m_host):
+            for k in ("loss", "grad_norm", "lr"):
+                assert abs(a[k] - b[k]) <= 1e-5 * max(abs(b[k]), 1e-6), (
+                    arch, k, a[k], b[k])
+        for a, b, g in zip(p_card, p_host, g0):
+            keep = g.abs() > 1e-3 * g.abs().max().clamp_min(1e-30)
+            err = (a.cpu() - b)[keep].abs()
+            assert not err.numel() or float(err.max()) <= 1e-5, arch
+
+
+@pytest.mark.cuda
+def test_baselines_match_plain_cpu_run_on_card(card):
+    """On 8,192 keys of 128, card against CPU on the same inputs:
+    MagicPIG's signatures, PQCache's assignments and PQ codes from the
+    card's fitted centroids, and the ids of ``retrieve``,
+    ``coarse_retrieve``, ``pq_retrieve`` and ``exact_topk`` from the same
+    tables, book and keys. Each is equal, or differs only where a float
+    near tie lies within 1e-5 of the values' scale (a projection's
+    distance from 0, a squared-distance gap, a score gap), which the
+    message reports. The two k-means fits need not agree: a near tie
+    flipped in one iteration moves a centroid."""
+    from repro_torch.baselines import magicpig as MP
+    from repro_torch.baselines import pqcache as PQ
+    from repro_torch.core.retrieval import exact_topk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    keys = torch.randn((8192, 128), generator=gen)
+    q = keys[11] + 0.5 * torch.randn((128,), generator=gen)
+    lsh = MP.make_params(128, 10, 10, seed=0, device="cpu")
+    k_card, q_card = keys.to(card), q.to(card)
+    tables = MP.build(k_card, MP.LSHParams(lsh.projections.to(card)))
+    book = PQ.build_pq(k_card, 16, 16, fit_sample=4096)
+    book_cpu = PQ.PQCodebook(*(t.cpu() for t in book))
+    tables_cpu = MP.build(keys, lsh)
+
+    def near_tie(differ, gap, scale, name):
+        assert not differ.any() or float(gap[differ].max()) <= 1e-5 * scale, (
+            name, int(differ.sum()), float(gap[differ].max()))
+
+    y = (keys.double() @ lsh.projections.reshape(100, 128).T.double()).abs()
+    near_tie(tables.codes.cpu() != tables_cpu.codes,
+             y.reshape(8192, 10, 10).amin(-1), float(y.max()), "signatures")
+
+    def assign_check(x, cents, got, name):
+        d2 = ((x.double()[:, None] - cents.double()[None]) ** 2).sum(-1)
+        two = d2.topk(2, -1, largest=False).values
+        near_tie(got.cpu() != PQ.assign_clusters(x, cents),
+                 two[:, 1] - two[:, 0], float(d2.max()), name)
+    assign_check(keys, book_cpu.coarse, book.assignments, "assignments")
+    resid = (keys - book_cpu.coarse[book_cpu.assignments]).reshape(
+        8192, 16, 8)
+    for b in range(16):
+        assign_check(resid[:, b], book_cpu.sub_codebooks[b],
+                     book.pq_codes[:, b].long(), f"pq_codes {b}")
+
+    def ids_check(got, want, score, name):
+        """The ids may differ only where their scores differ by noise."""
+        got, want = got.cpu().long(), want.long()
+        near_tie(got != want, (score[got] - score[want]).abs(),
+                 float(score.abs().max()), name)
+    ones = torch.ones(8192, dtype=torch.bool)
+    ip = keys.double() @ q.double()
+    ids_check(exact_topk(k_card, q_card, ones.to(card), 256)[0],
+              exact_topk(keys, q, ones, 256)[0], ip, "exact_topk")
+    ids_check(MP.retrieve(tables, q_card, 256),
+              MP.retrieve(tables_cpu, q, 256),
+              (tables_cpu.codes == MP._signature(q, lsh)).sum(-1).double(),
+              "retrieve")
+    c_score = (book_cpu.coarse.double() @ q.double())[book_cpu.assignments]
+    ids_check(PQ.coarse_retrieve(k_card, book.coarse, q_card, 256),
+              PQ.coarse_retrieve(keys, book_cpu.coarse, q, 256), c_score,
+              "coarse_retrieve")
+    lut = (book_cpu.sub_codebooks.double()
+           * q.double().reshape(16, 1, 8)).sum(-1)
+    adc = c_score + lut.gather(-1, book_cpu.pq_codes.long().T).sum(0)
+    ids_check(PQ.pq_retrieve(book, q_card, 256),
+              PQ.pq_retrieve(book_cpu, q, 256), adc, "pq_retrieve")
