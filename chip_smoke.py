@@ -191,8 +191,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``bucket_count`` at gemma3-12b's shapes (G 8, Hg 2, hd 256,
               B 32: the first shapes past B = 16), held and timed as in
               the sharded phase, the "g3" rows; (b) gemma3-12b at full
-              width cut to 24 of its 48 layers (4 periods: 20 local with a
-              1,024-token window, 4 global; qk-norm; bf16, seed 0; the
+              width cut to 12 of its 48 layers (2 periods: 10 local with a
+              1,024-token window, 2 global; qk-norm; bf16, seed 0; the
               script's time limit, not memory) through the fused
               paged engine on requests of 6,000 and 12,000 tokens with
               264 new: pool bytes, ring bytes, peak memory, tokens/s and
@@ -212,7 +212,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               kernels and ``bucket_count`` at whisper-large-v3's shapes (G
               20, the first KV-head count that is not a power of two; Hg
               1, hd 64, B 8), held and timed as in the sharded phase, the
-              "w" rows; (b) whisper-large-v3 at full width cut to 16 of its
+              "w" rows; (b) whisper-large-v3 at full width cut to 8 of its
               32 decoder layers (the time limit), each with a cross
               sublayer, its 32 encoder layers whole over 1,500 stub frames
               a request; bf16, seed 0) through the
@@ -233,13 +233,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               ``bucket_count`` at hymba-1.5b's shapes (G 5, Hg 5: the
               first odd Hg above 1, 5 of the tier table's 8 byte lanes;
               hd 64, B 8), held and timed as in the sharded phase, the "h"
-              rows; (b) hymba-1.5b at full width cut to 16 of its 32
+              rows; (b) hymba-1.5b at full width cut to 8 of its 32
               hybrid layers (the time limit), each 0.5 · (ParisKV
               attention + an SSD mixer of 50 heads of 64 with state 16),
               then an MLP; bf16, seed 0) through the fused paged engine
               on the engine phase's four requests with 264 new: every
               request promotes, launches held as the engine phase's, SSM
-              state bytes exactly 4 slots × 16 layers × (50·64·16·4 +
+              state bytes exactly 4 slots × 8 layers × (50·64·16·4 +
               3·3232·2), pool bytes, peak memory,
               tokens/s and TTFT printed; (c) mamba2-780m at full width and
               depth (48 SSD layers of 48 heads of 64, state 128; no
@@ -314,6 +314,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
               (kernels) and on the CPU (plain versions); logits must agree
               at every step, within 1e-3 where every winner set agrees and
               within 5 % of the largest logit after a near-tie winner flip.
+21. seqshard — the sequence-sharded contiguous decode
+              (``decode_step(dist=SeqShardDist)``) of qwen2-1.5b at full
+              width and the serving phases' 8 layers, batch 1, over two
+              gloo ranks of the one card: one ``prefill`` here of a
+              262,144-token prompt (``INPUT_SHAPES["long_500k"]``'s
+              524,288 cut to fit the time limit; n_max 262,656), each
+              rank handed its shard (``seq_shard_state``: the positions
+              [r·n_loc, (r+1)·n_loc) of every ParisKV store, shared from
+              this process), then 264 teacher-forced new tokens (one
+              promotion at step 256) on the ranks and, from the same state,
+              on one device. First the gather's rank-masked mode (row 6
+              "q") at layer 0's shapes: equal to its plain version, to the
+              unmasked decode gather on each rank's rows and zeros
+              elsewhere, summed over the ranks to the whole gather, and
+              timed. Checks: the ranks' logits and winners equal bit for
+              bit at every step; at every layer of steps 0, 128, 256 and
+              263 the ranks' local and merged winners equal the per-shard
+              retrieve and merge replayed here on the shards without a
+              collective (exact); the ranks launch collision_paged,
+              bucket_count, bucket_topk and rerank_topk_paged once a
+              layer-step and gather_rows_paged once more a promotion;
+              each rank holds half the ParisKV bytes. Prints the prefill
+              time, bytes per rank and one device's, tokens/s of the ranks
+              and of one device, each collective's bytes a layer-step,
+              the share of steps whose greedy token equals one device's,
+              the winners' overlap with one device's (layer 0, whose
+              query and keys both runs share, apart from the deeper
+              layers) and layer 0's recall of the exact top-k for both.
 
 Pass phase names to run a subset (``python3 chip_smoke.py kernels slot``).
 Before them, ``phase_seconds`` gives each phase's wall seconds. The last
@@ -389,6 +417,12 @@ SHARD_REQUESTS = 2                       # of the engine phase's, in (a)
 SHARD_F32_LENS = (1500, 2500, 3500)
 SHARD_F32_GEN = 16
 SHARD_F32_BUDGET = 256
+SEQ_SHARDS = 2                 # the seqshard phase's gloo ranks on one card
+SEQ_CONTEXT = "long_500k"      # its context: INPUT_SHAPES[SEQ_CONTEXT]
+SEQ_LEN = 262_144              # cut from 524,288: the time limit (PERF.md §4)
+SEQ_HEADROOM = 512             # n_max = SEQ_LEN + this
+SEQ_GEN = 264                  # promotes at step 256
+SEQ_SAMPLES = (0, 128, 256, 263)   # replayed steps; 256 promotes
 # the arch phase: grok-1 at full width cut to the depth one card holds (4 of
 # 64 layers, ~41 GB of bf16 weights) on the engine phase's requests, and
 # llama3.1-8b at full width and depth on two of them
@@ -404,7 +438,7 @@ LLAMA_GEN = 16
 # and gemma3 at one period (its 6 layers) in float32
 GEMMA3_ARCH, GEMMA2_ARCH = "gemma3-12b", "gemma2-27b"
 GEMMA2_LAYERS = 8
-GEMMA3_LAYERS = 24        # 4 of its 8 periods: the time limit, not memory
+GEMMA3_LAYERS = 12        # 2 of its 8 periods: the time limit, not memory
 # the cross phase: whisper-large-v3 at full width, WHISPER_LAYERS decoder and
 # 32 encoder layers over 1,500 stub frames, on the engine phase's requests
 # with GEN new tokens, every request promoting (G = 20 KV heads, B = 8), and
@@ -414,7 +448,7 @@ GEMMA3_LAYERS = 24        # 4 of its 8 periods: the time limit, not memory
 # layer, one cross decode step of each family, held to CROSS_RTOL of the
 # output's largest magnitude
 WHISPER_ARCH, VISION_ARCH = "whisper-large-v3", "llama-3.2-vision-11b"
-WHISPER_LAYERS = 16       # of 32 decoder layers: the time limit
+WHISPER_LAYERS = 8        # of 32 decoder layers: the time limit
 CROSS_ROWS = 4
 CROSS_RTOL = 1e-4
 # the ssm phase: hymba-1.5b at full width and HYMBA_LAYERS on the engine
@@ -427,7 +461,7 @@ CROSS_RTOL = 1e-4
 # step, one mamba2 mixer's ssm_prefill and ssm_decode, held to CROSS_RTOL
 # of the output's largest magnitude
 HYMBA_ARCH, MAMBA_ARCH = "hymba-1.5b", "mamba2-780m"
-HYMBA_LAYERS = 16         # of 32: the time limit
+HYMBA_LAYERS = 8          # of 32: the time limit
 MAMBA_GEN = 32
 SSM_F32_LEN = 512
 SSM_F32_LENS = (512, 448, 384, 320)
@@ -2914,6 +2948,388 @@ def sharded_phase(dev):
     return rec, kern
 
 
+# -------------------------------------------------------------- seqshard ---
+def _seq_cfg():
+    """qwen2-1.5b at full width, cut to the serving phases' depth."""
+    from repro_torch import configs
+    return dataclasses.replace(configs.get("qwen2-1.5b"),
+                               num_layers=QWEN_LAYERS)
+
+
+def _store_bytes(caches) -> int:
+    """Bytes of the contiguous ParisKV stores (K/V and metadata)."""
+    from repro_torch.core.cache import LayerKVCache
+    return sum(t.numel() * t.element_size() for lc in caches
+               if isinstance(lc.get("kv"), LayerKVCache) for t in lc["kv"])
+
+
+def _seq_gather_kernel(dev, full, shards, regions, pcfg, seed: int = 0):
+    """Row 6's rank-masked mode at the phase's shapes (layer 0 after the
+    prefill): on each rank's shard, the decode gather of the sink, the
+    window and a seeded set of winners (global positions in [sink,
+    enc_end)), against its plain version exactly, against the unmasked
+    decode-mode gather of the whole cache on the owned rows (zeros on the
+    others), and summed over the ranks, against the whole gather. Timed
+    on rank 0's shard beside its plain version and one advanced-indexing
+    call over the shard with a zero row appended."""
+    import torch
+    from repro_torch.distributed import SeqShardDist
+    from repro_torch.core.cache import window_size
+    from repro_torch.kernels import row_tables
+    from repro_torch.kernels.gather_kv import (gather_decode_masked,
+                                               gather_decode_paged)
+    from repro_torch.kernels.gather_kv.ref import gather_decode_masked_ref
+
+    kv = full.caches[0]["kv"]
+    b, n, G, hd = kv.k.shape
+    Hg = _seq_cfg().num_heads // G
+    sink, W, k = pcfg.sink_size, window_size(pcfg), pcfg.top_k
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc = int(regions.enc_end[0])
+    top = torch.randint(sink, enc, (b, G, Hg, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    start = (regions.pos + 2 - W).clamp(0, n - W).to(torch.int32)
+    rows1 = row_tables(b, dev)
+    whole = gather_decode_paged(kv.k, kv.v, rows1, start, sink, W,
+                                top + n * rows1[:, :, None, None])
+    total = [torch.zeros_like(t) for t in whole]
+    owned_bytes = []
+    for r, st in enumerate(shards):
+        sk = st.caches[0]["kv"]
+        base, n_loc = SeqShardDist(r, len(shards)).rows(n)
+        got = gather_decode_masked(sk.k, sk.v, rows1, start, sink, W, top,
+                                   base, n_loc)
+        want = gather_decode_masked_ref(sk.k, sk.v, rows1, start, sink, W,
+                                        top, base, n_loc)
+        _check(all(torch.equal(x, y) for x, y in zip(got, want)),
+               f"the rank-masked gather differs from its plain version "
+               f"(rank {r})")
+        lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                          start[:, None] + torch.arange(W, device=dev)], 1)
+        own_d = ((lidx >= base) & (lidx < base + n_loc))[..., None, None]
+        own_r = ((top >= base) & (top < base + n_loc))[..., None]
+        for x, y, own in zip(got, whole, (own_d, own_d, own_r, own_r)):
+            _check(torch.equal(x, torch.where(own, y, torch.zeros_like(y))),
+                   f"the rank-masked gather differs from the unmasked "
+                   f"decode gather on rank {r}'s rows")
+        for t, x in zip(total, got):
+            t += x
+        owned_bytes.append((int(own_d.sum()) * G + int(own_r.sum())) * hd
+                           * kv.k.element_size() * 2)       # K and V
+    _check(all(torch.equal(t, y) for t, y in zip(total, whole)),
+           "the ranks' masked gathers do not sum to the whole gather")
+
+    sk = shards[0].caches[0]["kv"]
+    base, n_loc = 0, sk.k.shape[1]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+
+    def kern():
+        return gather_decode_masked(sk.k, sk.v, rows1, start, sink, W, top,
+                                    base, n_loc)
+
+    def plain():
+        return gather_decode_masked_ref(sk.k, sk.v, rows1, start, sink, W,
+                                        top, base, n_loc)
+
+    # one index_select over the shard's K and V head rows with a zero row
+    # appended, at precomputed head-row indices (a zero row where unowned)
+    heads = torch.cat([sk.k, sk.v]).reshape(-1, hd)
+    heads = torch.cat([heads, heads.new_zeros((1, hd))])
+    zero = heads.shape[0] - 1
+    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                      start[:, None] + torch.arange(W, device=dev)], 1)
+    gs = torch.arange(G, device=dev)
+
+    def at(pos, g, kv_i):
+        own = (pos >= base) & (pos < base + n_loc)
+        row = ((kv_i * b + torch.arange(b, device=dev).view(
+            (b,) + (1,) * (pos.dim() - 1))) * n_loc
+            + (pos - base).clamp(0, n_loc - 1))
+        return torch.where(own, row * G + g, zero)
+    idx = torch.cat([at(lidx[..., None], gs, i).reshape(-1) for i in (0, 1)]
+                    + [at(top, gs[None, :, None, None], i).reshape(-1)
+                       for i in (0, 1)])
+
+    def library():
+        return torch.index_select(heads, 0, idx)
+    _check(torch.equal(library()[:lidx.numel() * G].view(b, sink + W, G, hd),
+                       kern()[0]), "the advanced-indexing yardstick differs")
+    out_bytes = sum(t.numel() * t.element_size() for t in kern())
+    rec = dict(
+        route="cuda", source="src/repro_torch/csrc/gather_rows_paged.cu",
+        replaces="src/repro/kernels/gather_kv/gather_kv.py:46",
+        mode="rank-masked (row_base, row_count)",
+        max_abs_err=0,
+        tolerance="exact: plain version, unmasked gather on owned rows, "
+                  "zeros elsewhere, sum over the ranks",
+        ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        plain_ms=_time_ms(plain, flush), library_ms=_time_ms(library, flush),
+        owned_bytes=owned_bytes[0], out_bytes=out_bytes,
+        bound_note="owned rows read once, every output row (zeros too) "
+                   "written once, at 3.35 TB/s")
+    rec["bound_ms"], rec["bound_by"] = _bound(
+        owned_bytes[0] + out_bytes + top.numel() * 4 + b * 4, 0)
+    print("kernel gather_rows_paged/seqshard " + json.dumps(rec), flush=True)
+    return {"gather_rows_paged/seqshard": rec}
+
+
+def _seq_records(rec, keep: bool):
+    """A step's per-layer ``ShardRetrieval``s → host copies (all fields
+    with ``keep``, else the merged winners only)."""
+    out = []
+    for r in rec:
+        d = dict(indices=r.indices.cpu())
+        if keep:
+            d.update(scores=r.scores.cpu(),
+                     local_indices=r.local_indices.cpu(),
+                     local_scores=r.local_scores.cpu(),
+                     q_norm=r.qt.q_norm.cpu(), q_sub=r.qt.q_sub.cpu(),
+                     enc_end=r.enc_end.cpu())
+        out.append(d)
+    return out
+
+
+def _seq_decode(params, cfg, st, forced, samples, dev, dist=None):
+    """Teacher-forced decode steps from ``st`` (in place) → dict: per step
+    the logits' SHA-256, the greedy token, its lead over the runner-up and
+    the merged winners' SHA-256; the sampled steps' records; seconds; the
+    final state."""
+    import hashlib
+    import torch
+    from repro_torch.models import serve as SV
+    out = dict(logits_sha=[], argmax=[], top2_gap=[], winners_sha=[],
+               samples={})
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for step, tok in enumerate(forced):
+        rec = []
+        lg, st = SV.decode_step(params, cfg, torch.tensor(
+            [tok], dtype=torch.int32, device=dev), st, record=rec, dist=dist)
+        host = lg.float().cpu()
+        out["logits_sha"].append(
+            hashlib.sha256(host.numpy().tobytes()).hexdigest())
+        top2 = torch.topk(host[0], 2).values
+        out["argmax"].append(int(host.argmax()))
+        out["top2_gap"].append(float(top2[0] - top2[1]))
+        win = torch.stack([r.indices for r in rec]).cpu()
+        out["winners_sha"].append(
+            hashlib.sha256(win.numpy().tobytes()).hexdigest())
+        if step in samples:
+            out["samples"][step] = (
+                _seq_records(rec, True) if dist is not None
+                else [dict(indices=r.indices.cpu()) for r in rec])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out, st
+
+
+def _seqshard_rank(rank: int, shards: int, cfg, params, states, forced,
+                   samples, device_type: str):
+    """One rank of the seqshard phase: its shard of the prefilled state
+    (shared from the parent, updated in place), the teacher-forced decode
+    with ``dist=SeqShardDist``, its launches counted from zero."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device_type)
+    if device_type == "cuda":
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    from repro_torch import kernels as K
+    from repro_torch.distributed import SeqShardDist
+
+    d = SeqShardDist.from_process_group(shards)
+    st = states[rank]
+    enc0 = int(st.regions.enc_end[0])
+    K.reset_launches()
+    out, st = _seq_decode(params, cfg, st, forced, samples, dev, dist=d)
+    out.update(
+        launches=dict(K.LAUNCHES), tokens_per_s=len(forced) / out["seconds"],
+        promotions=(int(st.regions.enc_end[0]) - enc0)
+        // cfg.pariskv.update_interval,
+        cache_bytes=_store_bytes(st.caches),
+        peak_mem_gb=(torch.cuda.max_memory_allocated(dev) / 1e9
+                     if device_type == "cuda" else None))
+    return out
+
+
+def _oracle_recall(cache, rec, one_idx, signs, sink: int, k: int):
+    """Layer 0 at a sampled step: the recall of the sharded and of the
+    one-device winners against the exact inner-product top-k over the
+    region [sink, enc_end). Layer 0's query and keys are the same in both
+    runs (its input is the forced token's embedding), so only the
+    retrieval differs; the query comes back from the record's transform
+    (the rotation is orthogonal)."""
+    import torch
+    from repro_torch.core.retrieval import exact_topk, recall_at_k
+    from repro_torch.core.srht import srht_rotate_t
+    dev = cache.k.device
+    q_sub = rec["q_sub"].to(dev)
+    G, Hg = q_sub.shape[1:3]
+    hd = cache.k.shape[-1]
+    q = rec["q_norm"].to(dev)[..., None] * srht_rotate_t(
+        q_sub.reshape(q_sub.shape[:3] + (-1,)), signs, hd)   # (1, G, Hg, hd)
+    pos = torch.arange(cache.k.shape[1], device=dev)
+    valid = (pos >= sink) & (pos < int(rec["enc_end"][0]))
+    keys = cache.k[0].permute(1, 0, 2)[:, None]               # (G, 1, n, hd)
+    oracle, _ = exact_topk(keys, q[0], valid, k)              # (G, Hg, k)
+    return (float(recall_at_k(rec["indices"][0].to(dev), oracle).mean()),
+            float(recall_at_k(one_idx[0].to(dev), oracle).mean()))
+
+
+def seqshard_phase(dev, cfg=None, seq_len: int = SEQ_LEN, gen: int = SEQ_GEN,
+                   samples=SEQ_SAMPLES, kernel: bool = True):
+    """The sequence-sharded contiguous decode (``decode_step(dist=
+    SeqShardDist)``) of qwen2-1.5b at full width over SEQ_SHARDS gloo ranks
+    of the one card, from one prefill in this process, against the
+    one-device decode from the same state."""
+    import numpy as np
+    import torch
+    from repro_torch.core.cache import window_size
+    from repro_torch.distributed import (SeqShardDist, backend_for,
+                                         launch_local)
+    from repro_torch.models import layers as L
+    from repro_torch.models import serve as SV
+    from repro_torch.models.model import init_params
+    from repro_torch.core.config import INPUT_SHAPES
+    from repro_torch.core.encode import QueryTransform
+
+    cfg = cfg or _seq_cfg()
+    pcfg = cfg.pariskv
+    S = SEQ_SHARDS
+    n_max = seq_len + SEQ_HEADROOM
+    params = init_params(cfg, seed=0, device=dev)
+    prompt = _prompts(cfg, seed=12, lens=(seq_len,))[0][None]
+    forced = [int(t) for t in _prompts(cfg, seed=13, lens=(gen,))[0]]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    _, st = SV.prefill(params, cfg, prompt, n_max, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_peak = (torch.cuda.max_memory_allocated(dev) / 1e9
+                    if dev.type == "cuda" else None)
+    shards = [SV.seq_shard_state(st, SeqShardDist(r, S)) for r in range(S)]
+    kern = (_seq_gather_kernel(dev, st, shards, st.regions, pcfg)
+            if kernel else {})
+    one_bytes = _store_bytes(st.caches)
+
+    backend = backend_for(S, dev)
+    t0 = time.perf_counter()
+    ranks = launch_local(_seqshard_rank, S, backend, timeout_s=900.0,
+                         args=(S, cfg, params, shards, forced, samples,
+                               dev.type))
+    ranks_s = time.perf_counter() - t0
+    one, st = _seq_decode(params, cfg, st, forced, samples, dev)
+    one_samp, one_s = one["samples"], one["seconds"]
+
+    # check 2: every sampled layer-step's merged winners from the shards
+    # as they stand now (the metadata in [sink, enc_end) of a step never
+    # changes after it), per shard and merged here without a collective
+    n_loc = n_max // S
+    replay_mismatch = []
+    for step in samples:
+        per_layer = zip(*(rk["samples"][step] for rk in ranks))
+        for li, recs in enumerate(per_layer):
+            loc = []
+            for r, rc in enumerate(recs):
+                qt = QueryTransform(rc["q_norm"].to(dev), rc["q_sub"].to(dev))
+                kv = shards[r].caches[li]["kv"]
+                sc, ix = L.seq_local_retrieve(kv, qt, rc["enc_end"].to(dev),
+                                              pcfg, r * n_loc)
+                if not (torch.equal(sc.cpu(), rc["local_scores"])
+                        and torch.equal(ix.cpu(), rc["local_indices"])):
+                    replay_mismatch.append((step, li, r, "local"))
+                loc.append((sc, ix))
+            ms, mi = L.merge_shard_winners(torch.stack([x for x, _ in loc]),
+                                           torch.stack([y for _, y in loc]),
+                                           pcfg.top_k)
+            if not all(torch.equal(mi.cpu(), rc["indices"])
+                       and torch.equal(ms.cpu(), rc["scores"])
+                       for rc in recs):
+                replay_mismatch.append((step, li, "merged"))
+
+    # the sharded winners against one device's: layer 0 (the same query
+    # and keys in both runs) apart from the deeper layers, and layer 0's
+    # recall of the exact top-k for both
+    overlap, recall = {}, {}
+    signs = SV.rotation_signs(cfg, dev)
+    for step in samples:
+        o = [float((rc["indices"][..., :, None]
+                    == one_rc["indices"][..., None, :]).any(-1)
+                   .float().mean())
+             for rc, one_rc in zip(ranks[0]["samples"][step],
+                                   one_samp[step])]
+        overlap[step] = dict(layer0=o[0], deeper=float(np.mean(o[1:])))
+        recall[step] = dict(zip(("sharded", "one_device"), _oracle_recall(
+            st.caches[0]["kv"], ranks[0]["samples"][step][0],
+            one_samp[step][0]["indices"], signs, pcfg.sink_size,
+            pcfg.top_k)))
+    same_tok = float(np.mean(np.asarray(ranks[0]["argmax"])
+                             == np.asarray(one["argmax"])))
+    G, hd = cfg.num_kv_heads, cfg.head_dim
+    Hg = cfg.num_heads // G
+    k, sink, W = pcfg.top_k, pcfg.sink_size, window_size(pcfg)
+    winners = G * Hg * k
+    coll = dict(all_gather_scores=dict(send=winners * 4,
+                                       recv=winners * 4 * S),
+                all_gather_positions=dict(send=winners * 4,
+                                          recv=winners * 4 * S),
+                all_reduce_rows=dict(bytes=((sink + W) * G + winners) * hd
+                                     * 2 * 4))
+    # per ParisKV layer-step one launch of each, and per promotion one
+    # more (K-only, rank-masked) gather
+    steps, layers = len(forced), cfg.num_layers
+    want_launch = {name: steps * layers for name in
+                   ("collision_paged", "bucket_count", "bucket_topk",
+                    "rerank_topk_paged")}
+    want_launch["gather_rows_paged"] = (steps + ranks[0]["promotions"]) \
+        * layers
+    rec = dict(
+        arch="qwen2-1.5b", layers=cfg.num_layers, dtype=cfg.dtype,
+        context=seq_len, context_source=f"INPUT_SHAPES[{SEQ_CONTEXT!r}]: "
+        f"{INPUT_SHAPES[SEQ_CONTEXT].seq_len} tokens" + (
+            f", cut to {seq_len} (the script's time limit)"
+            if seq_len < INPUT_SHAPES[SEQ_CONTEXT].seq_len else ""),
+        promotions=ranks[0]["promotions"],
+        n_max=n_max, shards=S, backend=backend, new_tokens=steps,
+        device=torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu",
+        prefill_s=prefill_s, prefill_peak_mem_gb=prefill_peak,
+        cache_bytes=dict(one_device=one_bytes,
+                         per_rank=[rk["cache_bytes"] for rk in ranks]),
+        tokens_per_s=dict(ranks=[rk["tokens_per_s"] for rk in ranks],
+                          one_device=steps / one_s),
+        decode_s=dict(ranks=[rk["seconds"] for rk in ranks],
+                      one_device=one_s, ranks_wall=ranks_s),
+        peak_mem_gb=[rk["peak_mem_gb"] for rk in ranks],
+        collective_bytes_per_layer_step=coll,
+        same_token_share=same_tok,
+        one_device_top2_gap_median=float(np.median(one["top2_gap"])),
+        winner_overlap=overlap, layer0_recall_of_exact_topk=recall,
+        sampled_steps=list(samples), launches=ranks[0]["launches"],
+        launches_want=want_launch, replay_mismatches=replay_mismatch[:8])
+    print("seqshard " + json.dumps(rec), flush=True)
+    _check(all(rk["logits_sha"] == ranks[0]["logits_sha"]
+               and rk["winners_sha"] == ranks[0]["winners_sha"]
+               for rk in ranks), "the ranks' logits or winners differ")
+    _check(not replay_mismatch,
+           f"{len(replay_mismatch)} sampled layer-steps' winners differ "
+           f"from the per-shard retrieve and merge replayed without "
+           f"collectives: {replay_mismatch[:8]}")
+    _check(all(rk["launches"].get(n) == c for rk in ranks
+               for n, c in want_launch.items()),
+           f"seqshard launches {ranks[0]['launches']} != {want_launch}")
+    _check(all(b_ * S == one_bytes for b_ in rec["cache_bytes"]["per_rank"]),
+           "a rank does not hold 1/shards of the ParisKV stores")
+    del params, st, shards
+    return rec, kern
+
+
 # ------------------------------------------------------------------ arch ---
 def _moe_compare(p_dev, p_cpu, x, top_k: int):
     """One MoE call on the card and on the CPU (the same torch code on
@@ -4329,7 +4745,8 @@ def main() -> int:
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
               "chunked", "share", "faults", "sharded", "arch", "gemma",
-              "cross", "ssm", "mla", "baselines", "train", "parity")
+              "cross", "ssm", "mla", "baselines", "train", "parity",
+              "seqshard")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -4492,6 +4909,16 @@ def main() -> int:
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")
+    if "seqshard" in only:
+        del params, eng
+        params = eng = None
+        torch.cuda.empty_cache()
+        seq, seq_kern = seqshard_phase(dev)
+        kern.update(seq_kern)
+        # rank 0's launches on the sequence-sharded decode
+        launches["gather_rows_paged/seqshard"] = seq["launches"][
+            "gather_rows_paged"]
+        lap("seqshard")
     print("phase_seconds " + json.dumps(seconds), flush=True)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -33,7 +33,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.kernels import row_tables
-from repro_torch.kernels.gather_kv import gather_decode_paged
+from repro_torch.kernels.gather_kv import (gather_decode_masked,
+                                           gather_decode_paged)
 
 NEG_INF = -1e30
 _FULL_Q_CHUNK = 2048          # query rows per score tile of full_attention
@@ -148,10 +149,12 @@ def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                             v_cache: Optional[torch.Tensor],
                             top_idx: torch.Tensor,
                             window_start: torch.Tensor, pos: torch.Tensor,
-                            enc_end: torch.Tensor, phys_rows: torch.Tensor,
-                            *, sink_size: int, window_size: int,
-                            sm_scale: float,
-                            softcap: float = 0.0) -> torch.Tensor:
+                            enc_end: torch.Tensor,
+                            phys_rows: Optional[torch.Tensor], *,
+                            sink_size: int, window_size: int,
+                            sm_scale: float, softcap: float = 0.0,
+                            rows: Optional["DecodeRows"] = None
+                            ) -> torch.Tensor:
     """Decode attention over a contiguous cache. q (b, H, hd); k/v_cache
     (b, n_max, G, hd); top_idx (b, G, Hg, k) retrieved positions;
     window_start / pos / enc_end (b,) int32; phys_rows (b, G, Hg, k)
@@ -163,14 +166,18 @@ def sparse_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``dynamic_slice``, the window's start clamps to n_max - W for the
     gather, while its masks keep the unclamped ``window_start``.
     ``v_cache`` None: the keys are the values too (MLA's latent), and the
-    gather reads them once."""
+    gather reads them once. ``rows``: the rows gathered already (a
+    sequence-sharded cache's, ``seq_shard_decode_rows``; the reference's
+    pre-fetched ``k_ret``/``v_ret``), and the cache is not read."""
     b, H, hd = q.shape
-    n, G = k_cache.shape[1], k_cache.shape[2]
+    G = k_cache.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
-    start = window_start.clamp(0, n - window_size).to(torch.int32)
-    rows = paged_decode_rows(k_cache, v_cache, row_tables(b, q.device),
-                             start, phys_rows, sink_size=sink_size,
-                             window_size=window_size)
+    if rows is None:
+        n = k_cache.shape[1]
+        start = window_start.clamp(0, n - window_size).to(torch.int32)
+        rows = paged_decode_rows(k_cache, v_cache, row_tables(b, q.device),
+                                 start, phys_rows, sink_size=sink_size,
+                                 window_size=window_size)
     return _segment_attention(
         qg, rows.k_sink, rows.v_sink, rows.k_ret, rows.v_ret, rows.k_loc,
         rows.v_loc, top_idx, window_start, pos, enc_end,
@@ -287,6 +294,37 @@ def paged_decode_rows(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
         phys_rows)
     if pool_v is None:
         v_dense, v_ret = k_dense, k_ret
+    return DecodeRows(k_dense[:, :sink_size], v_dense[:, :sink_size],
+                      k_dense[:, sink_size:], v_dense[:, sink_size:], k_ret,
+                      v_ret)
+
+
+def seq_shard_decode_rows(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                          window_start: torch.Tensor, top_idx: torch.Tensor,
+                          *, sink_size: int, window_size: int,
+                          dist) -> DecodeRows:
+    """Every K/V row a decode step attends to, from a sequence-sharded
+    contiguous cache: this rank (``dist``, a ``distributed.SeqShardDist``)
+    holds the global positions [base, base + n) of an n_max = n·shards
+    cache (``SeqShardDist.shard_of``) in k/v_cache (b, n, G, hd). One
+    rank-masked gather launch reads the sink rows, the window rows (its
+    start clamped to n_max - W, as the reference's ``dynamic_slice`` over
+    the whole cache) and the winners' head rows at the global positions
+    ``top_idx`` (b, G, Hg, k) that the rank owns, zeros elsewhere; one
+    ``all_reduce_sum`` of all of them in float32 gives every rank every
+    row (x + 0 is exact, as the reference's ``psum``). → DecodeRows,
+    float32."""
+    b, n = k_cache.shape[:2]
+    base, n_max = dist.shard_of(n)
+    start = window_start.clamp(0, n_max - window_size).to(torch.int32)
+    parts = gather_decode_masked(
+        k_cache, v_cache, row_tables(b, k_cache.device), start, sink_size,
+        window_size, top_idx.to(torch.int32).contiguous(), base, n)
+    flat = torch.cat([t.float().reshape(-1) for t in parts])
+    flat = dist.all_reduce_sum(flat)
+    k_dense, v_dense, k_ret, v_ret = (
+        t.view(p.shape) for t, p in zip(
+            torch.split(flat, [p.numel() for p in parts]), parts))
     return DecodeRows(k_dense[:, :sink_size], v_dense[:, :sink_size],
                       k_dense[:, sink_size:], v_dense[:, sink_size:], k_ret,
                       v_ret)

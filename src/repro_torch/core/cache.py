@@ -41,7 +41,8 @@ from repro_torch.core.config import ParisKVConfig
 from repro_torch.kernels import row_tables
 from repro_torch.kernels.collision import bucket_count, bucket_count_span
 from repro_torch.kernels.collision.ref import bucket_histogram
-from repro_torch.kernels.gather_kv import gather_rows_paged
+from repro_torch.kernels.gather_kv import (gather_rows_masked,
+                                           gather_rows_paged)
 
 PAGED_DEFAULT_BLOCK = 128
 
@@ -141,32 +142,65 @@ def append_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 def decode_append(cache: LayerKVCache, k_t: torch.Tensor, v_t: torch.Tensor,
-                  pos: torch.Tensor) -> LayerKVCache:
+                  pos: torch.Tensor, shard: Optional[Tuple[int, int]] = None
+                  ) -> LayerKVCache:
     """Append one token's K/V (b, G, hd) at per-row position ``pos`` (b,),
-    in place (clamped as ``append_kv``)."""
-    append_kv(cache.k, cache.v, k_t, v_t, pos)
+    in place (clamped as ``append_kv``). ``shard`` (base, n_max): the
+    store is one sequence shard, the global positions [base, base + n) of
+    an n_max-position cache; ``pos`` clamps to n_max as one device's does
+    and lands only where the shard owns it."""
+    if shard is None:
+        append_kv(cache.k, cache.v, k_t, v_t, pos)
+        return cache
+    base, n_max = shard
+    b, n = cache.k.shape[:2]
+    rows = torch.arange(b, device=pos.device)
+    at = pos.long().clamp(0, n_max - 1) - base
+    own = ((at >= 0) & (at < n))[:, None, None]
+    at = at.clamp(0, n - 1)
+    for dst, new in ((cache.k, k_t), (cache.v, v_t)):
+        dst[rows, at] = torch.where(own, new.to(dst.dtype), dst[rows, at])
     return cache
 
 
 def promote_rows(cache: LayerKVCache, starts: torch.Tensor,
                  mask: torch.Tensor, cfg: ParisKVConfig,
-                 signs: torch.Tensor) -> LayerKVCache:
+                 signs: torch.Tensor,
+                 shard: Optional[Tuple[int, int]] = None) -> LayerKVCache:
     """Per-row block promotion, in place: every row with ``mask[i]`` gets
     metadata for keys [starts[i], starts[i] + update_interval). As in the
     reference every row's block is encoded (one batched computation) and
     the unmasked rows keep their old metadata; each start clamps to
     [0, n - update_interval]. The key block comes through the paged
-    gather's logical mode over the store's one-block-per-row table."""
+    gather's logical mode over the store's one-block-per-row table.
+
+    ``shard`` (base, n_max): the store is one sequence shard, the global
+    positions [base, base + n) of an n_max-position cache, and ``starts``
+    are global. The block is gathered in the rank-masked mode (keys the
+    shard does not own come back zero), encoded at one device's shape —
+    the encoding is per key — and only the owned keys' metadata is
+    written, so a block straddling two shards is written exactly, half by
+    each."""
     U = cfg.update_interval
     b, n = cache.k.shape[:2]
-    st = starts.to(torch.int32).clamp(0, n - U)
+    base, n_all = (0, n) if shard is None else shard
+    st = starts.to(torch.int32).clamp(0, n_all - U)
     lidx = (st[:, None] + torch.arange(U, dtype=torch.int32,
                                        device=st.device)).contiguous()
-    blk = gather_rows_paged(cache.k, None, row_tables(b, cache.k.device),
-                            lidx)                               # (b, U, G, hd)
+    tables = row_tables(b, cache.k.device)
+    if shard is None:
+        blk = gather_rows_paged(cache.k, None, tables, lidx)
+    else:
+        blk = gather_rows_masked(cache.k, None, tables, lidx, base, n)
     meta = _encode_block(blk, cfg, signs)                       # (b, G, U, B)
     rows, at = torch.arange(b, device=st.device)[:, None], lidx.long()
     keep = mask[:, None, None, None]
+    if shard is not None:
+        # a shard's run of U positions, taken mod n, is U distinct rows:
+        # the owned ones at their place, the others left as they are
+        at = at - base
+        keep = keep & ((at >= 0) & (at < n))[:, :, None, None]
+        at = at % n
     for dst, new in zip(cache[2:], meta):
         old = dst[rows, :, at]                                  # (b, U, G, B)
         dst[rows, :, at] = torch.where(keep, new.transpose(1, 2), old)

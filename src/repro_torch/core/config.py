@@ -211,3 +211,21 @@ class ModelConfig:
                  + dense * 3 * d * self.d_ff
                  + self.vocab_size * d)
         return total
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

@@ -117,7 +117,8 @@ def max_collision_score(cfg: ParisKVConfig, num_subspaces: int) -> int:
 def collision_scores_paged_hist(pool_ids: torch.Tensor,
                                 block_tables: torch.Tensor,
                                 q_sub: torch.Tensor, counts: torch.Tensor,
-                                enc_end: torch.Tensor, cfg: ParisKVConfig):
+                                enc_end: torch.Tensor, cfg: ParisKVConfig,
+                                sink: Optional[int] = None):
     """Stage-I coarse scores over the paged pool, with their histograms per
     segment for ``select_candidates_bucket``.
 
@@ -127,9 +128,11 @@ def collision_scores_paged_hist(pool_ids: torch.Tensor,
     [sink, enc_end); seg_hist (b, G, Hg, nseg, max score + 2) int32). The
     tier table's layout follows (Hg, B, max score) on every device
     (``kernels.collision.table_lanes``): 8 byte lanes, or the wide mode's
-    16 (MLA's Hg = 16 query heads over B = 128 subspaces)."""
+    16 (MLA's Hg = 16 query heads over B = 128 subspaces). ``sink``
+    (default ``cfg.sink_size``) is the region's first position."""
+    sink = cfg.sink_size if sink is None else sink
     cs = centroids.centroid_scores(q_sub, cfg.m)
-    n_valid = (enc_end - cfg.sink_size).clamp_min(0)
+    n_valid = (enc_end - sink).clamp_min(0)
     b, G, Hg, B, nc = cs.shape
     rng = max_collision_score(cfg, B)
     table = tier_weight_table(cs, counts[:, :, None], n_valid[:, None, None],
@@ -137,7 +140,7 @@ def collision_scores_paged_hist(pool_ids: torch.Tensor,
                                   *cs.shape, device=cs.device,
                                   lanes=table_lanes(Hg, B, rng)))
     return collision_scores_paged_kernel(pool_ids, block_tables, table,
-                                         enc_end, cfg.sink_size, rng)
+                                         enc_end, sink, rng)
 
 
 def collision_scores_paged(pool_ids: torch.Tensor, block_tables: torch.Tensor,
@@ -159,7 +162,7 @@ def region_mask(n: int, enc_end: torch.Tensor,
 
 def collision_scores_hist(meta_ids: torch.Tensor, q_sub: torch.Tensor,
                           enc_end: torch.Tensor, cfg: ParisKVConfig,
-                          hist_sample: int = 0):
+                          hist_sample: int = 0, sink: Optional[int] = None):
     """Stage-I coarse scores over a contiguous metadata store (Eq. 15),
     with their histograms per segment for ``select_candidates_bucket``.
 
@@ -168,14 +171,15 @@ def collision_scores_hist(meta_ids: torch.Tensor, q_sub: torch.Tensor,
     histogram is computed here per query over the region — from a strided
     sample of about ``hist_sample`` keys, scaled back, when > 0 — in one
     kernel (``bucket_count``); the store is then scored as a pool of one
-    block per batch row."""
+    block per batch row. ``sink``: as in ``collision_scores_paged_hist``."""
+    sink = cfg.sink_size if sink is None else sink
     n = meta_ids.shape[-2]
     stride = max(n // hist_sample, 1) if hist_sample else 1
-    counts = bucket_count(meta_ids, enc_end, cfg.sink_size,
-                          cfg.num_centroids(), stride)      # (b, G, B, nc)
+    counts = bucket_count(meta_ids, enc_end, sink, cfg.num_centroids(),
+                          stride)                           # (b, G, B, nc)
     return collision_scores_paged_hist(
         meta_ids, row_tables(meta_ids.shape[0], meta_ids.device), q_sub,
-        counts, enc_end, cfg)
+        counts, enc_end, cfg, sink)
 
 
 def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
@@ -192,17 +196,20 @@ def select_candidates_bucket(scores: torch.Tensor, num_candidates: int,
 def rerank_topk(codes: torch.Tensor, weights: torch.Tensor,
                 qt: QueryTransform, cand_idx: torch.Tensor,
                 enc_end: torch.Tensor, cfg: ParisKVConfig, top_k: int,
-                block_tables: Optional[torch.Tensor] = None) -> RerankTopK:
+                block_tables: Optional[torch.Tensor] = None,
+                sink: Optional[int] = None) -> RerankTopK:
     """Stage II and the top-k (one kernel) over a paged pool's metadata
     (nb, G, bs, B) through ``block_tables``, or over a contiguous store
     (b, G, n, B) without them: each batch row is then one block of size n
-    (candidate c of row i is physical row i·n + c)."""
+    (candidate c of row i is physical row i·n + c). Candidates outside
+    [sink, enc_end) (``sink`` default ``cfg.sink_size``) estimate -1e30."""
     if block_tables is None:
         block_tables = row_tables(codes.shape[0], codes.device)
     return rerank_topk_paged(
         codes, weights, block_tables, cand_idx.contiguous(),
         qt.q_sub.float().contiguous(), qt.q_norm.float().contiguous(),
-        enc_end, cfg.sink_size, top_k, cfg.m, cfg.magnitude_bits)
+        enc_end, cfg.sink_size if sink is None else sink, top_k, cfg.m,
+        cfg.magnitude_bits)
 
 
 def rerank(meta_codes: torch.Tensor, meta_w: torch.Tensor,
@@ -214,22 +221,45 @@ def rerank(meta_codes: torch.Tensor, meta_w: torch.Tensor,
     return rerank_topk(meta_codes, meta_w, qt, cand_idx, enc_end, cfg, 1).est
 
 
+def shard_region(enc_end: torch.Tensor, cfg: ParisKVConfig, base: int,
+                 n_loc: int) -> Tuple[int, torch.Tensor]:
+    """The retrieval region [sink, enc_end) of global positions seen from
+    a sequence shard holding [base, base + n_loc), in its local positions:
+    (max(sink - base, 0), clamp(enc_end - base, 0, n_loc)) — the
+    reference's shard-local mask ``(base + j >= sink) & (base + j <
+    enc_end)`` as the interval the kernels take."""
+    return (max(cfg.sink_size - base, 0),
+            (enc_end - base).clamp(0, n_loc).to(torch.int32))
+
+
 def retrieve(meta_ids: torch.Tensor, meta_codes: torch.Tensor,
              meta_w: torch.Tensor, qt: QueryTransform, enc_end: torch.Tensor,
              cfg: ParisKVConfig, num_candidates: int, top_k: int,
-             hist_sample: int = 0) -> RetrievalResult:
+             hist_sample: int = 0, base: Optional[int] = None
+             ) -> RetrievalResult:
     """The two-stage pipeline (Algorithm 1) over a contiguous metadata
     store (b, G, n, B) for queries qt (b, G, Hg, ...): Stage I with its
     histograms per segment, the sort-free bucket top-C from them (the
     reference's index set, ascending), Stage II with its top-k. The
     winners' ``phys_rows`` address the store as a pool of one block per
-    row (i·n + position), as the decode gather takes them."""
+    row (i·n + position), as the decode gather takes them.
+
+    ``base``: the store is one sequence shard, the global positions
+    [base, base + n), and ``enc_end`` is global (``shard_region``); the
+    indices stay local. A shard with fewer valid keys than ``top_k``
+    fills its top-k as the reference does (-1e30 estimates at the first
+    invalid candidates)."""
+    sink = None
+    if base is not None:
+        sink, enc_end = shard_region(enc_end, cfg, base, meta_ids.shape[-2])
     coarse, seg_hist = collision_scores_hist(meta_ids, qt.q_sub, enc_end,
-                                             cfg, hist_sample=hist_sample)
+                                             cfg, hist_sample=hist_sample,
+                                             sink=sink)
     cand = select_candidates_bucket(
         coarse, num_candidates, max_collision_score(cfg, meta_ids.shape[-1]),
         seg_hist=seg_hist)
-    won = rerank_topk(meta_codes, meta_w, qt, cand, enc_end, cfg, top_k)
+    won = rerank_topk(meta_codes, meta_w, qt, cand, enc_end, cfg, top_k,
+                      sink=sink)
     return RetrievalResult(won.top_idx, won.top_est, cand, coarse,
                            won.phys_rows)
 

@@ -1,6 +1,8 @@
-"""Head-sharded serving's process group: the port's counterpart of the
+"""Sharded serving's process groups: the port's counterpart of the
 reference's ``ShardedPagedDist`` (``repro/models/serve.py``) and of the 1-D
-KV-head mesh it runs under (``jax.make_mesh`` plus ``shard_map``).
+KV-head mesh it runs under (``jax.make_mesh`` plus ``shard_map``), and of
+the sequence mesh of its contiguous decode (``decode_step(dist=(mesh,
+seq_axes, batch_axes))``).
 
 ``PagedServingEngine(mesh_shards=N)`` runs SPMD in each of the N ranks of a
 ``torch.distributed`` process group. Rank r owns KV heads
@@ -8,6 +10,14 @@ KV-head mesh it runs under (``jax.make_mesh`` plus ``shard_map``).
 ``all_gather_heads``, a tiled concatenation of the ranks' attention-output
 heads in rank order with no float reduction, so every rank's tokens are a
 single device's.
+
+``decode_step(..., dist=SeqShardDist)`` runs SPMD in each rank of a group
+of N over the contiguous caches of a one-device ``prefill``, cut by
+``models.serve.seq_shard_state``: rank r holds the positions [r·n_loc, (r+1)·n_loc) of
+every ParisKV store (n_loc = n_max / N), everything else whole. Its
+collectives per ParisKV layer-step are one ``all_gather_shards`` of the
+local winners' scores, one of their positions and one ``all_reduce_sum``
+of the K/V rows (``models/layers.py:distributed_retrieve_fetch``).
 
 Backends: ``"nccl"`` when every rank has a card of its own, ``"gloo"`` when
 ranks share a card or run on the CPU (``backend_for``). Gloo gathers host
@@ -34,6 +44,39 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
+def _check_group(name: str, shards: int) -> int:
+    """The rank of this process in the default process group, which must
+    hold exactly ``shards`` ranks (``name``: the option that asked)."""
+    if not dist.is_available() or not dist.is_initialized():
+        raise ValueError(
+            f"{name}={shards} needs a torch.distributed process "
+            f"group of {shards} ranks: launch with torchrun "
+            f"--nproc-per-node {shards}, or call "
+            f"torch.distributed.init_process_group in every rank")
+    world = dist.get_world_size()
+    if world != shards:
+        raise ValueError(
+            f"{name}={shards} but the process group holds {world} "
+            f"ranks: launch with torchrun --nproc-per-node {shards} or "
+            f"init_process_group(world_size={shards})")
+    return dist.get_rank()
+
+
+def _to_host(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` where the group's backend can read it: gloo moves host
+    tensors only, so a card's tensor is staged through host memory."""
+    return x.cpu() if dist.get_backend(group) == "gloo" else x
+
+
+def _gather_stacked(x: torch.Tensor, shards: int, group) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a new leading axis in rank order: the
+    bytes move as they are, so no value changes on the way."""
+    raw = _to_host(x.contiguous(), group).view(torch.uint8)
+    parts = [torch.empty_like(raw) for _ in range(shards)]
+    dist.all_gather(parts, raw, group=group)
+    return torch.stack(parts).view(x.dtype).to(x.device)
+
+
 class ShardDist(NamedTuple):
     """One rank's view of the KV-head shards: its ``rank``, the number of
     ``shards`` and the process ``group`` (None: the default group)."""
@@ -45,19 +88,7 @@ class ShardDist(NamedTuple):
     def from_process_group(cls, shards: int) -> "ShardDist":
         """This rank's view of the default process group, which must hold
         exactly ``shards`` ranks."""
-        if not dist.is_available() or not dist.is_initialized():
-            raise ValueError(
-                f"mesh_shards={shards} needs a torch.distributed process "
-                f"group of {shards} ranks: launch with torchrun "
-                f"--nproc-per-node {shards}, or call "
-                f"torch.distributed.init_process_group in every rank")
-        world = dist.get_world_size()
-        if world != shards:
-            raise ValueError(
-                f"mesh_shards={shards} but the process group holds {world} "
-                f"ranks: launch with torchrun --nproc-per-node {shards} or "
-                f"init_process_group(world_size={shards})")
-        return cls(dist.get_rank(), shards)
+        return cls(_check_group("mesh_shards", shards), shards)
 
     @property
     def backend(self) -> str:
@@ -73,13 +104,8 @@ class ShardDist(NamedTuple):
         """Every rank's ``x`` concatenated along ``dim`` in rank order (the
         reference's tiled ``all_gather``): the bytes move as they are, so
         no value changes on the way."""
-        moved = x.movedim(dim, 0).contiguous()
-        host = self.backend == "gloo"
-        raw = (moved.cpu() if host else moved).view(torch.uint8)
-        parts = [torch.empty_like(raw) for _ in range(self.shards)]
-        dist.all_gather(parts, raw, group=self.group)
-        out = torch.cat(parts, 0).view(x.dtype).to(x.device)
-        return out.movedim(0, dim).contiguous()
+        out = _gather_stacked(x.movedim(dim, 0), self.shards, self.group)
+        return out.flatten(0, 1).movedim(0, dim).contiguous()
 
     def all_gather_bytes(self, data: bytes) -> List[bytes]:
         """Every rank's ``data`` (equal lengths), in rank order."""
@@ -95,6 +121,51 @@ class ShardDist(NamedTuple):
         of each is gathered)."""
         got = self.all_gather_bytes(hashlib.sha256(data).digest())
         return [r for r, d in enumerate(got) if d != got[0]]
+
+
+class SeqShardDist(NamedTuple):
+    """One rank's view of the sequence shards of a contiguous cache: its
+    ``rank``, the number of ``shards`` and the process ``group`` (None:
+    the default group). The rank holds the positions ``rows(n_max)`` of
+    every ParisKV store."""
+    rank: int
+    shards: int
+    group: Optional[object] = None
+
+    @classmethod
+    def from_process_group(cls, shards: int) -> "SeqShardDist":
+        """This rank's view of the default process group, which must hold
+        exactly ``shards`` ranks."""
+        return cls(_check_group("seq_shards", shards), shards)
+
+    def rows(self, n_max: int) -> Tuple[int, int]:
+        """(base, n_loc): this rank holds the positions [base, base +
+        n_loc) of an ``n_max``-position store."""
+        if n_max % self.shards:
+            raise ValueError(f"n_max={n_max} does not split into "
+                             f"{self.shards} sequence shards: n_max must be "
+                             f"a multiple of {self.shards}")
+        n_loc = n_max // self.shards
+        return self.rank * n_loc, n_loc
+
+    def shard_of(self, n_loc: int) -> Tuple[int, int]:
+        """(base, n_max) of this rank's store of ``n_loc`` positions: the
+        ``shard`` of ``cache.decode_append`` and ``cache.promote_rows``."""
+        return self.rank * n_loc, n_loc * self.shards
+
+    def all_gather_shards(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` stacked on a new leading axis in rank order
+        (the reference's untiled ``all_gather``), bytes as they are."""
+        return _gather_stacked(x, self.shards, self.group)
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise sum of every rank's ``x`` (the reference's
+        ``psum``)."""
+        buf = _to_host(x.contiguous(), self.group)
+        if buf is x:
+            buf = x.clone()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
+        return buf.to(x.device)
 
 
 def backend_for(world_size: int, device) -> str:

@@ -53,7 +53,7 @@ SIGNATURES = {
     "bucket_hist": [_P, _P, _I, _I, _I, _I, _I, _P],
     "bucket_topk": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "rerank_topk_paged": [_P] * 13 + [_I] * 14 + [_P],
-    "gather_rows_paged": [_P] * 10 + [_L, _L] + [_I] * 9 + [_P],
+    "gather_rows_paged": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P],
     "bucket_count": [_P] * 4 + [_I] * 12 + [_P],
     "gather_rows_tiered": [_P] * 10 + [_I] * 9 + [_P],
 }

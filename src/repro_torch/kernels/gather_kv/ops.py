@@ -1,7 +1,8 @@
 """Wrappers of the K/V row gather kernels: through the block table
 (csrc/gather_rows_paged.cu: a decode step's sink, window and winner rows,
 or promotion rows by logical position; over a paged pool, or a contiguous
-store through its one-block-per-row table ``row_tables``) and tiered
+store through its one-block-per-row table ``row_tables``; rank-masked for
+one rank of a sequence-sharded store) and tiered
 (csrc/gather_rows_tiered.cu).
 
 K and V go through one launch: pass the V tensor to get
@@ -16,16 +17,19 @@ import torch
 from repro_torch.kernels import LAUNCHES, row_tables
 from repro_torch.kernels import build as K
 from repro_torch.kernels.gather_kv.ref import (
-    gather_decode_paged_ref, gather_heads_tiered_dedup_ref,
+    gather_decode_masked_ref, gather_decode_paged_ref,
+    gather_heads_tiered_dedup_ref, gather_rows_masked_ref,
     gather_rows_paged_ref)
 
 
 def _launch(pool_k, pool_v, block_tables, b, L, *, lidx=None, wstart=None,
-            sink=0, phys=None):
+            sink=0, phys=None, row_base=0, row_count=0):
     """One launch of the paged gather: ``L`` dense rows per batch row (at
     ``lidx``, or sink and window rows from ``wstart``) and the winner head
     rows at ``phys``, for K (and V) → ([dense K, dense V], [winners K,
-    winners V]), absent parts empty lists."""
+    winners V]), absent parts empty lists. ``row_count`` > 0 is the
+    rank-masked mode: positions (``phys`` too) are global, the store holds
+    [row_base, row_base + row_count), other rows come back zero."""
     pools = [p for p in (pool_k, pool_v) if p is not None]
     idx = [t for t in (lidx, wstart, phys) if t is not None]
     K.check_cuda("gather_rows_paged", *pools, block_tables, *idx)
@@ -45,6 +49,10 @@ def _launch(pool_k, pool_v, block_tables, b, L, *, lidx=None, wstart=None,
                        device=p.device) for p in pools] if phys is not None \
         else []
     head_vec = head_bytes // 16
+    if row_count and (row_count > nb * bs or row_base < 0):
+        raise ValueError(f"gather_rows_paged: rows [{row_base}, "
+                         f"{row_base + row_count}) do not fit a store of "
+                         f"{nb * bs} rows")
 
     def two(outs):
         return ((K.ptr(outs[0]), K.ptr(outs[-1])) if outs
@@ -55,7 +63,7 @@ def _launch(pool_k, pool_v, block_tables, b, L, *, lidx=None, wstart=None,
              0 if phys is None else phys.numel() * head_vec, L, sink,
              block_tables.shape[-1], nb, bs, G,
              1 if phys is None else phys.shape[2] * phys.shape[3], head_vec,
-             len(pools))
+             len(pools), int(row_base), int(row_count))
     LAUNCHES["gather_rows_paged"] += 1
     return dense, ret
 
@@ -74,6 +82,49 @@ def gather_rows_paged(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
         outs, _ = _launch(pool_k, pool_v, block_tables, *lidx.shape,
                           lidx=lidx)
     return outs[0] if pool_v is None else tuple(outs)
+
+
+def gather_rows_masked(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],
+                       block_tables: torch.Tensor, lidx: torch.Tensor,
+                       row_base: int, row_count: int):
+    """``gather_rows_paged`` at global positions ``lidx`` (b, L) of a store
+    that holds [row_base, row_base + row_count) (one rank of a
+    sequence-sharded cache): owned rows are read at position - row_base,
+    the others come back zero (the rank-masked mode). CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if pool_k.device.type == "cpu":
+        outs = [gather_rows_masked_ref(p, block_tables, lidx, row_base,
+                                       row_count)
+                for p in (pool_k, pool_v) if p is not None]
+    else:
+        outs, _ = _launch(pool_k, pool_v, block_tables, *lidx.shape,
+                          lidx=lidx, row_base=row_base, row_count=row_count)
+    return outs[0] if pool_v is None else tuple(outs)
+
+
+def gather_decode_masked(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                         block_tables: torch.Tensor,
+                         window_start: torch.Tensor, sink: int, window: int,
+                         positions: torch.Tensor, row_base: int,
+                         row_count: int):
+    """``gather_decode_paged`` on one rank of a sequence-sharded store that
+    holds the global positions [row_base, row_base + row_count): the sink
+    rows [0, sink), the window rows [ws, ws + window) and the winners' head
+    rows at global ``positions`` (b, G, Q, k) int32, each read at
+    position - row_base through the block table where the rank owns it
+    and zero where it does not, in one launch (the rank-masked mode).
+    Summed over the ranks, every row is the unsharded gather's. → (k_dense,
+    v_dense, k_ret, v_ret) as ``gather_decode_paged``. CPU tensors take
+    the plain version; CUDA tensors launch the kernel or raise."""
+    if pool_k.device.type == "cpu":
+        return gather_decode_masked_ref(pool_k, pool_v, block_tables,
+                                        window_start, sink, window,
+                                        positions, row_base, row_count)
+    b = window_start.shape[0]
+    dense, ret = _launch(pool_k, pool_v, block_tables, b, sink + window,
+                         wstart=window_start, sink=sink, phys=positions,
+                         row_base=row_base, row_count=row_count)
+    return (*dense, *ret)
 
 
 def gather_decode_paged(pool_k: torch.Tensor, pool_v: Optional[torch.Tensor],

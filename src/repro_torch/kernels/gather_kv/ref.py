@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels.rerank.ref import block_relative
+
 
 def gather_rows_paged_ref(pool: torch.Tensor, block_tables: torch.Tensor,
                           lidx: torch.Tensor) -> torch.Tensor:
@@ -61,6 +63,50 @@ def gather_decode_paged_ref(pool_k: torch.Tensor,
         None if p is None else gather_heads_physical_ref(p, phys_rows)
         for p in pools]
     return (*dense, *ret)
+
+
+def _owned(pos: torch.Tensor, row_base: int, row_count: int):
+    """Global positions → (owned, local position clamped into the store)."""
+    own = (pos >= row_base) & (pos < row_base + row_count)
+    return own, (pos - row_base).clamp(0, row_count - 1)
+
+
+def gather_rows_masked_ref(pool: torch.Tensor, block_tables: torch.Tensor,
+                           lidx: torch.Tensor, row_base: int,
+                           row_count: int) -> torch.Tensor:
+    """``gather_rows_paged_ref`` at global positions ``lidx`` (b, L) of a
+    store holding [row_base, row_base + row_count): rows outside it are
+    zero."""
+    own, loc = _owned(lidx, row_base, row_count)
+    rows = gather_rows_paged_ref(pool, block_tables, loc)
+    return torch.where(own[..., None, None], rows, torch.zeros_like(rows))
+
+
+def gather_decode_masked_ref(pool_k: torch.Tensor, pool_v: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             window_start: torch.Tensor, sink: int,
+                             window: int, positions: torch.Tensor,
+                             row_base: int, row_count: int):
+    """The rank-masked decode gather: sink and window rows at the global
+    positions [0, sink) ++ [ws, ws + window) (``gather_rows_masked_ref``),
+    and the winners' head rows at global ``positions`` (b, G, Q, k)
+    through the block table, zero where the store does not hold them →
+    (k_dense, v_dense, k_ret, v_ret)."""
+    b = window_start.shape[0]
+    dev = window_start.device
+    lidx = torch.cat([torch.arange(sink, device=dev).expand(b, sink),
+                      window_start[:, None]
+                      + torch.arange(window, device=dev)], dim=1)
+    own, loc = _owned(positions, row_base, row_count)
+    _, phys = block_relative(loc, block_tables, pool_k.shape[1])
+    outs = []
+    for pool in (pool_k, pool_v):
+        ret = gather_heads_physical_ref(pool, phys)
+        outs.append((gather_rows_masked_ref(pool, block_tables, lidx,
+                                            row_base, row_count),
+                     torch.where(own[..., None], ret, torch.zeros_like(ret))))
+    (k_dense, k_ret), (v_dense, v_ret) = outs
+    return k_dense, v_dense, k_ret, v_ret
 
 
 def gather_heads_tiered_ref(staging: torch.Tensor, host: torch.Tensor,

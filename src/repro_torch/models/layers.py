@@ -308,32 +308,124 @@ def attn_decode_dense(p: dict, x_t: torch.Tensor,
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"]
 
 
+class ShardRetrieval(NamedTuple):
+    """A sequence-sharded layer-step's retrieval on one rank: the merged
+    winners every rank agrees on, this rank's local winners before the
+    merge, and the query transform and region end they came from (an
+    audit can rerun ``seq_local_retrieve`` on the shard from them: the
+    metadata in [sink, enc_end) never changes afterwards)."""
+    indices: torch.Tensor        # (b, G, Hg, k) int32 merged, global
+    scores: torch.Tensor         # (b, G, Hg, k) float32 their estimates
+    local_indices: torch.Tensor  # (b, G, Hg, k) int32 this rank's, global
+    local_scores: torch.Tensor   # (b, G, Hg, k) float32
+    qt: E.QueryTransform
+    enc_end: torch.Tensor        # (b,) int32
+
+
+def seq_local_retrieve(cache: C.LayerKVCache, qt: E.QueryTransform,
+                       enc_end: torch.Tensor, pcfg: ParisKVConfig,
+                       base: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One sequence shard's retrieval: the shard holds the global
+    positions [base, base + n_loc) of the store; Stage I, the top-C cut
+    (C_loc = min(candidate_count(n_loc), n_loc), the reference's shard
+    budget) and Stage II with its top-k over its own metadata, masked to
+    the global region [sink, enc_end) (``retrieval.retrieve(base=)``).
+    → (scores, global positions), (b, G, Hg, k) each."""
+    n_loc = cache.k.shape[1]
+    c_loc = min(pcfg.candidate_count(n_loc), n_loc)
+    res = R.retrieve(cache.meta_ids, cache.meta_codes, cache.meta_w, qt,
+                     enc_end, pcfg, c_loc, pcfg.top_k,
+                     hist_sample=pcfg.hist_sample, base=base)
+    return res.scores, res.indices + base
+
+
+def merge_shard_winners(scores: torch.Tensor, indices: torch.Tensor,
+                        top_k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global top-k from every shard's local top-k, without
+    collectives: scores/indices (S, b, G, Hg, k) in rank order, flattened
+    shard-major as the reference's ``moveaxis(all_gather(...), 0, -2)``,
+    then ``lax.top_k``'s order (descending, ties to the lower shard, then
+    the lower local rank; ``retrieval.lax_top_k``). → (scores, global
+    positions int32), (b, G, Hg, top_k) each."""
+    lead = scores.shape[1:-1]
+    flat_s = scores.movedim(0, -2).reshape(lead + (-1,))
+    flat_i = indices.movedim(0, -2).reshape(lead + (-1,))
+    top_s, at = R.lax_top_k(flat_s, top_k)
+    return top_s, flat_i.gather(-1, at).to(torch.int32)
+
+
+def distributed_retrieve_fetch(q_grp: torch.Tensor, cache: C.LayerKVCache,
+                               regions: C.CacheRegions, pcfg: ParisKVConfig,
+                               signs: torch.Tensor, dist
+                               ) -> Tuple[ShardRetrieval, A.DecodeRows]:
+    """Hierarchical (context-parallel) two-stage retrieval and row fetch
+    over a sequence-sharded contiguous cache: this rank (``dist``, a
+    ``distributed.SeqShardDist``) holds the global positions [base, base +
+    n_loc) of ``cache``. It scores its own metadata and takes its local
+    top-k (``seq_local_retrieve``); the shards' k·S winners are
+    all-gathered — one ``all_gather_shards`` of scores, one of positions —
+    and merged into the global top-k (``merge_shard_winners``); then the
+    rank contributes the sink, window and winner rows it owns, zeros
+    elsewhere, to one ``all_reduce_sum`` (``attention.
+    seq_shard_decode_rows``). Every rank ends with the same winners and
+    rows.
+
+    q_grp (b, G, Hg, hd); regions with global positions → (the rank's
+    ``ShardRetrieval``, the step's ``DecodeRows`` in float32)."""
+    base = dist.shard_of(cache.k.shape[1])[0]
+    qt = E.encode_query(q_grp, pcfg, signs)
+    loc_s, loc_i = seq_local_retrieve(cache, qt, regions.enc_end, pcfg, base)
+    top_s, top_idx = merge_shard_winners(dist.all_gather_shards(loc_s),
+                                         dist.all_gather_shards(loc_i),
+                                         pcfg.top_k)
+    W = C.window_size(pcfg)
+    ws = (regions.pos + 2 - W).clamp_min(0)
+    rows = A.seq_shard_decode_rows(cache.k, cache.v, ws, top_idx,
+                                   sink_size=pcfg.sink_size, window_size=W,
+                                   dist=dist)
+    return (ShardRetrieval(top_idx, top_s, loc_i.to(torch.int32), loc_s, qt,
+                           regions.enc_end), rows)
+
+
 def attn_decode_pariskv(p: dict, x_t: torch.Tensor, cache: C.LayerKVCache,
                         regions: C.CacheRegions, spec: AttnSpec,
                         pcfg: ParisKVConfig, signs: torch.Tensor,
-                        num_candidates: int
-                        ) -> Tuple[torch.Tensor, R.RetrievalResult]:
+                        num_candidates: int, dist=None):
     """ParisKV decode of one layer over the contiguous per-slot cache
     (paper Fig. 2 B.1→B.3): append the token in place, retrieve over the
     Retrieval region (Stage I with a per-query bucket histogram, top-C,
     Stage II), attend over Sink ∪ Top-k ∪ Local/Buffer. The caller
-    promotes. → (y (b, d), the retrieval result)."""
+    promotes. → (y (b, d), the retrieval result).
+
+    ``dist`` (a ``distributed.SeqShardDist``): the cache is this rank's
+    sequence shard; the token lands where its position is owned, and the
+    retrieval and rows come from ``distributed_retrieve_fetch`` (each
+    shard's own candidate budget, so ``num_candidates`` is unused); the
+    result is the rank's ``ShardRetrieval``."""
     b = x_t.shape[0]
     H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     pos = regions.pos + 1
     q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
-    C.decode_append(cache, k_t, v_t, pos)
-
-    qt = E.encode_query(q.reshape(b, G, H // G, hd), pcfg, signs)
-    res = R.retrieve(cache.meta_ids, cache.meta_codes, cache.meta_w, qt,
-                     regions.enc_end, pcfg, num_candidates, pcfg.top_k,
-                     hist_sample=pcfg.hist_sample)
     W = C.window_size(pcfg)
     ws = (pos + 1 - W).clamp_min(0)
+    q_grp = q.reshape(b, G, H // G, hd)
+    rows = phys = None
+    if dist is None:
+        C.decode_append(cache, k_t, v_t, pos)
+        qt = E.encode_query(q_grp, pcfg, signs)
+        res = R.retrieve(cache.meta_ids, cache.meta_codes, cache.meta_w, qt,
+                         regions.enc_end, pcfg, num_candidates, pcfg.top_k,
+                         hist_sample=pcfg.hist_sample)
+        phys = res.phys_rows
+    else:
+        C.decode_append(cache, k_t, v_t, pos,
+                        shard=dist.shard_of(cache.k.shape[1]))
+        res, rows = distributed_retrieve_fetch(q_grp, cache, regions, pcfg,
+                                               signs, dist)
     out = A.sparse_decode_attention(
-        q, cache.k, cache.v, res.indices, ws, pos, regions.enc_end,
-        res.phys_rows, sink_size=pcfg.sink_size, window_size=W,
-        sm_scale=spec.scale(), softcap=spec.softcap)
+        q, cache.k, cache.v, res.indices, ws, pos, regions.enc_end, phys,
+        sink_size=pcfg.sink_size, window_size=W, sm_scale=spec.scale(),
+        softcap=spec.softcap, rows=rows)
     return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
 
 

@@ -99,6 +99,7 @@ from repro_torch import resolve_device
 from repro_torch.core import cache as CC
 from repro_torch.core import srht
 from repro_torch.core.config import ModelConfig
+from repro_torch.distributed import SeqShardDist
 from repro_torch.kernels.gather_kv import gather_heads_tiered
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
@@ -167,16 +168,55 @@ def _store(caches: List[dict]):
     return pool[0]["kv"] if pool else None
 
 
-def _contiguous_n_max(caches: List[dict]) -> int:
+def _contiguous_n_max(caches: List[dict], shards: int = 1) -> int:
     """The positions of contiguous caches, from the first ParisKV store or
     MLA latent (the reference's ``_cache_n_max``); 0 where there is none
-    (mamba2: nothing retrieves)."""
+    (mamba2: nothing retrieves). ``shards``: the ParisKV stores are
+    sequence shards of that many ranks (``seq_shard_state``)."""
     for lc in caches:
         if is_pool(lc):
-            return lc["kv"].k.shape[1]
+            return lc["kv"].k.shape[1] * shards
         if is_mla(lc):
             return lc["kv"].latent.shape[1]
     return 0
+
+
+def _clone_tree(x):
+    """A copy of a cache entry's tensors (dicts, tuples, NamedTuples)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, dict):
+        return {k: _clone_tree(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        items = [_clone_tree(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def seq_shard_state(state: ServeState, dist: SeqShardDist) -> ServeState:
+    """Rank ``dist.rank``'s shard of a one-device contiguous ``ServeState``
+    (``prefill``'s), as copies the rank updates in place: a ParisKV
+    layer's store keeps its positions ``dist.rows(n_max)`` of ``k``,
+    ``v`` and the three metadata arrays; everything else — ring buffers,
+    media K/V, SSM state, MLA latents and the regions — stays whole on
+    every rank, as the reference passes no sequence mesh to those layers
+    (the counterpart of ``launch/mesh.py``'s rule that the retrieval
+    region is sequence-sharded). Raises ``ValueError`` when n_max does
+    not split into the shards."""
+    caches = []
+    for lc in state.caches:
+        kv = lc.get("kv")
+        if isinstance(kv, CC.LayerKVCache):
+            base, n_loc = dist.rows(kv.k.shape[1])
+            rows = slice(base, base + n_loc)
+            kv = CC.LayerKVCache(kv.k[:, rows].clone(), kv.v[:, rows].clone(),
+                                 *(m[:, :, rows].clone() for m in kv[2:]))
+            lc = {**{k: _clone_tree(v) for k, v in lc.items() if k != "kv"},
+                  "kv": kv}
+        else:
+            lc = _clone_tree(lc)
+        caches.append(lc)
+    return type(state)(caches, _clone_tree(state.regions))
 
 
 class TierView(NamedTuple):
@@ -537,11 +577,12 @@ class UnsupportedShardedConfig(NotImplementedError):
     config's name and the offending ``feature``, raised instead of falling
     back to one device."""
 
-    def __init__(self, cfg: ModelConfig, feature: str, hint: str):
+    def __init__(self, cfg: ModelConfig, feature: str, hint: str,
+                 how: str = "head-sharded"):
         self.config_name = cfg.name
         self.feature = feature
         super().__init__(f"config {cfg.name!r}: {feature} cannot run "
-                         f"head-sharded — {hint}")
+                         f"{how} — {hint}")
 
 
 def sharded_support_reason(cfg: ModelConfig) -> Optional[str]:
@@ -735,7 +776,10 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
     (when ``any_promote``) promote every triggered row's oldest
     ``update_interval`` window tokens — on the paged paths with the
     histogram maintained (a tiered pool gathers the keys through the
-    composed staging tables). ``use_pariskv=False`` is the full-attention
+    composed staging tables). With a ``SeqShardDist`` the contiguous
+    ParisKV stores are this rank's sequence shards: their layers append,
+    retrieve (``attn_decode_pariskv(dist=)``) and promote shard-locally.
+    ``use_pariskv=False`` is the full-attention
     baseline over the contiguous cache (no promotion). A local layer
     decodes densely over its ring buffer, a cross layer (and a whisper
     layer's cross sublayer, after its ParisKV attention) attends to the
@@ -769,9 +813,11 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                                 ld.attn)
     elif block_tables is None:
         y, res = L.attn_decode_pariskv(p["attn"], h, kv, regions, ld.attn,
-                                       pcfg, signs, num_candidates)
+                                       pcfg, signs, num_candidates, dist)
         if any_promote:
-            CC.promote_rows(kv, regions.enc_end, will_promote, pcfg, signs)
+            CC.promote_rows(kv, regions.enc_end, will_promote, pcfg, signs,
+                            shard=None if dist is None
+                            else dist.shard_of(kv.k.shape[1]))
     elif tier is not None:
         f = cache["fetch"]
         y, res, delta = L.attn_decode_pariskv_tiered(
@@ -996,6 +1042,28 @@ def _layer_fill(p: dict, x_f: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
 
 
 # --------------------------------------------------------------- steps -----
+def _check_seq_shard(cfg: ModelConfig, block_tables, use_pariskv: bool,
+                     fill) -> None:
+    """The decode a ``SeqShardDist`` can run: contiguous caches (the
+    reference's refusal text for paged ones), the ParisKV path, no fill."""
+    if block_tables is not None:
+        raise ValueError(
+            "paged decode takes dist=ShardedPagedDist (mesh head sharding "
+            "under shard_map); the contiguous (mesh, seq_axes, batch_axes) "
+            "tuple is for contiguous caches only")
+    if not use_pariskv:
+        raise UnsupportedShardedConfig(
+            cfg, "the full-attention baseline (use_pariskv=False)",
+            "a dense decode over a sequence-sharded cache would all-gather "
+            "the cache or round apart from one device's; serve the "
+            "baseline on one device (baselines/full_attention.py)",
+            how="sequence-sharded")
+    if fill is not None:
+        raise NotImplementedError(
+            "a mixed prefill+decode step (decode_fill_step) takes no "
+            "sequence-sharded dist: chunked prefill runs on one device")
+
+
 def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
           state: ServeState, block_tables: Optional[torch.Tensor],
           active: Optional[torch.Tensor], record: Optional[list],
@@ -1016,8 +1084,11 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     will_promote = CC.promote_trigger(regions, pcfg) & act
     append_index = None
     kv0 = _store(state.caches)
+    seq = isinstance(dist, SeqShardDist)
+    if seq:
+        _check_seq_shard(cfg, block_tables, use_pariskv, fill)
     if block_tables is None:
-        n_max = _contiguous_n_max(state.caches)
+        n_max = _contiguous_n_max(state.caches, dist.shards if seq else 1)
     else:
         if not use_pariskv:
             raise ValueError("paged decode serves the ParisKV path only")
@@ -1081,9 +1152,14 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     their append lands at the dead position pos + 1 (clamped to the store,
     or dropped through an unallocated table entry). ``record``, when a
     list, receives each layer's retrieval result (audits and parity
-    tests; with ``dist``, the rank's heads). ``tier`` serves a tiered pool
+    tests; with ``dist``, the rank's heads, or with a ``SeqShardDist`` the
+    rank's ``layers.ShardRetrieval``). ``tier`` serves a tiered pool
     (``decode_chunk`` builds it); ``dist`` one rank's KV heads of a
-    head-sharded paged pool.
+    head-sharded paged pool (``distributed.ShardDist``), or one rank's
+    sequence shard of the contiguous caches (``distributed.SeqShardDist``,
+    the caches from ``seq_shard_state``: the reference's
+    ``dist=(mesh, seq_axes, batch_axes)``); a sequence shard refuses paged
+    caches and the full-attention baseline.
 
     Deciding "any row promotes" reads one bool back from the device; the
     paged paths also select the rows whose append block is allocated, once

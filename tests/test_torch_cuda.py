@@ -133,6 +133,61 @@ def test_kernels_match_plain_on_card(card, nsub):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_rank_masked_gather_matches_plain_on_card(card, shards):
+    """The decode gather's rank-masked mode (one rank of a sequence-sharded
+    contiguous cache) at qwen2-1.5b's shapes (G 2, Hg 6, hd 128, k 100,
+    sink 128, window 768, bf16): equal to its plain version, to the
+    unmasked decode gather of the whole cache on the rows the rank owns
+    and zero elsewhere, and summed over the ranks, to the whole gather; a
+    window straddles a shard boundary. The logical mode (promotion) too."""
+    from repro_torch.kernels.gather_kv import (gather_decode_masked,
+                                               gather_rows_masked)
+    from repro_torch.kernels.gather_kv.ref import (gather_decode_masked_ref,
+                                                   gather_rows_masked_ref)
+
+    gen = torch.Generator(device=card).manual_seed(shards)
+    b, n, g, hd, hg, k, sink, W = 2, 8192, 2, 128, 6, 100, 128, 768
+    n_loc = n // shards
+    k_all = torch.randn((b, n, g, hd), generator=gen, device=card).to(
+        torch.bfloat16)
+    v_all = torch.randn((b, n, g, hd), generator=gen, device=card).to(
+        torch.bfloat16)
+    top = torch.randint(sink, n - W, (b, g, hg, k), generator=gen,
+                        device=card, dtype=torch.int32)
+    start = torch.tensor([n_loc - W // 2, n - W], dtype=torch.int32,
+                         device=card)
+    rows1 = row_tables(b, card)
+    whole = gather_decode_paged(k_all, v_all, rows1, start, sink, W,
+                                top + n * rows1[:, :, None, None])
+    lidx = torch.cat([torch.arange(sink, device=card).expand(b, sink),
+                      start[:, None] + torch.arange(W, device=card)], 1)
+    promo = (n_loc - 100 + torch.arange(256, device=card,
+                                        dtype=torch.int32)).expand(b, 256)
+    total = [torch.zeros_like(t) for t in whole]
+    for r in range(shards):
+        base = r * n_loc
+        sk = k_all[:, base:base + n_loc].contiguous()
+        sv = v_all[:, base:base + n_loc].contiguous()
+        got = gather_decode_masked(sk, sv, rows1, start, sink, W, top, base,
+                                   n_loc)
+        want = gather_decode_masked_ref(sk, sv, rows1, start, sink, W, top,
+                                        base, n_loc)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        own_d = ((lidx >= base) & (lidx < base + n_loc))[..., None, None]
+        own_r = ((top >= base) & (top < base + n_loc))[..., None]
+        for x, y, own in zip(got, whole, (own_d, own_d, own_r, own_r)):
+            assert torch.equal(x, torch.where(own, y, torch.zeros_like(y)))
+        for t, x in zip(total, got):
+            t += x
+        assert torch.equal(
+            gather_rows_masked(sk, None, rows1, promo.contiguous(), base,
+                               n_loc),
+            gather_rows_masked_ref(sk, rows1, promo, base, n_loc))
+    assert all(torch.equal(t, y) for t, y in zip(total, whole))
+
+
+@pytest.mark.cuda
 def test_topc_segments_match_plain_on_card(card):
     """Stage I with its histograms per segment, the histogram pass and the
     cut from histograms equal their plain versions exactly over several
@@ -184,13 +239,17 @@ def test_topc_segments_match_plain_on_card(card):
     assert torch.equal(bucket_topk(long, 3000, sr),
                        bucket_topk_ref(long, 3000, sr))
 
-    with pytest.raises(ValueError, match="score_range"):
+    # a score range of 256 needs the 16-lane layout, not these 8-lane
+    # tables; 65,536 fits no layout
+    with pytest.raises(ValueError, match="16-lane layout"):
         collision_scores_paged_kernel(ids, bt, tables, enc_end, 64, 256)
+    with pytest.raises(ValueError, match="score_range"):
+        collision_scores_paged_kernel(ids, bt, tables, enc_end, 64, 65536)
     with pytest.raises(ValueError, match="score_range"):
         collision_scores_paged_kernel(ids, bt, tables, enc_end, 64, -1)
     with pytest.raises(TypeError):
         collision_scores_paged_kernel(ids, bt, tables.int(), enc_end, 64, sr)
-    with pytest.raises(ValueError, match="byte-lane"):
+    with pytest.raises(ValueError, match="8-lane layout"):
         collision_scores_paged_kernel(ids, bt, tables.contiguous(), enc_end,
                                       64, sr)
     with pytest.raises(ValueError, match="seg_hist"):
