@@ -21,10 +21,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
               where one call computes the same function, and the bound.
               The tiered winner gather reads half its rows from a pinned
               host pool, each distinct missed (row, kv head) once; its
-              distinct count must equal torch.unique's, it is timed at
-              every grid it can launch (tiered_grid), and its bound
-              prices the distinct missed bytes at the card's pinned
-              host-to-device rate, measured here with one 256 MiB copy.
+              distinct count must equal torch.unique's, it is timed over
+              a sweep of its grid (blocks per kv head × threads:
+              tiered_grid), its bound prices the distinct missed bytes at
+              the card's pinned host-to-device rate, measured here with
+              one 256 MiB copy, and tiered_probe says where its time goes
+              (every block staged; every entry missed at four sizes, with
+              the link's scattered-read rate fitted; the bulk copy).
               The chunked fill's kernels are held and timed at the
               12,000-token request's 24th chunk: the prefix read (the
               paged gather's logical mode, and the tiered gather with
@@ -49,7 +52,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
               the cut, Stage II and the decode gather (a window start
               clamped to n - W) are held to theirs and timed as the
               contiguous route of the TPU kernels #5 and #6; the ptxas
-              report (registers, shared memory, spills) of the five
+              report (registers, shared memory, spills) of the six
               kernels designed for Hopper is printed.
 4. engine   — the main path: ``PagedServingEngine`` (fused retrieval)
               serving qwen2-1.5b at full width cut to 8 of its 28 layers
@@ -887,20 +890,26 @@ def kernel_phase(dev, cfg, seed: int = 0):
 
 def _ptxas(B: int, nc: int, Hg: int, rng: int, n: int, C: int,
            k: int) -> None:
-    """Registers, shared memory and spills of the five kernels designed for
+    """Registers, shared memory and spills of the six kernels designed for
     Hopper, from nvcc's -Xptxas -v logs, with the dynamic shared memory
-    each launch asks for at these shapes (their launchers' formulas)."""
+    each launch asks for at these shapes (their launchers' formulas; the
+    tiered gather's over the kernel phase's 512 blocks of 128 rows, G 2)."""
+    import torch
     from repro_torch.kernels import SEG_LEN
     from repro_torch.kernels import build
+    from repro_torch.kernels.gather_kv import ops as GO
     from repro_torch.kernels.rerank import ops as RO
     nseg = -(-n // SEG_LEN)
     dyn = {"collision_paged": B * nc * 8 + Hg * rng * 4,
            "bucket_hist": 8 * rng * 4,
            "bucket_topk": (rng + 2 * (nseg + 1) + 2) * 4,
            "rerank_topk_paged": RO.smem_bytes(C, B, k),
-           "gather_rows_paged": 0, "bucket_count": B * nc * 4}
+           "gather_rows_paged": 0, "bucket_count": B * nc * 4,
+           "gather_rows_tiered": GO.tiered_plan(
+               512 * 128, 2, build.sm_count(torch.device("cuda")))[
+               "smem_bytes"]}
     for source in ("collision_paged", "bucket_topk", "rerank_topk_paged",
-                   "gather_rows_paged", "bucket_count"):
+                   "gather_rows_paged", "bucket_count", "gather_rows_tiered"):
         rec = {"kernels": build.ptxas_report(source),
                "dynamic_smem_bytes": {k: v for k, v in dyn.items()
                                       if build.SOURCE_OF[k] == source}}
@@ -1170,10 +1179,11 @@ def _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out):
     paged pool's rows copied to a pinned host pool, about half of its 512
     blocks staged (the others -1 in dev_map), and every seventh winner a
     -1 row. Output exact, its distinct count over the launch equal to the
-    plain version's and to torch.unique's; timed at every grid it can
-    launch (tiered_grid). → the tiered setup and link rate, for the fill
-    shapes."""
+    plain version's and to torch.unique's; timed over a sweep of its grid
+    (tiered_grid) and probed (``_tiered_probe``). → the tiered setup and
+    link rate, for the fill shapes."""
     import torch
+    from repro_torch.kernels import build as KB
     from repro_torch.kernels.gather_kv import gather_heads_tiered
     from repro_torch.kernels.gather_kv import ops as GO
     from repro_torch.kernels.gather_kv.ref import (
@@ -1214,18 +1224,22 @@ def _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out):
     _check(n_hit > 0 and 0 < n_distinct < n_miss,
            f"{n_hit} staged, {n_miss} missed, {n_distinct} distinct rows")
     grid = []
-    for cl in (1, 2, 4, 8, 16):
-        for th in (128, 256, 512):
-            def launch(cl=cl, th=th):
-                return GO.launch_tiered(*tier, rows, None, cl, th)
+    for per_head in (8, 33, 66, 132, 264):
+        for th in (256, 512):
+            def launch(per_head=per_head, th=th):
+                return GO.launch_tiered(*tier, rows, None, per_head, th)
             _check(all(torch.equal(g, w) for g, w in zip(launch(), want[:2])),
-                   f"gather_rows_tiered at cluster {cl}, {th} threads "
-                   f"differs")
-            grid.append(dict(cluster=cl, threads=th, blocks=cl * G,
+                   f"gather_rows_tiered at {per_head} blocks a kv head, "
+                   f"{th} threads differs")
+            grid.append(dict(blocks_per_head=per_head, threads=th,
+                             blocks=per_head * G,
                              ms=_time_ms(launch, flush)))
     print("tiered_grid " + json.dumps(grid), flush=True)
     row_b = 2 * hd * pool.k.element_size()          # K and V of a head row
     link = _link_rate(dev)
+    ms = _time_ms(kern, flush)
+    _tiered_probe(dev, pool, tier, rows, ms, n_distinct * row_b, link, gen,
+                  flush)
     hbm_bytes = (n_hit * row_b + rows.numel() * row_b + rows.numel() * 4
                  + nb * 4)
     terms = dict(hbm_ms=hbm_bytes / HBM_BYTES_PER_S * 1e3,
@@ -1236,15 +1250,72 @@ def _tiered_kernel(dev, pool, top_idx, phys, enc_end, sink, gen, flush, out):
         max_abs_err=0, tolerance="exact; distinct count exact",
         staged_rows=n_hit, missed_rows=n_miss,
         distinct_missed_rows=n_distinct, zero_rows=int((rows < 0).sum()),
-        cluster=GO.tiered_cluster(rows[:, 0].numel()),
-        threads=GO.TIERED_THREADS,
+        plan=GO.tiered_plan(nb * bs, G, KB.sm_count(dev)),
         pinned_h2d_gb_per_s=link / 1e9, bound_terms=terms,
-        ms=_time_ms(kern, flush), call_ms=_time_ms(kern, flush, primed=False),
+        ms=ms, call_ms=_time_ms(kern, flush, primed=False),
         # the plain version gathers the missed rows on the host: unprimed,
         # so its host work counts
         plain_ms=_time_ms(plain, flush, primed=False), library_ms=None,
         bound=(max(terms.values()), "bytes"))
     return tier, link
+
+
+def _tiered_probe(dev, pool, tier, rows, row7_ms, link_bytes, link, gen,
+                  flush):
+    """Where the tiered gather's time goes at row 7's shape, its inputs
+    changed and nothing else: (a) every block staged, so no link traffic:
+    the fixed cost around the copy; (b) every entry missed, each (row, kv
+    head) once, at 1, 2, 4 and 8 batch rows: a line fitted through the
+    times gives the rate of scattered head-row reads over the link (its
+    slope) and the fixed cost (its intercept); (c) row 7 as it is (its
+    time, ``row7_ms``); (d) the pinned bulk copy rate, and one bulk copy
+    of (c)'s distinct bytes.
+    Prints one ``tiered_probe`` line."""
+    import torch
+    from repro_torch.kernels.gather_kv import gather_heads_tiered
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref)
+
+    stag_k, stag_v, host_k, host_v, _ = tier
+    nb, bs, G, hd = pool.k.shape
+    row_b = 2 * hd * pool.k.element_size()
+    every = torch.arange(nb, dtype=torch.int32, device=dev)
+    probe = dict(a_all_staged_ms=_time_ms(lambda: gather_heads_tiered(
+        pool.k, pool.v, host_k, host_v, every, rows), flush))
+    none = torch.full((nb,), -1, dtype=torch.int32, device=dev)
+    b, _, Q, k = rows.shape
+    series = []
+    for nrow in (1, 2, 4, 8):
+        picks = torch.stack([torch.randperm(nb * bs, generator=gen,
+                                            device=dev)[:nrow * Q * k]
+                             for _ in range(G)])
+        miss = picks.view(G, nrow, Q, k).transpose(0, 1).to(
+            torch.int32).contiguous()
+        args = (stag_k[:1].contiguous(), stag_v[:1].contiguous(), host_k,
+                host_v, none, miss)
+        got, want = gather_heads_tiered(*args), \
+            gather_heads_tiered_dedup_ref(*args)
+        _check(all(torch.equal(g, w) for g, w in zip(got, want[:2])),
+               f"gather_rows_tiered (all missed, {nrow} rows) differs")
+        series.append(dict(head_rows=miss.numel(),
+                           bytes=miss.numel() * row_b,
+                           ms=_time_ms(lambda a=args: gather_heads_tiered(*a),
+                                       flush)))
+    xs = [s["bytes"] for s in series]
+    ys = [s["ms"] for s in series]
+    mx, my = statistics.fmean(xs), statistics.fmean(ys)
+    slope = (sum((x - mx) * (y - my) for x, y in zip(xs, ys))
+             / sum((x - mx) ** 2 for x in xs))
+    probe.update(b_all_missed=series,
+                 b_fit=dict(fixed_ms=my - slope * mx,
+                            gb_per_s=1e-6 / slope),
+                 c_row7_ms=row7_ms)
+    src = torch.empty(link_bytes, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(link_bytes, dtype=torch.uint8, device=dev)
+    probe.update(d_bulk_gb_per_s=link / 1e9, d_copy_bytes=link_bytes,
+                 d_copy_ms=_time_ms(lambda: dst.copy_(src, non_blocking=True),
+                                    flush))
+    print("tiered_probe " + json.dumps(probe), flush=True)
 
 
 def _fill_kernels(dev, cfg, pool, bt, tier, link, gen, flush, out):

@@ -26,47 +26,70 @@
 // reference's unique count, np.unique(row*G + g) over the missed rows.
 //
 // Deduplication spans the whole launch, as the reference's np.unique
-// does: every batch row's entries of one kv head g form one group (b*Q*k
-// entries), so a row that two batch rows pick is read once too. That
-// happens with prefix sharing (ROADMAP A8), and already today when a free
-// slot's frozen regions and -1 table row send its winners to block 0,
-// which another slot may own.
+// does: a row that two batch rows pick is read once too (prefix sharing,
+// ROADMAP A8, and a free slot's winners sent to block 0).
 //
-// Bound on the H100: bytes. The staged rows move at HBM rate, the
-// distinct missed ones over the PCIe link (host -> device, far below
-// HBM's 3.35 TB/s), so a step's distinct misses set its time. Scattered
-// 256-byte host reads reach about half the link's rate for bulk copies.
+// Bound on the H100: bytes over the link. Scattered head-row reads from
+// pinned host memory cross PCIe at ~28 GB/s against the copy engine's ~49
+// GB/s bulk rate, whatever the load instruction (ld.global.cv, cp.async,
+// cp.async.bulk), the row width (256 or 512 bytes) or the grid
+// (scripts/tiered_load_paths.py), so the distinct missed bytes at that
+// rate, plus the launch, set the time; the design spends as little as it
+// can around them.
 //
-// Design: a cluster of blocks (up to 16) per kv head. The group's entries
-// go in tiles of cluster * threads, one entry per thread:
-//   1. election: a missed entry claims its (row, head) key in a
-//      direct-mapped table in device memory (owner, nb*bs*G int32, all -1
-//      between launches) with atomicCAS; the winner is the leader, a
-//      loser learns its leader's entry from the value the CAS returns.
-//      Each entry's source (staging row, host row, leader or zero) goes
-//      to shared memory;
-//   2. copy: the block's threads move every 16-byte vector of K and V of
-//      its zero, staged and leader entries, kUnroll vectors each loaded
-//      before any is stored, so the link sees many reads in flight (host
-//      rows with ld.global.cv, __ldcv: no cached copy is trusted, since
-//      the engine rewrites host blocks between chunks);
-//   3. after a cluster barrier (release/acquire at cluster scope: every
-//      leader of the tile is written), followers copy their leader's
-//      output row, which sits in HBM/L2, not behind the link.
-// A follower may sit in a later tile than its leader, so leaders clear
-// their keys only after the last tile's barrier, which follows every
-// election of the cluster.
-#include <cooperative_groups.h>
-
+// Design: a grid of G x H blocks. Block (g, h) owns
+//   * the missed keys (row, g) with phys % H == h: every entry of a key
+//     meets in this one block, which elects the key's leader in a
+//     direct-mapped table in shared memory (slot phys / H, ceil(nb*bs / H)
+//     slots, so it never overflows) and counts its leaders;
+//   * the zero and staged entries at positions [E*h/H, E*(h+1)/H) of kv
+//     head g's E = b*Q*k entries.
+// It walks head g's entries (from L2) in passes of threads * kPass:
+//   1. each thread loads kPass rows, then the dev_map entries of those it
+//      owns, then claims its missed keys with atomicCAS in the table; the
+//      pass's zero, staged and leader entries go to an item list in
+//      shared memory, followers (a key claimed in this or an earlier pass)
+//      to a second list;
+//   2. the block moves every 16-byte vector of K and V of its items,
+//      kUnroll vectors a thread loaded before any is stored, the leaders'
+//      host rows with ld.global.cv (no cached copy is trusted: the engine
+//      rewrites host blocks between launches), the staged ones from HBM;
+//   3. after a barrier, followers copy their leader's output row from
+//      HBM/L2, not over the link.
+// No device table, clear pass, cluster or cross-block barrier: the table
+// lives and dies with the block.
 #include "common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kMaxThreads = 512;
+constexpr int kPass = 8;     // entries a thread classifies in a pass
 constexpr int kUnroll = 4;   // vectors a thread loads before it stores
-enum : int { kZero = 0, kStaged = 1, kLeader = 2, kFollower = 3 };
+enum : int { kZero = 0, kStaged = 1, kHost = 2 };
+
+// Division by a launch constant d >= 1 of a dividend in [0, 2^31) as a
+// multiply-high and a shift (CUTLASS's FastDivmod): every block divides
+// each of its kv head's entries by Q*k, bs and H, so a hardware integer
+// division (~20 instructions) would cost more than the scan's loads.
+struct FastDiv {
+  int d;
+  unsigned mul, shr;
+  __device__ __forceinline__ int div(int x) const {
+    return d == 1 ? x : (int)(__umulhi((unsigned)x, mul) >> shr);
+  }
+  __device__ __forceinline__ int mod(int x) const { return x - div(x) * d; }
+};
+
+FastDiv fast_div(int d) {
+  FastDiv f{d, 0u, 0u};
+  if (d > 1) {
+    int l = 0;                                  // ceil(log2(d))
+    while ((1ll << l) < d) ++l;
+    f.mul = (unsigned)(((1ull << (31 + l)) + d - 1) / d);
+    f.shr = (unsigned)(l - 1);
+  }
+  return f;
+}
 
 __global__ void __launch_bounds__(kMaxThreads)
 gather_rows_tiered_kernel(const uint4* __restrict__ stag_k,
@@ -75,150 +98,160 @@ gather_rows_tiered_kernel(const uint4* __restrict__ stag_k,
                           uint4* out_k, uint4* out_v,
                           const int32_t* __restrict__ rows,
                           const int32_t* __restrict__ dev_map,
-                          int32_t* owner, unsigned long long* count, int nb,
-                          int nd, int bs, int G, int b, int qk, int row_vec) {
-  __shared__ int kind[kMaxThreads];
-  __shared__ int src[kMaxThreads];   // staging/host head row, or leader
-  __shared__ int distinct;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int csize = (int)cluster.num_blocks();
-  const int g = blockIdx.y;                          // the kv head
+                          unsigned long long* count, int nb, int nd,
+                          FastDiv bs, int G, int b, FastDiv qk, int row_vec,
+                          FastDiv H, int slots) {
+  extern __shared__ int smem[];
   const int T = blockDim.x, tid = threadIdx.x;
-  const int n = b * qk;                              // the group's entries
-  const int last_row = nb * bs - 1;
-  int32_t* keys = owner + g;
-  // entry e of the group: batch row e / qk, position e % qk of its (b, g)
-  auto flat = [&](int e) -> size_t {
-    return ((size_t)(e / qk) * G + g) * qk + e % qk;
+  const int cap = T * kPass;                  // entries of one pass
+  int* kind = smem;                           // items from the front,
+  int* src = smem + cap;                      // followers from the back
+  int* dst = smem + 2 * cap;
+  int* table = smem + 3 * cap;                // leader entry of each slot
+  __shared__ int n_items, n_follow, leaders;
+  const int h = blockIdx.x, g = blockIdx.y;
+  const long long E = (long long)b * qk.d;    // kv head g's entries
+  const long long p_lo = E * h / H.d, p_hi = E * (h + 1) / H.d;
+  const int last_row = nb * bs.d - 1;
+  // entry j of head g: batch row j / qk, position j % qk of its (b, g)
+  auto flat = [&](int j) -> int {
+    const int bi = qk.div(j);
+    return (bi * G + g) * qk.d + (j - bi * qk.d);
   };
-  if (tid == 0) distinct = 0;
-  int leaders = 0;
+  for (int i = tid; i < slots; i += T) table[i] = -1;
+  if (tid == 0) leaders = 0;
 
-  for (int t0 = 0; t0 < n; t0 += csize * T) {
-    const int e0 = t0 + rank * T;        // this block's entries of the tile
-    const int cnt = max(0, min(T, n - e0));
-    if (tid < cnt) {                     // 1. election
-      const int e = e0 + tid;
-      const int row = rows[flat(e)];
-      int k = kZero, s_row = 0;
-      if (row >= 0) {
-        const int phys = repro::clampi(row, 0, last_row);
-        const int s = dev_map[phys / bs];
-        if (s >= 0) {
+  for (long long j0 = 0; j0 < E; j0 += cap) {
+    if (tid == 0) n_items = n_follow = 0;
+    __syncthreads();                          // table, counters ready
+    int row[kPass], stg[kPass];               // 1. classify
+#pragma unroll
+    for (int u = 0; u < kPass; ++u) {
+      const long long j = j0 + (long long)u * T + tid;
+      row[u] = j < E ? rows[flat((int)j)] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kPass; ++u) {
+      const long long j = j0 + (long long)u * T + tid;
+      const int phys = repro::clampi(row[u], 0, last_row);
+      const bool mine = j < E && row[u] >= 0 &&
+                        ((j >= p_lo && j < p_hi) || H.mod(phys) == h);
+      stg[u] = mine ? dev_map[bs.div(phys)] : -1;
+    }
+#pragma unroll
+    for (int u = 0; u < kPass; ++u) {
+      const long long j = j0 + (long long)u * T + tid;
+      if (j >= E) continue;
+      const bool pos = j >= p_lo && j < p_hi;
+      const int phys = repro::clampi(row[u], 0, last_row);
+      int k = -1, s = 0;
+      if (row[u] < 0) {
+        if (pos) k = kZero;
+      } else if (stg[u] >= 0) {
+        if (pos) {
           k = kStaged;
-          s_row = (repro::clampi(s, 0, nd - 1) * bs + phys % bs) * G + g;
+          s = (repro::clampi(stg[u], 0, nd - 1) * bs.d + bs.mod(phys)) * G
+              + g;
+        }
+      } else if (H.mod(phys) == h) {
+        const int old = atomicCAS(table + H.div(phys), -1, (int)j);
+        if (old < 0) {
+          k = kHost;
+          s = phys;
+          atomicAdd(&leaders, 1);
         } else {
-          const int old = atomicCAS(keys + (size_t)phys * G, -1, e);
-          if (old < 0) {
-            k = kLeader;
-            s_row = phys * G + g;
-            ++leaders;
-          } else {
-            k = kFollower;
-            s_row = old;
-          }
+          const int f = cap - 1 - atomicAdd(&n_follow, 1);
+          src[f] = flat(old);
+          dst[f] = flat((int)j);
         }
       }
-      kind[tid] = k;
-      src[tid] = s_row;
+      if (k >= 0) {
+        const int i = atomicAdd(&n_items, 1);
+        kind[i] = k;
+        src[i] = s;
+        dst[i] = flat((int)j);
+      }
     }
     __syncthreads();
-    const int work = cnt * row_vec;
-    for (int i0 = tid; i0 < work; i0 += kUnroll * T) {  // 2. zero, staged,
-      uint4 a[kUnroll], b[kUnroll];                     //    leader rows
+    // the counts, read before the barrier after which tid 0 resets them
+    const int items = n_items, follow = n_follow;
+    const int work = items * row_vec;         // 2. zero, staged, leaders
+    for (int i0 = tid; i0 < work; i0 += kUnroll * T) {
+      uint4 a[kUnroll], c[kUnroll];
       size_t o[kUnroll];
-      bool w[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         const int i = i0 + u * T;
-        const int j = i / row_vec, v = i - j * row_vec;
-        const int k = i < work ? kind[j] : kFollower;
-        w[u] = k != kFollower;
-        o[u] = (w[u] ? flat(e0 + j) : 0) * row_vec + v;
-        const size_t s = w[u] ? (size_t)src[j] * row_vec + v : 0;
-        a[u] = b[u] = make_uint4(0, 0, 0, 0);
-        if (k == kStaged) {
+        a[u] = c[u] = make_uint4(0, 0, 0, 0);
+        o[u] = 0;
+        if (i >= work) continue;
+        const int it = i / row_vec, v = i - it * row_vec;
+        o[u] = (size_t)dst[it] * row_vec + v;
+        if (kind[it] == kStaged) {
+          const size_t s = (size_t)src[it] * row_vec + v;
           a[u] = stag_k[s];
-          b[u] = stag_v[s];
-        } else if (k == kLeader) {
+          c[u] = stag_v[s];
+        } else if (kind[it] == kHost) {
+          const size_t s = ((size_t)src[it] * G + g) * row_vec + v;
           a[u] = __ldcv(host_k + s);
-          b[u] = __ldcv(host_v + s);
+          c[u] = __ldcv(host_v + s);
         }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        if (!w[u]) continue;
+        if (i0 + u * T >= work) continue;
         out_k[o[u]] = a[u];
-        out_v[o[u]] = b[u];
+        out_v[o[u]] = c[u];
       }
     }
-    cluster.sync();                      // every leader row of the tile out
-    for (int i = tid; i < work; i += T) {  // 3. followers, from HBM/L2
-      const int j = i / row_vec, v = i - j * row_vec;
-      if (kind[j] != kFollower) continue;
-      const size_t o = flat(e0 + j) * row_vec + v;
-      const size_t l = flat(src[j]) * row_vec + v;
+    __syncthreads();                          // every leader row is out
+    const int fwork = follow * row_vec;       // 3. followers, from HBM/L2
+    for (int i = tid; i < fwork; i += T) {
+      const int f = cap - 1 - i / row_vec, v = i % row_vec;
+      const size_t o = (size_t)dst[f] * row_vec + v;
+      const size_t l = (size_t)src[f] * row_vec + v;
       out_k[o] = out_k[l];
       out_v[o] = out_v[l];
     }
-    __syncthreads();                     // kind/src free for the next tile
   }
-
-  // every election of the cluster is done: leaders clear their keys
-  for (int e = rank * T + tid; e < n; e += csize * T) {
-    const int row = rows[flat(e)];
-    if (row < 0) continue;
-    const int phys = repro::clampi(row, 0, last_row);
-    if (dev_map[phys / bs] >= 0) continue;
-    atomicCAS(keys + (size_t)phys * G, e, -1);
-  }
-  if (leaders) atomicAdd(&distinct, leaders);
   __syncthreads();
-  if (tid == 0 && count != nullptr && distinct)
-    atomicAdd(count, (unsigned long long)distinct);
+  if (tid == 0 && count != nullptr && leaders)
+    atomicAdd(count, (unsigned long long)leaders);
 }
 
 }  // namespace
 
+// Dynamic shared memory of one block: the pass's three lists and the
+// table (kernels/gather_kv/ops.py:tiered_plan computes the same).
+static size_t tiered_smem(int threads, int slots) {
+  return ((size_t)3 * threads * kPass + slots) * sizeof(int);
+}
+
 REPRO_EXPORT int gather_rows_tiered_launch(
     const void* stag_k, const void* stag_v, const void* host_k,
     const void* host_v, void* out_k, void* out_v, const void* rows,
-    const void* dev_map, void* owner, void* count, int b, int nb, int nd,
-    int bs, int G, int qk, int row_vec, int cluster, int threads,
-    cudaStream_t stream) {
-  if (threads < 32 || threads > kMaxThreads || threads % 32 ||
-      (cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8 &&
-       cluster != 16) ||
-      (long long)b * qk > 0x7fffffff)
+    const void* dev_map, void* count, int b, int nb, int nd, int bs, int G,
+    int qk, int row_vec, int H, int threads, cudaStream_t stream) {
+  if (threads < 32 || threads > kMaxThreads || threads % 32 || H < 1 ||
+      (long long)b * G * qk > 0x7fffffff || (long long)nb * bs > 0x7fffffff)
     return (int)cudaErrorInvalidValue;
   if (b == 0 || G == 0 || qk == 0) return (int)cudaGetLastError();
-  if (cluster > 8) {
+  const int slots = (int)(((long long)nb * bs + H - 1) / H);
+  const size_t smem = tiered_smem(threads, slots);
+  if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         gather_rows_tiered_kernel,
-        cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cluster, (unsigned)G);
-  cfg.blockDim = dim3((unsigned)threads);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, gather_rows_tiered_kernel, static_cast<const uint4*>(stag_k),
-      static_cast<const uint4*>(stag_v), static_cast<const uint4*>(host_k),
-      static_cast<const uint4*>(host_v), static_cast<uint4*>(out_k),
-      static_cast<uint4*>(out_v), static_cast<const int32_t*>(rows),
-      static_cast<const int32_t*>(dev_map), static_cast<int32_t*>(owner),
-      static_cast<unsigned long long*>(count), nb, nd, bs, G, b, qk,
-      row_vec);
-  if (err != cudaSuccess) return (int)err;
+  gather_rows_tiered_kernel<<<dim3((unsigned)H, (unsigned)G),
+                              (unsigned)threads, smem, stream>>>(
+      static_cast<const uint4*>(stag_k), static_cast<const uint4*>(stag_v),
+      static_cast<const uint4*>(host_k), static_cast<const uint4*>(host_v),
+      static_cast<uint4*>(out_k), static_cast<uint4*>(out_v),
+      static_cast<const int32_t*>(rows),
+      static_cast<const int32_t*>(dev_map),
+      static_cast<unsigned long long*>(count), nb, nd, fast_div(bs), G, b,
+      fast_div(qk), row_vec, fast_div(H), slots);
   return (int)cudaGetLastError();
 }

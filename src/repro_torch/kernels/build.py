@@ -21,6 +21,7 @@ boundaries re-raise instead of failing one request for it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -55,7 +56,7 @@ SIGNATURES = {
     "rerank_topk_paged": [_P] * 13 + [_I] * 14 + [_P],
     "gather_rows_paged": [_P] * 10 + [_L, _L] + [_I] * 11 + [_P],
     "bucket_count": [_P] * 4 + [_I] * 12 + [_P],
-    "gather_rows_tiered": [_P] * 10 + [_I] * 9 + [_P],
+    "gather_rows_tiered": [_P] * 9 + [_I] * 9 + [_P],
 }
 # launcher → the source (csrc/<source>.cu, lib<source>.so) exporting it
 SOURCE_OF = {name: name for name in SIGNATURES}
@@ -169,6 +170,17 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise KernelError(f"CUDA kernel {name} failed to launch: "
                           f"cudaError {err}")
+
+
+# shared memory one block may use on Hopper (227 KB)
+MAX_SMEM = 227 << 10
+
+
+@functools.lru_cache(maxsize=8)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(
+        device.index or 0).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

@@ -171,41 +171,39 @@ def gather_kv_kernel(store: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------- tiered (gather_rows_tiered.cu) ---
-# threads per block of the tiered gather, and at most this many blocks in
-# the cluster of one kv head's group (csrc/gather_rows_tiered.cu)
-TIERED_THREADS = 256
-TIERED_MAX_CLUSTER = 16
-
-_OWNERS: dict = {}
-
-
-def _owner_table(device: torch.device, n: int) -> torch.Tensor:
-    """The tiered gather's (row, kv head) → leader table: ``n`` int32, all
-    -1 between launches (each launch clears what it claimed). One per
-    device and size; launches that share it must be stream-ordered."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    key = (str(device), n)
-    if key not in _OWNERS:
-        _OWNERS[key] = torch.full((n,), -1, dtype=torch.int32, device=device)
-    return _OWNERS[key]
+# threads per block of the tiered gather, entries a thread classifies in a
+# pass (the kernel's kPass), and the most leader-table slots a block keeps
+# in shared memory (csrc/gather_rows_tiered.cu)
+TIERED_THREADS = 512
+TIERED_PASS = 8
+TIERED_MAX_SLOTS = 32768
 
 
-def tiered_cluster(entries: int, threads: int = TIERED_THREADS) -> int:
-    """Blocks in the cluster of one kv head's group of ``entries`` (every
-    batch row's): a power of two giving each thread at most about half an
-    entry, at most ``TIERED_MAX_CLUSTER``."""
-    cluster = 1
-    while cluster < TIERED_MAX_CLUSTER and cluster * threads < 2 * entries:
-        cluster *= 2
-    return cluster
+def tiered_plan(host_rows: int, G: int, sms: int = 132,
+                threads: int = TIERED_THREADS,
+                blocks_per_head: Optional[int] = None) -> dict:
+    """The tiered gather's launch over a host pool of ``host_rows`` rows
+    and ``G`` kv heads: a grid of G × H blocks, H the blocks per kv head,
+    by default enough for a block per SM (each block scans its kv head's
+    entries, so more blocks scan more) and for a leader table of at most
+    ``TIERED_MAX_SLOTS`` slots; the table's slots ceil(host_rows / H)
+    (block (g, h) owns the missed keys (row, g) with row % H == h); the
+    entries a pass classifies; the block's dynamic shared memory (three
+    int32 lists of a pass's entries and the table)."""
+    H = blocks_per_head or max(-(-sms // G),
+                               -(-host_rows // TIERED_MAX_SLOTS))
+    slots = -(-host_rows // H)
+    return dict(blocks_per_head=H, slots=slots, threads=threads,
+                pass_entries=threads * TIERED_PASS,
+                smem_bytes=4 * (3 * threads * TIERED_PASS + slots))
 
 
 def launch_tiered(stag_k, stag_v, host_k, host_v, dev_map, rows, count,
-                  cluster: int, threads: int):
-    """One launch of the tiered gather at a given grid (the wrapper's
-    checks, no launch count: ``gather_heads_tiered`` counts)."""
+                  blocks_per_head: Optional[int] = None,
+                  threads: int = TIERED_THREADS):
+    """One launch of the tiered gather, by default at ``tiered_plan``'s
+    grid for this card (the wrapper's checks, no launch count:
+    ``gather_heads_tiered`` counts)."""
     K.check_cuda("gather_rows_tiered", stag_k, stag_v, dev_map, rows)
     nd, bs, G, hd = stag_k.shape
     nb = dev_map.shape[0]
@@ -232,14 +230,20 @@ def launch_tiered(stag_k, stag_v, host_k, host_v, dev_map, rows, count,
     if row_bytes % 16:
         raise ValueError(f"gather_rows_tiered: rows of {row_bytes} bytes are "
                          f"not a multiple of 16")
+    plan = tiered_plan(nb * bs, G, K.sm_count(stag_k.device), threads,
+                       blocks_per_head)
+    if plan["smem_bytes"] > K.MAX_SMEM:
+        raise ValueError(f"gather_rows_tiered: {plan['blocks_per_head']} "
+                         f"blocks per kv head over {nb * bs} host rows need "
+                         f"{plan['smem_bytes']} bytes of shared memory a "
+                         f"block, more than {K.MAX_SMEM}")
     b, _, Q, k = rows.shape
     outs = [torch.empty((b, G, Q, k, hd), dtype=stag_k.dtype,
                         device=stag_k.device) for _ in range(2)]
     K.launch("gather_rows_tiered", K.ptr(stag_k), K.ptr(stag_v),
              K.ptr(host_k), K.ptr(host_v), K.ptr(outs[0]), K.ptr(outs[1]),
-             K.ptr(rows), K.ptr(dev_map),
-             K.ptr(_owner_table(stag_k.device, nb * bs * G)), K.ptr(count),
-             b, nb, nd, bs, G, Q * k, row_bytes // 16, cluster, threads)
+             K.ptr(rows), K.ptr(dev_map), K.ptr(count), b, nb, nd, bs, G,
+             Q * k, row_bytes // 16, plan["blocks_per_head"], threads)
     return tuple(outs)
 
 
@@ -268,7 +272,6 @@ def gather_heads_tiered(stag_k: torch.Tensor, stag_v: torch.Tensor,
             count.view(-1)[0] += distinct
         return k_ret, v_ret
     outs = launch_tiered(stag_k, stag_v, host_k, host_v, dev_map, rows,
-                         count, tiered_cluster(rows[:, 0].numel()),
-                         TIERED_THREADS)
+                         count)
     LAUNCHES["gather_rows_tiered"] += 1
     return outs

@@ -146,3 +146,80 @@ def gather_heads_tiered_dedup_ref(stag_k: torch.Tensor, stag_v: torch.Tensor,
     distinct = int(torch.unique((phys * G + heads)[miss]).numel())
     return (gather_heads_tiered_ref(stag_k, host_k, dev_map, rows),
             gather_heads_tiered_ref(stag_v, host_v, dev_map, rows), distinct)
+
+
+# The tiered kernel's roles (csrc/gather_rows_tiered.cu), for the plan's
+# tests: what each entry is and which block writes it.
+ZERO, STAGED, LEADER, FOLLOWER = 0, 1, 2, 3
+
+
+def tiered_roles(rows: torch.Tensor, dev_map: torch.Tensor, bs: int,
+                 G: int, blocks_per_head: int, pass_entries: int) -> dict:
+    """The tiered kernel's plan over rows (b, G, Q, k), modelled plainly.
+    Kv head g's entries are numbered j = batch row · Q·k + position (E of
+    them); block (g, h) of the G × H grid writes
+      * a missed entry (row >= 0, its block unstaged) of key (row, g) when
+        phys % H == h, phys the row clamped into the host pool: the key's
+        first entry leads (read from the host), the others follow (copy
+        the leader's output row);
+      * a zero (row < 0) or staged entry when E·h // H <= j < E·(h+1) // H.
+    Pass: j // pass_entries. (The kernel elects any entry of the key's
+    first pass; the bytes are the same.) → dict of (b, G, Q, k) tensors:
+    ``role`` (ZERO, STAGED, LEADER or FOLLOWER), ``block`` (h), ``pass_``,
+    ``leader`` (a follower's leader as a flat index into rows, else -1)."""
+    b, _, Q, k = rows.shape
+    H, E = blocks_per_head, b * Q * k
+    nrows = dev_map.shape[0] * bs
+    r = rows.long().permute(1, 0, 2, 3).reshape(G, E)
+    phys = r.clamp(0, nrows - 1)
+    j = torch.arange(E).expand(G, E)
+    missed = (r >= 0) & (dev_map.long()[torch.div(phys, bs,
+                                                  rounding_mode="floor")] < 0)
+    role = torch.where(r < 0, ZERO, STAGED)
+    first = torch.full((G, nrows), E).scatter_reduce(
+        1, phys, torch.where(missed, j, E), "amin")
+    lead_j = first.gather(1, phys)
+    role = torch.where(missed, torch.where(lead_j == j, LEADER, FOLLOWER),
+                       role)
+    block = torch.where(missed, phys % H, ((j + 1) * H - 1) // E)
+
+    def flat(jj):                        # (g, j) → flat index into rows
+        g = torch.arange(G)[:, None]
+        return ((jj // (Q * k)) * G + g) * (Q * k) + jj % (Q * k)
+    leader = torch.where(role == FOLLOWER, flat(lead_j), -1)
+
+    def back(t):
+        return t.reshape(G, b, Q, k).permute(1, 0, 2, 3)
+    return dict(role=back(role), block=back(block),
+                pass_=back(j // pass_entries), leader=back(leader))
+
+
+def gather_heads_tiered_plan_ref(stag_k: torch.Tensor, stag_v: torch.Tensor,
+                                 host_k: torch.Tensor, host_v: torch.Tensor,
+                                 dev_map: torch.Tensor, rows: torch.Tensor,
+                                 blocks_per_head: int, pass_entries: int):
+    """The tiered gather built from ``tiered_roles`` as the kernel builds
+    it: zeros, staged rows from the staging pool, leaders' rows from the
+    host pool, then each follower a copy of its leader's output row; the
+    count is the leaders'. → (k_ret, v_ret, distinct missed pairs)."""
+    nd, bs, G, hd = stag_k.shape
+    nrows = dev_map.shape[0] * bs
+    plan = tiered_roles(rows, dev_map, bs, G, blocks_per_head, pass_entries)
+    role = plan["role"].reshape(-1)
+    want = rows.long()
+    phys = want.clamp(0, nrows - 1)
+    s = dev_map.long()[torch.div(phys, bs, rounding_mode="floor")]
+    heads = torch.arange(G)[None, :, None, None].expand(want.shape)
+    stag_row = ((s.clamp(0, nd - 1) * bs + phys % bs) * G + heads).reshape(-1)
+    host_row = (phys * G + heads).reshape(-1)
+    outs = []
+    for stag, host in ((stag_k, host_k), (stag_v, host_v)):
+        out = torch.zeros((role.numel(), hd), dtype=stag.dtype)
+        for r, src, idx in ((STAGED, stag.reshape(-1, hd), stag_row),
+                            (LEADER, host.reshape(-1, hd), host_row)):
+            sel = role == r
+            out[sel] = src[idx[sel]]
+        sel = role == FOLLOWER
+        out[sel] = out[plan["leader"].reshape(-1)[sel]]
+        outs.append(out.reshape(tuple(rows.shape) + (hd,)))
+    return outs[0], outs[1], int((role == LEADER).sum())

@@ -2,8 +2,6 @@
 (csrc/rerank_topk_paged.cu)."""
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from repro_torch.core import quantizer
@@ -13,12 +11,6 @@ from repro_torch.kernels.rerank.ref import RerankTopK, rerank_topk_paged_ref
 
 THREADS = 512          # threads per block (the fastest of 256 and 512)
 SPLITS = (1, 2, 4, 8)  # blocks per row (a cluster when > 1)
-MAX_SMEM = 227 << 10   # shared memory one block may use on Hopper
-
-
-@functools.lru_cache(maxsize=8)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def default_split(rows: int, C: int, sms: int) -> int:
@@ -88,14 +80,14 @@ def launch(pool_codes, pool_w, block_tables, cand_idx, q_sub, q_norm,
                          f"block_tables {tuple(block_tables.shape)}")
     if split is None:
         split = default_split(b * G * Hg, C,
-                              _sm_count(pool_codes.device.index or 0))
+                              K.sm_count(pool_codes.device))
     if threads not in (256, 512) or split not in SPLITS:
         raise ValueError(f"rerank_topk_paged: threads={threads} (256 or 512) "
                          f"and split={split} (one of {SPLITS})")
     if not 1 <= top_k <= C:
         raise ValueError(f"rerank_topk_paged: top_k={top_k} outside "
                          f"[1, C={C}]")
-    if smem_bytes(C, B, top_k) > MAX_SMEM:
+    if smem_bytes(C, B, top_k) > K.MAX_SMEM:
         raise ValueError(f"rerank_topk_paged: C={C} candidates need more "
                          f"shared memory than a block has")
     _, lv = quantizer.level_tensors(m, bits, str(pool_codes.device))

@@ -287,29 +287,38 @@ def test_tiered_gather_matches_plain_on_card(card):
                             rw)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("qk,threads", [(37 * HG, 256), (3000, 64)])
-def test_dedup_tiered_gather_matches_plain_on_card(card, qk, threads):
-    """The deduplicating tiered gather on constructed duplicates, at every
-    cluster size it can launch (3000 entries at 64 threads: followers in
-    later tiles than their leaders): output byte-identical to its plain
-    version, the distinct missed (row, head) count over the whole launch
-    (the batch rows pick from the same host rows) equal to the plain
-    version's and to ``torch.unique``'s, the leader table back to all -1
-    after each launch."""
-    from repro_torch.kernels.gather_kv import ops as GO
-    from repro_torch.kernels.gather_kv.ref import (
-        gather_heads_tiered_dedup_ref)
-
-    gen = torch.Generator().manual_seed(qk)
-    nb, nd, bs, b = 40, 12, 32, 2
-    host = torch.randn((2, nb * bs, G, 128), generator=gen).to(
+def _tiered_pools(gen, card, nb, nd, bs, hd, G_=G):
+    """A pinned host K/V pool (2, nb·bs, G, hd) bf16, a staging pool of nd
+    blocks on the card and a dev_map (nb,) staging nd random blocks."""
+    host = torch.randn((2, nb * bs, G_, hd), generator=gen).to(
         torch.bfloat16).pin_memory()
-    stag = torch.randn((2, nd, bs, G, 128), generator=gen).to(
+    stag = torch.randn((2, nd, bs, G_, hd), generator=gen).to(
         torch.bfloat16).to(card)
     dev_map = torch.full((nb,), -1, dtype=torch.int32)
     dev_map[torch.randperm(nb, generator=gen)[:nd]] = torch.arange(
         nd, dtype=torch.int32)
+    return host, stag, dev_map
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("qk,threads", [(37 * HG, 256), (3000, 64)])
+def test_dedup_tiered_gather_matches_plain_on_card(card, qk, threads, hd):
+    """The deduplicating tiered gather on constructed duplicates, at head
+    rows of 128, 256 and 512 bytes and at every grid from one block per kv
+    head (every key of a head in one block, its leader table full) to 264
+    (3000 entries at 64 threads: passes of 1,024 entries, followers in
+    later passes than their leaders): output byte-identical to its plain
+    version, the distinct missed (row, head) count over the whole launch
+    (the batch rows pick from the same host rows) equal to the plain
+    version's and to ``torch.unique``'s."""
+    from repro_torch.kernels.gather_kv import ops as GO
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref)
+
+    gen = torch.Generator().manual_seed(qk + hd)
+    nb, nd, bs, b = 40, 12, 32, 2
+    host, stag, dev_map = _tiered_pools(gen, card, nb, nd, bs, hd)
     pick = torch.randint(0, nb * bs, (1, G, 50), generator=gen,
                          dtype=torch.int32).expand(b, G, 50)
     rows = pick.gather(2, torch.randint(0, 50, (b, G, qk), generator=gen))
@@ -321,16 +330,101 @@ def test_dedup_tiered_gather_matches_plain_on_card(card, qk, threads):
     missed = (rows >= 0) & (dev_map[rows.clamp_min(0).long() // bs] < 0)
     keys = (rows.long() * G + torch.arange(G)[None, :, None, None])[missed]
     assert distinct == torch.unique(keys).numel() < int(missed.sum())
-    owner = GO._owner_table(card, nb * bs * G)
-    for cluster in (1, 2, 4, 8, 16):
+    assert b * qk > threads * GO.TIERED_PASS or qk < 100
+    for blocks in (1, 2, 7, 66, 264):
         count = torch.zeros((1,), dtype=torch.int64, device=card)
         got = GO.launch_tiered(stag[0], stag[1], host[0], host[1], dm, rw,
-                               count, cluster, threads)
+                               count, blocks, threads)
         torch.cuda.synchronize()
-        assert torch.equal(got[0].cpu(), want_k), cluster
-        assert torch.equal(got[1].cpu(), want_v), cluster
-        assert int(count) == distinct, cluster
-        assert bool((owner == -1).all()), cluster
+        assert torch.equal(got[0].cpu(), want_k), blocks
+        assert torch.equal(got[1].cpu(), want_v), blocks
+        assert int(count) == distinct, blocks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks", [None, 1])
+def test_tiered_gather_reads_rewritten_host_rows_fresh_on_card(card,
+                                                               blocks):
+    """A host row rewritten between two launches comes back new: the
+    first launch reads rows, the host rewrites them (a CPU write, then a
+    device-to-host copy on the stream with no synchronization), and each
+    next launch carries the new bytes, nothing of a cached copy."""
+    from repro_torch.kernels.gather_kv import ops as GO
+    from repro_torch.kernels.gather_kv.ref import gather_heads_tiered_ref
+
+    gen = torch.Generator().manual_seed(23)
+    nb, nd, bs, k = 40, 12, 32, 64
+    host, stag, dev_map = _tiered_pools(gen, card, nb, nd, bs, 128)
+    unstaged = torch.nonzero(dev_map < 0)[:, 0]
+    rows = (unstaged[torch.randint(0, len(unstaged), (1, G, 1, k),
+                                   generator=gen)] * bs
+            + torch.randint(0, bs, (1, G, 1, k), generator=gen))
+    rows = rows.to(torch.int32).contiguous()
+    dm, rw = dev_map.to(card), rows.to(card)
+
+    def launch():
+        got = GO.launch_tiered(stag[0], stag[1], host[0], host[1], dm, rw,
+                               None, blocks)
+        return [t.cpu() for t in got]
+
+    def want():
+        return [gather_heads_tiered_ref(stag[i].cpu(), host[i], dev_map,
+                                        rows) for i in (0, 1)]
+    first = launch()
+    assert all(torch.equal(g, w) for g, w in zip(first, want()))
+    picked = torch.unique(rows.long())
+    host[0][picked] = torch.randn((len(picked), G, 128), generator=gen).to(
+        torch.bfloat16)
+    host[1][picked] = torch.randn((len(picked), G, 128), generator=gen).to(
+        torch.bfloat16)
+    second = launch()
+    assert all(torch.equal(g, w) for g, w in zip(second, want()))
+    assert not torch.equal(second[0], first[0])
+    new = torch.randn((2, len(picked), G, 128), device=card).to(
+        torch.bfloat16)
+    for i in (0, 1):
+        host[i][picked[0]:picked[0] + 1].copy_(new[i, :1], non_blocking=True)
+    got = GO.launch_tiered(stag[0], stag[1], host[0], host[1], dm, rw, None,
+                           blocks)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want()))
+    assert torch.equal(host[0][picked[0]], new[0, 0].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G_", [2, 8])
+def test_tiered_fill_prefix_read_matches_plain_on_card(card, G_):
+    """The offloaded fill's prefix read: every kv head of 3,000 ascending
+    rows (one vector expanded over the heads, -1 past the frontier), half
+    the blocks staged, at the default grid and at one block per kv head:
+    byte-identical to the plain version, the distinct count G times the
+    missed rows."""
+    from repro_torch.kernels.gather_kv import ops as GO
+    from repro_torch.kernels.gather_kv.ref import (
+        gather_heads_tiered_dedup_ref)
+
+    gen = torch.Generator().manual_seed(29 + G_)
+    nb, bs, n = 48, 64, 3000
+    host, stag, dev_map = _tiered_pools(gen, card, nb, nb // 2, bs, 128, G_)
+    order = torch.randperm(nb, generator=gen)
+    idx = torch.arange(-(-n // bs) * bs)
+    pref = torch.where(idx < n, order[idx // bs] * bs + idx % bs, -1)
+    rows = pref.to(torch.int32).view(1, 1, 1, -1).expand(
+        1, G_, 1, len(idx)).contiguous()
+    want_k, want_v, distinct = gather_heads_tiered_dedup_ref(
+        stag[0].cpu(), stag[1].cpu(), host[0], host[1], dev_map, rows)
+    missed = (pref >= 0) & (dev_map[pref.clamp_min(0) // bs] < 0)
+    assert distinct == G_ * int(missed.sum()) > 0
+    assert (dev_map[pref[pref >= 0] // bs] >= 0).any()
+    for blocks in (None, 1):
+        count = torch.zeros((1,), dtype=torch.int64, device=card)
+        got = GO.launch_tiered(stag[0], stag[1], host[0], host[1],
+                               dev_map.to(card), rows.to(card), count,
+                               blocks)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0].cpu(), want_k), blocks
+        assert torch.equal(got[1].cpu(), want_v), blocks
+        assert int(count) == distinct, blocks
 
 
 @pytest.mark.cuda
