@@ -311,13 +311,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
               trained params through ``save_checkpoint`` and
               ``load_checkpoint`` (the reference's npz format), bit for
               bit.
-20. parity  — 2 layers at full width in float32: one teacher-forced
+20. dryrun  — the capacity planner (``python -m repro_torch.launch.dryrun``,
+              on meta tensors, nothing allocated): (a) one line per
+              architecture at full width and depth: a rank's known GB
+              (arguments, and gradients for train) and whether they fit
+              this card (a lower bound), for every input shape and
+              layout (gspmd; seq_shards and head_shards for decode, or
+              "refused" where the port refuses them) on one card and on
+              (data=1, model=4) and (data=1, model=8); (b) the FLOPs of
+              the train phase's step (qwen2-1.5b at full depth, 4 × 1,024
+              tokens, remat; ``FlopCounterMode``) and, after the train
+              phase, its TFLOP/s from that phase's median step; (c)
+              grounding: the engine phase's qwen2-1.5b (8 layers, 4
+              slots, n_max 16,384, 512 blocks of 128) built on the card,
+              the growth of ``memory_allocated()`` from its params and
+              the engine's state within 1 % of the planner's params plus
+              state bytes, then one decode step served.
+21. parity  — 2 layers at full width in float32: one teacher-forced
               request (2048-token prompt, 64 given tokens) through the
               paged and the contiguous decode step, each on the card
               (kernels) and on the CPU (plain versions); logits must agree
               at every step, within 1e-3 where every winner set agrees and
               within 5 % of the largest logit after a near-tie winner flip.
-21. seqshard — the sequence-sharded contiguous decode
+22. seqshard — the sequence-sharded contiguous decode
               (``decode_step(dist=SeqShardDist)``) of qwen2-1.5b at full
               width and the serving phases' 8 layers, batch 1, over two
               gloo ranks of the one card: one ``prefill`` here of a
@@ -338,9 +354,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               collective (exact); the ranks launch collision_paged,
               bucket_count, bucket_topk and rerank_topk_paged once a
               layer-step and gather_rows_paged once more a promotion;
-              each rank holds half the ParisKV bytes. Prints the prefill
-              time, bytes per rank and one device's, tokens/s of the ranks
-              and of one device, each collective's bytes a layer-step,
+              each rank holds half the ParisKV bytes, exactly the
+              capacity planner's ``seq_shards`` reckoning. Prints the
+              prefill time, bytes per rank and one device's, tokens/s of
+              the ranks
+              and of one device, each collective's bytes a layer-step
+              (``launch.mesh.collective_plan``),
               the share of steps whose greedy token equals one device's,
               the winners' overlap with one device's (layer 0, whose
               query and keys both runs share, apart from the deeper
@@ -501,6 +520,8 @@ BASE_NOISE = 1e-5
 # leaf's largest, params within TRAIN_PARAM_ATOL (1 % of the lr) where
 # the gradient exceeds TRAIN_GRAD_FLOOR of its leaf's largest
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 1024, 3e-4
+# the dryrun phase's GPU meshes: one card, and (data=1, model=m) for these m
+PLAN_MODEL_AXES = (1, 4, 8)
 TRAIN_F32_BATCH, TRAIN_F32_SEQ, TRAIN_F32_STEPS = 2, 256, 3
 TRAIN_F32_LR = 1e-3
 TRAIN_RTOL, TRAIN_GRAD_RTOL = 1e-5, 5e-5
@@ -3259,14 +3280,15 @@ def seqshard_phase(dev, cfg=None, seq_len: int = SEQ_LEN, gen: int = SEQ_GEN,
     one-device decode from the same state."""
     import numpy as np
     import torch
-    from repro_torch.core.cache import window_size
     from repro_torch.distributed import (SeqShardDist, backend_for,
                                          launch_local)
     from repro_torch.models import layers as L
     from repro_torch.models import serve as SV
     from repro_torch.models.model import init_params
-    from repro_torch.core.config import INPUT_SHAPES
+    from repro_torch.core.config import INPUT_SHAPES, InputShape
     from repro_torch.core.encode import QueryTransform
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MX
 
     cfg = cfg or _seq_cfg()
     pcfg = cfg.pariskv
@@ -3343,16 +3365,15 @@ def seqshard_phase(dev, cfg=None, seq_len: int = SEQ_LEN, gen: int = SEQ_GEN,
             pcfg.top_k)))
     same_tok = float(np.mean(np.asarray(ranks[0]["argmax"])
                              == np.asarray(one["argmax"])))
-    G, hd = cfg.num_kv_heads, cfg.head_dim
-    Hg = cfg.num_heads // G
-    k, sink, W = pcfg.top_k, pcfg.sink_size, window_size(pcfg)
-    winners = G * Hg * k
-    coll = dict(all_gather_scores=dict(send=winners * 4,
-                                       recv=winners * 4 * S),
-                all_gather_positions=dict(send=winners * 4,
-                                          recv=winners * 4 * S),
-                all_reduce_rows=dict(bytes=((sink + W) * G + winners) * hd
-                                     * 2 * 4))
+    # the capacity planner's reckoning of this layout: each collective's
+    # bytes a layer-step, and a rank's cache bytes
+    mesh = MX.gpu_mesh(1, S)
+    coll = MX.collective_plan(cfg, "seq_shards", mesh, 1,
+                              n_max)["per_layer_step"]
+    planned = D.plan_combo(cfg.name, InputShape("seqshard", n_max, 1,
+                                                "decode"), mesh,
+                           layouts=("seq_shards",), cfg=cfg)[0]
+    planned_bytes = planned["argument_parts"]["caches"]
     # per ParisKV layer-step one launch of each, and per promotion one
     # more (K-only, rank-masked) gather
     steps, layers = len(forced), cfg.num_layers
@@ -3372,7 +3393,8 @@ def seqshard_phase(dev, cfg=None, seq_len: int = SEQ_LEN, gen: int = SEQ_GEN,
         device=torch.cuda.get_device_name(0) if dev.type == "cuda" else "cpu",
         prefill_s=prefill_s, prefill_peak_mem_gb=prefill_peak,
         cache_bytes=dict(one_device=one_bytes,
-                         per_rank=[rk["cache_bytes"] for rk in ranks]),
+                         per_rank=[rk["cache_bytes"] for rk in ranks],
+                         planned_per_rank=planned_bytes),
         tokens_per_s=dict(ranks=[rk["tokens_per_s"] for rk in ranks],
                           one_device=steps / one_s),
         decode_s=dict(ranks=[rk["seconds"] for rk in ranks],
@@ -3397,6 +3419,9 @@ def seqshard_phase(dev, cfg=None, seq_len: int = SEQ_LEN, gen: int = SEQ_GEN,
            f"seqshard launches {ranks[0]['launches']} != {want_launch}")
     _check(all(b_ * S == one_bytes for b_ in rec["cache_bytes"]["per_rank"]),
            "a rank does not hold 1/shards of the ParisKV stores")
+    _check(all(b_ == planned_bytes for b_ in rec["cache_bytes"]["per_rank"]),
+           f"a rank's cache bytes {rec['cache_bytes']['per_rank']} differ "
+           f"from the planner's {planned_bytes}")
     del params, st, shards
     return rec, kern
 
@@ -4545,6 +4570,132 @@ def train_phase(dev):
     return rec
 
 
+# ---------------------------------------------------------------- dryrun ---
+def _plan_lines(capacity: int) -> dict:
+    """(a) Every architecture at full width and depth, every input shape
+    and layout, on one card and on (1, 4) and (1, 8): a rank's known GB
+    (arguments, and gradients for train) and whether they fit the card, a
+    lower bound (``dryrun.FITS_NOTE``), or the port's refusal; one compact
+    line per architecture."""
+    from repro_torch import configs
+    from repro_torch.core.config import INPUT_SHAPES
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MX
+
+    out = {}
+    for arch in configs.ARCHS:
+        line = {}
+        for shape in INPUT_SHAPES:
+            line[shape] = {}
+            for mesh in (MX.gpu_mesh(1, m) for m in PLAN_MODEL_AXES):
+                line[shape][MX.mesh_tag(mesh)] = {
+                    r["layout"]: ([round(r["known_bytes"] / 1e9, 3),
+                                   r["fits"]] if r["ok"]
+                                  else "refused")
+                    for r in D.plan_combo(arch, shape, mesh,
+                                          capacity=capacity)}
+        print(f"dryrun {arch} " + json.dumps(line, separators=(",", ":")),
+              flush=True)
+        out[arch] = line
+    return out
+
+
+def _grounding(dev, n_max: int = 16384, num_blocks: int = 512):
+    """(c) The engine phase's qwen2-1.5b (QWEN_LAYERS layers, 4 slots,
+    num_blocks blocks of 128) built on the card: the growth of
+    ``memory_allocated`` from its params and the engine's state against
+    the planner's params plus state bytes (the head_shards layout on one
+    card), beside the growth of the bytes requested of the caching
+    allocator (before it rounds a block up or leaves a large block
+    unsplit), then one decode step served."""
+    import torch
+    from repro_torch.core.config import InputShape
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MX
+    from repro_torch.models.model import init_params
+    from repro_torch.serving import PagedServingEngine, Request
+
+    cfg = _seq_cfg()
+    plan = D.plan_combo(cfg.name, InputShape("engine", n_max, 4, "decode"),
+                        MX.gpu_mesh(1, 1), layouts=("head_shards",),
+                        cfg=cfg)[0]
+    _check(plan["num_blocks"] == num_blocks,
+           f"the planner's pool has {plan['num_blocks']} blocks")
+    planned = plan["argument_parts"]["params"] + plan["argument_parts"][
+        "state"]
+    def requested():
+        """The bytes asked of the caching allocator, before its rounding
+        (None where this torch does not count them)."""
+        return torch.cuda.memory_stats().get("requested_bytes.all.current")
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before, asked = torch.cuda.memory_allocated(), requested()
+    params = init_params(cfg, seed=0, device=dev)
+    eng = PagedServingEngine(cfg, params, n_max=n_max, block_size=128,
+                             max_batch=4, num_blocks=num_blocks,
+                             chunk_size=1, device=dev)
+    eng.start()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    asked = None if asked is None else requested() - asked
+    torch.cuda.reset_peak_memory_stats()
+    eng.submit(Request(uid=0, prompt=_prompts(cfg, lens=(PROMPTS[0],))[0],
+                       max_new_tokens=2))
+    eng.step_serve()
+    torch.cuda.synchronize()
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, slots=4, n_max=n_max,
+               num_blocks=num_blocks, block_size=128,
+               planned_bytes=dict(params=plan["argument_parts"]["params"],
+                                  state=plan["argument_parts"]["state"],
+                                  total=planned),
+               allocated_growth=grown, ratio=grown / planned,
+               requested_growth=asked,
+               decode_steps=eng.decode_steps,
+               step_peak_over_planned=torch.cuda.max_memory_allocated()
+               - before - planned)
+    _check(abs(grown - planned) <= 0.01 * planned,
+           f"grounding: allocated {grown} bytes, planned {planned}")
+    _check(eng.decode_steps == 1 and int(eng.nonfinite_logits) == 0,
+           f"grounding: {eng.decode_steps} decode steps, "
+           f"{int(eng.nonfinite_logits)} non-finite logits")
+    del eng, params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dryrun_phase(dev, train_rec=None):
+    """The capacity planner (``launch.dryrun``, on meta tensors): (a)
+    ``_plan_lines``; (b) the FLOPs of the train phase's step (qwen2-1.5b
+    at full depth, TRAIN_BATCH × TRAIN_SEQ, remat) and, after the train
+    phase, its FLOP/s from that phase's median step; (c) ``_grounding``."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.core.config import InputShape
+    from repro_torch.launch import dryrun as D
+
+    capacity = torch.cuda.get_device_properties(dev).total_memory
+    t0 = time.perf_counter()
+    lines = _plan_lines(capacity)
+    plan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flops, _ = D.step_flops(configs.get("qwen2-1.5b"), InputShape(
+        "train_phase", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    flops_s = time.perf_counter() - t0
+    step_s = (None if train_rec is None
+              else train_rec["full"]["step_seconds_after_first"])
+    ground = _grounding(dev)
+    rec = dict(device=torch.cuda.get_device_name(0), capacity=capacity,
+               plan_s=plan_s, archs=len(lines),
+               train_step=dict(flops=flops, count_s=flops_s, step_s=step_s,
+                               tflop_per_s=None if step_s is None
+                               else flops / step_s / 1e12),
+               grounding=ground)
+    print("dryrun " + json.dumps(rec), flush=True)
+    _check(flops and flops > 0, f"train step FLOPs {flops}")
+    return rec
+
+
 # ---------------------------------------------------------------- parity ---
 def faults_phase(dev, cfg, params, n_max: int = 16384, gen: int = FAULT_GEN):
     """Fault handling at full width (bf16, seed 0) on the offloaded engine
@@ -4816,8 +4967,8 @@ def main() -> int:
     dev = torch.device("cuda")
     phases = ("kernels", "engine", "slot", "metaview", "baseline", "offload",
               "chunked", "share", "faults", "sharded", "arch", "gemma",
-              "cross", "ssm", "mla", "baselines", "train", "parity",
-              "seqshard")
+              "cross", "ssm", "mla", "baselines", "train", "dryrun",
+              "parity", "seqshard")
     only = sys.argv[1:] or list(phases)
     unknown = sorted(set(only) - set(phases))
     if unknown:
@@ -4974,9 +5125,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         baselines_phase(dev)
         lap("baselines")
+    train_rec = None
     if "train" in only:
-        train_phase(dev)
+        train_rec = train_phase(dev)
         lap("train")
+    if "dryrun" in only:
+        dryrun_phase(dev, train_rec)
+        lap("dryrun")
     if "parity" in only:
         parity_phase(dev, cfg)
         lap("parity")

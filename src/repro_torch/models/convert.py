@@ -27,7 +27,7 @@ import torch
 
 from repro_torch import resolve_device, tree_map
 from repro_torch.core.config import ModelConfig
-from repro_torch.models.model import layer_plan
+from repro_torch.models.model import layer_places, layer_plan
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -52,12 +52,10 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
     out = {k: _tensor(tree[k], dev)
            for k in ("embed", "final_norm", "unembed", "enc_final_norm")
            if k in tree}
-    layers = []
-    for stage, stacked in zip(layer_plan(cfg), tree["stages"]):
-        for r in range(stage.repeat):
-            for i in range(len(stage.layers)):
-                layers.append(tree_map(lambda a: _tensor(a[r], dev),
-                                       stacked[f"l{i}"]))
+    layers = [tree_map(lambda a: _tensor(a[r], dev),
+                       tree["stages"][si][f"l{i}"])
+              for si, r, i in layer_places(cfg)
+              if si < len(tree["stages"])]
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name!r} has {cfg.num_layers}")
@@ -84,16 +82,15 @@ def stack_params(params: dict, cfg: ModelConfig) -> Dict[str, Any]:
     out = {k: params[k].detach().cpu()
            for k in ("embed", "final_norm", "unembed", "enc_final_norm")
            if k in params}
-    out["stages"], at = [], 0
-    for stage in layer_plan(cfg):
-        width = len(stage.layers)
-        period = params["layers"][at:at + width * stage.repeat]
-        out["stages"].append({f"l{i}": stack(period[i::width])
-                              for i in range(width)})
-        at += width * stage.repeat
-    if at != len(params["layers"]):
+    places = layer_places(cfg)
+    if len(places) != len(params["layers"]):
         raise ValueError(f"params hold {len(params['layers'])} layers, "
-                         f"config {cfg.name!r} has {at}")
+                         f"config {cfg.name!r} has {len(places)}")
+    out["stages"] = [
+        {f"l{i}": stack([p for (s, _, j), p in zip(places, params["layers"])
+                         if (s, j) == (si, i)])
+         for i in range(len(stage.layers))}
+        for si, stage in enumerate(layer_plan(cfg))]
     if "encoder" in params:
         out["encoder"] = stack(params["encoder"])
     return out

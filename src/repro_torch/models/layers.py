@@ -27,10 +27,15 @@ from repro_torch.core.config import ParisKVConfig
 from repro_torch.kernels.gather_kv import gather_heads_tiered
 
 
-def truncated_normal_(t: torch.Tensor, generator: torch.Generator,
+def truncated_normal_(t: torch.Tensor,
+                      generator: Optional[torch.Generator],
                       std: float = 0.02) -> torch.Tensor:
     """In place: std · N(0, 1) truncated to [-2, 2], the reference's
-    ``truncated_normal`` (the values differ: torch draws its own bits)."""
+    ``truncated_normal`` (the values differ: torch draws its own bits). A
+    meta tensor (shapes only, ``generator`` None) is returned as it is:
+    nothing is drawn."""
+    if t.is_meta:
+        return t
     return torch.nn.init.trunc_normal_(t, mean=0.0, std=std, a=-2 * std,
                                        b=2 * std, generator=generator)
 
@@ -74,7 +79,7 @@ def mlp_fwd(p: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 def init_mlp(d_model: int, d_ff: int, dtype, device,
-             gen: torch.Generator) -> dict:
+             gen: Optional[torch.Generator]) -> dict:
     def w(shape):
         return truncated_normal_(torch.empty(shape, device=device),
                                  gen).to(dtype)
@@ -102,7 +107,7 @@ class AttnSpec:
 
 
 def init_attn(d_model: int, spec: AttnSpec, dtype, device,
-              gen: torch.Generator) -> dict:
+              gen: Optional[torch.Generator]) -> dict:
     H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
 
     def w(shape):

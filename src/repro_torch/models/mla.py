@@ -41,7 +41,8 @@ from repro_torch.kernels.gather_kv import gather_rows_paged
 from repro_torch.models.layers import rms_norm, rope, truncated_normal_
 
 
-def init_mla(cfg: ModelConfig, dtype, device, gen: torch.Generator) -> dict:
+def init_mla(cfg: ModelConfig, dtype, device,
+             gen: Optional[torch.Generator]) -> dict:
     """The query projection ``wq`` (d, H·(dn + dr)) (v2-lite has no
     q-lora), the down-projection to the latent and the shared rope key
     ``w_dkv`` (d, r + dr), the latent's norm ``kv_norm`` (r,), the

@@ -133,12 +133,24 @@ def layer_defs(cfg: ModelConfig) -> List[LayerDef]:
             for ld in stage.layers]
 
 
+def layer_places(cfg: ModelConfig) -> List[Tuple[int, int, int]]:
+    """Each layer, in ``params["layers"]`` order, as its place in the
+    reference's stacked tree: (stage ``si``, index ``r`` on the stack's
+    leading axis, position ``i`` within the stage's period), i.e. leaf
+    ``stages/<si>/l<i>/...[r]``. The one map between the two trees:
+    conversions both ways (``models.convert``), the cache entries' names
+    (``models.serve.entry_names``) and the sharding rules
+    (``launch.mesh``) go through it."""
+    return [(si, r, i) for si, stage in enumerate(layer_plan(cfg))
+            for r in range(stage.repeat) for i in range(len(stage.layers))]
+
+
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
 
 
 def init_layer(cfg: ModelConfig, ld: LayerDef, device,
-               gen: torch.Generator) -> dict:
+               gen: Optional[torch.Generator]) -> dict:
     """One layer's parameters: a cross layer adds the 0-d ``cross_gate``,
     zero as in the reference (tanh(0) = 0: the layer adds nothing until
     the gate is trained or set), a ``cross=True`` layer its cross
@@ -176,9 +188,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Random parameters from ``seed``, made directly on ``device`` (the
     first CUDA card unless ``device="cpu"``). torch cannot reproduce
     ``jax.random``: weights shared with the reference come through
-    ``models.convert``."""
+    ``models.convert``. On ``device="meta"`` every leaf has its shape and
+    dtype and no storage, and nothing is drawn (``launch.dryrun`` plans
+    from them)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = torch_dtype(cfg)
     params: Dict[str, Any] = {
         "embed": L.truncated_normal_(

@@ -17,7 +17,7 @@ the (token, slot) order. Tokens past an expert's capacity are dropped
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +26,7 @@ from repro_torch.models import layers as L
 
 
 def init_moe(d_model: int, d_ff: int, num_experts: int, num_shared: int,
-             dtype, device, gen: torch.Generator) -> dict:
+             dtype, device, gen: Optional[torch.Generator]) -> dict:
     """The router (d, E) in float32 (std 0.006), the experts' (E, d, f)
     gate and up and (E, f, d) down in ``dtype``, and the ``shared`` MLP
     of width ``num_shared · d_ff`` when ``num_shared``."""

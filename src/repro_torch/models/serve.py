@@ -106,8 +106,8 @@ from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.model import (LayerDef, _embed, _gate, _unembed,
-                                      encoder_fwd, layer_defs, layer_plan,
-                                      param_device, torch_dtype)
+                                      encoder_fwd, layer_defs, layer_places,
+                                      layer_plan, param_device, torch_dtype)
 
 
 class ServeState(NamedTuple):
@@ -245,9 +245,9 @@ class TierView(NamedTuple):
 
 def _plan_places(cfg: ModelConfig) -> List[Tuple[int, int]]:
     """Each model layer's (stage, layer within the stage's period), in
-    layer order: the reference's way of naming a layer."""
-    return [(si, i) for si, st in enumerate(layer_plan(cfg))
-            for _ in range(st.repeat) for i in range(len(st.layers))]
+    layer order: the reference's way of naming a layer
+    (``model.layer_places``)."""
+    return [(si, i) for si, _, i in layer_places(cfg)]
 
 
 def entry_names(cfg: ModelConfig) -> List[str]:
@@ -603,6 +603,40 @@ def sharded_support_reason(cfg: ModelConfig) -> Optional[str]:
 
 def sharded_supported(cfg: ModelConfig) -> bool:
     return sharded_support_reason(cfg) is None
+
+
+def check_shard_heads(cfg: ModelConfig, shards: int) -> None:
+    """The reference's first sharding check: ``shards`` ranks split whole
+    KV heads."""
+    if shards < 1 or cfg.num_kv_heads % shards:
+        raise ValueError(
+            f"mesh_shards={shards} must divide num_kv_heads="
+            f"{cfg.num_kv_heads}: the ranks split whole KV heads, and an "
+            f"uneven split would give them different pool shapes")
+
+
+def check_paged_engine(cfg: ModelConfig, mesh_shards: int,
+                       use_pariskv: bool, n_max: int,
+                       block_size: int) -> None:
+    """``PagedServingEngine``'s refusals of a configuration, in its order,
+    all but the process group's (which needs the ranks): head sharding
+    of an MLA config (the reference's refusal, before any paging check),
+    a config the pool cannot page (``check_pageable``, which also covers
+    every ``sharded_support_reason``), shards that do not split whole KV
+    heads, the baseline, an ``n_max`` that is no whole number of blocks.
+    The engine and the capacity planner (``launch.dryrun``) call it."""
+    if mesh_shards > 1 and has_mla(cfg):
+        check_shard_heads(cfg, mesh_shards)
+        raise UnsupportedShardedConfig(cfg, f"mesh_shards={mesh_shards}",
+                                       sharded_support_reason(cfg))
+    check_pageable(cfg)
+    if mesh_shards != 1:
+        check_shard_heads(cfg, mesh_shards)
+    if not use_pariskv:
+        raise ValueError("the paged engine serves the ParisKV path only")
+    if n_max % block_size != 0:
+        raise ValueError(f"n_max={n_max} must be a multiple of "
+                         f"block_size={block_size}")
 
 
 def regions_init(batch: int, device) -> CC.CacheRegions:

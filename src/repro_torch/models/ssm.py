@@ -23,7 +23,7 @@ beside this mixer (``models.serve``).
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,7 +46,7 @@ def conv_dim(cfg: ModelConfig) -> int:
 
 
 def init_ssm(cfg: ModelConfig, dtype, device,
-             gen: torch.Generator) -> dict:
+             gen: Optional[torch.Generator]) -> dict:
     """One mixer's parameters, drawn from ``gen``: the projections and the
     convolution in ``dtype``, ``A_log``, ``D`` and ``dt_bias`` in float32
     as the reference keeps them."""

@@ -587,11 +587,10 @@ class PagedServingEngine(ServingEngine):
     ``mesh_shards=N`` > 1 (module docstring) runs in each rank of a process
     group of N ranks (``torchrun``, or ``distributed.launch_local``) on
     that rank's device: on a card, the rank's current CUDA device. It
-    refuses, in the reference's order, an N that does not divide
-    ``num_kv_heads`` (``ValueError``), a missing group or one of another
-    size (``ValueError``), and an architecture
-    ``models.serve.sharded_support_reason`` rejects
-    (``UnsupportedShardedConfig``); ``offload=True`` with it raises
+    refuses an N that does not divide ``num_kv_heads`` (``ValueError``)
+    with the configuration checks of ``models.serve.check_paged_engine``
+    (which the capacity planner shares), then a missing group or one of
+    another size (``ValueError``); ``offload=True`` with it raises
     ``UnsupportedShardedConfig``. ``verify_invariants()`` and the end of
     ``run()`` also check that every rank holds the same host state."""
 
@@ -617,19 +616,10 @@ class PagedServingEngine(ServingEngine):
             reason = SV.share_support_reason(cfg)
             if reason is not None:
                 raise ValueError(f"prefix sharing unavailable — {reason}")
-        if mesh_shards > 1 and SV.has_mla(cfg):
-            # the reference's sharding refusal, before any paging check
-            _check_shard_heads(cfg, mesh_shards)
-            raise SV.UnsupportedShardedConfig(
-                cfg, f"mesh_shards={mesh_shards}",
-                SV.sharded_support_reason(cfg))
-        SV.check_pageable(cfg)
-        self.dist = _shard_dist(cfg, mesh_shards)
-        if not use_pariskv:
-            raise ValueError("the paged engine serves the ParisKV path only")
-        if n_max % block_size != 0:
-            raise ValueError(f"n_max={n_max} must be a multiple of "
-                             f"block_size={block_size}")
+        SV.check_paged_engine(cfg, mesh_shards, use_pariskv, n_max,
+                              block_size)
+        self.dist = (None if mesh_shards == 1
+                     else ShardDist.from_process_group(mesh_shards))
         super().__init__(cfg, params, n_max=n_max, max_batch=max_batch,
                          greedy=greedy, chunk_size=chunk_size,
                          eos_id=eos_id, prefill_budget=prefill_budget,
@@ -1463,31 +1453,6 @@ class OffloadedPagedServingEngine(PagedServingEngine):
             raise RuntimeError("staging leak: the residency map retained "
                                "blocks after the run")
         return done
-
-
-def _check_shard_heads(cfg: ModelConfig, shards: int) -> None:
-    """The reference's first sharding check: ``shards`` ranks split whole
-    KV heads."""
-    if shards < 1 or cfg.num_kv_heads % shards:
-        raise ValueError(
-            f"mesh_shards={shards} must divide num_kv_heads="
-            f"{cfg.num_kv_heads}: the ranks split whole KV heads, and an "
-            f"uneven split would give them different pool shapes")
-
-
-def _shard_dist(cfg: ModelConfig, shards: int) -> Optional[ShardDist]:
-    """This rank's ``ShardDist`` for ``mesh_shards=shards`` (None for one
-    device), after the reference's checks in its order: whole heads per
-    rank, a process group of ``shards`` ranks, a supported architecture."""
-    if shards == 1:
-        return None
-    _check_shard_heads(cfg, shards)
-    dist = ShardDist.from_process_group(shards)
-    reason = SV.sharded_support_reason(cfg)
-    if reason is not None:
-        raise SV.UnsupportedShardedConfig(cfg, f"mesh_shards={shards}",
-                                          reason)
-    return dist
 
 
 def _check_shard_device(dist: ShardDist, device: torch.device) -> None:
