@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.kernels import row_tables
 from repro_torch.kernels.gather_kv import (gather_decode_masked,
                                            gather_decode_paged)
@@ -360,14 +361,18 @@ def sparse_decode_attention_paged(q: torch.Tensor, pool_k: torch.Tensor,
     G = pool_k.shape[2]
     qg = q.reshape(b, G, H // G, hd).float()
     if rows is None:
-        rows = paged_decode_rows(pool_k, pool_v, block_tables, window_start,
-                                 phys_rows, sink_size=sink_size,
-                                 window_size=window_size)
-    return _segment_attention(
-        qg, rows.k_sink, rows.v_sink, rows.k_ret, rows.v_ret, rows.k_loc,
-        rows.v_loc, top_idx, window_start, pos, enc_end, sink_size=sink_size,
-        window_size=window_size, sm_scale=sm_scale, softcap=softcap,
-        s_sink=s_sink, s_loc=s_loc, ret_keep=ret_keep).reshape(b, H, hd)
+        with trace.span("attn.rows"):
+            rows = paged_decode_rows(pool_k, pool_v, block_tables,
+                                     window_start, phys_rows,
+                                     sink_size=sink_size,
+                                     window_size=window_size)
+    with trace.span("attn.segment"):
+        return _segment_attention(
+            qg, rows.k_sink, rows.v_sink, rows.k_ret, rows.v_ret, rows.k_loc,
+            rows.v_loc, top_idx, window_start, pos, enc_end,
+            sink_size=sink_size, window_size=window_size, sm_scale=sm_scale,
+            softcap=softcap, s_sink=s_sink, s_loc=s_loc,
+            ret_keep=ret_keep).reshape(b, H, hd)
 
 
 def dense_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import trace
 from repro_torch.core import encode
 from repro_torch.core.config import ParisKVConfig
 from repro_torch.kernels import row_tables
@@ -498,9 +499,11 @@ def paged_promote_rows_hist(pool: PagedLayerKVCache, hist: torch.Tensor,
     meta = _encode_block(rows, cfg, signs)                       # (b,G,U,B)
     pb, off = paged_lookup_blocks(block_tables, lidx, bs)
     write = mask[:, None] & (pb >= 0)                            # (b, U)
-    tgt, toff = pb[write].long(), off[write].long()
-    for dst, new in zip(pool[2:], meta):
-        dst[tgt, :, toff] = new.transpose(1, 2)[write]
+    with trace.span("sync.promote_rows"):   # each boolean selection waits
+        tgt, toff = pb[write].long(), off[write].long()
+        news = [new.transpose(1, 2)[write] for new in meta]
+    for dst, new in zip(pool[2:], news):
+        dst[tgt, :, toff] = new
     inc = write & (lidx >= cfg.sink_size)
     hist += bucket_histogram(meta.centroid_ids, inc[:, None, :],
                              cfg.num_centroids())

@@ -38,6 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import trace
 from repro_torch.core import centroids
 from repro_torch.core.config import ParisKVConfig
 from repro_torch.core.encode import QueryTransform
@@ -131,14 +132,16 @@ def collision_scores_paged_hist(pool_ids: torch.Tensor,
     16 (MLA's Hg = 16 query heads over B = 128 subspaces). ``sink``
     (default ``cfg.sink_size``) is the region's first position."""
     sink = cfg.sink_size if sink is None else sink
-    cs = centroids.centroid_scores(q_sub, cfg.m)
-    n_valid = (enc_end - sink).clamp_min(0)
-    b, G, Hg, B, nc = cs.shape
-    rng = max_collision_score(cfg, B)
-    table = tier_weight_table(cs, counts[:, :, None], n_valid[:, None, None],
-                              cfg, out=lane_packed_table(
-                                  *cs.shape, device=cs.device,
-                                  lanes=table_lanes(Hg, B, rng)))
+    with trace.span("retrieve.tier_table"):
+        cs = centroids.centroid_scores(q_sub, cfg.m)
+        n_valid = (enc_end - sink).clamp_min(0)
+        b, G, Hg, B, nc = cs.shape
+        rng = max_collision_score(cfg, B)
+        table = tier_weight_table(cs, counts[:, :, None],
+                                  n_valid[:, None, None], cfg,
+                                  out=lane_packed_table(
+                                      *cs.shape, device=cs.device,
+                                      lanes=table_lanes(Hg, B, rng)))
     return collision_scores_paged_kernel(pool_ids, block_tables, table,
                                          enc_end, sink, rng)
 
@@ -293,13 +296,16 @@ def retrieve_paged_fused(pool, block_tables: torch.Tensor, qt: QueryTransform,
     candidates' codes through the block table and returns the winners with
     their physical rows and blocks (one kernel)."""
     B = pool.meta_ids.shape[-1]
-    coarse, seg_hist = collision_scores_paged_hist(
-        pool.meta_ids, block_tables, qt.q_sub, counts, enc_end, cfg)
-    cand = select_candidates_bucket(coarse, num_candidates,
-                                    max_collision_score(cfg, B),
-                                    seg_hist=seg_hist)
-    won = rerank_topk(pool.meta_codes, pool.meta_w, qt, cand, enc_end, cfg,
-                      top_k, block_tables)
+    with trace.span("retrieve.stage1"):
+        coarse, seg_hist = collision_scores_paged_hist(
+            pool.meta_ids, block_tables, qt.q_sub, counts, enc_end, cfg)
+    with trace.span("retrieve.topc"):
+        cand = select_candidates_bucket(coarse, num_candidates,
+                                        max_collision_score(cfg, B),
+                                        seg_hist=seg_hist)
+    with trace.span("retrieve.stage2"):
+        won = rerank_topk(pool.meta_codes, pool.meta_w, qt, cand, enc_end,
+                          cfg, top_k, block_tables)
     return PagedRetrievalResult(
         indices=won.top_idx, block_ids=won.block_ids,
         phys_rows=won.phys_rows, scores=won.top_est, cand_indices=cand,

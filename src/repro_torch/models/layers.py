@@ -19,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import trace
 from repro_torch.core import attention as A
 from repro_torch.core import cache as C
 from repro_torch.core import encode as E
@@ -473,31 +474,37 @@ def attn_decode_pariskv_paged_sharded(p: dict, x_t: torch.Tensor,
     H, G, hd = spec.num_heads, spec.num_kv_heads, spec.head_dim
     Hg = H // G
     g0, g1 = _heads(dist, spec)
-    pos = regions.pos + 1
-    q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
-    q = q[:, g0 * Hg:g1 * Hg].contiguous()
-    C.paged_decode_append(pool, block_tables, k_t[:, g0:g1], v_t[:, g0:g1],
-                          pos, index=append_index)
+    with trace.span("attn.qkv"):
+        pos = regions.pos + 1
+        q, k_t, v_t = _decode_qkv(p, x_t, spec, pos)
+        q = q[:, g0 * Hg:g1 * Hg].contiguous()
+    with trace.span("cache.append"):
+        C.paged_decode_append(pool, block_tables, k_t[:, g0:g1],
+                              v_t[:, g0:g1], pos, index=append_index)
 
-    qt = E.encode_query(q.reshape(b, g1 - g0, Hg, hd), pcfg, signs)
-    if fused:
-        res = R.retrieve_paged_fused(pool, block_tables, qt, hist,
-                                     regions.enc_end, pcfg, num_candidates,
-                                     pcfg.top_k)
-    else:
-        view = C.paged_meta_view(pool, block_tables)
-        res = R.retrieve_paged(view, qt, regions.enc_end, pcfg,
-                               num_candidates, pcfg.top_k, block_tables,
-                               pool.k.shape[1], hist_sample=pcfg.hist_sample)
+    with trace.span("retrieve", C=num_candidates, k=pcfg.top_k):
+        with trace.span("retrieve.encode_query"):
+            qt = E.encode_query(q.reshape(b, g1 - g0, Hg, hd), pcfg, signs)
+        if fused:
+            res = R.retrieve_paged_fused(pool, block_tables, qt, hist,
+                                         regions.enc_end, pcfg,
+                                         num_candidates, pcfg.top_k)
+        else:
+            view = C.paged_meta_view(pool, block_tables)
+            res = R.retrieve_paged(view, qt, regions.enc_end, pcfg,
+                                   num_candidates, pcfg.top_k, block_tables,
+                                   pool.k.shape[1],
+                                   hist_sample=pcfg.hist_sample)
     W = C.window_size(pcfg)
     ws = (pos + 1 - W).clamp_min(0)
     out = A.sparse_decode_attention_paged(
         q, pool.k, pool.v, block_tables, res.indices, ws, pos,
         regions.enc_end, res.phys_rows, sink_size=pcfg.sink_size,
         window_size=W, sm_scale=spec.scale(), softcap=spec.softcap)
-    if dist is not None:
-        out = dist.all_gather_heads(out, 1)               # (b, H, hd)
-    return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
+    with trace.span("attn.out"):
+        if dist is not None:
+            out = dist.all_gather_heads(out, 1)           # (b, H, hd)
+        return out.reshape(b, -1).to(x_t.dtype) @ p["wo"], res
 
 
 class SideStream(NamedTuple):

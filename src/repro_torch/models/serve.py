@@ -95,7 +95,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core import cache as CC
 from repro_torch.core import srht
 from repro_torch.core.config import ModelConfig
@@ -860,9 +860,11 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
             num_candidates, fused=paged_fused, append_index=append_index,
             side=tier.side, count=f["uniq"][0:1], fetch=fetch)
         if any_promote:
-            CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
-                                       regions.enc_end, will_promote, pcfg,
-                                       signs, kv_tables=tier.kv_tables)
+            with trace.span("cache.promote"):
+                CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
+                                           regions.enc_end, will_promote,
+                                           pcfg, signs,
+                                           kv_tables=tier.kv_tables)
         f["touched"] += delta["touched"]
         f["rows"][:, :3] += delta["rows"]
         if delta["degraded"] is not None:
@@ -876,9 +878,10 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
             pcfg, signs, num_candidates, dist, fused=paged_fused,
             append_index=append_index)
         if any_promote:
-            CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
-                                       regions.enc_end, will_promote, pcfg,
-                                       signs)
+            with trace.span("cache.promote"):
+                CC.paged_promote_rows_hist(kv, cache["hist"], block_tables,
+                                           regions.enc_end, will_promote,
+                                           pcfg, signs)
     if record is not None and res is not None:
         record.append(res)
     if ld.mixer in ("ssm", "hybrid"):
@@ -891,8 +894,9 @@ def _layer_decode(p: dict, x_t: torch.Tensor, ld: LayerDef, cfg: ModelConfig,
                                         ld.attn).to(x_t.dtype)
     if ld.ffn == "none":
         return x_t
-    h = L.rms_norm(x_t, p["norm_mlp"], cfg.norm_eps)
-    return x_t + _ffn(p, h, ld, cfg).to(x_t.dtype)
+    with trace.span("mlp"):
+        h = L.rms_norm(x_t, p["norm_mlp"], cfg.norm_eps)
+        return x_t + _ffn(p, h, ld, cfg).to(x_t.dtype)
 
 
 # ------------------------------------------------------- chunked fill -----
@@ -1128,36 +1132,41 @@ def _step(params: dict, cfg: ModelConfig, token: torch.Tensor,
             raise ValueError("paged decode serves the ParisKV path only")
         bs = kv0.k.shape[1]
         n_max = block_tables.shape[1] * bs
-        append_index = CC.paged_append_index(
-            block_tables if tier is None else tier.kv_tables,
-            regions.pos + 1, bs)
+        with trace.span("sync.append_index"):
+            append_index = CC.paged_append_index(
+                block_tables if tier is None else tier.kv_tables,
+                regions.pos + 1, bs)
     # host sync; hybrid and MLA layers promote in the baseline too
     # (_layer_decode)
-    any_promote = ((use_pariskv or any(ld.mixer in ("hybrid", "mla")
-                                       for ld in layer_defs(cfg)))
-                   and bool(will_promote.any()))
+    with trace.span("sync.promote"):
+        any_promote = ((use_pariskv or any(ld.mixer in ("hybrid", "mla")
+                                           for ld in layer_defs(cfg)))
+                       and bool(will_promote.any()))
     num_candidates = pcfg.candidate_count(n_max)
     for li, (ld, p, cache) in enumerate(zip(layer_defs(cfg), params["layers"],
                                             state.caches)):
         host_kv = None if tier is None else tier.host_kv[li]
-        x_t = _layer_decode(p, x_t, ld, cfg, cache, regions, signs,
-                            num_candidates, will_promote, any_promote,
-                            block_tables, append_index, record, use_pariskv,
-                            paged_fused, tier, host_kv,
-                            None if tier is None else
-                            tier.fetch_of(li, "heads"), dist)
+        with trace.span("layer", index=li):
+            x_t = _layer_decode(p, x_t, ld, cfg, cache, regions, signs,
+                                num_candidates, will_promote, any_promote,
+                                block_tables, append_index, record,
+                                use_pariskv, paged_fused, tier, host_kv,
+                                None if tier is None else
+                                tier.fetch_of(li, "heads"), dist)
+            if x_f is not None:
+                with trace.span("fill.layer"):
+                    x_f = _layer_fill(p, x_f, ld, cfg, cache, fill[1], signs,
+                                      use_pariskv, tier, host_kv,
+                                      None if tier is None else
+                                      tier.fetch_of(li, "rows"), dist)
+    with trace.span("decode.unembed"):
+        x_t = L.rms_norm(x_t, params["final_norm"], cfg.norm_eps)
+        logits = _unembed(params, cfg, x_t)
+        fill_logits = None
         if x_f is not None:
-            x_f = _layer_fill(p, x_f, ld, cfg, cache, fill[1], signs,
-                              use_pariskv, tier, host_kv,
-                              None if tier is None else
-                              tier.fetch_of(li, "rows"), dist)
-    x_t = L.rms_norm(x_t, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(params, cfg, x_t)
-    fill_logits = None
-    if x_f is not None:
-        x_last = L.rms_norm(x_f[:, fill[1].valid_n - 1],
-                            params["final_norm"], cfg.norm_eps)
-        fill_logits = _unembed(params, cfg, x_last)
+            x_last = L.rms_norm(x_f[:, fill[1].valid_n - 1],
+                                params["final_norm"], cfg.norm_eps)
+            fill_logits = _unembed(params, cfg, x_last)
     new_regions = CC.CacheRegions(
         pos=torch.where(act, regions.pos + 1, regions.pos),
         enc_end=torch.where(will_promote,
@@ -1317,70 +1326,81 @@ def decode_chunk(params: dict, cfg: ModelConfig, state: SlotState,
     if P > 0 and state.prompt is None:
         raise ValueError("prefill_budget > 0 needs a state built with the "
                          "same budget")
-    bt_host = dm_host = None
-    if block_tables is not None:
-        if P > 0:
-            bt_host = block_tables.cpu().numpy()
-        block_tables = block_tables.to(dev)
-    tier = None
-    if dev_map is not None:
-        dev_map = torch.as_tensor(dev_map, dtype=torch.int32)
-        if P > 0:
-            dm_host = dev_map.cpu().numpy()
-        dev_map = dev_map.to(dev)
-        tier = TierView(dev_map, CC.tiered_kv_tables(block_tables, dev_map),
-                        host_kv, side, fetch,
-                        None if fetch is None else entry_names(cfg))
-        for lc in pool_entries(state.caches):
-            for key in ("touched", "rows", "uniq", "dropped"):
-                lc["fetch"][key].zero_()
-            lc["fetch"].update(_FETCH_HOST_ZERO)
-    kv0 = _store(state.caches)
-    emitted = []
-    for _ in range(num_steps):
-        active = state.remaining > 0
-        fs = filling_slot(state) if P > 0 else None
-        if fs is None:
-            logits, new = decode_step(params, cfg, state.cur_tok,
-                                      ServeState(state.caches, state.regions),
-                                      block_tables, active=active,
-                                      use_pariskv=use_pariskv,
-                                      paged_fused=paged_fused, tier=tier,
-                                      dist=dist)
-        else:
-            active[fs] = False
-            fctx = fill_ctx(state, fs, P, dev, bt_host, block_tables,
-                            kv0.k.shape[1], kv0.k.shape[2], dm_host)
-            logits, fill_logits, new = decode_fill_step(
-                params, cfg, state.cur_tok,
-                ServeState(state.caches, state.regions),
-                state.prompt[fs:fs + 1, fctx.start:fctx.start + P], fctx,
-                block_tables, active, use_pariskv, paged_fused, tier, dist)
-        if nonfinite is not None:
-            nonfinite += (~torch.isfinite(logits)).sum()
-        nxt = logits.argmax(-1).to(torch.int32)
-        emit = torch.where(active, nxt, -1)
-        rem = state.remaining - active.to(torch.int32)
-        if eos_id is not None:
-            rem = torch.where(active & (nxt == eos_id), 0, rem)
-        cur = torch.where(active, nxt, state.cur_tok)
-        if fs is not None:
-            f1 = fctx.start + fctx.valid_n
-            state.fill_pos[fs] = f1
-            new.regions.pos[fs] = f1 - 1
-            new.regions.enc_end[fs] = CC.fill_enc_end(f1, cfg.pariskv)
-            if f1 >= int(state.fill_len[fs]):
-                ftok = fill_logits[0].argmax(-1).to(torch.int32)
-                emit[fs] = ftok
-                cur[fs] = ftok
-                rem_f = rem[fs] - 1
-                if eos_id is not None:
-                    rem_f = torch.where(ftok == eos_id, 0, rem_f)
-                rem[fs] = rem_f
-        emitted.append(emit)
-        state = state._replace(caches=new.caches, regions=new.regions,
-                               cur_tok=cur, remaining=rem)
-    return torch.stack(emitted, dim=1), state
+    with trace.span("decode.chunk"):
+        bt_host = dm_host = None
+        if block_tables is not None:
+            if P > 0:
+                bt_host = block_tables.cpu().numpy()
+            with trace.span("sync.block_tables"):
+                block_tables = block_tables.to(dev)
+        tier = None
+        if dev_map is not None:
+            dev_map = torch.as_tensor(dev_map, dtype=torch.int32)
+            if P > 0:
+                dm_host = dev_map.cpu().numpy()
+            with trace.span("sync.dev_map"):
+                dev_map = dev_map.to(dev)
+            tier = TierView(dev_map,
+                            CC.tiered_kv_tables(block_tables, dev_map),
+                            host_kv, side, fetch,
+                            None if fetch is None else entry_names(cfg))
+            for lc in pool_entries(state.caches):
+                for key in ("touched", "rows", "uniq", "dropped"):
+                    lc["fetch"][key].zero_()
+                lc["fetch"].update(_FETCH_HOST_ZERO)
+        kv0 = _store(state.caches)
+        emitted = []
+        for _ in range(num_steps):
+            with trace.span("decode.step") as sp:
+                active = state.remaining > 0
+                fs = filling_slot(state) if P > 0 else None
+                sp.set(mixed=fs is not None)
+                if fs is None:
+                    logits, new = decode_step(
+                        params, cfg, state.cur_tok,
+                        ServeState(state.caches, state.regions),
+                        block_tables, active=active, use_pariskv=use_pariskv,
+                        paged_fused=paged_fused, tier=tier, dist=dist)
+                else:
+                    with trace.span("sync.fill_mask"):
+                        active[fs] = False
+                    fctx = fill_ctx(state, fs, P, dev, bt_host, block_tables,
+                                    kv0.k.shape[1], kv0.k.shape[2], dm_host)
+                    logits, fill_logits, new = decode_fill_step(
+                        params, cfg, state.cur_tok,
+                        ServeState(state.caches, state.regions),
+                        state.prompt[fs:fs + 1, fctx.start:fctx.start + P],
+                        fctx, block_tables, active, use_pariskv, paged_fused,
+                        tier, dist)
+                with trace.span("decode.emit"):
+                    if nonfinite is not None:
+                        nonfinite += (~torch.isfinite(logits)).sum()
+                    nxt = logits.argmax(-1).to(torch.int32)
+                    emit = torch.where(active, nxt, -1)
+                    rem = state.remaining - active.to(torch.int32)
+                    if eos_id is not None:
+                        rem = torch.where(active & (nxt == eos_id), 0, rem)
+                    cur = torch.where(active, nxt, state.cur_tok)
+                    if fs is not None:
+                        f1 = fctx.start + fctx.valid_n
+                        state.fill_pos[fs] = f1
+                        with trace.span("sync.fill_regions"):
+                            new.regions.pos[fs] = f1 - 1
+                            new.regions.enc_end[fs] = CC.fill_enc_end(
+                                f1, cfg.pariskv)
+                        if f1 >= int(state.fill_len[fs]):
+                            ftok = fill_logits[0].argmax(-1).to(torch.int32)
+                            emit[fs] = ftok
+                            cur[fs] = ftok
+                            rem_f = rem[fs] - 1
+                            if eos_id is not None:
+                                rem_f = torch.where(ftok == eos_id, 0, rem_f)
+                            rem[fs] = rem_f
+                    emitted.append(emit)
+                state = state._replace(caches=new.caches,
+                                       regions=new.regions, cur_tok=cur,
+                                       remaining=rem)
+        return torch.stack(emitted, dim=1), state
 
 
 def _admit_slot_local(lc: dict, lc1: dict, slot: int) -> None:
@@ -1488,21 +1508,25 @@ def admit_fill(state: SlotState, slot: int, prompt_row, length: int,
                              "block-table row and pcfg")
         f0 = int(fill_start)
         enc0 = CC.fill_enc_end(f0, pcfg)
-        bt_row = torch.as_tensor(bt_row, dtype=torch.int32).to(
-            state.prompt.device)               # one upload for every layer
+        with trace.span("sync.bt_row"):        # one upload for every layer
+            bt_row = torch.as_tensor(bt_row, dtype=torch.int32).to(
+                state.prompt.device)
     for lc in state.caches:
         if "hist" in lc:
             lc["hist"][slot] = (0 if fill_start is None else
                                 CC.bucket_hist_from_paged_meta(
                                     lc["kv"], bt_row, enc0, pcfg))
-    state.regions.pos[slot] = f0 - 1
-    state.regions.enc_end[slot] = enc0
-    state.cur_tok[slot] = 0
-    state.remaining[slot] = max_new
+    with trace.span("sync.admit_regions"):  # each host scalar is a copy
+        state.regions.pos[slot] = f0 - 1
+        state.regions.enc_end[slot] = enc0
+        state.cur_tok[slot] = 0
+        state.remaining[slot] = max_new
     state.fill_pos[slot] = f0
     state.fill_len[slot] = length
-    state.prompt[slot] = torch.as_tensor(prompt_row, dtype=torch.int32).to(
-        state.prompt.device)
+    with trace.span("sync.prompt_row"):
+        state.prompt[slot] = torch.as_tensor(prompt_row,
+                                             dtype=torch.int32).to(
+                                                 state.prompt.device)
     return state
 
 

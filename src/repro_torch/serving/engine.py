@@ -90,7 +90,7 @@ from typing import Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, trace
 from repro_torch.core import cache as CC
 from repro_torch.core.config import ModelConfig
 from repro_torch.distributed import ShardDist
@@ -142,6 +142,7 @@ class Request:
     error: Optional[str] = None
     # engine-internal:
     _tokens: Optional[list] = None
+    _t_submit: float = 0.0
     _t_admit: float = 0.0
     _t_first: float = 0.0
 
@@ -258,6 +259,7 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.uid}: prompt {len(req.prompt)} + "
                 f"{req.max_new_tokens} new tokens exceeds n_max={self.n_max}")
+        req._t_submit = time.perf_counter()
         self.queue.append(req)
 
     def cancel(self, uid: int) -> None:
@@ -326,8 +328,9 @@ class ServingEngine:
             nonfinite=self.nonfinite_logits, use_pariskv=self.use_pariskv,
             paged_fused=paged_fused, prefill_budget=self.prefill_budget,
             **tier)
-        self._enc_after = self._state.regions.enc_end.cpu().numpy()
-        return tokens.cpu().numpy(), self._state.remaining.cpu().numpy()
+        with trace.span("sync.chunk_out"):
+            self._enc_after = self._state.regions.enc_end.cpu().numpy()
+            return tokens.cpu().numpy(), self._state.remaining.cpu().numpy()
 
     def _run_chunk(self):
         return self._decode_chunk()
@@ -357,6 +360,7 @@ class ServingEngine:
     # -- loop phases ----------------------------------------------------------
     def _finish_request(self, req: Request, t_now: float) -> None:
         _finalize_output(req, self.eos_id, t_now)
+        trace.record("request.decode", req._t_first, t_now, uid=req.uid)
         self._done.append(req)
 
     def _process_cancellations(self) -> None:
@@ -423,48 +427,59 @@ class ServingEngine:
                 continue
             if not self._can_admit():
                 break                        # backpressure: head waits
-            if self.prefill_budget:
-                if self._filling is not None:
-                    break                    # at most one filling slot
-                req = self.queue.pop(0)
-                self._pre_admit(slot, req)
-                self._admit_chunked(slot, req)
-                continue
+            if self.prefill_budget and self._filling is not None:
+                break                        # at most one filling slot
             req = self.queue.pop(0)
-            t_admit = time.perf_counter()
-            try:
-                self._pre_admit(slot, req)
-                state1, tok0 = _solo_prefill(self.params, self.cfg, req,
-                                             self._solo_cap(len(req.prompt)),
-                                             self.device)
-            except _DEVICE_FAULTS:
-                raise
-            except Exception as exc:  # noqa: BLE001 — quarantine boundary
-                self._quarantine_admission(slot, req, exc)
-                continue
-            t_first = time.perf_counter()
-            req.ttft_s = t_first - t_admit
-            req._t_admit, req._t_first = t_admit, t_first
-            req._tokens, req.token_times = [tok0], [t_first]
-            if req.max_new_tokens <= 1 or tok0 == self.eos_id:
-                req.output = np.asarray(req._tokens, np.int32)
-                req.decode_s = 0.0
-                self._done.append(req)
-                self._abort_admit(slot)
-                continue
-            try:
-                self._install_solo(slot, req, state1, tok0)
-            except _DEVICE_FAULTS:
-                raise
-            except Exception as exc:  # noqa: BLE001 — quarantine boundary
-                self._quarantine_admission(slot, req, exc)
-                continue
-            self._slots[slot] = req
+            with trace.span("engine.admit", uid=req.uid) as sp:
+                if self.prefill_budget:
+                    self._pre_admit(slot, req)
+                    self._admit_chunked(slot, req)
+                else:
+                    self._admit_solo(slot, req)
+                sp.set(shared=req.shared_prefix_blocks)
+
+    def _admit_solo(self, slot: int, req: Request) -> None:
+        """Solo-prefill admission: the request's first token now, its
+        cache installed in ``slot`` (or it finishes at prefill, or is
+        quarantined)."""
+        t_admit = time.perf_counter()
+        trace.record("request.queued", req._t_submit, t_admit, uid=req.uid)
+        try:
+            self._pre_admit(slot, req)
+            state1, tok0 = _solo_prefill(self.params, self.cfg, req,
+                                         self._solo_cap(len(req.prompt)),
+                                         self.device)
+        except _DEVICE_FAULTS:
+            raise
+        except Exception as exc:  # noqa: BLE001 — quarantine boundary
+            self._quarantine_admission(slot, req, exc)
+            return
+        t_first = time.perf_counter()
+        trace.record("request.prefill", t_admit, t_first, uid=req.uid)
+        req.ttft_s = t_first - t_admit
+        req._t_admit, req._t_first = t_admit, t_first
+        req._tokens, req.token_times = [tok0], [t_first]
+        if req.max_new_tokens <= 1 or tok0 == self.eos_id:
+            req.output = np.asarray(req._tokens, np.int32)
+            req.decode_s = 0.0
+            self._done.append(req)
+            self._abort_admit(slot)
+            return
+        try:
+            self._install_solo(slot, req, state1, tok0)
+        except _DEVICE_FAULTS:
+            raise
+        except Exception as exc:  # noqa: BLE001 — quarantine boundary
+            self._quarantine_admission(slot, req, exc)
+            return
+        self._slots[slot] = req
 
     def _admit_chunked(self, slot: int, req: Request) -> None:
         """Chunked-prefill admission: copy the prompt to the slot's device
         buffer and arm its fill; the decode chunks do the work."""
         req._t_admit = time.perf_counter()
+        trace.record("request.queued", req._t_submit, req._t_admit,
+                     uid=req.uid)
         req._tokens, req.token_times = [], []
         prow = np.zeros((self.n_max + self.prefill_budget,), np.int32)
         prow[:len(req.prompt)] = req.prompt
@@ -486,6 +501,7 @@ class ServingEngine:
         if had == 0 and n_emit > 0:          # a chunked fill completed
             req.ttft_s = t_now - req._t_admit
             req._t_first = t_now
+            trace.record("request.prefill", req._t_admit, t_now, uid=req.uid)
             if self._filling == slot:
                 self._filling = None
                 self._fill_complete(slot, req)
@@ -530,16 +546,20 @@ class ServingEngine:
     def step_serve(self) -> None:
         """One serving round: cancellations → admission → one decode chunk
         → collection/eviction."""
-        self._process_cancellations()
-        self._admit()
-        self.peak_concurrency = max(
-            self.peak_concurrency, sum(r is not None for r in self._slots))
-        if all(r is None for r in self._slots):
-            return      # everything finished at prefill; maybe more queued
-        self._pre_chunk()
-        tokens, rem_after = self._run_chunk()
-        self.decode_steps += self.chunk_size
-        self._collect(tokens, rem_after)
+        with trace.span("engine.step") as sp:
+            self._process_cancellations()
+            self._admit()
+            rows = sum(r is not None for r in self._slots)
+            sp.set(rows=rows, filling=self._filling)
+            self.peak_concurrency = max(self.peak_concurrency, rows)
+            if not rows:
+                return  # everything finished at prefill; maybe more queued
+            with trace.span("engine.pre_chunk"):
+                self._pre_chunk()
+            tokens, rem_after = self._run_chunk()
+            self.decode_steps += self.chunk_size
+            with trace.span("engine.collect"):
+                self._collect(tokens, rem_after)
 
     def run(self) -> List[Request]:
         """Serve everything in the queue; returns completed requests."""
@@ -801,10 +821,11 @@ class PagedServingEngine(ServingEngine):
         blocks must not leak a tenant's K/V; a free slot's histogram is
         zero until the next admission computes it). Blocks another slot
         still maps are left as they are."""
-        phys = self._phys_row(dead).to(self.device)
-        for lc in SV.pool_entries(self._state.caches):
-            CC.paged_clear_blocks(lc["kv"], phys)
-            lc["hist"][slot] = 0
+        with trace.span("sync.clear_blocks"):  # upload, selection, scalar
+            phys = self._phys_row(dead).to(self.device)
+            for lc in SV.pool_entries(self._state.caches):
+                CC.paged_clear_blocks(lc["kv"], phys)
+                lc["hist"][slot] = 0
 
     def _reclaim(self, slot: int) -> None:
         dead = self._decref_blocks(slot)

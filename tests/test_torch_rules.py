@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "profile_paths.py"]
+    ROOT / "chip_smoke.py"]
 
 
 def _imports(path: pathlib.Path):
